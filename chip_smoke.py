@@ -1,0 +1,564 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Drives ``paddle_tpu_torch`` only (it imports no JAX and nothing of
+``paddle_tpu``) through five phases, each printing one JSON line, and exits
+non-zero as soon as one fails:
+
+1. device: the card's name and power limit (``nvidia-smi``);
+2. build: the CUDA kernels compiled with ``nvcc`` for sm_90a from the
+   sources in this checkout (seconds, and whether a build was cached);
+3. kernels: each kernel against its plain PyTorch version on the card at
+   the serving path's shapes (Llama-3-8B widths, bf16, batch 8, block 64,
+   max_seq 2048): errors against stated tolerances, and CUDA-event times
+   of the kernel, the plain version, one PyTorch library call where one
+   computes the same function, and the bound (the least time the card
+   could take: bytes over 3.35 TB/s or operations over the bf16 peak);
+4. serve: the continuous-batching engine serving Llama-3-8B at full width
+   and depth (random bf16 weights from a seed) to 12 requests; the launch
+   counts prove the decode path went through all three kernels;
+5. kernels vs plain end to end: a 4-layer full-width model serves the same
+   greedy requests with the kernels and with
+   ``PADDLE_TPU_TORCH_DISABLE_KERNELS=all``.
+
+The line before the last lists every kernel with its numbers; the last line
+is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
+package beside it, the script exits non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory (data sheet)
+BF16_FLOPS = 989e12             # H100 SXM dense bf16 tensor-core peak
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise RuntimeError(f"check failed: {what}")
+
+
+def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def time_ms(torch, fn, reps: int = 21, flush=None) -> float:
+    """Median device time of one call of ``fn`` over ``reps`` calls, after
+    warm-up, from CUDA events around the call.  ``flush`` (outside the
+    events) evicts L2 between calls.  A GPU-side sleep queued before the
+    start event lets the host enqueue the whole call before the device
+    reaches it, so the host's Python time between launches is not counted
+    as device time."""
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(reps):
+        if flush is not None:
+            flush()
+        torch.cuda._sleep(20_000_000)   # ~10 ms of device spin
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def phase_device(torch) -> dict:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi: {smi.stderr.strip()}")
+    line = smi.stdout.strip().splitlines()[0]
+    print(line, flush=True)
+    dev = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+           "count": torch.cuda.device_count()}
+    emit({"phase": "device", "nvidia_smi": line, **dev,
+          "torch": torch.__version__, "cuda": torch.version.cuda})
+    return dev
+
+
+def phase_build(kernels) -> None:
+    t0 = time.perf_counter()
+    kernels.build(verbose=True)
+    info = dict(kernels.BUILD_INFO)
+    kernels.library()
+    regs = [ln.strip() for ln in info.get("ptxas", "").splitlines()
+            if "registers" in ln or "Compiling entry" in ln]
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "cached": info["cached"], "library": os.path.relpath(info["path"],
+                                                               ROOT),
+          "ptxas": regs})
+
+
+def phase_kernels(torch) -> dict:
+    """Each kernel against its plain version at the serving path's shapes.
+    Returns name -> measured numbers for the final kernels line."""
+    from paddle_tpu_torch.ops.kernels import paged_attention as pa
+    from paddle_tpu_torch.ops.kernels import rms_norm as rms
+
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    g = torch.Generator(device=dev)
+    g.manual_seed(1234)
+    B, h, nh, nkv, hd, F = 8, 4096, 32, 8, 128, 14336
+    bs, max_seq, eps = 64, 2048, 1e-5
+    max_blocks = max_seq // bs
+    scratch = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
+
+    def flush():
+        scratch.zero_()
+
+    def randn(*shape, std=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * std).to(bf16)
+
+    out = {}
+
+    # ---- rms_norm: the decode step's [8, 1, 4096] rows (33 launches a
+    # step); the prefill shape [1, 1500, 4096] is timed too
+    w = (1.0 + 0.1 * torch.randn(h, generator=g, device=dev)).to(bf16)
+    res = {}
+    for label, shape in (("decode", (B, 1, h)), ("prefill", (1, 1500, h))):
+        x = randn(*shape)
+        got = rms.rms_norm_cuda(x, w, eps)
+        ref = rms.rms_norm_ref(x, w, eps)
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs()
+        # one bf16 ulp of each element: both sides compute the same f32
+        # math, summed in a different order, then round to bf16
+        tol = ref.float().abs() * 2.0 ** -7 + 1e-6
+        check(bool((err <= tol).all()), f"rms_norm {label} within 1 ulp")
+        rows = x.numel() // h
+        bnd, by = bound_ms(rows * h * 2 * 2 + h * 2, rows * h * 4)
+        res[label] = {
+            "shape": list(shape), "max_abs_err": err.max().item(),
+            "max_rel_err": (err / ref.float().abs().clamp(min=1e-6)).max()
+            .item(), "tolerance": "1 bf16 ulp per element (|d| <= 2^-7|ref|)",
+            "ms": time_ms(torch, lambda: rms.rms_norm_cuda(x, w, eps),
+                          flush=flush),
+            "plain_ms": time_ms(torch, lambda: rms.rms_norm_ref(x, w, eps),
+                                flush=flush),
+            "library_ms": time_ms(torch, lambda: torch.nn.functional.rms_norm(
+                x, (h,), w, eps), flush=flush),
+            "bound_ms": bnd, "bound_by": by}
+    emit({"phase": "kernel", "name": "rms_norm", **res})
+    out["rms_norm"] = dict(res["decode"])
+
+    # ---- fused decode step: mixed live lengths (0, page boundaries, long),
+    # one dropped lane on the spill page
+    nb = B * max_blocks
+    nbp = nb + 1
+    lens = torch.tensor([0, 64, 127, 1000, 1500, 2046, 333, 0],
+                        dtype=torch.int32, device=dev)
+    wable = torch.tensor([1, 1, 1, 1, 1, 1, 1, 0], dtype=torch.int32,
+                         device=dev)
+    perm = torch.randperm(nb, generator=g, device=dev).int()
+    tables = torch.full((B, max_blocks), nb, dtype=torch.int32, device=dev)
+    for b in range(B):
+        if wable[b]:
+            n = int(lens[b]) // bs + 1
+            tables[b, :n] = perm[b * max_blocks:b * max_blocks + n]
+    lanes = torch.arange(B, device=dev)
+    wblk = torch.where(wable == 1, tables[lanes, (lens // bs).long()],
+                       torch.full_like(lens, nb)).int()
+    q, k_new, v_new = randn(B, nh, hd), randn(B, nkv, hd), randn(B, nkv, hd)
+    pos = lens.long()[:, None].float()
+    inv_freq = 1.0 / (500000.0 ** (torch.arange(0, hd, 2, device=dev).float()
+                                   / hd))
+    ang = torch.cat([pos * inv_freq, pos * inv_freq], dim=-1)
+    cos, sin = ang.cos().to(bf16), ang.sin().to(bf16)
+    kp0, vp0 = randn(nbp, nkv, bs, hd), randn(nbp, nkv, bs, hd)
+    kp0[nb] = 0
+    vp0[nb] = 0
+    kp, vp, kq, vq = kp0.clone(), vp0.clone(), kp0.clone(), vp0.clone()
+    args = (q, k_new, v_new, cos, sin)
+    tail = (tables, lens, wblk, wable)
+    o_k, _, _ = pa.fused_decode_step_cuda(*args, kp, vp, *tail)
+    o_p, _, _ = pa.fused_decode_step_reference(*args, kq, vq, *tail)
+    torch.cuda.synchronize()
+    err = (o_k.float() - o_p.float()).abs()
+    # attention output: f32 dot/softmax/accumulation in another order (per
+    # page vs whole row, split-K merge), then one bf16 rounding: within a
+    # bf16 ulp of the value plus 2^-8 of the largest output of the same
+    # (slot, q head), so a long lane is held to its own scale, not to the
+    # larger outputs of a short one
+    ref_abs = o_p.float().abs()
+    tol = ref_abs * 2.0 ** -7 + ref_abs.amax(dim=-1, keepdim=True) * 2.0 ** -8
+    check(bool((err <= tol).all()), "fused_decode_step output tolerance")
+    touched = torch.zeros(nbp, nkv, bs, dtype=torch.bool, device=dev)
+    for b in range(B):
+        if wable[b]:
+            touched[int(wblk[b]), :, int(lens[b]) % bs] = True
+    for name, new, ref, old in (("key", kp, kq, kp0), ("value", vp, vq, vp0)):
+        keep = ~touched
+        keep[nb] = False
+        check(bool(torch.equal(new[keep], old[keep])),
+              f"fused_decode_step {name} pool: untouched rows unchanged")
+        d = (new[touched].float() - ref[touched].float()).abs()
+        check(bool((d <= ref[touched].float().abs() * 2.0 ** -7).all()),
+              f"fused_decode_step {name} pool: committed rows within 1 ulp")
+        check(bool((new[nb] == 0).all()), f"{name} spill page holds zeros")
+    # the bytes the function must move: a writeable lane reads its lens
+    # cached rows of K and V (the appended row comes from k_new/v_new) and
+    # writes that row once per kv head to each pool; a dropped lane reads
+    # the pool's row at its position (its output attends over it), and each
+    # spill page it zeroes is written once per kv head and pool
+    lens_l, wable_l = lens.tolist(), wable.tolist()
+    rows_read = sum(n if w else n + 1 for n, w in zip(lens_l, wable_l))
+    rows_written = sum(wable_l)
+    spill_pages = len({int(wblk[b]) for b in range(B) if not wable_l[b]})
+    row_bytes = nkv * hd * 2 * 2                  # one token's K and V rows
+    kv_bytes = ((rows_read + rows_written) * row_bytes
+                + spill_pages * nkv * bs * hd * 2 * 2)
+    small = ((q.numel() + 2 * k_new.numel() + 2 * cos.numel()
+              + o_k.numel()) * 2
+             + (tables.numel() + lens.numel() + wblk.numel()
+                + wable.numel()) * 4)
+    flops = 4 * nh * hd * int((lens + 1).sum())
+    bnd, by = bound_ms(kv_bytes + small, flops)
+    res = {"max_abs_err": err.max().item(),
+           "max_rel_err": (err / ref_abs.clamp(min=1e-3)).max().item(),
+           # an exact zero output (the dropped lane over a zeroed row) has
+           # tol 0 and err 0: it counts as 0, not 0/0
+           "worst_err_over_tol": torch.where(err == 0, 0.0, err / tol).max()
+           .item(),
+           "tolerance": "|d| <= 2^-7|ref| + 2^-8 max|ref[slot, head]| (f32 "
+                        "order, bf16 rounding); pools exact off the "
+                        "appended rows",
+           "bound_bytes": kv_bytes + small,
+           "shards": pa.flash_decode_shards(max_blocks),
+           "untouched_pool_rows_exact": True, "committed_rows_within_1_ulp":
+           True, "spill_page_zeros": True,
+           "ms": time_ms(torch, lambda: pa.fused_decode_step_cuda(
+               *args, kp, vp, *tail), flush=flush),
+           "plain_ms": time_ms(torch, lambda: pa.fused_decode_step_reference(
+               *args, kq, vq, *tail), flush=flush),
+           "library_ms": None, "bound_ms": bnd, "bound_by": by}
+    emit({"phase": "kernel", "name": "fused_decode_step", **res})
+    out["fused_decode_step"] = res
+    del kp, vp, kq, vq, kp0, vp0
+
+    # ---- fused MLP half at the decode step's [8, 4096] rows
+    x, ay = randn(B, h), randn(B, h, std=0.1)
+    nw = (1.0 + 0.1 * torch.randn(h, generator=g, device=dev)).to(bf16)
+    wg, wu = randn(h, F, std=0.02), randn(h, F, std=0.02)
+    wd = randn(F, h, std=0.02)
+    h1_k, y_k = pa.fused_layer_mlp_cuda(x, ay, nw, wg, wu, wd, eps)
+    h1_p, y_p = pa.fused_layer_mlp_reference(x, ay, nw, wg, wu, wd, eps)
+    torch.cuda.synchronize()
+    check(bool(torch.equal(h1_k, h1_p)), "fused_layer_mlp h1 exact")
+    err = (y_k.float() - y_p.float()).abs()
+    # gate/up/down dots summed in another order (split columns, k-groups,
+    # block partials vs cuBLAS) before each bf16 rounding: g or u may land
+    # one ulp apart, which moves y by a few ulps of its scale
+    tol = y_p.float().abs() * 2.0 ** -6 + y_p.float().abs().max() * 2.0 ** -7
+    check(bool((err <= tol).all()), "fused_layer_mlp y tolerance")
+    nbytes = 3 * h * F * 2 + 4 * B * h * 2 + h * 2
+    bnd, by = bound_ms(nbytes, 2 * B * 3 * h * F)
+    res = {"max_abs_err": err.max().item(),
+           "max_rel_err": (err / y_p.float().abs().clamp(min=1e-3)).max()
+           .item(),
+           "tolerance": "|d| <= 2^-6|ref| + 2^-7 max|ref|; h1 exact",
+           "slices": pa.fused_mlp_splits(F), "block_cols": pa.fused_mlp_block_cols(F),
+           "ms": time_ms(torch, lambda: pa.fused_layer_mlp_cuda(
+               x, ay, nw, wg, wu, wd, eps), flush=flush),
+           "plain_ms": time_ms(torch, lambda: pa.fused_layer_mlp_reference(
+               x, ay, nw, wg, wu, wd, eps), flush=flush),
+           "library_ms": None, "bound_ms": bnd, "bound_by": by}
+    emit({"phase": "kernel", "name": "fused_layer_mlp", **res})
+    out["fused_layer_mlp"] = res
+    del scratch
+    return out
+
+
+def make_requests(Request, np, n: int, vocab: int, sampled: int, seed: int):
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(64, 1501, size=n)
+    reqs = []
+    for i, s0 in enumerate(lens):
+        temp = 0.8 if i >= n - sampled else 0.0
+        reqs.append(Request(rid=i, prompt_ids=rng.integers(
+            0, vocab, size=int(s0)).astype(np.int32), max_new_tokens=64,
+            temperature=temp, top_p=0.9, seed=100 + i))
+    return reqs
+
+
+def phase_serve(torch, np) -> dict:
+    from paddle_tpu_torch.inference.serving import (ContinuousBatchingEngine,
+                                                    Request)
+    from paddle_tpu_torch.models import llama
+    from paddle_tpu_torch.ops import kernels
+
+    cfg = llama.LlamaConfig.llama3_8b()
+    t0 = time.perf_counter()
+    params = llama.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    eng = ContinuousBatchingEngine(cfg, params, max_batch=8, max_seq=2048,
+                                   block_size=64, device="cuda")
+    reqs = make_requests(Request, np, 12, cfg.vocab_size, sampled=2, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counters()
+    t0 = time.perf_counter()
+    eng.serve(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    st = eng.stats
+    steps, prefills = st["decode_steps"], st["prefills"]
+    L = cfg.num_hidden_layers
+    for r in reqs:
+        check(r.finished and len(r.output_ids) == r.max_new_tokens,
+              f"request {r.rid} finished with {r.max_new_tokens} tokens")
+        check(all(0 <= t < cfg.vocab_size for t in r.output_ids),
+              f"request {r.rid} token ids in the vocabulary")
+    # the engine raises on non-finite logits of any active lane at every
+    # step; the last step's logits are checked here as well
+    check(bool(torch.isfinite(eng.last_logits).all()), "last logits finite")
+    check(launches["fused_decode_step"] == L * steps,
+          f"fused decode launches {launches['fused_decode_step']} == "
+          f"{L} x {steps} decode steps")
+    check(launches["fused_layer_mlp"] == L * steps,
+          f"fused MLP launches {launches['fused_layer_mlp']} == {L} x {steps}")
+    check(launches["rms_norm"] == (L + 1) * steps + (2 * L + 1) * prefills,
+          f"rms_norm launches {launches['rms_norm']} == {L + 1} x {steps} + "
+          f"{2 * L + 1} x {prefills}")
+    res = {"phase": "serve", "model": "llama3_8b", "layers": L,
+           "requests": len(reqs), "sampled": sum(r.temperature > 0
+                                                 for r in reqs),
+           "prompt_tokens": int(sum(len(r.prompt_ids) for r in reqs)),
+           "decode_steps": steps, "prefills": prefills,
+           "preemptions": st["preemptions"], "launches": launches,
+           "launches_per_decode_step": {
+               "fused_decode_step": L, "fused_layer_mlp": L,
+               "rms_norm": L + 1},
+           "decode_tokens": st["decode_tokens"],
+           "decode_tokens_per_s": eng.decode_tokens_per_s,
+           "decode_time_s": st["decode_time_s"],
+           "prefill_time_s": st["prefill_time_s"],
+           "mean_ttft_s": statistics.mean(r.ttft_s for r in reqs),
+           "wall_s": wall, "init_params_s": t_init,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    emit(res)
+    phase_profile(torch, np, eng, Request)
+    del eng, params
+    torch.cuda.empty_cache()
+    return launches
+
+
+#: device-kernel name fragments -> the layer they belong to
+_KERNEL_GROUPS = (("fused_decode", "fused_decode_step"),
+                  ("combine_kernel", "fused_decode_step"),
+                  ("mlp_partial", "fused_layer_mlp"),
+                  ("mlp_reduce", "fused_layer_mlp"),
+                  ("rms_norm_kernel", "rms_norm"),
+                  ("gemm", "matmul"), ("gemv", "matmul"),
+                  ("cutlass", "matmul"), ("sm90_xmma", "matmul"),
+                  ("nvjet", "matmul"))
+
+
+def phase_profile(torch, np, eng, Request) -> None:
+    """Where a full-depth decode step's time goes: torch.profiler over
+    four decode steps of eight 512-token requests (the engine of phase 4,
+    after its serve), device time summed by layer, and the device's busy
+    share of the steps' wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(7)
+    for i in range(eng.max_batch):
+        eng.add_request(Request(rid=1000 + i, prompt_ids=rng.integers(
+            0, eng.cfg.vocab_size, size=512).astype(np.int32),
+            max_new_tokens=8))
+    eng.step()                      # admission + prefills + 1 decode step
+    torch.cuda.synchronize()
+    steps = 4
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    groups: dict[str, float] = {}
+    other: dict[str, float] = {}
+    total = 0.0
+    for evt in prof.key_averages():
+        cuda_kind = torch.autograd.DeviceType.CUDA
+        if getattr(evt, "device_type", cuda_kind) != cuda_kind:
+            continue
+        dev_us = getattr(evt, "self_device_time_total",
+                         getattr(evt, "self_cuda_time_total", 0.0))
+        if not dev_us:
+            continue
+        total += dev_us
+        name = evt.key.lower()
+        group = next((g for frag, g in _KERNEL_GROUPS if frag in name),
+                     "other")
+        groups[group] = groups.get(group, 0.0) + dev_us
+        if group == "other":
+            other[evt.key[:60]] = dev_us / steps / 1e3
+    while eng.step() or eng._queue:  # finish the profiled requests
+        pass
+    emit({"phase": "profile", "decode_steps": steps, "batch": eng.max_batch,
+          "context": 512, "wall_ms_per_step": wall / steps * 1e3,
+          "device_ms_per_step": ({g: v / steps / 1e3
+                                  for g, v in sorted(groups.items())}
+                                 if total else "not measured"),
+          "device_busy_share": total / 1e6 / wall if total else None,
+          "other_top": dict(sorted(other.items(),
+                                   key=lambda kv: -kv[1])[:6])})
+
+
+def phase_end_to_end(torch, np) -> None:
+    """4 full-width layers, the same greedy requests with kernels and with
+    every kernel disabled; chunk 1 so every step's logits are seen."""
+    from paddle_tpu_torch.inference.serving import (ContinuousBatchingEngine,
+                                                    Request)
+    from paddle_tpu_torch.models import llama
+    from paddle_tpu_torch.ops import kernels
+
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(),
+                              num_hidden_layers=4)
+    params = llama.init_params(cfg, seed=1, device="cuda")
+    env = "PADDLE_TPU_TORCH_DISABLE_KERNELS"
+    # logits of the two runs: f32 sums in another order and bf16 roundings
+    # at other places through 4 layers; measured, then held to this bound
+    logit_tol = 0.125
+    runs = {}
+    for label, disable in (("kernels", None), ("plain", "all")):
+        if disable is None:
+            os.environ.pop(env, None)
+        else:
+            os.environ[env] = disable
+        reqs = [r for r in make_requests(Request, np, 12, cfg.vocab_size,
+                                         sampled=2, seed=0)
+                if r.temperature == 0.0]
+        eng = ContinuousBatchingEngine(cfg, params, max_batch=8,
+                                       max_seq=2048, block_size=64,
+                                       device="cuda")
+        for r in reqs:
+            eng.add_request(r)
+        kernels.reset_counters()
+        gaps = {r.rid: [] for r in reqs}
+        first = None
+        while True:
+            seated = [(s, r) for s, r in enumerate(eng._slot_req)]
+            if not eng.step() and not eng._queue:
+                break
+            if eng.last_logits is None:
+                continue
+            lg = eng.last_logits.float()
+            if first is None:
+                # the seated lanes of the first decode step (inactive lanes
+                # compute garbage that is never read)
+                rows = [s for s, r in enumerate(eng._slot_req)
+                        if r is not None]
+                first = lg[rows].clone()
+            top2 = lg.topk(2, dim=-1).values
+            gap = (top2[:, 0] - top2[:, 1]).cpu().tolist()
+            after = eng._slot_req
+            for s, r in enumerate(after):
+                if r is None and seated[s][1] is not None:
+                    r = seated[s][1]
+                if r is not None and len(gaps[r.rid]) < len(r.output_ids):
+                    gaps[r.rid].append(gap[s])
+        os.environ.pop(env, None)
+        launches = dict(kernels.LAUNCHES)
+        if disable is None:
+            check(all(v > 0 for v in launches.values()),
+                  f"kernel run launched every kernel: {launches}")
+        else:
+            check(all(v == 0 for v in launches.values()),
+                  f"plain run launched no kernel: {launches}")
+        runs[label] = (reqs, gaps, first, launches)
+        del eng
+    (rk, gk, fk, lk), (rp, gp, fp, _) = runs["kernels"], runs["plain"]
+    d = (fk - fp).abs().max().item()
+    check(d <= logit_tol, f"first decode step logits within {logit_tol}")
+    agree = total = 0
+    diverged = []
+    for a, b in zip(rk, rp):
+        n = min(len(a.output_ids), len(b.output_ids))
+        i = next((j for j in range(n) if a.output_ids[j] != b.output_ids[j]),
+                 n)
+        agree += i
+        total += max(len(a.output_ids), len(b.output_ids))
+        if i < n:
+            gap = min(gk[a.rid][i], gp[b.rid][i])
+            diverged.append({"rid": a.rid, "token": i, "top2_gap": gap})
+            check(gap < logit_tol, f"rid {a.rid} diverged at token {i} "
+                                   f"only after a near tie (gap {gap})")
+    emit({"phase": "end_to_end", "layers": cfg.num_hidden_layers,
+          "first_step_logits_max_abs_diff": d, "logit_tolerance": logit_tol,
+          "greedy_tokens_agreeing": agree, "greedy_tokens": total,
+          "diverged": diverged, "kernel_launches": lk})
+    del params
+    torch.cuda.empty_cache()
+
+
+def main() -> int:
+    try:
+        import numpy as np
+        import torch
+    except ImportError as e:
+        print(f"chip_smoke: {e}", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the card only",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    try:
+        from paddle_tpu_torch.ops import kernels
+    except ImportError as e:
+        print(f"chip_smoke: the paddle_tpu_torch package is missing beside "
+              f"this script ({e})", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = phase_device(torch)
+    phase_build(kernels)
+    measured = phase_kernels(torch)
+    launches = phase_serve(torch, np)
+    phase_end_to_end(torch, np)
+    sources = {"rms_norm": ("rms_norm.cu", "paddle_tpu/ops/pallas/"
+                                           "rms_norm.py:20"),
+               "fused_decode_step": ("fused_decode.cu", "paddle_tpu/ops/"
+                                     "pallas/paged_attention.py:1377"),
+               "fused_layer_mlp": ("fused_mlp.cu", "paddle_tpu/ops/pallas/"
+                                   "paged_attention.py:2020")}
+    line = []
+    for name, (src, replaces) in sources.items():
+        m = measured[name]
+        line.append({"name": name, "route": "cuda",
+                     "source": f"paddle_tpu_torch/ops/kernels/csrc/{src}",
+                     "replaces": replaces, "launches": launches[name],
+                     "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+                     "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+                     "bound_by": m["bound_by"],
+                     "library_ms": m["library_ms"]})
+    emit({"kernels": line})
+    emit({"ok": True, "device": dev})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,1 @@
+"""Model definitions of the port (counterpart of ``paddle_tpu/models``)."""

@@ -1,0 +1,85 @@
+// RMSNorm forward: out = x * rsqrt(mean(x^2) + eps) * w, row-wise.
+//
+// Replaces: paddle_tpu/ops/pallas/rms_norm.py `_rms_kernel` (launched by
+// `_rms_fwd_pallas`), which normalised 256-row blocks resident in VMEM.
+//
+// Bound on the H100: memory.  Each row is read once and written once and
+// the weight is read once: rows*h*2*bytes + h*bytes over 3.35 TB/s.  The
+// arithmetic (3 flops an element) is far below the card's rate.
+//
+// Design: one block per row, so the row's sum of squares is a block
+// reduction and the row never leaves registers: each thread loads its
+// 16-byte vectors of x once, accumulates the f32 sum of squares, and after
+// the reduction scales the same registers and stores them.  Rows are
+// independent, so a ragged row count needs no padding (the TPU kernel
+// padded to its 256-row block grid).  f32 math whatever the input type,
+// the output rounded to the input type: the reference's exact formula.
+#include "common.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kMaxVecPerThread = 8;  // h <= 256 * 8 * (16 / sizeof(T))
+
+template <typename T>
+__global__ void rms_norm_kernel(const T* __restrict__ x,
+                                const T* __restrict__ w, T* __restrict__ out,
+                                int h, float eps) {
+  constexpr int V = 16 / sizeof(T);  // elements per 16-byte vector
+  __shared__ float scratch[32];
+  const int row = blockIdx.x;
+  const int nvec = h / V;
+  const uint4* xr = reinterpret_cast<const uint4*>(x + (size_t)row * h);
+  uint4 regs[kMaxVecPerThread];
+  float ss = 0.f;
+#pragma unroll
+  for (int i = 0; i < kMaxVecPerThread; ++i) {
+    const int v = threadIdx.x + i * kThreads;
+    if (v < nvec) {
+      regs[i] = xr[v];
+      const T* e = reinterpret_cast<const T*>(&regs[i]);
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const float f = ptt::to_f32(e[j]);
+        ss += f * f;
+      }
+    }
+  }
+  ss = ptt::block_sum(ss, scratch);
+  const float inv = rsqrtf(ss / (float)h + eps);
+  const uint4* wr = reinterpret_cast<const uint4*>(w);
+  uint4* outr = reinterpret_cast<uint4*>(out + (size_t)row * h);
+#pragma unroll
+  for (int i = 0; i < kMaxVecPerThread; ++i) {
+    const int v = threadIdx.x + i * kThreads;
+    if (v < nvec) {
+      const uint4 wv = wr[v];
+      const T* e = reinterpret_cast<const T*>(&regs[i]);
+      const T* we = reinterpret_cast<const T*>(&wv);
+      uint4 o;
+      T* oe = reinterpret_cast<T*>(&o);
+#pragma unroll
+      for (int j = 0; j < V; ++j)
+        oe[j] = ptt::from_f32<T>(ptt::to_f32(e[j]) * inv * ptt::to_f32(we[j]));
+      outr[v] = o;
+    }
+  }
+}
+
+}  // namespace
+
+// x [rows, h], w [h], out [rows, h]; h a multiple of 16 / sizeof(T) and at
+// most 256 * 8 vectors (the wrapper checks both).  Returns cudaGetLastError().
+extern "C" int ptt_rms_norm(const void* x, const void* w, void* out, int rows,
+                            int h, float eps, int dtype, cudaStream_t stream) {
+  if (rows > 0) {
+    if (dtype == ptt::kBF16)
+      rms_norm_kernel<__nv_bfloat16><<<rows, kThreads, 0, stream>>>(
+          (const __nv_bfloat16*)x, (const __nv_bfloat16*)w,
+          (__nv_bfloat16*)out, h, eps);
+    else
+      rms_norm_kernel<float><<<rows, kThreads, 0, stream>>>(
+          (const float*)x, (const float*)w, (float*)out, h, eps);
+  }
+  return (int)cudaGetLastError();
+}

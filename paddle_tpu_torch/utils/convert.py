@@ -1,0 +1,67 @@
+"""Weight bridge: numpy arrays (e.g. a JAX parameter tree read leaf by leaf
+with ``np.asarray``) into the port's tensors, and back.
+
+bf16 arrives from JAX as an ``ml_dtypes`` bfloat16 array.  Its bits are
+viewed as uint16 and reinterpreted as ``torch.bfloat16`` without any
+arithmetic, so the round trip is exact.  The port itself never imports
+JAX or ml_dtypes: a bf16 array is recognised by its dtype's name.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+
+_NP_TO_TORCH = {np.dtype(np.float32): torch.float32,
+                np.dtype(np.float16): torch.float16,
+                np.dtype(np.int32): torch.int32,
+                np.dtype(np.int64): torch.int64,
+                np.dtype(np.int8): torch.int8,
+                np.dtype(np.uint8): torch.uint8,
+                np.dtype(np.bool_): torch.bool}
+
+
+def tensor_from_numpy(arr, device=None) -> torch.Tensor:
+    """One array -> tensor on ``device`` (None: the CUDA card, raising
+    without one), bit-exact (bf16 included)."""
+    device = resolve_device(device)
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":
+        bits = np.ascontiguousarray(arr).view(np.uint16).view(np.int16)
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(device)
+    if arr.dtype not in _NP_TO_TORCH:
+        raise TypeError(f"unsupported dtype {arr.dtype}")
+    return torch.from_numpy(np.ascontiguousarray(arr).copy()).to(device)
+
+
+def numpy_from_tensor(t: torch.Tensor) -> np.ndarray:
+    """One tensor -> numpy.  A bf16 tensor comes back as its raw bits, a
+    uint16 array (view it as ``ml_dtypes.bfloat16`` to get the values)."""
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def params_from_numpy(tree, device=None):
+    """A nested dict (or list/tuple) of arrays -> the same structure of
+    tensors on ``device`` (None: the CUDA card, raising without one).
+    Takes JAX parameter trees and pools alike: every leaf goes through
+    ``np.asarray`` then :func:`tensor_from_numpy`."""
+    device = resolve_device(device)
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(params_from_numpy(v, device) for v in tree)
+    return tensor_from_numpy(tree, device)
+
+
+def params_to_numpy(tree):
+    """Inverse of :func:`params_from_numpy` (bf16 leaves as uint16 bits)."""
+    if isinstance(tree, dict):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(params_to_numpy(v) for v in tree)
+    return numpy_from_tensor(tree)
