@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Drives ``paddle_tpu_torch`` only (it imports no JAX and nothing of
-``paddle_tpu``) through five phases, each printing one JSON line, and exits
+``paddle_tpu``) through its phases, each printing JSON lines, and exits
 non-zero as soon as one fails:
 
 1. device: the card's name and power limit (``nvidia-smi``);
@@ -12,15 +12,31 @@ non-zero as soon as one fails:
    sources in this checkout (seconds, and whether a build was cached);
 3. kernels: each kernel against its plain PyTorch version on the card at
    the serving path's shapes (Llama-3-8B widths, bf16, batch 8, block 64,
-   max_seq 2048): errors against stated tolerances, and CUDA-event times
+   max_seq 2048; rms_norm also at the train step's rows; the sampler's
+   Gumbel noise over the 128256-token vocabulary): errors against stated
+   tolerances, and CUDA-event times
    of the kernel, the plain version, one PyTorch library call where one
    computes the same function, and the bound (the least time the card
    could take: bytes over 3.35 TB/s or operations over the bf16 peak);
 4. serve: the continuous-batching engine serving Llama-3-8B at full width
    and depth (random bf16 weights from a seed) to 12 requests; the launch
-   counts prove the decode path went through all three kernels;
+   counts prove the decode path went through all three kernels; then a
+   profile of four decode steps and the sampler timed alone;
 5. kernels vs plain end to end: a 4-layer full-width model serves the same
    greedy requests with the kernels and with
+   ``PADDLE_TPU_TORCH_DISABLE_KERNELS=all``;
+6. flash kernels: the forward, dK/dV and dQ kernels against their plain
+   versions at the training shape (batch 2, 2048 tokens, 32/8 heads,
+   head_dim 128, bf16, causal), timed like phase 3 (library: PyTorch's
+   scaled_dot_product_attention and its backward), and on ragged,
+   sq != skv, masked and packed (segment ids) cases;
+7. train: Llama-3-8B widths cut to 4 layers take 5 AdamW steps on one
+   batch of 2 x 2048 seeded tokens with full recompute; the loss falls,
+   and the launch counts prove every layer went through the three flash
+   kernels; step time, tokens/s, model FLOPs utilization, peak memory and
+   a torch.profiler breakdown of one step;
+8. train kernels vs plain: a 2-layer full-width model's loss, gradient
+   norm and every gradient leaf with the kernels and with
    ``PADDLE_TPU_TORCH_DISABLE_KERNELS=all``.
 
 The line before the last lists every kernel with its numbers; the last line
@@ -32,6 +48,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -40,6 +57,7 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory (data sheet)
 BF16_FLOPS = 989e12             # H100 SXM dense bf16 tensor-core peak
+F32_OPS = 67e12                 # H100 SXM float32 outside the tensor cores
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -52,8 +70,9 @@ def check(cond: bool, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
-    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+def bound_ms(nbytes: float, flops: float,
+             peak: float = BF16_FLOPS) -> tuple[float, str]:
+    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -133,10 +152,12 @@ def phase_kernels(torch) -> dict:
     out = {}
 
     # ---- rms_norm: the decode step's [8, 1, 4096] rows (33 launches a
-    # step); the prefill shape [1, 1500, 4096] is timed too
+    # step), a prefill's [1, 1500, 4096] and the train step's [2, 2048,
+    # 4096] (17 launches a step at 4 layers)
     w = (1.0 + 0.1 * torch.randn(h, generator=g, device=dev)).to(bf16)
     res = {}
-    for label, shape in (("decode", (B, 1, h)), ("prefill", (1, 1500, h))):
+    for label, shape in (("decode", (B, 1, h)), ("prefill", (1, 1500, h)),
+                         ("train", (2, 2048, h))):
         x = randn(*shape)
         got = rms.rms_norm_cuda(x, w, eps)
         ref = rms.rms_norm_ref(x, w, eps)
@@ -285,6 +306,41 @@ def phase_kernels(torch) -> dict:
            "library_ms": None, "bound_ms": bnd, "bound_by": by}
     emit({"phase": "kernel", "name": "fused_layer_mlp", **res})
     out["fused_layer_mlp"] = res
+
+    # ---- the sampler's Gumbel noise over the full vocabulary: the serve
+    # phase's two sampled lanes, and a full batch of eight
+    from paddle_tpu_torch.ops.kernels import sampling
+
+    V = 128256
+    res = {}
+    for label, rows in (("serve", 2), ("batch", B)):
+        seeds = torch.randint(-2 ** 31, 2 ** 31 - 1, (rows,), generator=g,
+                              device=dev, dtype=torch.int32)
+        pos = torch.randint(0, max_seq, (rows,), generator=g, device=dev)
+        got = sampling.gumbel_noise_cuda(seeds, pos, V)
+        ref = sampling.gumbel_noise_ref(seeds, pos, V)
+        torch.cuda.synchronize()
+        err = (got - ref).abs()
+        # the cipher's bits are exact; logf's last bit may differ from
+        # PyTorch's log, which moves -log(-log(u)) by ~2^-23 absolute
+        check(bool((err <= 1e-6 + 1e-6 * ref.abs()).all()),
+              f"gumbel_noise {label} within 1e-6")
+        # per element: 20 cipher rounds of 5 integer ops, 17 key-schedule
+        # adds, 3 bit ops to a float, 4 float ops, 2 logs and 2 negations
+        bnd, by = bound_ms(rows * V * 4 + rows * 12, rows * V * 128,
+                           peak=F32_OPS)
+        res[label] = {
+            "rows": rows, "n": V, "max_abs_err": err.max().item(),
+            "bit_equal_share": (got == ref).float().mean().item(),
+            "tolerance": "|d| <= 1e-6 + 1e-6|ref| (the logs' last bit)",
+            "ms": time_ms(torch, lambda: sampling.gumbel_noise_cuda(
+                seeds, pos, V), flush=flush),
+            "plain_ms": time_ms(torch, lambda: sampling.gumbel_noise_ref(
+                seeds, pos, V), flush=flush),
+            "library_ms": None, "bound_ms": bnd, "bound_by": by,
+            "bound_peak": "67 T/s float32 CUDA-core rate"}
+    emit({"phase": "kernel", "name": "gumbel_noise", **res})
+    out["gumbel_noise"] = dict(res["serve"])
     del scratch
     return out
 
@@ -341,6 +397,9 @@ def phase_serve(torch, np) -> dict:
     check(launches["rms_norm"] == (L + 1) * steps + (2 * L + 1) * prefills,
           f"rms_norm launches {launches['rms_norm']} == {L + 1} x {steps} + "
           f"{2 * L + 1} x {prefills}")
+    # one noise launch a decode step with a sampled lane seated
+    check(0 < launches["gumbel_noise"] <= steps,
+          f"gumbel_noise launches {launches['gumbel_noise']} in (0, {steps}]")
     res = {"phase": "serve", "model": "llama3_8b", "layers": L,
            "requests": len(reqs), "sampled": sum(r.temperature > 0
                                                  for r in reqs),
@@ -359,6 +418,7 @@ def phase_serve(torch, np) -> dict:
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     emit(res)
     phase_profile(torch, np, eng, Request)
+    phase_sampler(torch, eng)
     del eng, params
     torch.cuda.empty_cache()
     return launches
@@ -427,6 +487,55 @@ def phase_profile(torch, np, eng, Request) -> None:
                                    key=lambda kv: -kv[1])[:6])})
 
 
+def phase_sampler(torch, eng) -> None:
+    """The decode step's sampler alone at batch 8 over the full vocabulary:
+    greedy only, one sampled lane, all eight sampled (nucleus sort plus the
+    threefry Gumbel draw on the sampled rows).  Host ms is the time to
+    enqueue one call, device ms its CUDA-event time, wall ms one call
+    between two synchronizations."""
+    B, V = eng.max_batch, eng.cfg.vocab_size
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(11)
+    logits = (torch.randn(B, V, generator=g, device=dev) * 3).to(
+        eng.last_logits.dtype)
+    pos = torch.arange(500, 500 + B, device=dev)
+    seeds = torch.arange(-3, B - 3, dtype=torch.int32, device=dev)
+    topp = torch.full((B,), 0.9, device=dev)
+    greedy = logits.argmax(dim=-1)
+    res = {}
+    for label, lanes in (("greedy", []), ("1_sampled", [B - 1]),
+                         ("8_sampled", list(range(B)))):
+        temp = torch.zeros(B, device=dev)
+        temp[lanes] = 0.8
+        rows = torch.tensor(lanes, dtype=torch.long, device=dev) \
+            if lanes else None
+
+        def call():
+            return eng._sample_tokens(logits, pos, temp, topp, seeds, rows)
+
+        tok = call()
+        torch.cuda.synchronize()
+        off = [s for s in range(B) if s not in lanes]
+        check(bool(torch.equal(tok[off], greedy[off])),
+              f"sampler {label}: greedy lanes take the argmax")
+        check(bool(((tok >= 0) & (tok < V)).all()),
+              f"sampler {label}: tokens in the vocabulary")
+        host, wall = [], []
+        for _ in range(21):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call()
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            host.append((t1 - t0) * 1e3)
+            wall.append((time.perf_counter() - t0) * 1e3)
+        res[label] = {"host_ms": statistics.median(host),
+                      "device_ms": time_ms(torch, call),
+                      "wall_ms": statistics.median(wall)}
+    emit({"phase": "sampler", "batch": B, "vocab": V, **res})
+
+
 def phase_end_to_end(torch, np) -> None:
     """4 full-width layers, the same greedy requests with kernels and with
     every kernel disabled; chunk 1 so every step's logits are seen."""
@@ -481,13 +590,13 @@ def phase_end_to_end(torch, np) -> None:
                 if r is not None and len(gaps[r.rid]) < len(r.output_ids):
                     gaps[r.rid].append(gap[s])
         os.environ.pop(env, None)
-        launches = dict(kernels.LAUNCHES)
+        launches = {k: kernels.LAUNCHES[k] for k in SERVE_KERNELS}
         if disable is None:
             check(all(v > 0 for v in launches.values()),
-                  f"kernel run launched every kernel: {launches}")
+                  f"kernel run launched every serving kernel: {launches}")
         else:
-            check(all(v == 0 for v in launches.values()),
-                  f"plain run launched no kernel: {launches}")
+            check(all(v == 0 for v in kernels.LAUNCHES.values()),
+                  f"plain run launched no kernel: {kernels.LAUNCHES}")
         runs[label] = (reqs, gaps, first, launches)
         del eng
     (rk, gk, fk, lk), (rp, gp, fp, _) = runs["kernels"], runs["plain"]
@@ -514,6 +623,382 @@ def phase_end_to_end(torch, np) -> None:
     torch.cuda.empty_cache()
 
 
+SERVE_KERNELS = ("rms_norm", "fused_decode_step", "fused_layer_mlp")
+FLASH_KERNELS = ("flash_attention_fwd", "flash_attention_dkv",
+                 "flash_attention_dq")
+
+#: flash kernels vs their plain versions (bf16 in and out): both compute in
+#: f32 from the same inputs, summed in other orders, then round once to
+#: bf16.  Per element one bf16 ulp of the value plus 2^-10 of the tensor's
+#: largest value (f32 sums of up to 2048 * rep terms, where dK/dV cancel)
+FLASH_REL, FLASH_FLOOR = 2.0 ** -7, 2.0 ** -10
+
+
+def _flash_err(got, want) -> dict:
+    ref = want.float().abs()
+    err = (got.float() - want.float()).abs()
+    tol = ref * FLASH_REL + ref.max() * FLASH_FLOOR
+    return {"max_abs_err": err.max().item(),
+            "max_rel_err": (err / ref.clamp(min=1e-3)).max().item(),
+            "worst_err_over_tol": (err / tol).max().item()}
+
+
+def _flash_case(torch, tfa, g, dev, b, sq, skv, hq, hkv, d, causal,
+                mask=None, segs=None):
+    """Inputs of one flash case: q, k, v, do (bf16 BSHD) and the kwargs of
+    the kernels and plain versions."""
+    bf16 = torch.bfloat16
+    q = torch.randn(b, sq, hq, d, generator=g, device=dev).to(bf16)
+    k = torch.randn(b, skv, hkv, d, generator=g, device=dev).to(bf16)
+    v = torch.randn(b, skv, hkv, d, generator=g, device=dev).to(bf16)
+    do = torch.randn(b, sq, hq, d, generator=g, device=dev).to(bf16)
+    kw = dict(mask=None, mb=1, mh=1, segs=segs, scale=d ** -0.5,
+              causal=causal)
+    if mask is not None:
+        kw["mask"], kw["mb"], kw["mh"] = tfa._normalize_mask(mask, b, hq, sq,
+                                                             skv)
+        if kw["mask"].dtype != torch.bool:
+            kw["mask"] = kw["mask"].float()
+    return q, k, v, do, kw
+
+
+def _flash_check(torch, tfa, q, k, v, do, kw, label) -> dict:
+    """All three kernels against their plain versions on one case; returns
+    the errors and the tensors the timing reuses."""
+    out, lse = tfa.flash_fwd_cuda(q, k, v, **kw)
+    out_p, lse_p = tfa.flash_fwd_ref(q, k, v, **kw)
+    delta = (out_p.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+    dk, dv = tfa.flash_dkv_cuda(q, k, v, do, lse_p, delta, **kw)
+    dk_p, dv_p = tfa.flash_dkv_ref(q, k, v, do, lse_p, delta, **kw)
+    dq = tfa.flash_dq_cuda(q, k, v, do, lse_p, delta, **kw)
+    dq_p = tfa.flash_dq_ref(q, k, v, do, lse_p, delta, **kw)
+    torch.cuda.synchronize()
+    live = lse_p > -1e29
+    res = {"fwd": _flash_err(out, out_p),
+           "lse_max_abs_err": (lse - lse_p)[live].abs().max().item(),
+           "dkv": {"dk": _flash_err(dk, dk_p), "dv": _flash_err(dv, dv_p)},
+           "dq": _flash_err(dq, dq_p)}
+    worst = max(res["fwd"]["worst_err_over_tol"],
+                res["dkv"]["dk"]["worst_err_over_tol"],
+                res["dkv"]["dv"]["worst_err_over_tol"],
+                res["dq"]["worst_err_over_tol"])
+    check(worst <= 1.0, f"flash {label}: kernels within tolerance of the "
+                        f"plain versions (worst err/tol {worst})")
+    check(res["lse_max_abs_err"] <= 1e-4 and bool(
+        (lse[~live] == lse_p[~live]).all()), f"flash {label}: lse")
+    # rows with nothing to attend: out and dq exactly 0, lse -1e30
+    dead = (~live).transpose(1, 2)
+    if dead.any():
+        check(bool((out[dead] == 0).all() and (dq[dead] == 0).all()),
+              f"flash {label}: fully masked rows are exactly 0")
+    res["dead_rows"] = int(dead.sum())
+    return res, (lse_p, delta)
+
+
+def phase_flash_kernels(torch) -> dict:
+    """The three flash kernels against their plain versions: timed at the
+    training shape, then correctness-only on ragged, sq != skv, masked and
+    packed cases.  Returns name -> numbers for the kernels line."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as tfa
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(4321)
+    b, s, hq, hkv, d = 2, 2048, 32, 8, 128
+    scratch = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
+
+    def flush():
+        scratch.zero_()
+
+    q, k, v, do, kw = _flash_case(torch, tfa, g, dev, b, s, s, hq, hkv, d,
+                                  True)
+    res, (lse, delta) = _flash_check(torch, tfa, q, k, v, do, kw,
+                                     "train shape")
+    # the work this data needs: causal pairs, 4/8/6 d-long multiply-adds
+    # (2 flops) a pair for fwd (s, pv), dK/dV (s, dp, dv, dk), dQ (s, dp, dq)
+    pairs = b * hq * s * (s + 1) // 2
+    el = 2                                           # bf16 bytes
+    qb, kvb, rowb = b * s * hq * d * el, b * s * hkv * d * el, b * hq * s * 4
+    bounds = {"fwd": bound_ms(qb + 2 * kvb + qb + rowb, 4 * d * pairs),
+              "dkv": bound_ms(2 * qb + 2 * kvb + 2 * rowb + 2 * kvb,
+                              8 * d * pairs),
+              "dq": bound_ms(2 * qb + 2 * kvb + 2 * rowb + qb, 6 * d * pairs)}
+    # yardsticks: PyTorch's SDPA in BHSD (at sq == skv its bottom-right
+    # causal is the kernels' top-left), forward, and its whole backward
+    # (no single call computes dK/dV or dQ alone)
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def lib_forward():
+        with torch.no_grad():
+            return sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+
+    lib_fwd = time_ms(torch, lib_forward, flush=flush)
+    out_t = sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+    do_t = do.transpose(1, 2).contiguous()
+    lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
+        out_t, (qt, kt, vt), do_t, retain_graph=True), flush=flush)
+    del out_t
+    timed = {
+        "fwd": (lambda: tfa.flash_fwd_cuda(q, k, v, **kw),
+                lambda: tfa.flash_fwd_ref(q, k, v, **kw), lib_fwd),
+        "dkv": (lambda: tfa.flash_dkv_cuda(q, k, v, do, lse, delta, **kw),
+                lambda: tfa.flash_dkv_ref(q, k, v, do, lse, delta, **kw),
+                lib_bwd),
+        "dq": (lambda: tfa.flash_dq_cuda(q, k, v, do, lse, delta, **kw),
+               lambda: tfa.flash_dq_ref(q, k, v, do, lse, delta, **kw),
+               lib_bwd)}
+    out = {}
+    for part, (kern, plain, lib) in timed.items():
+        name = {"fwd": "flash_attention_fwd", "dkv": "flash_attention_dkv",
+                "dq": "flash_attention_dq"}[part]
+        errs = res[part] if part != "dkv" else {
+            key: max(res["dkv"]["dk"][key], res["dkv"]["dv"][key])
+            for key in res["dkv"]["dk"]}
+        bnd, by = bounds[part]
+        out[name] = {
+            "shape": {"b": b, "sq": s, "skv": s, "hq": hq, "hkv": hkv,
+                      "d": d, "dtype": "bfloat16", "causal": True},
+            **errs, "tolerance": "|d| <= 2^-7|ref| + 2^-10 max|ref| (f32 "
+                                 "order, one bf16 rounding)",
+            "ms": time_ms(torch, kern, flush=flush),
+            "plain_ms": time_ms(torch, plain, flush=flush),
+            "library_ms": lib,
+            "library_call": ("scaled_dot_product_attention forward"
+                             if part == "fwd" else
+                             "scaled_dot_product_attention backward: "
+                             "dq+dk+dv together"),
+            "bound_ms": bnd, "bound_by": by, "causal_pairs": pairs}
+        emit({"phase": "kernel", "name": name, **out[name]})
+    del q, k, v, do, lse, delta, qt, kt, vt, do_t
+
+    # correctness-only cases
+    cases = []
+    cases.append(("ragged_1000", dict(b=2, sq=1000, skv=1000, causal=True)))
+    q_ids = torch.randint(0, 3, (1, 700), generator=g, device=dev) \
+        .sort(-1).values.int()
+    q_ids[:, -10:] = 99                   # q rows that match no kv segment
+    kv_ids = torch.randint(0, 3, (1, 1000), generator=g, device=dev) \
+        .sort(-1).values.int()
+    cases.append(("sq_ne_skv_causal_dead_rows",
+                  dict(b=1, sq=700, skv=1000, causal=True,
+                       segs=(q_ids.contiguous(), kv_ids.contiguous()))))
+    bool_mask = torch.rand(2, 1, 512, 512, generator=g, device=dev) > 0.3
+    bool_mask[1, 0, 7] = False            # one fully masked row
+    cases.append(("bool_mask", dict(b=2, sq=512, skv=512, causal=False,
+                                    mask=bool_mask)))
+    add_mask = torch.randn(1, hq, 512, 512, generator=g, device=dev) * 2
+    cases.append(("additive_mask", dict(b=1, sq=512, skv=512, causal=True,
+                                        mask=add_mask)))
+    seg = torch.randint(0, 4, (2, 1024), generator=g, device=dev) \
+        .sort(-1).values.int().contiguous()
+    cases.append(("segment_ids", dict(b=2, sq=1024, skv=1024, causal=True,
+                                      segs=(seg, seg))))
+    small = {}
+    for label, c in cases:
+        qq, kk, vv, dd, kw = _flash_case(
+            torch, tfa, g, dev, c["b"], c["sq"], c["skv"], hq, hkv, d,
+            c["causal"], mask=c.get("mask"), segs=c.get("segs"))
+        r, _ = _flash_check(torch, tfa, qq, kk, vv, dd, kw, label)
+        small[label] = {"worst_err_over_tol": max(
+            r["fwd"]["worst_err_over_tol"], r["dq"]["worst_err_over_tol"],
+            r["dkv"]["dk"]["worst_err_over_tol"],
+            r["dkv"]["dv"]["worst_err_over_tol"]),
+            "dead_rows": r["dead_rows"]}
+    check(small["sq_ne_skv_causal_dead_rows"]["dead_rows"] > 0
+          and small["bool_mask"]["dead_rows"] > 0,
+          "the dead-row cases have rows with nothing to attend")
+    emit({"phase": "flash_cases", "cases": small})
+    del scratch
+    torch.cuda.empty_cache()
+    return out
+
+
+#: device-kernel name fragments of a train step -> group
+_TRAIN_GROUPS = (("flash_fwd_kernel", "flash_fwd"),
+                 ("flash_dkv_kernel", "flash_dkv"),
+                 ("flash_dq_kernel", "flash_dq"),
+                 ("rms_norm_kernel", "rms_norm"),
+                 ("gemm", "matmul"), ("gemv", "matmul"),
+                 ("cutlass", "matmul"), ("sm90_xmma", "matmul"),
+                 ("nvjet", "matmul"))
+
+
+def _device_groups(torch, prof, groups_of) -> tuple[dict, float, dict]:
+    """Device microseconds by group from a profile, their total, and the
+    largest 'other' kernels."""
+    groups: dict[str, float] = {}
+    other: dict[str, float] = {}
+    total = 0.0
+    cuda_kind = torch.autograd.DeviceType.CUDA
+    for evt in prof.key_averages():
+        if getattr(evt, "device_type", cuda_kind) != cuda_kind:
+            continue
+        dev_us = getattr(evt, "self_device_time_total",
+                         getattr(evt, "self_cuda_time_total", 0.0))
+        if not dev_us:
+            continue
+        total += dev_us
+        name = evt.key.lower()
+        group = next((gr for frag, gr in groups_of if frag in name), "other")
+        groups[group] = groups.get(group, 0.0) + dev_us
+        if group == "other":
+            key = evt.key[:60]
+            other[key] = other.get(key, 0.0) + dev_us
+    return groups, total, other
+
+
+def phase_train(torch, np) -> dict:
+    """Llama-3-8B widths cut to 4 layers (AdamW keeps ~16 bytes a parameter:
+    32 layers' 8.0B would need ~130 GB, 4 layers' 1.92B fit in 80 GB), one
+    batch of 2 x 2048 seeded tokens, full recompute, 5 steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.models import llama
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.ops.kernels import flash_attention as tfa
+
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(),
+                              num_hidden_layers=4)
+    L, b, s, steps = cfg.num_hidden_layers, 2, 2048, 5
+    os.environ["PADDLE_TPU_REMAT"] = "full"
+    torch.cuda.reset_peak_memory_stats()
+    params = llama.init_params(cfg, seed=3, device="cuda")
+    train_step, opt_init = llama.build_train_step(cfg)
+    opt = opt_init(params)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(5)
+    ids = torch.randint(0, cfg.vocab_size, (b, s), generator=g,
+                        device="cuda")
+    labels = torch.randint(0, cfg.vocab_size, (b, s), generator=g,
+                           device="cuda")
+    torch.cuda.synchronize()
+    kernels.reset_counters()
+    calls0 = (tfa.KERNEL_CALLS, tfa.FALLBACK_CALLS)
+    losses, gnorms, times = [], [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        loss, params, opt = train_step(params, opt, ids, labels)
+        losses.append(loss.item())          # synchronizes
+        gnorms.append(opt["gnorm"].item())
+        times.append(time.perf_counter() - t0)
+    launches = dict(kernels.LAUNCHES)
+    fallbacks = tfa.FALLBACK_CALLS - calls0[1]
+    check(all(math.isfinite(x) for x in losses + gnorms),
+          f"losses {losses} and gnorms {gnorms} finite")
+    check(abs(losses[0] - math.log(cfg.vocab_size)) < 1.5,
+          f"step-1 loss {losses[0]} near ln(V) = "
+          f"{math.log(cfg.vocab_size)}")
+    check(losses[-1] < losses[0], f"the loss falls: {losses}")
+    want = {"flash_attention_fwd": 2 * L * steps,
+            "flash_attention_dkv": L * steps,
+            "flash_attention_dq": L * steps,
+            "rms_norm": (4 * L + 1) * steps}
+    for name, n in want.items():
+        check(launches[name] == n, f"{name} launches {launches[name]} == "
+                                   f"{n} (full recompute, {steps} steps)")
+    check(fallbacks == 0, f"no composed-attention fallback ({fallbacks})")
+    step_s = statistics.median(times[1:])
+    tok_s = b * s / step_s
+    flops_tok = llama.flops_per_token(cfg) + llama.attn_flops_per_token(
+        cfg, s)
+    res = {"phase": "train", "model": "llama3_8b widths, 4 layers",
+           "params": llama.count_params(params), "batch": b, "seq": s,
+           "remat": "full", "steps": steps, "losses": losses,
+           "gnorms": gnorms, "step_s": times, "step_ms_median_2_5":
+           step_s * 1e3, "tokens_per_s": tok_s,
+           "mfu_excluding_recompute": flops_tok * tok_s / BF16_FLOPS,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": launches, "flash_fallback_calls": fallbacks,
+           "launches_per_step": {k: v // steps for k, v in want.items()}}
+    emit(res)
+
+    # one profiled step: device time by kernel group, busy share
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        loss, params, opt = train_step(params, opt, ids, labels)
+        loss.item()
+        wall = time.perf_counter() - t0
+    groups, total, other = _device_groups(torch, prof, _TRAIN_GROUPS)
+    emit({"phase": "train_profile", "wall_ms": wall * 1e3,
+          "device_ms": ({k: v / 1e3 for k, v in sorted(groups.items())}
+                        if total else "not measured"),
+          "device_ms_total": total / 1e3 if total else None,
+          "device_busy_share": total / 1e6 / wall if total else None,
+          "other_top_ms": {k: v / 1e3 for k, v in sorted(
+              other.items(), key=lambda kv: -kv[1])[:10]}})
+    del params, opt, loss
+    os.environ.pop("PADDLE_TPU_REMAT", None)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_end_to_end(torch, np) -> None:
+    """2 full-width layers: loss, gradient norm and every gradient leaf with
+    the kernels and with every kernel disabled (flash -> the composed
+    oracle, rms_norm -> its plain version), from the same parameters and
+    batch."""
+    from paddle_tpu_torch.models import llama
+    from paddle_tpu_torch.ops import kernels
+
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(),
+                              num_hidden_layers=2)
+    b, s = 2, 2048
+    g = torch.Generator(device="cuda")
+    g.manual_seed(6)
+    ids = torch.randint(0, cfg.vocab_size, (b, s), generator=g,
+                        device="cuda")
+    labels = torch.randint(0, cfg.vocab_size, (b, s), generator=g,
+                           device="cuda")
+    env = "PADDLE_TPU_TORCH_DISABLE_KERNELS"
+    # tolerances: bf16 activations rounded in other places (the flash
+    # kernels round attention once from f32; the composed path rounds the
+    # same f32 math at another point) through 2 layers forward and back.
+    # The loss averages 4096 positions (|d| within 2^-8 of ~12); gnorm and
+    # each leaf's max error relative to the leaf's max within a few bf16
+    # ulps (2^-5)
+    loss_tol, gnorm_rel_tol, leaf_rel_tol = 2.0 ** -8 * 12, 2.0 ** -5, \
+        2.0 ** -5
+    runs = {}
+    for label, disable in (("kernels", None), ("plain", "all")):
+        if disable is None:
+            os.environ.pop(env, None)
+        else:
+            os.environ[env] = disable
+        params = llama.init_params(cfg, seed=7, device="cuda")
+        kernels.reset_counters()
+        loss, grads = llama.loss_and_grads(cfg, params, ids, labels)
+        gnorm = llama.global_norm(grads).item()
+        launches = dict(kernels.LAUNCHES)
+        os.environ.pop(env, None)
+        if disable is None:
+            check(all(launches[k] > 0 for k in FLASH_KERNELS + ("rms_norm",)),
+                  f"kernel run launched the train kernels: {launches}")
+        else:
+            check(all(v == 0 for v in launches.values()),
+                  f"plain run launched no kernel: {launches}")
+        runs[label] = (loss.item(), gnorm, grads, launches)
+        del params
+    (lk, gk, dk, lnk), (lp, gp, dp, _) = runs["kernels"], runs["plain"]
+    leaf_err = [((a.float() - b_.float()).abs().max()
+                 / b_.float().abs().max()).item() for a, b_ in zip(dk, dp)]
+    check(abs(lk - lp) <= loss_tol, f"loss {lk} vs {lp} within {loss_tol}")
+    check(abs(gk - gp) <= gnorm_rel_tol * gp,
+          f"gnorm {gk} vs {gp} within {gnorm_rel_tol} relative")
+    check(max(leaf_err) <= leaf_rel_tol,
+          f"gradient leaves within {leaf_rel_tol} of their max: {leaf_err}")
+    emit({"phase": "train_end_to_end", "layers": cfg.num_hidden_layers,
+          "loss": {"kernels": lk, "plain": lp}, "loss_tolerance": loss_tol,
+          "gnorm": {"kernels": gk, "plain": gp},
+          "gnorm_rel_tolerance": gnorm_rel_tol,
+          "leaf_max_err_over_leaf_max": leaf_err,
+          "leaf_tolerance": leaf_rel_tol, "kernel_launches": lnk})
+    del runs, dk, dp
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -537,14 +1022,29 @@ def main() -> int:
     dev = phase_device(torch)
     phase_build(kernels)
     measured = phase_kernels(torch)
+    measured.update(phase_flash_kernels(torch))
     launches = phase_serve(torch, np)
     phase_end_to_end(torch, np)
+    train_launches = phase_train(torch, np)
+    launches.update({k: train_launches[k] for k in FLASH_KERNELS})
+    # rms_norm runs on both main paths: its launches in the serve and the
+    # train phase together
+    launches["rms_norm"] += train_launches["rms_norm"]
+    phase_train_end_to_end(torch, np)
+    fa = "paddle_tpu/ops/pallas/flash_attention.py"
     sources = {"rms_norm": ("rms_norm.cu", "paddle_tpu/ops/pallas/"
                                            "rms_norm.py:20"),
                "fused_decode_step": ("fused_decode.cu", "paddle_tpu/ops/"
                                      "pallas/paged_attention.py:1377"),
                "fused_layer_mlp": ("fused_mlp.cu", "paddle_tpu/ops/pallas/"
-                                   "paged_attention.py:2020")}
+                                   "paged_attention.py:2020"),
+               "flash_attention_fwd": ("flash_fwd.cu", f"{fa}:173"),
+               "flash_attention_dkv": ("flash_bwd.cu", f"{fa}:295"),
+               "flash_attention_dq": ("flash_bwd.cu", f"{fa}:344"),
+               # no TPU kernel: the reference's jax.random.categorical
+               # draw, which XLA compiles into its decode program
+               "gumbel_noise": ("gumbel.cu", "paddle_tpu/inference/"
+                                "serving.py:1246")}
     line = []
     for name, (src, replaces) in sources.items():
         m = measured[name]

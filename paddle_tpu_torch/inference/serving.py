@@ -26,11 +26,13 @@ How the JAX engine's mechanisms map to PyTorch:
 - the decode chunk's ``lax.scan`` becomes a loop of ``chunk`` steps whose
   chosen tokens feed back on the device; the host fetches the chunk's
   tokens once per ``step``;
-- sampling ports the reference's nucleus (top-p) mask exactly, but draws
-  from a ``torch.Generator`` seeded per (request seed, position) instead
-  of JAX's threefry keys: seeded streams are replayable (a preempted
-  request resumes its stream exactly) but are not the JAX engine's
-  tokens.  Greedy streams are the JAX engine's tokens.
+- sampling ports the reference's nucleus (top-p) mask and its keys: each
+  sampled token's key is ``fold_in(fold_in(PRNGKey(0), seed), pos)`` and
+  its Gumbel noise comes from those keys, as ``jax.random.categorical``
+  draws them (``utils/threefry.py``; on the card one kernel,
+  ``ops/kernels/sampling.py``), so seeded streams are the JAX
+  engine's tokens and a preempted request resumes its stream exactly.
+  Greedy streams are the JAX engine's tokens.
 """
 
 from __future__ import annotations
@@ -46,6 +48,7 @@ from .. import resolve_device
 from ..ops import decode_attention as _da
 from ..ops.kernels import paged_attention as _pa
 from ..ops.kernels import rope as rope_mod
+from ..ops.kernels import sampling
 from . import lm_head_logits, transformer_apply
 
 
@@ -73,12 +76,6 @@ def _bucket(n: int, lo: int = 16) -> int:
     while b < n:
         b *= 2
     return b
-
-
-def _sample_seed(seed: int, pos: int) -> int:
-    """The per-(request seed, position) generator seed: distinct for every
-    pair, so a resumed request redraws exactly what it would have drawn."""
-    return ((int(seed) & 0xFFFFFFFF) << 32) | (int(pos) & 0xFFFFFFFF)
 
 
 class ContinuousBatchingEngine:
@@ -139,7 +136,7 @@ class ContinuousBatchingEngine:
         self._last_tok = np.zeros(max_batch, np.int32)
         self._temp = np.zeros(max_batch, np.float32)
         self._topp = np.ones(max_batch, np.float32)
-        self._seed = np.zeros(max_batch, np.int64)
+        self._seed = np.zeros(max_batch, np.int32)
         self._queue: list[Request] = []
         self.stats = {"decode_steps": 0, "decode_tokens": 0,
                       "decode_time_s": 0.0, "prefills": 0,
@@ -196,38 +193,34 @@ class ContinuousBatchingEngine:
                                     mlp_fused_fn=mlp_fused_fn)
         return lm_head_logits(cfg, self.params, x[:, -1])
 
-    def _sample_tokens(self, logits, pos, temp, topp, seeds, sampled_lanes):
+    def _sample_tokens(self, logits, pos, temp, topp, seeds, rows):
         """Per-slot next token: greedy where temperature == 0, temperature +
-        nucleus (top-p) sampling elsewhere.  ``pos``/``seeds`` are host
-        arrays (the draw's generator is seeded per (seed, position));
-        ``sampled_lanes`` lists the lanes with temperature > 0."""
+        nucleus (top-p) sampling elsewhere.  ``pos``/``seeds`` are [B]
+        device ints; a lane's draw is keyed by (seed, position) exactly as
+        the reference keys it, so sampling is replayable and matches the
+        reference's tokens.  ``rows`` holds the lanes with temperature > 0
+        (None: no draw at all); only their rows are sorted and drawn.
+        Nothing here waits for the device."""
         greedy = logits.argmax(dim=-1)
-        if not sampled_lanes:
+        if rows is None:
             return greedy
-        scaled = logits.float() / temp.clamp(min=1e-6)[:, None]
+        scaled = logits[rows].float() / temp[rows].clamp(min=1e-6)[:, None]
         # nucleus mask via sorted cumsum: keep the smallest prefix of
         # descending-prob tokens whose mass reaches top_p (top-1 always kept)
         order = torch.argsort(-scaled, dim=-1, stable=True)
         sprob = torch.softmax(torch.gather(scaled, 1, order), dim=-1)
-        keep_sorted = (torch.cumsum(sprob, dim=-1) - sprob) < topp[:, None]
+        keep_sorted = ((torch.cumsum(sprob, dim=-1) - sprob)
+                       < topp[rows][:, None])
         keep = torch.zeros_like(keep_sorted).scatter(1, order, keep_sorted)
         masked = torch.where(keep, scaled,
                              torch.full_like(scaled, float("-inf")))
-        # Gumbel-max draw from the masked distribution, one generator per
-        # sampled lane
-        gumbel = torch.zeros_like(scaled)
-        V = scaled.shape[1]
-        for b in sampled_lanes:
-            g = torch.Generator(device=self.device)
-            g.manual_seed(_sample_seed(seeds[b], pos[b]))
-            u = torch.rand(V, generator=g, device=self.device)
-            gumbel[b] = -torch.log(-torch.log(u.clamp(min=1e-20)))
-        sampled = (masked + gumbel).argmax(dim=-1)
-        is_sampled = temp > 0.0
-        return torch.where(is_sampled, sampled, greedy)
+        # jax.random.categorical: argmax(gumbel(key) + logits), one
+        # vectorized draw for the sampled rows
+        noise = sampling.gumbel_noise(seeds[rows], pos[rows], scaled.shape[1])
+        return greedy.index_put((rows,), (noise + masked).argmax(dim=-1))
 
-    def _chunk_scan(self, tokens, pos, active, temp, topp, table, pos_np,
-                    sampled_lanes):
+    def _chunk_scan(self, tokens, pos, active, temp, topp, table, seeds,
+                    rows):
         """``chunk`` decode steps; the chosen token feeds back on the
         device.  Returns (tokens [chunk, B], bad [chunk, B]): ``bad`` flags
         active lanes whose logits were not finite."""
@@ -236,8 +229,8 @@ class ContinuousBatchingEngine:
         for i in range(self.chunk):
             logits = self._decode_one(tok, pos + i, active, table)
             bads.append(active & ~torch.isfinite(logits).all(dim=-1))
-            tok = self._sample_tokens(logits, pos_np + i, temp, topp,
-                                      self._seed, sampled_lanes)
+            tok = self._sample_tokens(logits, pos + i, temp, topp, seeds,
+                                      rows)
             toks.append(tok)
         self.last_logits = logits
         return torch.stack(toks), torch.stack(bads)
@@ -420,7 +413,8 @@ class ContinuousBatchingEngine:
                                      else 1.0)
             # default seed: the request id, so two concurrent sampled
             # requests never share a stream
-            self._seed[slot] = req.seed if req.seed is not None else req.rid
+            self._seed[slot] = np.int32(
+                req.seed if req.seed is not None else req.rid)
 
     def _retire(self, slot):
         req = self._slot_req[slot]
@@ -450,7 +444,9 @@ class ContinuousBatchingEngine:
             torch.as_tensor(self._temp, device=dev),
             torch.as_tensor(self._topp, device=dev),
             torch.as_tensor(self._table, device=dev),
-            self._pos.astype(np.int64), sampled_lanes)
+            torch.as_tensor(self._seed, device=dev),
+            torch.as_tensor(sampled_lanes, dtype=torch.long, device=dev)
+            if sampled_lanes else None)
         # ONE host round-trip per chunk: tokens and guard flags together
         fetched = torch.cat([toks, bad.long()]).cpu().numpy()
         toks_np, bad_np = fetched[:k], fetched[k:]

@@ -44,11 +44,14 @@ import torch
 #: the full opt-out vocabulary of ``PADDLE_TPU_TORCH_DISABLE_KERNELS``: the
 #: port's kernel dispatch sites plus 'all' (counterpart of
 #: ``ops/pallas/__init__.py``'s KNOWN_KERNELS)
-KNOWN_KERNELS = frozenset({"all", "rms_norm", "fused_decode_step",
-                           "fused_layer_mlp"})
+KNOWN_KERNELS = frozenset({"all", "flash_attention", "rms_norm",
+                           "fused_decode_step", "fused_layer_mlp",
+                           "gumbel_noise"})
 
 #: kernel name -> launches made by its wrapper
-LAUNCHES = {"rms_norm": 0, "fused_decode_step": 0, "fused_layer_mlp": 0}
+LAUNCHES = {"rms_norm": 0, "fused_decode_step": 0, "fused_layer_mlp": 0,
+            "flash_attention_fwd": 0, "flash_attention_dkv": 0,
+            "flash_attention_dq": 0, "gumbel_noise": 0}
 #: kernel name -> dispatches that took the plain PyTorch version
 PLAIN_CALLS = {name: 0 for name in LAUNCHES}
 
@@ -87,13 +90,16 @@ def kernel_disabled(name: str) -> bool:
     return "all" in tokens or name in tokens
 
 
-def use_kernel(name: str, *tensors: torch.Tensor) -> bool:
+def use_kernel(name: str, *tensors: torch.Tensor,
+               switch: str | None = None) -> bool:
     """The dispatch rule every kernel module shares: False (and one plain
-    call counted) for CPU tensors or an explicitly disabled kernel; True for
-    CUDA tensors; raises for any other device or a CPU/CUDA mix."""
+    call counted under ``name``) for CPU tensors or an explicitly disabled
+    kernel; True for CUDA tensors; raises for any other device or a
+    CPU/CUDA mix.  ``switch`` is the :data:`KNOWN_KERNELS` token that turns
+    the kernel off (default: ``name``)."""
     kinds = {t.device.type for t in tensors}
     if kinds == {"cuda"}:
-        if kernel_disabled(name):
+        if kernel_disabled(switch or name):
             PLAIN_CALLS[name] += 1
             return False
         return True
@@ -111,7 +117,8 @@ def use_kernel(name: str, *tensors: torch.Tensor) -> bool:
 _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "build"
-SOURCES = ("rms_norm.cu", "fused_decode.cu", "fused_mlp.cu")
+SOURCES = ("rms_norm.cu", "fused_decode.cu", "fused_mlp.cu", "flash_fwd.cu",
+           "flash_bwd.cu", "gumbel.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-lineinfo")
 _LIB_NAME = "libpaddle_tpu_torch_kernels.so"
@@ -193,6 +200,15 @@ _SIGNATURES = {
     # x, attn_y, norm_w, w_gate, w_up, w_down, h1, y, partial, B, h, F,
     # nsplit, eps, dtype, stream
     "ptt_fused_mlp": [_VP] * 9 + [_I] * 4 + [_F, _I, _VP],
+    # q, k, v, mask, q_seg, kv_seg, out, lse, b, sq, skv, hq, hkv, d, mb,
+    # mh, mask_kind, causal, scale, dtype, stream
+    "ptt_flash_fwd": [_VP] * 8 + [_I] * 10 + [_F, _I, _VP],
+    # q, k, v, do, lse, delta, mask, q_seg, kv_seg, dk, dv, then as above
+    "ptt_flash_dkv": [_VP] * 11 + [_I] * 10 + [_F, _I, _VP],
+    # q, k, v, do, lse, delta, mask, q_seg, kv_seg, dq, then as above
+    "ptt_flash_dq": [_VP] * 10 + [_I] * 10 + [_F, _I, _VP],
+    # seeds, pos, out, rows, n, stream
+    "ptt_gumbel_noise": [_VP, _VP, _VP, _I, _I, _VP],
 }
 
 

@@ -1,9 +1,11 @@
 """Fused RMSNorm (counterpart of ``paddle_tpu/ops/pallas/rms_norm.py``).
 
 ``rms_norm_ref`` is the plain version: the reference's exact f32 math.
-``rms_norm`` dispatches by device: CPU tensors take the plain version, CUDA
-tensors launch ``csrc/rms_norm.cu``.  The backward (``_rms_vjp_bwd`` in the
-reference) belongs to the training slice and is not ported yet.
+``rms_norm`` is differentiable: its forward dispatches by device (CPU
+tensors take the plain version, CUDA tensors launch ``csrc/rms_norm.cu``)
+and its backward is the reference's closed form ``_rms_vjp_bwd`` in plain
+PyTorch with the same f32 math and casts (the reference computes it in
+XLA, so no kernel is owed).
 """
 
 from __future__ import annotations
@@ -48,9 +50,35 @@ def rms_norm_cuda(x: torch.Tensor, w: torch.Tensor,
     return out.reshape(x.shape)
 
 
+def rms_norm_bwd(x, w, g, eps):
+    """(dx, dw) of ``rms_norm`` for the cotangent g (``_rms_vjp_bwd``)."""
+    xf, gf, wf = x.float(), g.float(), w.float()
+    inv = torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+    xhat = xf * inv
+    gw = gf * wf
+    # d/dx [x * inv]: inv * (gw - xhat * mean(gw * xhat))
+    dx = inv * (gw - xhat * (gw * xhat).mean(-1, keepdim=True))
+    dw = (gf * xhat).sum(dim=tuple(range(x.ndim - 1)))
+    return dx.to(x.dtype), dw.to(w.dtype)
+
+
+class _RMSNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, eps):
+        ctx.save_for_backward(x, w)
+        ctx.eps = eps
+        if use_kernel("rms_norm", x, w):
+            return rms_norm_cuda(x.contiguous(), w, eps)
+        return rms_norm_ref(x, w, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dx, dw = rms_norm_bwd(x, w, g, ctx.eps)
+        return dx, dw, None
+
+
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
     """x: [..., d], weight: [d]."""
-    if use_kernel("rms_norm", x, weight):
-        return rms_norm_cuda(x.contiguous(), weight, eps)
-    return rms_norm_ref(x, weight, eps)
+    return _RMSNorm.apply(x, weight, eps)

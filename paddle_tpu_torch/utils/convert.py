@@ -27,13 +27,15 @@ def tensor_from_numpy(arr, device=None) -> torch.Tensor:
     """One array -> tensor on ``device`` (None: the CUDA card, raising
     without one), bit-exact (bf16 included)."""
     device = resolve_device(device)
-    arr = np.asarray(arr)
+    # a C-ordered copy that keeps 0-d scalars 0-d (ascontiguousarray would
+    # make them [1])
+    arr = np.array(arr, order="C", copy=True)
     if arr.dtype.name == "bfloat16":
-        bits = np.ascontiguousarray(arr).view(np.uint16).view(np.int16)
-        return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(device)
+        bits = arr.view(np.uint16).view(np.int16)
+        return torch.from_numpy(bits).view(torch.bfloat16).to(device)
     if arr.dtype not in _NP_TO_TORCH:
         raise TypeError(f"unsupported dtype {arr.dtype}")
-    return torch.from_numpy(np.ascontiguousarray(arr).copy()).to(device)
+    return torch.from_numpy(arr).to(device)
 
 
 def numpy_from_tensor(t: torch.Tensor) -> np.ndarray:
@@ -65,3 +67,22 @@ def params_to_numpy(tree):
     if isinstance(tree, (list, tuple)):
         return type(tree)(params_to_numpy(v) for v in tree)
     return numpy_from_tensor(tree)
+
+
+_OPT_KEYS = ("step", "m", "v", "master", "gnorm")
+
+
+def opt_state_from_numpy(state, device=None):
+    """The reference train step's optimizer state ``{step, m, v, master,
+    gnorm}`` (each leaf read with ``np.asarray``) -> the port's, on
+    ``device`` (None: the CUDA card): ``step`` int32 and ``gnorm`` f32
+    scalars, ``m``/``v``/``master`` f32 trees shaped like the params."""
+    if set(state) != set(_OPT_KEYS):
+        raise ValueError(f"optimizer state keys {sorted(state)}, expected "
+                         f"{sorted(_OPT_KEYS)}")
+    return params_from_numpy({k: state[k] for k in _OPT_KEYS}, device)
+
+
+def opt_state_to_numpy(state):
+    """Inverse of :func:`opt_state_from_numpy`."""
+    return params_to_numpy({k: state[k] for k in _OPT_KEYS})

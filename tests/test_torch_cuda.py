@@ -115,3 +115,149 @@ def test_fused_mlp_kernel_matches_plain(dev, dtype, B):
     d = (y.float() - y_p.float()).abs()
     assert (d <= y_p.float().abs() * 2 * ULP[dtype]
             + y_p.float().abs().max() * ULP[dtype]).all()
+
+
+#: flash kernels vs their plain versions: both compute in f32 from the same
+#: inputs and sum in other orders; the outputs round once to the input
+#: dtype.  Per element: one ulp of the value (a rounding that lands on the
+#: other side) plus a floor relative to the tensor's largest value (f32
+#: sums over up to skv * rep terms, where dk/dv cancel)
+FLASH_TOL = {torch.bfloat16: (2.0 ** -7, 2.0 ** -10),
+             torch.float16: (2.0 ** -10, 2.0 ** -12),
+             torch.float32: (2.0 ** -16, 2.0 ** -16)}
+
+
+def _flash_close(name, got, want, dtype):
+    rel, floor = FLASH_TOL[dtype]
+    ref = want.float().abs()
+    d = (got.float() - want.float()).abs()
+    ok = d <= ref * rel + ref.max() * floor
+    assert ok.all(), (name, d.max().item(), ref.max().item())
+
+
+# (b, sq, skv, hq, hkv, d, causal, mask, segments, dtype)
+FLASH_CASES = {
+    "bf16_gqa_causal_ragged": (2, 200, 200, 8, 2, 128, True, None, None,
+                               torch.bfloat16),
+    "f32_full": (1, 96, 130, 4, 4, 64, False, None, None, torch.float32),
+    "f16_d256": (1, 70, 70, 2, 1, 256, True, None, None, torch.float16),
+    "bf16_sq_ne_skv_segments": (2, 100, 160, 4, 2, 128, True, None, "pair",
+                                torch.bfloat16),
+    "bf16_bool_mask": (2, 64, 96, 4, 2, 40, False, "bool", None,
+                       torch.bfloat16),
+    "f32_additive_mask": (1, 80, 80, 4, 2, 128, True, "add", None,
+                          torch.float32),
+}
+
+
+@pytest.mark.parametrize("case", list(FLASH_CASES))
+def test_flash_kernels_match_plain(dev, case):
+    from paddle_tpu_torch.ops.kernels import flash_attention as tfa
+
+    b, sq, skv, hq, hkv, d, causal, mask, seg, dtype = FLASH_CASES[case]
+    g = torch.Generator(device=dev).manual_seed(3)
+    q = _randn(g, dev, b, sq, hq, d, dtype=dtype)
+    k = _randn(g, dev, b, skv, hkv, d, dtype=dtype)
+    v = _randn(g, dev, b, skv, hkv, d, dtype=dtype)
+    do = _randn(g, dev, b, sq, hq, d, dtype=dtype)
+    m, mb, mh = None, 1, 1
+    if mask == "bool":
+        m, mb, mh = torch.rand(b, 1, sq, skv, generator=g, device=dev) > 0.3, \
+            b, 1
+        m[0, 0, 5] = False
+        m = m.reshape(b, sq, skv)
+    elif mask == "add":
+        m, mb, mh = torch.randn(1, hq, sq, skv, generator=g, device=dev) \
+            .reshape(hq, sq, skv), 1, hq
+    segs = None
+    if seg == "pair":
+        q_ids = torch.randint(0, 3, (b, sq), generator=g, device=dev) \
+            .sort(-1).values.int()
+        q_ids[:, -7:] = 9             # rows with nothing to attend
+        kv_ids = torch.randint(0, 3, (b, skv), generator=g, device=dev) \
+            .sort(-1).values.int()
+        segs = (q_ids.contiguous(), kv_ids.contiguous())
+    kw = dict(mask=m, mb=mb, mh=mh, segs=segs, scale=d ** -0.5,
+              causal=causal)
+    tk.reset_counters()
+    out, lse = tfa.flash_fwd_cuda(q, k, v, **kw)
+    out_p, lse_p = tfa.flash_fwd_ref(q, k, v, **kw)
+    _flash_close("out", out, out_p, dtype)
+    live = lse_p > -1e29
+    assert torch.allclose(lse[live], lse_p[live], rtol=1e-5, atol=1e-5)
+    assert (lse[~live] == lse_p[~live]).all()
+    if seg == "pair":
+        assert (out[:, -7:] == 0).all()
+    delta = (out_p.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+    dk, dv = tfa.flash_dkv_cuda(q, k, v, do, lse_p, delta, **kw)
+    dq = tfa.flash_dq_cuda(q, k, v, do, lse_p, delta, **kw)
+    dk_p, dv_p = tfa.flash_dkv_ref(q, k, v, do, lse_p, delta, **kw)
+    dq_p = tfa.flash_dq_ref(q, k, v, do, lse_p, delta, **kw)
+    torch.cuda.synchronize()
+    for name, a, e in (("dk", dk, dk_p), ("dv", dv, dv_p), ("dq", dq, dq_p)):
+        _flash_close(name, a, e, dtype)
+    assert {n: tk.LAUNCHES[n] for n in ("flash_attention_fwd",
+                                        "flash_attention_dkv",
+                                        "flash_attention_dq")} == \
+        {"flash_attention_fwd": 1, "flash_attention_dkv": 1,
+         "flash_attention_dq": 1}
+
+
+def test_flash_autograd_launches_and_refuses_large_heads(dev):
+    """Through the public entry: one launch of each kernel for a forward and
+    a backward; a head_dim the kernels do not take raises (no fallback)."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as tfa
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    q = _randn(g, dev, 1, 128, 4, 128).requires_grad_()
+    k = _randn(g, dev, 1, 128, 2, 128).requires_grad_()
+    v = _randn(g, dev, 1, 128, 2, 128).requires_grad_()
+    tk.reset_counters()
+    tfa.flash_attention_bshd(q, k, v, causal=True).float().square().sum() \
+        .backward()
+    assert (tk.LAUNCHES["flash_attention_fwd"],
+            tk.LAUNCHES["flash_attention_dkv"],
+            tk.LAUNCHES["flash_attention_dq"]) == (1, 1, 1)
+    assert all(t.grad is not None and torch.isfinite(t.grad).all()
+               for t in (q, k, v))
+    big = _randn(g, dev, 1, 16, 2, 264)
+    with pytest.raises(ValueError, match="head_dim"):
+        tfa.flash_attention_bshd(big, big, big)
+
+
+def test_flash_switch_is_the_documented_token(dev, monkeypatch):
+    """Only ``flash_attention`` (or ``all``) takes the flash path off its
+    kernels, to the counted composed route; the per-kernel counter names
+    are no switch."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as tfa
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    q = _randn(g, dev, 1, 64, 4, 64)
+    k = _randn(g, dev, 1, 64, 2, 64)
+    env = "PADDLE_TPU_TORCH_DISABLE_KERNELS"
+    monkeypatch.setenv(env, "flash_attention_fwd")
+    tk.reset_counters()
+    with pytest.warns(UserWarning, match="unrecognized"):
+        tfa.flash_attention_bshd(q, k, k, causal=True)
+    assert tk.LAUNCHES["flash_attention_fwd"] == 1
+    monkeypatch.setenv(env, "flash_attention")
+    tk.reset_counters()
+    fallbacks = tfa.FALLBACK_CALLS
+    tfa.flash_attention_bshd(q, k, k, causal=True)
+    assert tk.LAUNCHES["flash_attention_fwd"] == 0
+    assert tfa.FALLBACK_CALLS == fallbacks + 1
+
+
+def test_gumbel_noise_kernel_matches_plain(dev):
+    """The sampler's noise kernel against the threefry chain on the card:
+    the cipher's bits are exact, so only the logs' last bits may differ."""
+    from paddle_tpu_torch.ops.kernels import sampling as tsampling
+
+    seeds = torch.tensor([0, -5, 7, 2**31 - 1], dtype=torch.int32,
+                         device=dev)
+    pos = torch.tensor([0, 100, 2047, 5], device=dev)
+    tk.reset_counters()
+    got = tsampling.gumbel_noise(seeds, pos, 5000)
+    assert tk.LAUNCHES["gumbel_noise"] == 1
+    want = tsampling.gumbel_noise_ref(seeds, pos, 5000)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)

@@ -20,7 +20,9 @@ FORBIDDEN = ("jax", "jaxlib", "paddle_tpu")
 def test_import_leaves_jax_out_of_sys_modules():
     code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.inference.serving,"
             " paddle_tpu_torch.utils.convert, paddle_tpu_torch.ops."
-            "decode_attention\n"
+            "decode_attention, paddle_tpu_torch.models.llama, "
+            "paddle_tpu_torch.ops.kernels.flash_attention, "
+            "paddle_tpu_torch.utils.threefry\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu'))\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")

@@ -12,15 +12,20 @@ both.  Tolerance atol = rtol = 1e-5: the two sides sum in other orders
 import numpy as np
 import pytest
 
+import jax
 import jax.numpy as jnp
 import torch
 
 from paddle_tpu.ops.pallas import paged_attention as jpa
 from paddle_tpu.ops.pallas import rms_norm as jrms
+from paddle_tpu.ops.pallas import rope as jrope
+from paddle_tpu.ops.pallas import swiglu as jswiglu
 from paddle_tpu_torch.ops import decode_attention as tda
 from paddle_tpu_torch.ops import kernels as tk
 from paddle_tpu_torch.ops.kernels import paged_attention as tpa
 from paddle_tpu_torch.ops.kernels import rms_norm as trms
+from paddle_tpu_torch.ops.kernels import rope as trope
+from paddle_tpu_torch.ops.kernels import swiglu as tswiglu
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 
@@ -39,6 +44,44 @@ def test_rms_norm_matches_pallas(rows, h):
     got = trms.rms_norm(torch.from_numpy(x), torch.from_numpy(w), 1e-5)
     assert tk.PLAIN_CALLS["rms_norm"] == 1 and tk.LAUNCHES["rms_norm"] == 0
     _close(got, want)
+
+
+# op -> (JAX function, port function, input shapes); each takes and returns
+# arrays of one framework
+BACKWARDS = {
+    "rms_norm": (lambda x, w: jrms.rms_norm(x, w, 1e-5),
+                 lambda x, w: trms.rms_norm(x, w, 1e-5),
+                 [(3, 5, 48), (48,)]),
+    "swiglu": (jswiglu.swiglu, tswiglu.swiglu, [(4, 40), (4, 40)]),
+    "rope": (lambda q, k, c, s_: jnp.concatenate(
+                 [t.reshape(2, 6, -1) for t in
+                  jrope.apply_rotary_pos_emb(q, k, c, s_)], -1),
+             lambda q, k, c, s_: torch.cat(
+                 [t.reshape(2, 6, -1) for t in
+                  trope.apply_rotary_pos_emb(q, k, c, s_)], -1),
+             [(2, 6, 4, 16), (2, 6, 2, 16), (1, 6, 16), (1, 6, 16)]),
+}
+
+
+@pytest.mark.parametrize("op", list(BACKWARDS))
+def test_backward_matches_jax(op):
+    """The gradients the training path takes through each op: rms_norm's
+    and swiglu's closed-form backwards (the reference's custom_vjp), rope's
+    autograd (XLA's autodiff on the JAX side)."""
+    jfn, tfn, shapes = BACKWARDS[op]
+    rs = np.random.RandomState(7)
+    xs = [rs.randn(*sh).astype(np.float32) for sh in shapes]
+    if op == "rms_norm":
+        xs[1] = 1 + 0.1 * xs[1]
+    g = rs.randn(*np.shape(jfn(*map(jnp.asarray, xs)))).astype(np.float32)
+    want_out, vjp = jax.vjp(jfn, *map(jnp.asarray, xs))
+    want = vjp(jnp.asarray(g))
+    ts = [torch.tensor(x, requires_grad=True) for x in xs]
+    out = tfn(*ts)
+    got = torch.autograd.grad(out, ts, torch.from_numpy(g))
+    _close(out.detach(), want_out)
+    for a, b in zip(got, want):
+        _close(a, b)
 
 
 def _decode_case(rs):
