@@ -9,7 +9,8 @@ non-zero as soon as one fails:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: the CUDA kernels compiled with ``nvcc`` for sm_90a from the
-   sources in this checkout (seconds, and whether a build was cached);
+   sources in this checkout (seconds, whether a build was cached, each
+   kernel's registers and spills, and any compiler warning);
 3. kernels: each kernel against its plain PyTorch version on the card at
    the serving path's shapes (Llama-3-8B widths, bf16, batch 8, block 64,
    max_seq 2048; rms_norm also at the train step's rows; the sampler's
@@ -18,24 +19,36 @@ non-zero as soon as one fails:
    of the kernel, the plain version, one PyTorch library call where one
    computes the same function, and the bound (the least time the card
    could take: bytes over 3.35 TB/s or operations over the bf16 peak);
-4. serve: the continuous-batching engine serving Llama-3-8B at full width
-   and depth (random bf16 weights from a seed) to 12 requests; the launch
-   counts prove the decode path went through all three kernels; then a
-   profile of four decode steps and the sampler timed alone;
-5. kernels vs plain end to end: a 4-layer full-width model serves the same
-   greedy requests with the kernels and with
-   ``PADDLE_TPU_TORCH_DISABLE_KERNELS=all``;
-6. flash kernels: the forward, dK/dV and dQ kernels against their plain
+4. flash kernels: the forward, dK/dV and dQ kernels against their plain
    versions at the training shape (batch 2, 2048 tokens, 32/8 heads,
    head_dim 128, bf16, causal), timed like phase 3 (library: PyTorch's
    scaled_dot_product_attention and its backward), and on ragged,
    sq != skv, masked and packed (segment ids) cases;
-7. train: Llama-3-8B widths cut to 4 layers take 5 AdamW steps on one
+5. paged kernels: the sequential and the split-K paged decode over bf16,
+   int8 and packed-int4 pools, and the fused requantizing decode step over
+   int8 and int4 pools, at the serving shapes with ragged lengths (0 to
+   2048), timed like phase 3; the requantized codes and scales held bit
+   for bit (their share reported), untouched pages exact, the spill page
+   zeroed;
+6. serve: the continuous-batching engine serving Llama-3-8B at full width
+   and depth (random bf16 weights from a seed) to 12 requests on fp pools,
+   then on int8 pools; the launch counts prove each decode step of each
+   layer went through the pool kind's fused decode kernel and the fused
+   MLP and no other decode kernel; a profile of four decode steps each,
+   and the sampler timed alone;
+7. arms: a 4-layer full-width model serves the same greedy requests on
+   each decode arm of bf16, int8 and int4 pools (the fused step; the
+   unfused split-K and sequential walks that
+   ``PADDLE_TPU_TORCH_DISABLE_KERNELS=fused_decode_step`` /
+   ``fused_quant_append`` [``,flash_decode``] rebuild the engine on; and
+   ``all``, every kernel off): each arm launches its own decode kernel
+   only, and its logits and greedy streams agree with the plain arm's;
+8. train: Llama-3-8B widths cut to 4 layers take 5 AdamW steps on one
    batch of 2 x 2048 seeded tokens with full recompute; the loss falls,
    and the launch counts prove every layer went through the three flash
    kernels; step time, tokens/s, model FLOPs utilization, peak memory and
    a torch.profiler breakdown of one step;
-8. train kernels vs plain: a 2-layer full-width model's loss, gradient
+9. train kernels vs plain: a 2-layer full-width model's loss, gradient
    norm and every gradient leaf with the kernels and with
    ``PADDLE_TPU_TORCH_DISABLE_KERNELS=all``.
 
@@ -121,7 +134,8 @@ def phase_build(kernels) -> None:
     info = dict(kernels.BUILD_INFO)
     kernels.library()
     regs = [ln.strip() for ln in info.get("ptxas", "").splitlines()
-            if "registers" in ln or "Compiling entry" in ln]
+            if "registers" in ln or "Compiling entry" in ln
+            or "spill" in ln or "warning" in ln.lower()]
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "cached": info["cached"], "library": os.path.relpath(info["path"],
                                                                ROOT),
@@ -345,6 +359,199 @@ def phase_kernels(torch) -> dict:
     return out
 
 
+def _attn_err(torch, got, want) -> tuple[dict, bool]:
+    """The decode attention tolerance (as the fused decode step's): f32
+    sums in another order, one rounding to bf16: |d| <= 2^-7|ref| + 2^-8
+    max|ref| of the same (slot, q head); lanes with nothing to attend are
+    exactly 0 on both sides."""
+    ref = want.float().abs()
+    err = (got.float() - want.float()).abs()
+    tol = ref * 2.0 ** -7 + ref.amax(dim=-1, keepdim=True) * 2.0 ** -8
+    ok = bool((err <= tol).all())
+    return {"max_abs_err": err.max().item(),
+            "worst_err_over_tol": torch.where(err == 0, 0.0, err / tol).max()
+            .item()}, ok
+
+
+def phase_paged_kernels(torch) -> dict:
+    """B5 (the sequential walk) and B6 (the split-K walk) over bf16, int8
+    and int4 pools, and B11 (the fused requantizing decode step) over int8
+    and int4 pools, each against its plain version at the serving shapes:
+    batch 8, 32/8 heads, head_dim 128, block 64, max_seq 2048 (32 table
+    pages, 8 shards).  Returns name -> {format: numbers}."""
+    from paddle_tpu_torch.ops.kernels import paged_attention as pa
+
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    g = torch.Generator(device=dev)
+    g.manual_seed(2024)
+    B, nh, nkv, hd, bs, max_seq = 8, 32, 8, 128, 64, 2048
+    max_blocks = max_seq // bs
+    nb = B * max_blocks
+    nbp = nb + 1
+    scale = hd ** -0.5
+    S = pa.flash_decode_shards(max_blocks)
+    scratch = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
+
+    def flush():
+        scratch.zero_()
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(bf16)
+
+    perm = torch.randperm(nb, generator=g, device=dev).int()
+
+    def table(pages):
+        t = torch.full((B, max_blocks), nb, dtype=torch.int32, device=dev)
+        for b, n in enumerate(pages):
+            t[b, :n] = perm[b * max_blocks:b * max_blocks + n]
+        return t
+
+    row_bytes = {"bf16": hd * 2, "int8": hd, "int4": hd // 2}
+    kp, vp = randn(nbp, nkv, bs, hd), randn(nbp, nkv, bs, hd)
+    pools = {"bf16": (kp, vp, None, None)}
+    for mode in ("int8", "int4"):
+        pools[mode] = (*pa.quantize_kv_cache(kp, mode),
+                       *pa.quantize_kv_cache(vp, mode))
+        pools[mode] = (pools[mode][0], pools[mode][2], pools[mode][1],
+                       pools[mode][3])
+    q = randn(B, nh, hd)
+    out = {"paged_decode": {}, "flash_decode": {}, "fused_quant_decode_step":
+           {}}
+
+    # ---- B5 / B6: lengths 0 and 2048 and spread between
+    lens = torch.tensor([0, 2048, 64, 127, 1000, 1500, 333, 1777],
+                        dtype=torch.int32, device=dev)
+    pages = [-(-int(n) // bs) for n in lens.tolist()]
+    tables = table(pages)
+    live = sum(pages)
+    for fmt, (kc, vc, ks, vs) in pools.items():
+        kvq = None if fmt == "bf16" else fmt
+        kw = dict(kv_quant=kvq, k_scale=ks, v_scale=vs)
+        # the bytes the function must move: each live page's K and V rows
+        # (and its two scales) once, q and the output, the live table
+        # entries and the lengths
+        nbytes = (live * nkv * bs * row_bytes[fmt] * 2
+                  + (live * nkv * 4 * 2 if kvq else 0)
+                  + q.numel() * 2 * 2 + live * 4 + B * 4)
+        bnd, by = bound_ms(nbytes, 4 * nh * hd * int(lens.sum()))
+        for name, kern, plain in (
+                ("paged_decode",
+                 lambda: pa.paged_decode_cuda(q, kc, vc, tables, lens, scale,
+                                              **kw),
+                 lambda: pa.paged_attention_reference(q, kc, vc, tables, lens,
+                                                      scale=scale, **kw)),
+                ("flash_decode",
+                 lambda: pa.flash_decode_cuda(q, kc, vc, tables, lens, scale,
+                                              S, **kw),
+                 lambda: pa.flash_decode_reference(q, kc, vc, tables, lens,
+                                                   scale, S, **kw))):
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            errs, ok = _attn_err(torch, got, want)
+            check(ok, f"{name} {fmt}: within the attention tolerance")
+            check(bool((got[0] == 0).all() and (want[0] == 0).all()),
+                  f"{name} {fmt}: the zero-length lane is exactly 0")
+            out[name][fmt] = {
+                **errs, "shards": 1 if name == "paged_decode" else S,
+                "tolerance": "|d| <= 2^-7|ref| + 2^-8 max|ref[slot, head]|",
+                "bound_bytes": nbytes, "bound_ms": bnd, "bound_by": by,
+                "ms": time_ms(torch, kern, flush=flush),
+                "plain_ms": time_ms(torch, plain, flush=flush),
+                "library_ms": None}
+
+    # ---- B11: appends at 0, at a page boundary, mid-page, at the last
+    # position; the last lane dropped (sentinel table, the spill page)
+    lens_pre = torch.tensor([0, 2047, 64, 127, 1000, 1500, 333, 0],
+                            dtype=torch.int32, device=dev)
+    wable = torch.tensor([1, 1, 1, 1, 1, 1, 1, 0], dtype=torch.int32,
+                         device=dev)
+    wpages = [int(n) // bs + 1 if w else 0
+              for n, w in zip(lens_pre.tolist(), wable.tolist())]
+    tables_w = table(wpages)
+    lanes = torch.arange(B, device=dev)
+    wblk = torch.where(wable == 1, tables_w[lanes, (lens_pre // bs).long()],
+                       torch.full_like(lens_pre, nb)).int()
+    k_new, v_new = randn(B, nkv, hd), randn(B, nkv, hd)
+    inv_freq = 1.0 / (500000.0 ** (torch.arange(0, hd, 2, device=dev).float()
+                                   / hd))
+    ang = lens_pre.float()[:, None] * inv_freq
+    ang = torch.cat([ang, ang], dim=-1)
+    cos, sin = ang.cos().to(bf16), ang.sin().to(bf16)
+    small = (q, k_new, v_new, cos, sin)
+    tail = (tables_w, lens_pre, wblk, wable)
+    written = sorted({int(p) for p, w in zip(wblk.tolist(), wable.tolist())
+                      if w})
+    untouched = [p for p in range(nb) if p not in written]
+    for fmt in ("int8", "int4"):
+        kq, vq, ks, vs = pools[fmt]
+        base = [t.clone() for t in (kq, ks, vq, vs)]
+        base[0][nb], base[1][nb] = 5, 1.0    # a non-zero spill page
+        base[2][nb], base[3][nb] = 5, 1.0
+        kern_pools = [t.clone() for t in base]
+        plain_pools = [t.clone() for t in base]
+        o_k, *new = pa.fused_quant_decode_step_cuda(*small, *kern_pools,
+                                                    *tail, fmt)
+        o_p, *ref = pa.fused_quant_decode_step_reference(*small, *plain_pools,
+                                                         *tail, fmt)
+        torch.cuda.synchronize()
+        errs, ok = _attn_err(torch, o_k, o_p)
+        check(ok, f"fused_quant_decode_step {fmt}: output tolerance")
+        codes = (lambda c: pa._unpack_int4(c) if fmt == "int4"
+                 else c.float())
+        equal, culprits = {}, []
+        for label, a, e in (("key_codes", new[0], ref[0]),
+                            ("key_scale", new[1], ref[1]),
+                            ("value_codes", new[2], ref[2]),
+                            ("value_scale", new[3], ref[3])):
+            eq = a == e
+            equal[label] = eq.float().mean().item()
+            if "codes" in label:
+                step = (codes(a) - codes(e)).abs().max().item()
+                check(step <= 1, f"{fmt} {label} within one step ({step})")
+                bad = (~eq).flatten(2).any(-1).nonzero().tolist()
+            else:
+                rel = ((a - e).abs() / e.abs().clamp(min=1e-30)).max().item()
+                check(rel <= 2.0 ** -7, f"{fmt} {label} within 2^-7 ({rel})")
+                bad = (~eq).nonzero().tolist()
+            culprits += [{"pool": label, "page_head": pg} for pg in bad[:8]]
+        for i, label in ((0, "key codes"), (1, "key scales"),
+                         (2, "value codes"), (3, "value scales")):
+            check(bool(torch.equal(new[i][untouched], base[i][untouched])),
+                  f"{fmt} {label}: pages no lane writes are unchanged")
+            check(bool((new[i][nb] == 0).all()),
+                  f"{fmt} {label}: the spill page holds zeros")
+        # bytes: each lane's walked pages (codes and scales of K and V), the
+        # requantized write page rewritten per (lane, head) and pool, the
+        # spill page zeroed, the small operands
+        walked = sum(-(-(int(n) + 1) // bs) for n in lens_pre.tolist())
+        page = nkv * bs * row_bytes[fmt] * 2 + nkv * 4 * 2
+        nbytes = ((walked + B) * page
+                  + (q.numel() * 2 + 2 * k_new.numel() + 2 * cos.numel()) * 2
+                  + walked * 4 + 4 * B * 4)
+        bnd, by = bound_ms(nbytes, 4 * nh * hd * int((lens_pre + 1).sum()))
+        out["fused_quant_decode_step"][fmt] = {
+            **errs, "bit_equal_share": equal, "differing": culprits,
+            "tolerance": "output as the decode attention; codes within one "
+                         "step, scales within 2^-7 relative (bit-equal "
+                         "expected); untouched pages exact; spill zeros",
+            "shards": S, "bound_bytes": nbytes, "bound_ms": bnd,
+            "bound_by": by,
+            "ms": time_ms(torch, lambda: pa.fused_quant_decode_step_cuda(
+                *small, *kern_pools, *tail, fmt), flush=flush),
+            "plain_ms": time_ms(torch,
+                                lambda: pa.fused_quant_decode_step_reference(
+                                    *small, *plain_pools, *tail, fmt),
+                                flush=flush),
+            "library_ms": None}
+    for name, res in out.items():
+        emit({"phase": "kernel", "name": name,
+              "library": "none: no single PyTorch call computes it", **res})
+    del scratch, pools, kp, vp
+    torch.cuda.empty_cache()
+    return out
+
+
 def make_requests(Request, np, n: int, vocab: int, sampled: int, seed: int):
     rng = np.random.default_rng(seed)
     lens = rng.integers(64, 1501, size=n)
@@ -357,19 +564,24 @@ def make_requests(Request, np, n: int, vocab: int, sampled: int, seed: int):
     return reqs
 
 
-def phase_serve(torch, np) -> dict:
+#: the decode kernel of each pool kind's fused arm
+FUSED_DECODE = {None: "fused_decode_step", "int8": "fused_quant_decode_step",
+                "int4": "fused_quant_decode_step"}
+DECODE_KERNELS = ("fused_decode_step", "fused_quant_decode_step",
+                  "flash_decode", "paged_decode")
+
+
+def _serve_llama(torch, np, cfg, params, kv_quant, t_init) -> dict:
+    """Serve the 12 requests on one engine; launch counts prove every
+    decode step of every layer went through the fused decode kernel of the
+    pool kind and the fused MLP, and no other decode kernel ran."""
     from paddle_tpu_torch.inference.serving import (ContinuousBatchingEngine,
                                                     Request)
-    from paddle_tpu_torch.models import llama
     from paddle_tpu_torch.ops import kernels
 
-    cfg = llama.LlamaConfig.llama3_8b()
-    t0 = time.perf_counter()
-    params = llama.init_params(cfg, seed=0, device="cuda")
-    torch.cuda.synchronize()
-    t_init = time.perf_counter() - t0
     eng = ContinuousBatchingEngine(cfg, params, max_batch=8, max_seq=2048,
-                                   block_size=64, device="cuda")
+                                   block_size=64, kv_quant=kv_quant,
+                                   device="cuda")
     reqs = make_requests(Request, np, 12, cfg.vocab_size, sampled=2, seed=0)
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_counters()
@@ -389,9 +601,12 @@ def phase_serve(torch, np) -> dict:
     # the engine raises on non-finite logits of any active lane at every
     # step; the last step's logits are checked here as well
     check(bool(torch.isfinite(eng.last_logits).all()), "last logits finite")
-    check(launches["fused_decode_step"] == L * steps,
-          f"fused decode launches {launches['fused_decode_step']} == "
-          f"{L} x {steps} decode steps")
+    decode = FUSED_DECODE[kv_quant]
+    check(launches[decode] == L * steps,
+          f"{decode} launches {launches[decode]} == {L} x {steps} decode "
+          f"steps")
+    others = {k: launches[k] for k in DECODE_KERNELS if k != decode}
+    check(not any(others.values()), f"no other decode kernel ran: {others}")
     check(launches["fused_layer_mlp"] == L * steps,
           f"fused MLP launches {launches['fused_layer_mlp']} == {L} x {steps}")
     check(launches["rms_norm"] == (L + 1) * steps + (2 * L + 1) * prefills,
@@ -400,33 +615,56 @@ def phase_serve(torch, np) -> dict:
     # one noise launch a decode step with a sampled lane seated
     check(0 < launches["gumbel_noise"] <= steps,
           f"gumbel_noise launches {launches['gumbel_noise']} in (0, {steps}]")
-    res = {"phase": "serve", "model": "llama3_8b", "layers": L,
-           "requests": len(reqs), "sampled": sum(r.temperature > 0
-                                                 for r in reqs),
-           "prompt_tokens": int(sum(len(r.prompt_ids) for r in reqs)),
-           "decode_steps": steps, "prefills": prefills,
-           "preemptions": st["preemptions"], "launches": launches,
-           "launches_per_decode_step": {
-               "fused_decode_step": L, "fused_layer_mlp": L,
-               "rms_norm": L + 1},
-           "decode_tokens": st["decode_tokens"],
-           "decode_tokens_per_s": eng.decode_tokens_per_s,
-           "decode_time_s": st["decode_time_s"],
-           "prefill_time_s": st["prefill_time_s"],
-           "mean_ttft_s": statistics.mean(r.ttft_s for r in reqs),
-           "wall_s": wall, "init_params_s": t_init,
-           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
-    emit(res)
-    phase_profile(torch, np, eng, Request)
-    phase_sampler(torch, eng)
-    del eng, params
+    emit({"phase": "serve", "model": "llama3_8b", "layers": L,
+          "kv_quant": kv_quant, "requests": len(reqs),
+          "sampled": sum(r.temperature > 0 for r in reqs),
+          "prompt_tokens": int(sum(len(r.prompt_ids) for r in reqs)),
+          "decode_steps": steps, "prefills": prefills,
+          "preemptions": st["preemptions"], "launches": launches,
+          "launches_per_decode_step": {decode: L, "fused_layer_mlp": L,
+                                       "rms_norm": L + 1},
+          "decode_tokens": st["decode_tokens"],
+          "decode_tokens_per_s": eng.decode_tokens_per_s,
+          "decode_time_s": st["decode_time_s"],
+          "prefill_time_s": st["prefill_time_s"],
+          "mean_ttft_s": statistics.mean(r.ttft_s for r in reqs),
+          "wall_s": wall, "init_params_s": t_init,
+          "kv_pool_gb": sum(t.numel() * t.element_size() for pool in
+                            (eng.cache_k, eng.cache_v) for t in
+                            (pool.values() if isinstance(pool, dict)
+                             else [pool])) / 1e9,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    phase_profile(torch, np, eng, Request, decode)
+    if kv_quant is None:
+        phase_sampler(torch, eng)
+    del eng
     torch.cuda.empty_cache()
     return launches
 
 
-#: device-kernel name fragments -> the layer they belong to
-_KERNEL_GROUPS = (("fused_decode", "fused_decode_step"),
-                  ("combine_kernel", "fused_decode_step"),
+def phase_serve(torch, np) -> tuple[dict, dict]:
+    """Llama-3-8B at full width and depth (random bf16 weights from a seed)
+    serves the 12 requests on fp pools, then on int8 pools (the fused
+    requantizing decode step), from the same weights."""
+    from paddle_tpu_torch.models import llama
+
+    cfg = llama.LlamaConfig.llama3_8b()
+    t0 = time.perf_counter()
+    params = llama.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    fp = _serve_llama(torch, np, cfg, params, None, t_init)
+    q8 = _serve_llama(torch, np, cfg, params, "int8", t_init)
+    del params
+    torch.cuda.empty_cache()
+    return fp, q8
+
+
+#: device-kernel name fragments -> the layer they belong to (the split-K
+#: combine kernel goes with the decode kernel the profiled engine runs)
+_KERNEL_GROUPS = (("fused_quant_decode", "fused_quant_decode_step"),
+                  ("fused_decode", "fused_decode_step"),
+                  ("paged_walk", "paged_decode / flash_decode"),
                   ("mlp_partial", "fused_layer_mlp"),
                   ("mlp_reduce", "fused_layer_mlp"),
                   ("rms_norm_kernel", "rms_norm"),
@@ -435,11 +673,12 @@ _KERNEL_GROUPS = (("fused_decode", "fused_decode_step"),
                   ("nvjet", "matmul"))
 
 
-def phase_profile(torch, np, eng, Request) -> None:
+def phase_profile(torch, np, eng, Request, decode) -> None:
     """Where a full-depth decode step's time goes: torch.profiler over
-    four decode steps of eight 512-token requests (the engine of phase 4,
-    after its serve), device time summed by layer, and the device's busy
-    share of the steps' wall time."""
+    four decode steps of eight 512-token requests (the engine of phase 6,
+    after its serve), device time summed by layer (the split-K combine
+    kernel with ``decode``, the fused decode kernel it follows), and the
+    device's busy share of the steps' wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     rng = np.random.default_rng(7)
@@ -470,14 +709,15 @@ def phase_profile(torch, np, eng, Request) -> None:
             continue
         total += dev_us
         name = evt.key.lower()
-        group = next((g for frag, g in _KERNEL_GROUPS if frag in name),
-                     "other")
+        group = decode if "combine_kernel" in name else next(
+            (g for frag, g in _KERNEL_GROUPS if frag in name), "other")
         groups[group] = groups.get(group, 0.0) + dev_us
         if group == "other":
             other[evt.key[:60]] = dev_us / steps / 1e3
     while eng.step() or eng._queue:  # finish the profiled requests
         pass
-    emit({"phase": "profile", "decode_steps": steps, "batch": eng.max_batch,
+    emit({"phase": "profile", "kv_quant": eng.kv_quant,
+          "decode_steps": steps, "batch": eng.max_batch,
           "context": 512, "wall_ms_per_step": wall / steps * 1e3,
           "device_ms_per_step": ({g: v / steps / 1e3
                                   for g, v in sorted(groups.items())}
@@ -536,94 +776,148 @@ def phase_sampler(torch, eng) -> None:
     emit({"phase": "sampler", "batch": B, "vocab": V, **res})
 
 
-def phase_end_to_end(torch, np) -> None:
-    """4 full-width layers, the same greedy requests with kernels and with
-    every kernel disabled; chunk 1 so every step's logits are seen."""
+#: the decode arms of each pool kind: label -> (switch tokens, the decode
+#: kernel the arm must launch); "plain" launches no kernel
+ARMS = {None: (("fused", None, "fused_decode_step"),
+               ("split_k", "fused_decode_step", "flash_decode"),
+               ("sequential", "fused_decode_step,flash_decode",
+                "paged_decode"),
+               ("plain", "all", None))}
+for _q in ("int8", "int4"):
+    ARMS[_q] = (("fused", None, "fused_quant_decode_step"),
+                ("split_k", "fused_quant_append", "flash_decode"),
+                ("sequential", "fused_quant_append,flash_decode",
+                 "paged_decode"),
+                ("plain", "all", None))
+
+
+def _serve_greedy(torch, np, eng, Request, cfg) -> tuple:
+    """The 10 greedy requests; returns them, each one's top-2 logit gaps
+    per emitted token, and the first decode step's logits of the seated
+    lanes (chunk 1, so every step's logits are seen)."""
+    from paddle_tpu_torch.ops import kernels
+
+    reqs = [r for r in make_requests(Request, np, 12, cfg.vocab_size,
+                                     sampled=2, seed=0)
+            if r.temperature == 0.0]
+    for r in reqs:
+        eng.add_request(r)
+    kernels.reset_counters()
+    gaps = {r.rid: [] for r in reqs}
+    first = None
+    while True:
+        seated = [(s, r) for s, r in enumerate(eng._slot_req)]
+        if not eng.step() and not eng._queue:
+            break
+        if eng.last_logits is None:
+            continue
+        lg = eng.last_logits.float()
+        if first is None:
+            # the seated lanes of the first decode step (inactive lanes
+            # compute garbage that is never read)
+            rows = [s for s, r in enumerate(eng._slot_req) if r is not None]
+            first = lg[rows].clone()
+        top2 = lg.topk(2, dim=-1).values
+        gap = (top2[:, 0] - top2[:, 1]).cpu().tolist()
+        for s, r in enumerate(eng._slot_req):
+            if r is None and seated[s][1] is not None:
+                r = seated[s][1]
+            if r is not None and len(gaps[r.rid]) < len(r.output_ids):
+                gaps[r.rid].append(gap[s])
+    return reqs, gaps, first, dict(kernels.LAUNCHES)
+
+
+def phase_arms(torch, np) -> dict:
+    """4 full-width layers serve the same 10 greedy requests on every decode
+    arm of each pool kind (bf16, int8, int4): the fused step, the unfused
+    split-K and sequential walks the switches rebuild the engine on, and
+    every kernel off (``all``).  Each arm launches its own decode kernel and
+    no other; its first-step logits are within 0.125 of the plain arm's and
+    its greedy streams part from the plain arm's only after a near tie.
+    Returns the arms' decode-kernel launches summed over pool kinds."""
     from paddle_tpu_torch.inference.serving import (ContinuousBatchingEngine,
                                                     Request)
     from paddle_tpu_torch.models import llama
-    from paddle_tpu_torch.ops import kernels
 
     cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(),
                               num_hidden_layers=4)
     params = llama.init_params(cfg, seed=1, device="cuda")
     env = "PADDLE_TPU_TORCH_DISABLE_KERNELS"
-    # logits of the two runs: f32 sums in another order and bf16 roundings
-    # at other places through 4 layers; measured, then held to this bound
+    # logits of two arms: f32 sums in another order and bf16 roundings at
+    # other places through 4 layers; measured, then held to this bound
     logit_tol = 0.125
-    runs = {}
-    for label, disable in (("kernels", None), ("plain", "all")):
-        if disable is None:
+    totals = {k: 0 for k in DECODE_KERNELS}
+    summary = {}
+    for kvq, arms in ARMS.items():
+        runs = {}
+        for label, tokens, kernel in arms:
+            if tokens is None:
+                os.environ.pop(env, None)
+            else:
+                os.environ[env] = tokens
+            eng = ContinuousBatchingEngine(cfg, params, max_batch=8,
+                                           max_seq=2048, block_size=64,
+                                           kv_quant=kvq, device="cuda")
+            reqs, gaps, first, launches = _serve_greedy(torch, np, eng,
+                                                        Request, cfg)
             os.environ.pop(env, None)
-        else:
-            os.environ[env] = disable
-        reqs = [r for r in make_requests(Request, np, 12, cfg.vocab_size,
-                                         sampled=2, seed=0)
-                if r.temperature == 0.0]
-        eng = ContinuousBatchingEngine(cfg, params, max_batch=8,
-                                       max_seq=2048, block_size=64,
-                                       device="cuda")
-        for r in reqs:
-            eng.add_request(r)
-        kernels.reset_counters()
-        gaps = {r.rid: [] for r in reqs}
-        first = None
-        while True:
-            seated = [(s, r) for s, r in enumerate(eng._slot_req)]
-            if not eng.step() and not eng._queue:
-                break
-            if eng.last_logits is None:
+            decode = {k: launches[k] for k in DECODE_KERNELS}
+            if kernel is None:
+                check(not any(launches.values()),
+                      f"{kvq} plain arm launched no kernel: {launches}")
+            else:
+                check(decode[kernel] == cfg.num_hidden_layers
+                      * eng.stats["decode_steps"],
+                      f"{kvq} {label} arm: {kernel} every layer of every "
+                      f"step ({decode})")
+                check(not any(v for k, v in decode.items() if k != kernel),
+                      f"{kvq} {label} arm: no other decode kernel "
+                      f"({decode})")
+                check((launches["fused_layer_mlp"] > 0) == (label == "fused"),
+                      f"{kvq} {label} arm: the fused MLP rides the fused arm "
+                      f"only")
+                check(launches["rms_norm"] > 0,
+                      f"{kvq} {label} arm launched rms_norm")
+                totals[kernel] += decode[kernel]
+            runs[label] = (reqs, gaps, first, decode)
+            del eng
+        rp, gp, fp, _ = runs["plain"]
+        res = {}
+        for label, (rk, gk, fk, decode) in runs.items():
+            if label == "plain":
                 continue
-            lg = eng.last_logits.float()
-            if first is None:
-                # the seated lanes of the first decode step (inactive lanes
-                # compute garbage that is never read)
-                rows = [s for s, r in enumerate(eng._slot_req)
-                        if r is not None]
-                first = lg[rows].clone()
-            top2 = lg.topk(2, dim=-1).values
-            gap = (top2[:, 0] - top2[:, 1]).cpu().tolist()
-            after = eng._slot_req
-            for s, r in enumerate(after):
-                if r is None and seated[s][1] is not None:
-                    r = seated[s][1]
-                if r is not None and len(gaps[r.rid]) < len(r.output_ids):
-                    gaps[r.rid].append(gap[s])
-        os.environ.pop(env, None)
-        launches = {k: kernels.LAUNCHES[k] for k in SERVE_KERNELS}
-        if disable is None:
-            check(all(v > 0 for v in launches.values()),
-                  f"kernel run launched every serving kernel: {launches}")
-        else:
-            check(all(v == 0 for v in kernels.LAUNCHES.values()),
-                  f"plain run launched no kernel: {kernels.LAUNCHES}")
-        runs[label] = (reqs, gaps, first, launches)
-        del eng
-    (rk, gk, fk, lk), (rp, gp, fp, _) = runs["kernels"], runs["plain"]
-    d = (fk - fp).abs().max().item()
-    check(d <= logit_tol, f"first decode step logits within {logit_tol}")
-    agree = total = 0
-    diverged = []
-    for a, b in zip(rk, rp):
-        n = min(len(a.output_ids), len(b.output_ids))
-        i = next((j for j in range(n) if a.output_ids[j] != b.output_ids[j]),
-                 n)
-        agree += i
-        total += max(len(a.output_ids), len(b.output_ids))
-        if i < n:
-            gap = min(gk[a.rid][i], gp[b.rid][i])
-            diverged.append({"rid": a.rid, "token": i, "top2_gap": gap})
-            check(gap < logit_tol, f"rid {a.rid} diverged at token {i} "
-                                   f"only after a near tie (gap {gap})")
-    emit({"phase": "end_to_end", "layers": cfg.num_hidden_layers,
-          "first_step_logits_max_abs_diff": d, "logit_tolerance": logit_tol,
-          "greedy_tokens_agreeing": agree, "greedy_tokens": total,
-          "diverged": diverged, "kernel_launches": lk})
+            d = (fk - fp).abs().max().item()
+            check(d <= logit_tol, f"{kvq} {label}: first decode step logits "
+                                  f"within {logit_tol} of the plain arm")
+            agree = total = 0
+            diverged = []
+            for a, b in zip(rk, rp):
+                n = min(len(a.output_ids), len(b.output_ids))
+                i = next((j for j in range(n)
+                          if a.output_ids[j] != b.output_ids[j]), n)
+                agree += i
+                total += max(len(a.output_ids), len(b.output_ids))
+                if i < n:
+                    gap = min(gk[a.rid][i], gp[b.rid][i])
+                    diverged.append({"rid": a.rid, "token": i,
+                                     "top2_gap": gap})
+                    check(gap < logit_tol,
+                          f"{kvq} {label}: rid {a.rid} diverged at token {i} "
+                          f"only after a near tie (gap {gap})")
+            res[label] = {"first_step_logits_max_abs_diff": d,
+                          "greedy_tokens_agreeing": agree,
+                          "greedy_tokens": total, "diverged": diverged,
+                          "decode_launches": decode}
+        summary[kvq or "bf16"] = res
+        emit({"phase": "arms", "kv_quant": kvq,
+              "layers": cfg.num_hidden_layers, "logit_tolerance": logit_tol,
+              "against": "plain (PADDLE_TPU_TORCH_DISABLE_KERNELS=all)",
+              **res})
     del params
     torch.cuda.empty_cache()
+    return totals
 
 
-SERVE_KERNELS = ("rms_norm", "fused_decode_step", "fused_layer_mlp")
 FLASH_KERNELS = ("flash_attention_fwd", "flash_attention_dkv",
                  "flash_attention_dq")
 
@@ -1023,28 +1317,40 @@ def main() -> int:
     phase_build(kernels)
     measured = phase_kernels(torch)
     measured.update(phase_flash_kernels(torch))
-    launches = phase_serve(torch, np)
-    phase_end_to_end(torch, np)
+    # the paged kernels' line entries: their int8 numbers, the quantized
+    # serving path's pools
+    measured.update({k: v["int8"] for k, v in
+                     phase_paged_kernels(torch).items()})
+    launches, q8_launches = phase_serve(torch, np)
+    arm_launches = phase_arms(torch, np)
     train_launches = phase_train(torch, np)
-    launches.update({k: train_launches[k] for k in FLASH_KERNELS})
-    # rms_norm runs on both main paths: its launches in the serve and the
-    # train phase together
-    launches["rms_norm"] += train_launches["rms_norm"]
     phase_train_end_to_end(torch, np)
+    # each kernel's launches on the main paths that run it: the fp and the
+    # int8 serve, the decode arms (the unfused walks), the train step
+    for k in ("rms_norm", "fused_layer_mlp", "gumbel_noise",
+              "fused_quant_decode_step"):
+        launches[k] += q8_launches[k]
+    launches.update({k: arm_launches[k] for k in ("paged_decode",
+                                                  "flash_decode")})
+    launches.update({k: train_launches[k] for k in FLASH_KERNELS})
+    launches["rms_norm"] += train_launches["rms_norm"]
+    pa = "paddle_tpu/ops/pallas/paged_attention.py"
     fa = "paddle_tpu/ops/pallas/flash_attention.py"
     sources = {"rms_norm": ("rms_norm.cu", "paddle_tpu/ops/pallas/"
                                            "rms_norm.py:20"),
-               "fused_decode_step": ("fused_decode.cu", "paddle_tpu/ops/"
-                                     "pallas/paged_attention.py:1377"),
-               "fused_layer_mlp": ("fused_mlp.cu", "paddle_tpu/ops/pallas/"
-                                   "paged_attention.py:2020"),
+               "fused_decode_step": ("fused_decode.cu", f"{pa}:1377"),
+               "fused_layer_mlp": ("fused_mlp.cu", f"{pa}:2020"),
                "flash_attention_fwd": ("flash_fwd.cu", f"{fa}:173"),
                "flash_attention_dkv": ("flash_bwd.cu", f"{fa}:295"),
                "flash_attention_dq": ("flash_bwd.cu", f"{fa}:344"),
                # no TPU kernel: the reference's jax.random.categorical
                # draw, which XLA compiles into its decode program
                "gumbel_noise": ("gumbel.cu", "paddle_tpu/inference/"
-                                "serving.py:1246")}
+                                "serving.py:1246"),
+               "paged_decode": ("paged_decode.cu", f"{pa}:412"),
+               "flash_decode": ("paged_decode.cu", f"{pa}:594"),
+               "fused_quant_decode_step": ("fused_quant_decode.cu",
+                                           f"{pa}:1720")}
     line = []
     for name, (src, replaces) in sources.items():
         m = measured[name]

@@ -1,7 +1,8 @@
 """LLM inference (counterpart of ``paddle_tpu/inference/__init__.py``).
 
 This slice ports the cache-threading transformer body shared by the
-serving engine, :func:`transformer_apply`, and :func:`lm_head_logits`.
+serving engine, :func:`transformer_apply`, over fp or quantized KV pools,
+and :func:`lm_head_logits`.
 The reference's layer ``lax.scan`` is a Python loop over the stacked layer
 weights here; fp weights only (weight-only quantization comes later).
 """
@@ -17,8 +18,10 @@ def transformer_apply(cfg, params, x, cache_k, cache_v, write_fn, mask, cos,
                       sin, attend_fn=None, fused_fn=None, mlp_fused_fn=None):
     """Transformer body over per-layer KV caches.
 
-    ``cache_k``/``cache_v`` are the stacked pools ``[L, ...]``; layer ``l``
-    reads and writes the view ``cache_k[l]`` IN PLACE (the reference
+    ``cache_k``/``cache_v`` are the stacked pools ``[L, ...]``, or for
+    quantized pools ``{"q": codes [L, ...], "scale": scales [L, ...]}``
+    pairs; layer ``l`` reads and writes the view ``cache_k[l]`` (for a pair
+    ``{"q": codes[l], "scale": scales[l]}``) IN PLACE (the reference
     threads the pools through its scan functionally and donates them).
 
     ``write_fn(cache_layer, kv) -> (committed, attend_view)`` commits new
@@ -59,11 +62,16 @@ def transformer_apply(cfg, params, x, cache_k, cache_v, write_fn, mask, cos,
         out = torch.einsum("bngsS,bnSd->bsngd", p.to(v_all.dtype), v_all)
         return out.reshape(b, s, nh * hd)
 
+    def layer_view(cache, li):
+        if isinstance(cache, dict):
+            return {key: t[li] for key, t in cache.items()}
+        return cache[li]
+
     attend = attend_fn or attend
     layers = params["layers"]
     for li in range(cfg.num_hidden_layers):
         lp = {name: w[li] for name, w in layers.items()}
-        ck, cv = cache_k[li], cache_v[li]
+        ck, cv = layer_view(cache_k, li), layer_view(cache_v, li)
         xn = rms.rms_norm(x, lp["input_norm"], cfg.rms_norm_eps)
         q = (xn @ lp["wq"]).reshape(b, s, nh, hd)
         k = (xn @ lp["wk"]).reshape(b, s, nkv, hd)

@@ -1,28 +1,36 @@
-"""Continuous-batching serving engine, paged fp-KV subset (counterpart of
+"""Continuous-batching serving engine, paged subset (counterpart of
 ``paddle_tpu/inference/serving.py``).
 
 Ported: ``Request``, ``_bucket`` and the ``ContinuousBatchingEngine`` path
 ``serve`` -> ``add_request`` -> ``step`` -> ``_admit`` ->
-``_prefill_impl_paged`` -> ``_decode_one`` (fused hooks) ->
-``_sample_tokens``, with its block allocator (``_alloc_to``, ``_release``),
-preemption (``_preempt``, ``_ensure_growth``) and retirement.  Not ported
-yet (ROADMAP.md): the dense-cache mode, prefix cache, speculation, chunked
-prefill, KV-quantized pools, weight-only quant, tensor parallelism, the
-graceful fault ladder, metrics, the journal and async host runtime,
-snapshot/restore and the fleet.  Invalid requests therefore raise (the
-reference's ``PADDLE_TPU_GRACEFUL=0`` contract).
+``_prefill_impl_paged`` -> ``_decode_one`` -> ``_sample_tokens``, with
+its block allocator (``_alloc_to``, ``_release``), preemption
+(``_preempt``, ``_ensure_growth``) and retirement; fp or quantized KV
+pools (``kv_quant``); and the three decode arms of ``_decode_one``: the
+fused step (one kernel a layer, fp or quantized pools), and the unfused
+arm the ``fused_decode_step`` / ``fused_quant_append`` switches rebuild the
+engine on (an append, then the paged decode attention).  Not ported yet
+(ROADMAP.md): the dense-cache mode, prefix cache, speculation, chunked
+prefill, weight-only quant, tensor parallelism, the graceful fault ladder,
+metrics, the journal and async host runtime, snapshot/restore and the
+fleet.  Invalid requests therefore raise (the reference's
+``PADDLE_TPU_GRACEFUL=0`` contract).
 
 How the JAX engine's mechanisms map to PyTorch:
 
 - compiled programs become eager calls: the decode step is a Python loop
-  over layers whose per-layer work is two CUDA kernel launches (the fused
-  decode step and the fused MLP half) plus the rms_norm kernel and plain
-  matmuls;
+  over layers whose per-layer work on the fused arm is two CUDA kernel
+  launches (the fused decode step and the fused MLP half) plus the
+  rms_norm kernel and plain matmuls;
 - the donated KV pools become preallocated pool tensors
-  ``[L, num_blocks + 1, nkv, block_size, head_dim]`` updated IN PLACE.  The
-  last page is the SPILL page: dropped appends (inactive lanes, positions
-  past ``max_seq``) land there, and the allocator never hands it out.  The
-  port's decode path is always the fused one, so its pool always has it;
+  ``[L, num_blocks + 1, nkv, block_size, head_dim]`` updated IN PLACE
+  (quantized: int8 codes ``[..., head_dim]`` or packed int4
+  ``[..., head_dim // 2]`` with f32 scales ``[L, num_blocks + 1, nkv]``, a
+  ``{"q", "scale"}`` pair per pool as the reference's pytree).  The last
+  page is the SPILL page: dropped appends (inactive lanes, positions past
+  ``max_seq``) land there, and the allocator never hands it out.  The
+  reference grows it on the fused arm only; the port keeps it on every arm
+  (every read of it is masked);
 - the decode chunk's ``lax.scan`` becomes a loop of ``chunk`` steps whose
   chosen tokens feed back on the device; the host fetches the chunk's
   tokens once per ``step``;
@@ -46,6 +54,7 @@ import torch
 
 from .. import resolve_device
 from ..ops import decode_attention as _da
+from ..ops.kernels import kernel_disabled
 from ..ops.kernels import paged_attention as _pa
 from ..ops.kernels import rope as rope_mod
 from ..ops.kernels import sampling
@@ -85,11 +94,16 @@ class ContinuousBatchingEngine:
     ``cfg``/``params`` follow ``paddle_tpu_torch.models.llama`` (the
     reference's layout; ``utils/convert.py`` bridges a JAX parameter tree).
     ``device`` defaults to the CUDA card and must hold ``params``.
+    ``kv_quant``: None | 'int8' | 'int4' -- quantized KV pools (the
+    reference's ``paged=True`` mode, implied here): pages hold int8 codes
+    (int4 packs two a byte) with per-(page, kv head) f32 scales; every
+    attention read dequantizes, every append requantizes its page.
     """
 
     def __init__(self, cfg, params, max_batch: int = 8, max_seq: int = 512,
                  chunk: int = 1, block_size: int = 64,
-                 num_blocks: int | None = None, device=None):
+                 num_blocks: int | None = None, kv_quant: str | None = None,
+                 device=None):
         self.device = resolve_device(device)
         for leaf in [params["embed"], *params["layers"].values()]:
             if leaf.device != self.device:
@@ -115,10 +129,38 @@ class ContinuousBatchingEngine:
                              f"one full request ({self.max_blocks} blocks)")
         L = cfg.num_hidden_layers
         nkv, hd = cfg.num_key_value_heads, cfg.head_dim
+        if kv_quant is not None:
+            if kv_quant not in ("int8", "int4"):
+                raise ValueError(f"kv_quant must be None, 'int8' or "
+                                 f"'int4', got {kv_quant!r}")
+            if kv_quant == "int4" and hd % 2:
+                raise ValueError(f"kv_quant='int4' needs an even head_dim "
+                                 f"(got {hd}): two nibbles pack per byte")
+        self.kv_quant = kv_quant
+        # the decode arm, decided here as the reference decides it: the
+        # fused step unless a switch rebuilds the engine on the unfused arm
+        # (an append, then the paged decode attention, which still runs its
+        # kernels).  The fused MLP half rides the fused arm only.
+        self._fused = not (kernel_disabled("paged_attention")
+                           or kernel_disabled("fused_decode_step")
+                           or (kv_quant is not None
+                               and kernel_disabled("fused_quant_append")))
+        self._fused_mlp = self._fused and not kernel_disabled("fused_layer_mlp")
         nbp = self.num_blocks + 1                   # + the spill page
-        shape = (L, nbp, nkv, block_size, hd)
-        self.cache_k = torch.zeros(shape, dtype=cfg.dtype, device=self.device)
-        self.cache_v = torch.zeros(shape, dtype=cfg.dtype, device=self.device)
+        if kv_quant is None:
+            shape = (L, nbp, nkv, block_size, hd)
+            self.cache_k = torch.zeros(shape, dtype=cfg.dtype,
+                                       device=self.device)
+            self.cache_v = torch.zeros(shape, dtype=cfg.dtype,
+                                       device=self.device)
+        else:
+            hd_store = hd // 2 if kv_quant == "int4" else hd
+            shape = (L, nbp, nkv, block_size, hd_store)
+            self.cache_k, self.cache_v = (
+                {"q": torch.zeros(shape, dtype=torch.int8, device=self.device),
+                 "scale": torch.zeros(shape[:3], dtype=torch.float32,
+                                      device=self.device)}
+                for _ in range(2))
         cos, sin = rope_mod.rope_cos_sin(max_seq, hd, base=cfg.rope_theta,
                                          dtype=cfg.dtype, device=self.device)
         self._cos, self._sin = cos, sin             # [1, max_seq, hd]
@@ -153,13 +195,17 @@ class ContinuousBatchingEngine:
     def _decode_one(self, tokens, pos, active, table):
         """One batched decode step: tokens/pos [B] int64, active [B] bool,
         table [B, max_blocks] int32 (all on the device) -> logits [B, V].
-        Rope + the page append + split-K attention run as ONE fused kernel
-        launch per layer, the post-attention half as another; dropped
-        writes land on the spill page.  Inactive lanes compute garbage that
-        is never read."""
+        On the fused arm, rope + the page append (requantizing for
+        quantized pools) + split-K attention run as ONE kernel launch per
+        layer and the post-attention half as another.  The unfused arm
+        ropes, appends (a row scatter, or the requantized page append) and
+        attends through ``paged_decode_attention``.  Dropped writes land on
+        the spill page or nowhere; inactive lanes compute garbage that is
+        never read."""
         cfg = self.cfg
         B, S, bs = self.max_batch, self.max_seq, self.block_size
         nh, hd = cfg.num_attention_heads, cfg.head_dim
+        kvq = self.kv_quant
         x = self.params["embed"][tokens][:, None].to(cfg.dtype)   # [B, 1, h]
         writeable = active & (pos < S)
         safe_pos = torch.where(writeable, pos, torch.zeros_like(pos))
@@ -169,26 +215,65 @@ class ContinuousBatchingEngine:
         blk = table[lane, safe_pos // bs].long()
         spill = self.num_blocks
         wblk = torch.where(writeable, blk.clamp(max=spill),
-                           torch.full_like(blk, spill)).int()
-        lens_pre = safe_pos.int()   # append position; inactive lanes 0
-        wable = writeable.int()
+                           torch.full_like(blk, spill))
+        write = attend_fn = fused_fn = mlp_fused_fn = None
 
-        def fused_fn(q, k, v, ck, cv):
-            # q [B, 1, nh, hd] / k, v [B, 1, nkv, hd] PRE-rope
-            o, ck, cv = _da.fused_paged_decode_step(
-                q[:, 0], k[:, 0], v[:, 0], cos, sin, ck, cv, table, lens_pre,
-                wblk, wable)
-            return o.reshape(B, 1, nh * hd), ck, cv
+        if self._fused:
+            lens_pre = safe_pos.int()   # append position; inactive lanes 0
+            wblk_i, wable = wblk.int(), writeable.int()
 
-        def mlp_fused_fn(h_res, attn_y, lp):
-            h1, y = _pa.fused_layer_mlp(h_res[:, 0], attn_y[:, 0],
-                                        lp["post_norm"], lp["w_gate"],
-                                        lp["w_up"], lp["w_down"],
-                                        cfg.rms_norm_eps)
-            return h1[:, None], y[:, None]
+            def fused_fn(q, k, v, ck, cv):
+                # q [B, 1, nh, hd] / k, v [B, 1, nkv, hd] PRE-rope
+                if kvq is None:
+                    o, _, _ = _da.fused_paged_decode_step(
+                        q[:, 0], k[:, 0], v[:, 0], cos, sin, ck, cv, table,
+                        lens_pre, wblk_i, wable)
+                else:
+                    o, *_ = _da.fused_paged_quant_decode_step(
+                        q[:, 0], k[:, 0], v[:, 0], cos, sin, ck["q"],
+                        ck["scale"], cv["q"], cv["scale"], table, lens_pre,
+                        wblk_i, wable, kvq)
+                return o.reshape(B, 1, nh * hd), ck, cv
+        else:
+            off = safe_pos % bs
+            seq_now = (safe_pos + 1).int()  # incl. the token written now
+
+            def write(ck, k):
+                # k [B, 1, nkv, hd] roped.  Dropped lanes target the spill
+                # page and write its own bytes back
+                if kvq is not None:
+                    _pa.quant_append_decode(ck["q"], ck["scale"], k[:, 0],
+                                            wblk, off, writeable, kvq)
+                    return ck, ck
+                old = ck[wblk, :, off]
+                ck[wblk, :, off] = torch.where(writeable[:, None, None],
+                                               k[:, 0].to(ck.dtype), old)
+                return ck, ck
+
+            def attend_fn(q, k_pool, v_pool):
+                # q [B, 1, nh, hd] roped; sentinel table entries clamp to
+                # the spill page and are masked by seq_now
+                if kvq is None:
+                    o = _da.paged_decode_attention(q[:, 0], k_pool, v_pool,
+                                                   table, seq_now)
+                else:
+                    o = _da.paged_decode_attention(
+                        q[:, 0], k_pool["q"], v_pool["q"], table, seq_now,
+                        kv_quant=kvq, k_scale=k_pool["scale"],
+                        v_scale=v_pool["scale"])
+                return o.reshape(B, 1, nh * hd)
+
+        if self._fused_mlp:
+            def mlp_fused_fn(h_res, attn_y, lp):
+                h1, y = _pa.fused_layer_mlp(h_res[:, 0], attn_y[:, 0],
+                                            lp["post_norm"], lp["w_gate"],
+                                            lp["w_up"], lp["w_down"],
+                                            cfg.rms_norm_eps)
+                return h1[:, None], y[:, None]
 
         x, _, _ = transformer_apply(cfg, self.params, x, self.cache_k,
-                                    self.cache_v, None, None, None, None,
+                                    self.cache_v, write, None, cos[:, None],
+                                    sin[:, None], attend_fn=attend_fn,
                                     fused_fn=fused_fn,
                                     mlp_fused_fn=mlp_fused_fn)
         return lm_head_logits(cfg, self.params, x[:, -1])
@@ -255,24 +340,56 @@ class ContinuousBatchingEngine:
 
     def _prefill_impl_paged(self, ids, table_row, length, bucket):
         """Prefill into the slot's pages: prompt position j writes page
-        table_row[j // bs] offset j % bs; padding positions on unallocated
-        (sentinel) pages land on the spill page, masked from attention."""
+        table_row[j // bs] offset j % bs.  fp pools: padding positions on
+        unallocated (sentinel) pages land on the spill page, masked from
+        attention.  Quantized pools requantize each dirty page once, PAD
+        rows (j >= length) masked out: a garbage pad row in the prompt's
+        tail page would inflate that page's scale and coarsen its real
+        rows' codes for good."""
         cfg = self.cfg
         S, bs = self.max_seq, self.block_size
         nkv, hd = cfg.num_key_value_heads, cfg.head_dim
         j = torch.arange(bucket, device=self.device)
         row = table_row.long()
-        blk_j = row[j // bs]
-        off_j = j % bs
 
-        def write(ck, k):
-            # k [1, bucket, nkv, hd] -> each position into its page (in
-            # place); view = this slot's gathered pages, batch 1
-            ck[blk_j, :, off_j] = k[0]
-            view = ck[row].transpose(0, 1).reshape(1, nkv, S, hd)
-            return ck, view
+        if self.kv_quant is not None:
+            write = self._quant_rows_write(table_row[None], j[None],
+                                           ((j < length) & (j < S))[None])
+        else:
+            blk_j = row[j // bs]
+            off_j = j % bs
+
+            def write(ck, k):
+                # k [1, bucket, nkv, hd] -> each position into its page (in
+                # place); view = this slot's gathered pages, batch 1
+                ck[blk_j, :, off_j] = k[0]
+                view = ck[row].transpose(0, 1).reshape(1, nkv, S, hd)
+                return ck, view
 
         self._prefill_body(ids, length, bucket, write)
+
+    def _quant_rows_write(self, table, row_pos, valid):
+        """write_fn for a multi-row event (a prefill bucket) into quantized
+        pools: the page-batched requantize (``quant_append_rows``: only
+        dirty pages rewrite), then the dense attend's view, a dequantized
+        gather of the slot's pages in the model dtype (batch 1).  Sentinel
+        entries read the spill page, whose codes and scale stay zero, so
+        they read as zeros like the reference's fill."""
+        cfg = self.cfg
+        S = self.max_seq
+        nkv, hd = cfg.num_key_value_heads, cfg.head_dim
+        kvq = self.kv_quant
+        pages = table[0].long()
+
+        def write(ck, k):
+            _pa.quant_append_rows(ck["q"], ck["scale"], k, table, row_pos,
+                                  valid, kvq)
+            view = _pa._dequant_page_content(ck["q"][pages],
+                                             ck["scale"][pages], kvq)
+            view = view.transpose(0, 1).reshape(1, nkv, S, hd)
+            return ck, view.to(cfg.dtype)
+
+        return write
 
     # ---------------- block allocator (host control plane) ----------------
 

@@ -43,15 +43,24 @@ import torch
 
 #: the full opt-out vocabulary of ``PADDLE_TPU_TORCH_DISABLE_KERNELS``: the
 #: port's kernel dispatch sites plus 'all' (counterpart of
-#: ``ops/pallas/__init__.py``'s KNOWN_KERNELS)
+#: ``ops/pallas/__init__.py``'s KNOWN_KERNELS).  The decode tokens mean what
+#: the reference's do: ``paged_attention`` sends decode attention to the
+#: gather oracle; ``flash_decode`` turns the split-K walk into the
+#: sequential one; ``fused_decode_step`` (both pool kinds) and
+#: ``fused_quant_append`` (quantized pools) are read when the serving
+#: engine is built and rebuild it on the unfused decode arm.
 KNOWN_KERNELS = frozenset({"all", "flash_attention", "rms_norm",
+                           "paged_attention", "flash_decode",
                            "fused_decode_step", "fused_layer_mlp",
-                           "gumbel_noise"})
+                           "fused_quant_append", "gumbel_noise"})
 
-#: kernel name -> launches made by its wrapper
+#: kernel name -> launches made by its wrapper.  ``paged_decode`` is the
+#: sequential walk; ``flash_decode``, ``fused_decode_step`` and
+#: ``fused_quant_decode_step`` count a walk and its combine launch as one.
 LAUNCHES = {"rms_norm": 0, "fused_decode_step": 0, "fused_layer_mlp": 0,
             "flash_attention_fwd": 0, "flash_attention_dkv": 0,
-            "flash_attention_dq": 0, "gumbel_noise": 0}
+            "flash_attention_dq": 0, "gumbel_noise": 0, "paged_decode": 0,
+            "flash_decode": 0, "fused_quant_decode_step": 0}
 #: kernel name -> dispatches that took the plain PyTorch version
 PLAIN_CALLS = {name: 0 for name in LAUNCHES}
 
@@ -91,15 +100,16 @@ def kernel_disabled(name: str) -> bool:
 
 
 def use_kernel(name: str, *tensors: torch.Tensor,
-               switch: str | None = None) -> bool:
+               switch: str | tuple[str, ...] | None = None) -> bool:
     """The dispatch rule every kernel module shares: False (and one plain
     call counted under ``name``) for CPU tensors or an explicitly disabled
     kernel; True for CUDA tensors; raises for any other device or a
-    CPU/CUDA mix.  ``switch`` is the :data:`KNOWN_KERNELS` token that turns
-    the kernel off (default: ``name``)."""
+    CPU/CUDA mix.  ``switch`` is the :data:`KNOWN_KERNELS` token (or
+    tokens, any of which) that turns the kernel off (default: ``name``)."""
     kinds = {t.device.type for t in tensors}
     if kinds == {"cuda"}:
-        if kernel_disabled(switch or name):
+        switches = (switch,) if isinstance(switch, str) else switch
+        if any(kernel_disabled(s) for s in switches or (name,)):
             PLAIN_CALLS[name] += 1
             return False
         return True
@@ -118,7 +128,8 @@ _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "build"
 SOURCES = ("rms_norm.cu", "fused_decode.cu", "fused_mlp.cu", "flash_fwd.cu",
-           "flash_bwd.cu", "gumbel.cu")
+           "flash_bwd.cu", "gumbel.cu", "paged_decode.cu",
+           "fused_quant_decode.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-lineinfo")
 _LIB_NAME = "libpaddle_tpu_torch_kernels.so"
@@ -209,6 +220,17 @@ _SIGNATURES = {
     "ptt_flash_dq": [_VP] * 10 + [_I] * 10 + [_F, _I, _VP],
     # seeds, pos, out, rows, n, stream
     "ptt_gumbel_noise": [_VP, _VP, _VP, _I, _I, _VP],
+    # q, key_pool, value_pool, k_scale, v_scale, tables, lens, out, b, nh,
+    # nkv, hd, nbp, bs, max_blocks, scale, dtype, kv_format, stream
+    "ptt_paged_decode": [_VP] * 8 + [_I] * 7 + [_F, _I, _I, _VP],
+    # q, key_pool, value_pool, k_scale, v_scale, tables, lens, m, l, acc,
+    # out, b, nh, nkv, hd, nbp, bs, max_blocks, S, P, scale, dtype,
+    # kv_format, stream
+    "ptt_flash_decode": [_VP] * 11 + [_I] * 9 + [_F, _I, _I, _VP],
+    # q, k_new, v_new, cos, sin, key_codes, value_codes, k_scale, v_scale,
+    # tables, lens, wblk, wable, m, l, acc, out, b, nh, nkv, hd, nbp, bs,
+    # max_blocks, S, P, scale, dtype, kv_format, stream
+    "ptt_fused_quant_decode": [_VP] * 17 + [_I] * 9 + [_F, _I, _I, _VP],
 }
 
 
@@ -228,6 +250,9 @@ def library():
 
 #: dtype codes the C entry points take
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+#: KV pool storage codes the paged-attention entry points take (csrc/
+#: paged.cuh KVFormat): the q dtype, int8 codes, packed int4 codes
+KV_FORMAT_CODE = {None: 0, "int8": 1, "int4": 2}
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

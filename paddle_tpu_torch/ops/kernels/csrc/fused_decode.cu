@@ -30,8 +30,8 @@
 //    entry clips to [0, nbp - 1], so a sentinel entry reads the SPILL page;
 //  - double-buffers the page tiles: while it scores page j, cp.async copies
 //    page j + 1's K and V (16-byte chunks) into the other buffer.  Tile rows
-//    are padded by 8 elements so the score loop's 8-byte row reads from 16
-//    different rows hit 16 different bank pairs;
+//    are padded by 16 bytes so the score loop's 8-byte bf16 row reads from
+//    the 8 rows of a half-warp hit 8 different bank groups;
 //  - on the write page (j == lens / bs): a writeable lane inserts the roped
 //    k row and the raw v row into its tiles BEFORE the score dot and
 //    commits that row to the pool page `wblk` in place; a lane with
@@ -40,79 +40,21 @@
 //    Several dropped lanes write the same zeros to the spill page, and
 //    other dropped lanes may read it meanwhile: a benign race, since every
 //    writer writes zeros and a dropped lane's output is discarded;
-//  - scores only the live columns (< lens + 1) of each page: two adjacent
-//    lanes share one column, each summing half of head_dim for every row of
-//    the head group, one shuffle to finish;
+//  - scores only the live columns (< lens + 1) of each page (paged.cuh's
+//    `page_update`, shared with the unfused and the quantized decode):
+//    two adjacent lanes share one column, each summing half of head_dim
+//    for every row of the head group, one shuffle to finish;
 //  - emits its raw partial (m, l, acc); an empty shard emits m = -1e30,
 //    l = 0, acc = 0.
 // A second small kernel merges the S partials of each (slot, kv head) with
 // the exact log-sum-exp of `_flash_combine` and writes the output in the
 // input dtype.
 // Not yet used: tensor cores (a 4-row head group is too small a tile), TMA.
-#include "common.cuh"
+#include "paged.cuh"
 
 namespace {
 
-constexpr float kNegInf = -1e30f;
-constexpr int kMaxRep = 8;  // q heads per kv head a launch takes
-constexpr int kPad = 8;     // tile row padding (elements)
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// four consecutive elements as f32
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* o) {
-  const uint2 v = *reinterpret_cast<const uint2*>(p);
-  o[0] = __uint_as_float(v.x << 16);
-  o[1] = __uint_as_float(v.x & 0xffff0000u);
-  o[2] = __uint_as_float(v.y << 16);
-  o[3] = __uint_as_float(v.y & 0xffff0000u);
-}
-__device__ __forceinline__ void load4(const float* p, float* o) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  o[0] = v.x;
-  o[1] = v.y;
-  o[2] = v.z;
-  o[3] = v.w;
-}
-
-template <typename T>
-__device__ __forceinline__ float rope_elem(const T* __restrict__ x, int d,
-                                           int half, float c, float s) {
-  // x * cos + rotate_half(x) * sin, every op rounded to T (PyTorch's eager
-  // arithmetic in dtype T); negation is exact
-  const float xd = ptt::to_f32(x[d]);
-  const float rot =
-      d < half ? -ptt::to_f32(x[d + half]) : ptt::to_f32(x[d - half]);
-  return ptt::round_to<T>(ptt::round_to<T>(xd * c) +
-                          ptt::round_to<T>(rot * s));
-}
-
-// copy one page's K and V tiles (bs rows of hd elements, contiguous in the
-// pool) into padded shared tiles, 16 bytes a cp.async
-template <typename T>
-__device__ __forceinline__ void load_page(T* kt, T* vt, const T* ksrc,
-                                          const T* vsrc, int bs, int hd,
-                                          int ld) {
-  constexpr int E = 16 / sizeof(T);
-  const int per_row = hd / E;
-  for (int i = threadIdx.x; i < bs * per_row; i += blockDim.x) {
-    const int row = i / per_row, col = (i % per_row) * E;
-    cp_async16(kt + row * ld + col, ksrc + (size_t)row * hd + col);
-    cp_async16(vt + row * ld + col, vsrc + (size_t)row * hd + col);
-  }
-  cp_async_commit();
-}
+using namespace ptt;
 
 template <typename T>
 __global__ void fused_decode_kernel(
@@ -126,8 +68,8 @@ __global__ void fused_decode_kernel(
     int max_blocks, int S, int P, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int rep = nh / nkv;
-  const int ld = hd + kPad;
-  T* tiles = reinterpret_cast<T*>(smem);                 // [2][2][bs][ld]
+  const int row_bytes = hd * (int)sizeof(T), ld = row_bytes + kRowPad;
+  unsigned char* tiles = smem;                           // [2][2][bs][ld]
   float* qs = reinterpret_cast<float*>(tiles + 4 * bs * ld);  // [rep][hd]
   float* pt = qs + rep * hd;                             // [bs][kMaxRep]
   float* ms = pt + bs * kMaxRep;                         // [rep]
@@ -136,7 +78,6 @@ __global__ void fused_decode_kernel(
 
   const int b = blockIdx.x, h = blockIdx.y, s = blockIdx.z;
   const int d = threadIdx.x;  // blockDim.x == hd
-  const int lane = d & 31, warp = d >> 5, nwarps = blockDim.x >> 5;
   const int half = hd / 2;
   const int len_pre = lens[b];
   const int length = len_pre + 1;  // the appended token included
@@ -146,19 +87,21 @@ __global__ void fused_decode_kernel(
   const size_t page_elems = (size_t)bs * hd;
   const int j0 = s * P;
   const int j1 = min((s + 1) * P, (length + bs - 1) / bs);  // live pages
+  const unsigned char* kp = reinterpret_cast<const unsigned char*>(kpool);
+  const unsigned char* vp = reinterpret_cast<const unsigned char*>(vpool);
 
-  auto page_base = [&](int j) {
+  auto page_base = [&](int j) {  // byte offset of page j's (page, h) tile
     const int col = min(j, max_blocks - 1);
     const int page = min(max(tables[(size_t)b * max_blocks + col], 0), nbp - 1);
-    return ((size_t)page * nkv + h) * page_elems;
+    return ((size_t)page * nkv + h) * page_elems * sizeof(T);
   };
   if (j0 < j1) {
     const size_t base = page_base(j0);
-    load_page(tiles, tiles + bs * ld, kpool + base, vpool + base, bs, hd, ld);
+    load_page(tiles, tiles + bs * ld, kp + base, vp + base, bs, row_bytes, ld);
   }
 
-  const float c = ptt::to_f32(cos[(size_t)b * hd + d]);
-  const float sn = ptt::to_f32(sin[(size_t)b * hd + d]);
+  const float c = to_f32(cos[(size_t)b * hd + d]);
+  const float sn = to_f32(sin[(size_t)b * hd + d]);
   for (int r = 0; r < rep; ++r) {
     const T* qrow = q + ((size_t)b * nh + (size_t)h * rep + r) * hd;
     qs[r * hd + d] = rope_elem(qrow, d, half, c, sn);
@@ -168,7 +111,7 @@ __global__ void fused_decode_kernel(
     ls[d] = 0.f;
   }
   const size_t row_off = ((size_t)b * nkv + h) * hd;
-  const T k_roped = ptt::from_f32<T>(rope_elem(k_new + row_off, d, half, c, sn));
+  const T k_roped = from_f32<T>(rope_elem(k_new + row_off, d, half, c, sn));
   const T v_raw = v_new[row_off + d];
   float acc[kMaxRep];
 #pragma unroll
@@ -176,12 +119,12 @@ __global__ void fused_decode_kernel(
 
   for (int j = j0; j < j1; ++j) {
     const int buf = (j - j0) & 1;
-    T* kt = tiles + (size_t)buf * 2 * bs * ld;
-    T* vt = kt + bs * ld;
+    unsigned char* kt = tiles + (size_t)buf * 2 * bs * ld;
+    unsigned char* vt = kt + bs * ld;
     if (j + 1 < j1) {  // prefetch the next page into the other buffer
-      T* kn = tiles + (size_t)(buf ^ 1) * 2 * bs * ld;
+      unsigned char* kn = tiles + (size_t)(buf ^ 1) * 2 * bs * ld;
       const size_t base = page_base(j + 1);
-      load_page(kn, kn + bs * ld, kpool + base, vpool + base, bs, hd, ld);
+      load_page(kn, kn + bs * ld, kp + base, vp + base, bs, row_bytes, ld);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
@@ -190,8 +133,8 @@ __global__ void fused_decode_kernel(
     if (j == wpage) {
       const size_t wbase = ((size_t)wb * nkv + h) * page_elems;
       if (on) {
-        kt[wrow * ld + d] = k_roped;
-        vt[wrow * ld + d] = v_raw;
+        reinterpret_cast<T*>(kt + wrow * ld)[d] = k_roped;
+        reinterpret_cast<T*>(vt + wrow * ld)[d] = v_raw;
         kpool[wbase + (size_t)wrow * hd + d] = k_roped;
         vpool[wbase + (size_t)wrow * hd + d] = v_raw;
       } else {
@@ -206,69 +149,8 @@ __global__ void fused_decode_kernel(
       }
       __syncthreads();
     }
-    const int ncol = min(bs, length - j * bs);  // live columns of this page
-    // scores: lanes 2t and 2t+1 share column t, interleaving 4-element
-    // chunks of head_dim.  The loop bound is uniform over the block, so
-    // every lane reaches the shuffle; lanes past the live columns idle.
-    for (int t0 = 0; t0 < ncol; t0 += blockDim.x >> 1) {
-      const int t = t0 + (d >> 1), hf = d & 1;
-      const bool live = t < ncol;
-      float sc[kMaxRep];
-#pragma unroll
-      for (int r = 0; r < kMaxRep; ++r) sc[r] = 0.f;
-      for (int e = 4 * hf; live && e < hd; e += 8) {
-        float kv[4];
-        load4(kt + t * ld + e, kv);
-#pragma unroll
-        for (int r = 0; r < kMaxRep; ++r) {
-          if (r < rep) {
-            const float4 qv = *reinterpret_cast<const float4*>(&qs[r * hd + e]);
-            sc[r] += qv.x * kv[0] + qv.y * kv[1] + qv.z * kv[2] + qv.w * kv[3];
-          }
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < kMaxRep; ++r) {
-        sc[r] += __shfl_xor_sync(0xffffffffu, sc[r], 1);
-        if (live && hf == 0 && r < rep) pt[t * kMaxRep + r] = sc[r] * scale;
-      }
-    }
-    __syncthreads();
-    for (int r = warp; r < rep; r += nwarps) {
-      float mx = kNegInf;
-      for (int t = lane; t < ncol; t += 32) mx = fmaxf(mx, pt[t * kMaxRep + r]);
-      mx = ptt::warp_max(mx);
-      const float m_prev = ms[r];
-      const float m_new = fmaxf(m_prev, mx);
-      float psum = 0.f;
-      for (int t = lane; t < ncol; t += 32) {
-        const float p = expf(pt[t * kMaxRep + r] - m_new);
-        pt[t * kMaxRep + r] = p;
-        psum += p;
-      }
-      psum = ptt::warp_sum(psum);
-      if (lane == 0) {
-        const float alpha = m_prev > 0.5f * kNegInf ? expf(m_prev - m_new) : 0.f;
-        ls[r] = alpha * ls[r] + psum;
-        al[r] = alpha;
-        ms[r] = m_new;
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int r = 0; r < kMaxRep; ++r)
-      if (r < rep) acc[r] *= al[r];
-    for (int t = 0; t < ncol; ++t) {
-      const float v = ptt::to_f32(vt[t * ld + d]);
-      const float4 pa = *reinterpret_cast<const float4*>(&pt[t * kMaxRep]);
-      const float4 pb = *reinterpret_cast<const float4*>(&pt[t * kMaxRep + 4]);
-      const float pv[kMaxRep] = {pa.x, pa.y, pa.z, pa.w, pb.x, pb.y, pb.z, pb.w};
-#pragma unroll
-      for (int r = 0; r < kMaxRep; ++r)
-        if (r < rep) acc[r] += pv[r] * v;
-    }
-    __syncthreads();  // the next page's scores overwrite pt; its prefetch
-                      // targets the buffer read above
+    page_update<T, kFp>(kt, vt, ld, 1.f, 1.f, qs, pt, ms, ls, al, acc, rep,
+                        hd, min(bs, length - j * bs), scale);
   }
   __syncthreads();  // ms/ls of an empty shard are set before the emit
 
@@ -280,32 +162,6 @@ __global__ void fused_decode_kernel(
   }
 }
 
-// Exact log-sum-exp merge of the S partials of each (slot, kv head), as
-// `_flash_combine`: out = sum_s w_s acc_s / sum_s w_s l_s with
-// w_s = exp(m_s - max m) (0 for an empty shard); all shards empty -> 0.
-template <typename T>
-__global__ void combine_kernel(const float* __restrict__ m,
-                               const float* __restrict__ l,
-                               const float* __restrict__ acc,
-                               T* __restrict__ out, int nkv, int rep, int hd,
-                               int S) {
-  const int b = blockIdx.x, h = blockIdx.y, d = threadIdx.x;
-  const size_t base = ((size_t)b * nkv + h) * S;
-  for (int r = 0; r < rep; ++r) {
-    float m_max = kNegInf;
-    for (int s = 0; s < S; ++s) m_max = fmaxf(m_max, m[(base + s) * rep + r]);
-    float l_tot = 0.f, a_tot = 0.f;
-    for (int s = 0; s < S; ++s) {
-      const float ms = m[(base + s) * rep + r];
-      const float w = ms > 0.5f * kNegInf ? expf(ms - m_max) : 0.f;
-      l_tot += w * l[(base + s) * rep + r];
-      a_tot += w * acc[((base + s) * rep + r) * hd + d];
-    }
-    out[(((size_t)b * nkv + h) * rep + r) * hd + d] =
-        ptt::from_f32<T>(a_tot / (l_tot == 0.f ? 1.f : l_tot));
-  }
-}
-
 template <typename T>
 int launch(const void* q, const void* k_new, const void* v_new,
            const void* cos, const void* sin, void* kpool, void* vpool,
@@ -314,9 +170,7 @@ int launch(const void* q, const void* k_new, const void* v_new,
            int nh, int nkv, int hd, int nbp, int bs, int max_blocks, int S,
            int P, float scale, cudaStream_t stream) {
   const int rep = nh / nkv;
-  const size_t smem = 4 * (size_t)bs * (hd + kPad) * sizeof(T) +
-                      ((size_t)rep * hd + (size_t)bs * kMaxRep + 3 * rep) *
-                          sizeof(float);
+  const size_t smem = walk_smem(bs, hd * (int)sizeof(T) + kRowPad, rep, hd);
   auto kernel = fused_decode_kernel<T>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

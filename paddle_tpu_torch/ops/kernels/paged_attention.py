@@ -1,32 +1,44 @@
 """Paged-attention decode kernels, decode half and MLP half (counterpart of
 ``paddle_tpu/ops/pallas/paged_attention.py``).
 
-Ported so far: the fused decode step (rope + KV-page append + split-K
-attention, ``csrc/fused_decode.cu``) and the fused post-attention MLP half
-(residual + RMSNorm + SwiGLU, ``csrc/fused_mlp.cu``), each with its plain
-PyTorch version beside it, plus the helpers they share with the reference:
-``kernel_supported``, ``flash_decode_shards``, ``paged_attention_reference``,
-``fused_mlp_block_cols`` and ``fused_mlp_supported``.  The split-K partials
-are merged on the card by the kernel's second launch (the reference's
-``_flash_combine``); the plain version attends over the whole row at once.  The unfused decode kernels, verify, chunked
-prefill and the quantized fused step are still to port (ROADMAP.md).
+Ported: the quantized-KV storage helpers and the requantized appends
+(plain PyTorch, XLA in the reference); the gather oracle
+``paged_attention_reference`` for fp, int8 and packed-int4 pools; the
+unfused decode attention ``paged_attention_decode`` over the sequential
+walk (``csrc/paged_decode.cu`` ``ptt_paged_decode``) and the split-K walk
+(``ptt_flash_decode``, its partials merged on the card by a second launch,
+the reference's ``_flash_combine``, whose plain version is here too); the
+fused decode step for fp pools (rope + KV-page append + split-K attention,
+``csrc/fused_decode.cu``) and for int8 / packed-int4 pools (rope +
+requantized append + dequant-on-read attention,
+``csrc/fused_quant_decode.cu``); and the fused post-attention MLP half
+(residual + RMSNorm + SwiGLU, ``csrc/fused_mlp.cu``).  Each kernel has its
+plain PyTorch version beside it, with the helpers they share with the
+reference: ``kernel_supported``, ``flash_decode_shards``,
+``fused_mlp_block_cols`` and ``fused_mlp_supported``.  Verify and chunked
+prefill are still to port (ROADMAP.md).
 
 Layouts are the reference's: pools ``[nbp, nkv, block_size, head_dim]``
 (in the serving engine ``nbp = num_blocks + 1``, the last page being the
-SPILL page dropped writes land on), block tables ``[b, max_blocks]``
-int32.  Unlike JAX, PyTorch updates the pools IN PLACE: the fused decode
-step writes the appended row straight into the pool tensors it is given
-and returns them.
+SPILL page dropped writes land on), quantized pools int8
+``[nbp, nkv, block_size, head_dim]`` or, packed two int4 codes a byte,
+``[..., head_dim // 2]``, with per-(page, kv head) f32 scales
+``[nbp, nkv]``; block tables ``[b, max_blocks]`` int32.  Unlike JAX,
+PyTorch updates the pools IN PLACE: the appends and the fused decode steps
+write straight into the pool (and scale) tensors they are given and return
+them.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
 
-from . import (DTYPE_CODE, LAUNCHES, check_cuda_tensor, check_launch,
-               library, ptr, stream_ptr, use_kernel)
+from . import (DTYPE_CODE, KV_FORMAT_CODE, LAUNCHES, check_cuda_tensor,
+               check_launch, kernel_disabled, library, ptr, stream_ptr,
+               use_kernel)
 from .rms_norm import rms_norm_ref
 from .rope import apply_rotary_pos_emb
 from .swiglu import swiglu
@@ -41,10 +53,11 @@ _FLASH_MAX_SHARDS = 8
 
 def kernel_supported(num_heads: int, num_kv_heads: int, head_dim: int,
                      block_size: int) -> bool:
-    """Shapes the paged decode kernels take.  The CUDA kernel runs one
-    thread per head_dim element (head_dim a multiple of 32 up to 1024) and
-    keeps up to 8 q heads per kv head in registers.  (The operational
-    opt-outs are the dispatch's: ``ops/kernels.use_kernel``.)"""
+    """Shapes the paged decode kernels take.  Each CUDA kernel runs one
+    thread per head_dim element (head_dim a multiple of 32 up to 1024,
+    which also keeps a packed-int4 row a multiple of 16 bytes for the page
+    copies) and keeps up to 8 q heads per kv head in registers.  (The
+    operational opt-outs are the dispatch's: ``ops/kernels.use_kernel``.)"""
     return (head_dim % 32 == 0 and head_dim <= 1024
             and block_size % 8 == 0
             and num_heads % num_kv_heads == 0
@@ -61,31 +74,398 @@ def flash_decode_shards(max_blocks: int, num_shards: int | None = None) -> int:
     return max(1, min(int(num_shards), max_blocks))
 
 
+# ---------------------------------------------------------------------------
+# quantized-KV storage helpers (plain PyTorch: XLA in the reference)
+# ---------------------------------------------------------------------------
+
+_QUANT_BOUND = {"int8": 127.0, "int4": 7.0}
+
+
+def quantize_kv_cache(cache, mode: str):
+    """Quantize a ``[num_blocks, nkv, bs, hd]`` KV cache for dequant-on-read:
+    per-(page, kv head) symmetric absmax scales.  Returns ``(q, scale
+    [num_blocks, nkv] f32)``, q int8 for 'int8' or, for 'int4', adjacent
+    head-dim pairs packed two nibbles a byte into int8 ``[..., hd // 2]``
+    (element 2i in the low nibble, 2i+1 in the high one)."""
+    return _quant_encode_page(cache.float(), mode)
+
+
+def _unpack_int4(packed):
+    """``[..., hd // 2]`` nibble pairs (any integer dtype) -> f32
+    ``[..., hd]`` in [-7, 7]; arithmetic shifts sign-extend each nibble."""
+    p = packed.to(torch.int32)
+    lo = (p << 28) >> 28
+    hi = (p << 24) >> 28
+    both = torch.stack([lo, hi], dim=-1)
+    return both.reshape(*p.shape[:-1], p.shape[-1] * 2).float()
+
+
+def _dequant_page(raw, scale, kv_quant):
+    """Stored KV -> f32 (dequantized with ``scale`` when ``kv_quant``)."""
+    if kv_quant == "int8":
+        return raw.float() * scale
+    if kv_quant == "int4":
+        return _unpack_int4(raw) * scale
+    return raw.float()
+
+
+def dequantize_kv_cache(q, scale, mode: str, dtype=torch.float32):
+    """Inverse of :func:`quantize_kv_cache`."""
+    x = _unpack_int4(q) if mode == "int4" else q.float()
+    return (x * scale[:, :, None, None]).to(dtype)
+
+
+def _quant_encode_page(x, kv_quant: str):
+    """f32 page content ``[..., bs, hd]`` -> (codes ``[..., bs, hd_store]``
+    int8, scale ``[...]`` f32): scale = absmax * (1 / bound), codes =
+    clip(round(x / max(scale, 1e-10)), -bound, bound) (``torch.round``
+    rounds half to even, as ``jnp.round``).  The reference writes
+    ``absmax / bound``; its compiled programs (XLA, whose engines store the
+    pools) turn that division by a constant into a multiply by the f32
+    reciprocal, so the port multiplies too and stores the same bytes.  The
+    ONE encode every append path calls: the plain appends here and, in the
+    same arithmetic, the fused kernel's in-register requantize."""
+    bound = _QUANT_BOUND[kv_quant]
+    absmax = x.abs().amax(dim=(-2, -1))
+    scale = (absmax * (1.0 / bound)).float()
+    q = torch.round(x / scale.clamp(min=1e-10)[..., None, None]) \
+        .clamp(-bound, bound)
+    if kv_quant == "int8":
+        return q.to(torch.int8), scale
+    pairs = q.to(torch.int32).reshape(*q.shape[:-1], q.shape[-1] // 2, 2)
+    packed = (pairs[..., 0] & 0xF) | ((pairs[..., 1] & 0xF) << 4)
+    return packed.to(torch.int8), scale
+
+
+def _dequant_page_content(codes, scale, kv_quant: str):
+    """Inverse of :func:`_quant_encode_page` on page content: codes
+    ``[..., bs, hd_store]`` + scale ``[...]`` -> f32 ``[..., bs, hd]``."""
+    x = _unpack_int4(codes) if kv_quant == "int4" else codes.float()
+    return x * scale[..., None, None]
+
+
+def quant_append_decode(qpool, scale, rows, blk, off, writeable,
+                        kv_quant: str):
+    """Requantized single-row KV append into an int8 / packed-int4 pool,
+    IN PLACE: gather the write page, dequantize it with its old scale,
+    insert the row, recompute the page's scale, requantize, write page and
+    scale back.  The plain version of the fused quant kernel's append, and
+    the kill-switched decode arm's.
+
+    qpool [nbp, nkv, bs, hd_store] int8; scale [nbp, nkv] f32; rows
+    [b, nkv, hd] (the roped k or raw v row, any fp dtype); blk [b] physical
+    write page; off [b] row offset; writeable [b] -- 0 drops the append
+    (page and scale untouched), as does a page outside the pool.  Lanes
+    that write own distinct pages (the allocator's invariant); a dropped
+    lane writes its page's own bytes back, so nothing here waits for the
+    device to pick the lanes.  Returns ``(qpool, scale)``."""
+    nbp = qpool.shape[0]
+    blk = blk.long()
+    keep = writeable.bool() & (blk >= 0) & (blk < nbp)
+    pages = blk.clamp(0, nbp - 1)
+    old_q, old_s = qpool[pages], scale[pages]
+    deq = _dequant_page_content(old_q, old_s, kv_quant)
+    deq[torch.arange(len(pages), device=deq.device), :, off.long()] = \
+        rows.float()
+    codes, nsc = _quant_encode_page(deq, kv_quant)
+    qpool[pages] = torch.where(keep[:, None, None, None], codes, old_q)
+    scale[pages] = torch.where(keep[:, None], nsc, old_s)
+    return qpool, scale
+
+
+def quant_append_rows(qpool, scale, rows, table, row_pos, valid,
+                      kv_quant: str):
+    """Requantized MULTI-row KV append (one write event: a prefill bucket)
+    into an int8 / packed-int4 pool, IN PLACE.  A slot's live rows are
+    consecutive positions, so the event touches at most ``(T-1)//bs + 2``
+    logical pages: only that window of each slot's table row is gathered
+    and dequantized, the rows inserted at their positions, the scales
+    recomputed, and ONLY the dirty pages (those that received a row) are
+    written back; clean pages keep their exact bytes.
+
+    qpool [nbp, nkv, bs, hd_store]; scale [nbp, nkv] f32; rows
+    [B, T, nkv, hd]; table [B, max_blocks] physical page ids; row_pos
+    [B, T] absolute position of each row; valid [B, T] -- rows with 0 are
+    dropped.  Returns ``(qpool, scale)``."""
+    nbp, bs = qpool.shape[0], qpool.shape[2]
+    B, maxblk = table.shape
+    T = rows.shape[1]
+    dev = qpool.device
+    nwin = min(maxblk, (T - 1) // bs + 2)
+    valid = valid.bool()
+    safe_pos = torch.where(valid, row_pos.long(), 0)
+    lblk, loff = safe_pos // bs, safe_pos % bs           # [B, T]
+    # window start: the slot's first live logical page (0 if none live)
+    lmin = torch.where(valid, lblk, maxblk).amin(dim=1)
+    p0 = torch.where(lmin == maxblk, 0, lmin)            # [B]
+    win = (p0[:, None] + torch.arange(nwin, device=dev)).clamp(0, maxblk - 1)
+    wtab = table.long().gather(1, win)                   # [B, nwin]
+    pages = wtab.clamp(0, nbp - 1)
+    deq = _dequant_page_content(qpool[pages], scale[pages], kv_quant)
+    wblk = torch.where(valid, lblk - p0[:, None], nwin)  # invalid rows drop
+    bi, ti = torch.nonzero(wblk < nwin, as_tuple=True)
+    deq[bi, wblk[bi, ti], :, loff[bi, ti]] = rows[bi, ti].float()
+    codes, nsc = _quant_encode_page(deq, kv_quant)
+    dirty = (wblk[:, :, None] == torch.arange(nwin, device=dev)).any(dim=1)
+    dirty &= (wtab >= 0) & (wtab < nbp)
+    qpool[wtab[dirty]] = codes[dirty]
+    scale[wtab[dirty]] = nsc[dirty]
+    return qpool, scale
+
+
+# ---------------------------------------------------------------------------
+# the gather oracle and the split-K combine
+# ---------------------------------------------------------------------------
+
+def _check_storage(name, q, key_cache, kv_quant, k_scale, v_scale) -> int:
+    """The reference's argument asserts (as ValueError); returns head_dim."""
+    if kv_quant not in (None, "int8", "int4"):
+        raise ValueError(f"{name}: kv_quant must be None, 'int8' or 'int4', "
+                         f"got {kv_quant!r}")
+    hd = q.shape[-1]
+    hd_store = key_cache.shape[-1]
+    if hd_store != (hd // 2 if kv_quant == "int4" else hd) or (
+            kv_quant == "int4" and hd % 2):
+        raise ValueError(f"{name}: pool head_dim {hd_store} does not store "
+                         f"q's {hd} as kv_quant={kv_quant!r}")
+    if kv_quant and (k_scale is None or v_scale is None):
+        raise ValueError(f"{name}: quantized KV pools need k_scale/v_scale")
+    return hd
+
+
+def _gather_kv(cache, cache_scale, pages, kv_quant):
+    """Pages ``[b, n]`` of one pool -> f32 ``[b, nkv, n * bs, hd]``: gather
+    first, then dequantize only what was gathered (dequantizing the whole
+    pool would materialise every page at full precision)."""
+    x = cache[pages]                              # [b, n, nkv, bs, hd_st]
+    if kv_quant:
+        x = _dequant_page(x, cache_scale[pages][..., None, None], kv_quant)
+    b, n, nkv, bs, hd = x.shape
+    return x.float().transpose(1, 2).reshape(b, nkv, n * bs, hd)
+
+
 def paged_attention_reference(q, key_cache, value_cache, block_tables,
-                              seq_lens, scale=None):
+                              seq_lens, scale=None, kv_quant=None,
+                              k_scale=None, v_scale=None):
     """The gather oracle: every slot's KV read out to max_blocks * bs, the
-    ragged tail masked.  q [b, nh, hd]; caches [nbp, nkv, bs, hd];
-    block_tables [b, max_blocks]; seq_lens [b].  Returns [b, nh, hd]; slots
-    with seq_len == 0 return zeros.  fp caches only in this slice."""
-    nbp, nkv, bs, hd = key_cache.shape
+    ragged tail masked.  q [b, nh, hd]; caches [nbp, nkv, bs, hd] (or
+    quantized storage per ``kv_quant`` with ``k_scale``/``v_scale``
+    [nbp, nkv] f32); block_tables [b, max_blocks]; seq_lens [b].  Returns
+    [b, nh, hd] in q's dtype; slots with seq_len == 0 return zeros."""
+    hd = _check_storage("paged_attention_reference", q, key_cache, kv_quant,
+                        k_scale, v_scale)
+    nbp, nkv = key_cache.shape[:2]
     b, nh, _ = q.shape
     rep = nh // nkv
-    S = block_tables.shape[1] * bs
     if scale is None:
         scale = 1.0 / math.sqrt(hd)
     safe = block_tables.long().clamp(0, nbp - 1)
-    k_seq = key_cache[safe].transpose(1, 2).reshape(b, nkv, S, hd)
-    v_seq = value_cache[safe].transpose(1, 2).reshape(b, nkv, S, hd)
+    k_seq = _gather_kv(key_cache, k_scale, safe, kv_quant)
+    v_seq = _gather_kv(value_cache, v_scale, safe, kv_quant)
+    S = k_seq.shape[2]
     qg = q.reshape(b, nkv, rep, hd)
-    logits = torch.einsum("bngd,bnsd->bngs", qg.float(), k_seq.float()) * scale
+    logits = torch.einsum("bngd,bnsd->bngs", qg.float(), k_seq) * scale
     cols = torch.arange(S, device=q.device)
     mask = cols[None, None, None, :] < seq_lens.long()[:, None, None, None]
     logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
     p = torch.softmax(logits, dim=-1)
     p = torch.where(seq_lens[:, None, None, None] > 0, p, torch.zeros_like(p))
-    out = torch.einsum("bngs,bnsd->bngd", p, v_seq.float())
+    out = torch.einsum("bngs,bnsd->bngd", p, v_seq)
     return out.reshape(b, nh, hd).to(q.dtype)
 
+
+def _flash_combine(m, l, acc):
+    """Log-sum-exp merge of per-shard partials: m/l [b, nkv, S, group, 1]
+    f32, acc [b, nkv, S, group, hd] f32 -> [b, nkv, group, hd].  Each
+    shard's contribution is rescaled to the global max, so the result is
+    the sequential walk's softmax; all shards empty (seq_len == 0) -> 0."""
+    m_max = m.amax(dim=2, keepdim=True)
+    w = torch.where(m > 0.5 * NEG_INF, torch.exp(m - m_max),
+                    torch.zeros_like(m))
+    l_tot = (w * l).sum(dim=2)
+    acc_tot = (w * acc).sum(dim=2)
+    return acc_tot / torch.where(l_tot == 0, torch.ones_like(l_tot), l_tot)
+
+
+def flash_decode_reference(q, key_cache, value_cache, block_tables, seq_lens,
+                           scale, num_shards, kv_quant=None, k_scale=None,
+                           v_scale=None):
+    """Plain version of the split-K decode.  Shard s attends the logical
+    pages [s * P, (s + 1) * P) (table column clamped to the table width,
+    page id to the pool, as ``_resolve_page``) over columns < seq_lens and
+    emits its raw partial (m, l, acc); a shard with no live column emits
+    m = -1e30, l = 0, acc = 0.  :func:`_flash_combine` merges the partials.
+    Returns [b, nh, hd] in q's dtype."""
+    b, nh, hd = q.shape
+    nbp, nkv, bs, _ = key_cache.shape
+    rep = nh // nkv
+    max_blocks = block_tables.shape[1]
+    S = num_shards
+    P = -(-max_blocks // S)
+    dev = q.device
+    j = torch.arange(S * P, device=dev)
+    pages = block_tables.long()[:, j.clamp(max=max_blocks - 1)] \
+        .clamp(0, nbp - 1)                                   # [b, S * P]
+    k = _gather_kv(key_cache, k_scale, pages, kv_quant)
+    v = _gather_kv(value_cache, v_scale, pages, kv_quant)
+    k = k.reshape(b, nkv, S, P * bs, hd)
+    v = v.reshape(b, nkv, S, P * bs, hd)
+    s = torch.einsum("bngd,bnstd->bnsgt", q.reshape(b, nkv, rep, hd).float(),
+                     k) * scale
+    cols = (j[:, None] * bs + torch.arange(bs, device=dev)).reshape(S, P * bs)
+    live = cols[None] < seq_lens.long()[:, None, None]       # [b, S, P*bs]
+    s = torch.where(live[:, None, :, None, :], s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1, keepdim=True)                         # [b,nkv,S,rep,1]
+    p = torch.where(s > 0.5 * NEG_INF, torch.exp(s - m), torch.zeros_like(s))
+    l = p.sum(dim=-1, keepdim=True)
+    acc = torch.einsum("bnsgt,bnstd->bnsgd", p, v)
+    return _flash_combine(m, l, acc).reshape(q.shape).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# unfused paged decode attention: the sequential and the split-K walk
+# ---------------------------------------------------------------------------
+
+def decode_shards(max_blocks: int, num_shards: int | None = None) -> int:
+    """The split-K fan-out a decode launch takes: 1 (the sequential walk)
+    under the ``flash_decode`` switch, which wins over an explicit
+    ``num_shards``, else :func:`flash_decode_shards`."""
+    if kernel_disabled("flash_decode"):
+        return 1
+    return flash_decode_shards(max_blocks, num_shards)
+
+
+def _check_walk(name, q, key_cache, value_cache, block_tables, seq_lens,
+                kv_quant, k_scale, v_scale):
+    """Wrapper-side validation of a paged walk's operands."""
+    b, nh, hd = q.shape
+    nbp, nkv, bs, hd_st = key_cache.shape
+    dt, dev = q.dtype, q.device
+    if dt not in DTYPE_CODE:
+        raise ValueError(f"{name}: dtype {dt} not supported")
+    if not kernel_supported(nh, nkv, hd, bs):
+        raise ValueError(f"{name}: unsupported shape nh={nh} nkv={nkv} "
+                         f"hd={hd} block_size={bs}")
+    pool_dt = torch.int8 if kv_quant else dt
+    check_cuda_tensor(f"{name} q", q, (b, nh, hd), dt, dev)
+    for pname, t in (("key_cache", key_cache), ("value_cache", value_cache)):
+        check_cuda_tensor(f"{name} {pname}", t, (nbp, nkv, bs, hd_st),
+                          pool_dt, dev)
+    if kv_quant:
+        for pname, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+            check_cuda_tensor(f"{name} {pname}", t, (nbp, nkv),
+                              torch.float32, dev)
+    check_cuda_tensor(f"{name} block_tables", block_tables,
+                      (b, block_tables.shape[1]), torch.int32, dev)
+    check_cuda_tensor(f"{name} seq_lens", seq_lens, (b,), torch.int32, dev)
+
+
+def _scale_ptrs(kv_quant, k_scale, v_scale):
+    if kv_quant:
+        return ptr(k_scale), ptr(v_scale)
+    return ctypes.c_void_p(0), ctypes.c_void_p(0)
+
+
+def paged_decode_cuda(q, key_cache, value_cache, block_tables, seq_lens,
+                      scale, kv_quant=None, k_scale=None, v_scale=None):
+    """Launch ``csrc/paged_decode.cu``'s sequential walk (one block per
+    slot and kv head); returns [b, nh, hd]."""
+    _check_walk("paged_decode", q, key_cache, value_cache, block_tables,
+                seq_lens, kv_quant, k_scale, v_scale)
+    b, nh, hd = q.shape
+    nbp, nkv, bs, _ = key_cache.shape
+    out = torch.empty_like(q)
+    err = library().ptt_paged_decode(
+        ptr(q), ptr(key_cache), ptr(value_cache),
+        *_scale_ptrs(kv_quant, k_scale, v_scale), ptr(block_tables),
+        ptr(seq_lens), ptr(out), b, nh, nkv, hd, nbp, bs,
+        block_tables.shape[1], float(scale), DTYPE_CODE[q.dtype],
+        KV_FORMAT_CODE[kv_quant], stream_ptr(q.device))
+    check_launch("paged_decode", err)
+    LAUNCHES["paged_decode"] += 1
+    return out
+
+
+def flash_decode_cuda(q, key_cache, value_cache, block_tables, seq_lens,
+                      scale, num_shards, kv_quant=None, k_scale=None,
+                      v_scale=None):
+    """Launch ``csrc/paged_decode.cu``'s split-K walk over ``num_shards``
+    shards and the combine of its partials; returns [b, nh, hd]."""
+    _check_walk("flash_decode", q, key_cache, value_cache, block_tables,
+                seq_lens, kv_quant, k_scale, v_scale)
+    b, nh, hd = q.shape
+    nbp, nkv, bs, _ = key_cache.shape
+    max_blocks = block_tables.shape[1]
+    S = num_shards
+    P = -(-max_blocks // S)
+    rep = nh // nkv
+    dev = q.device
+    m = torch.empty((b, nkv, S, rep), dtype=torch.float32, device=dev)
+    l = torch.empty_like(m)
+    acc = torch.empty((b, nkv, S, rep, hd), dtype=torch.float32, device=dev)
+    out = torch.empty_like(q)
+    err = library().ptt_flash_decode(
+        ptr(q), ptr(key_cache), ptr(value_cache),
+        *_scale_ptrs(kv_quant, k_scale, v_scale), ptr(block_tables),
+        ptr(seq_lens), ptr(m), ptr(l), ptr(acc), ptr(out), b, nh, nkv, hd,
+        nbp, bs, max_blocks, S, P, float(scale), DTYPE_CODE[q.dtype],
+        KV_FORMAT_CODE[kv_quant], stream_ptr(dev))
+    check_launch("flash_decode", err)
+    LAUNCHES["flash_decode"] += 1
+    return out
+
+
+def paged_attention_decode(q, key_cache, value_cache, block_tables, seq_lens,
+                           scale=None, kv_quant=None, k_scale=None,
+                           v_scale=None, num_shards=None):
+    """Ragged paged-attention decode over a block-table KV cache, one query
+    token per slot.
+
+    Args:
+      q: [b, num_heads, head_dim], roped.
+      key_cache/value_cache: [nbp, num_kv_heads, block_size, head_dim]
+        pages of q's dtype, or quantized storage per ``kv_quant``: 'int8'
+        int8 of the same shape, 'int4' int8 ``[..., head_dim // 2]`` with
+        two codes a byte (:func:`quantize_kv_cache`).
+      block_tables: [b, max_blocks] int32 physical page ids; entries past a
+        slot's live pages may be sentinels (clamped, never attended).
+      seq_lens: [b] int32 valid KV length per slot (0 -> zeros).
+      k_scale/v_scale: [nbp, num_kv_heads] f32 (quantized pools).
+      num_shards: split-K override; None picks :func:`flash_decode_shards`
+        from the table width; 1 is the sequential walk.
+
+    Returns [b, num_heads, head_dim] in q's dtype.  Routes as the
+    reference: the split-K walk when :func:`decode_shards` fans out (the
+    ``flash_decode`` switch restores the sequential walk), the sequential
+    walk otherwise, the gather oracle under ``paged_attention``.  CUDA
+    tensors launch the kernel (``paged_decode`` / ``flash_decode``) or
+    raise; CPU tensors take the plain versions (:func:`paged_attention_
+    reference` for the sequential walk, :func:`flash_decode_reference` for
+    the split-K one)."""
+    hd = _check_storage("paged_attention_decode", q, key_cache, kv_quant,
+                        k_scale, v_scale)
+    if scale is None:
+        scale = 1.0 / math.sqrt(hd)
+    oracle = kernel_disabled("paged_attention")
+    S = 1 if oracle else decode_shards(block_tables.shape[1], num_shards)
+    name = "flash_decode" if S > 1 else "paged_decode"
+    scales = (k_scale, v_scale) if kv_quant else ()
+    args = (q, key_cache, value_cache, block_tables, seq_lens)
+    kw = dict(kv_quant=kv_quant, k_scale=k_scale, v_scale=v_scale)
+    if use_kernel(name, *args, *scales, switch="paged_attention"):
+        small = (q.contiguous(), key_cache, value_cache,
+                 block_tables.int().contiguous(), seq_lens.int().contiguous())
+        if S > 1:
+            return flash_decode_cuda(*small, scale, S, **kw)
+        return paged_decode_cuda(*small, scale, **kw)
+    if S > 1:
+        return flash_decode_reference(*args, scale, S, **kw)
+    return paged_attention_reference(*args, scale=scale, **kw)
+
+
+# ---------------------------------------------------------------------------
+# fused decode step over fp pools
+# ---------------------------------------------------------------------------
 
 def fused_decode_step_reference(q, k_new, v_new, cos, sin, key_cache,
                                 value_cache, block_tables, seq_lens,
@@ -115,13 +495,20 @@ def fused_decode_step_reference(q, k_new, v_new, cos, sin, key_cache,
     value_cache[blk[lanes], :, off[lanes]] = v_new[lanes].to(value_cache.dtype)
     out = paged_attention_reference(q_r, key_cache, value_cache, block_tables,
                                     lens + 1, scale=scale)
-    max_blocks = block_tables.shape[1]
-    S = flash_decode_shards(max_blocks, num_shards)
-    walked = lens // bs < S * (-(-max_blocks // S))
-    dropped = torch.nonzero(~wable & walked).flatten()
+    dropped = _dropped_walked(lens, wable, bs, block_tables.shape[1],
+                              num_shards)
     key_cache[blk[dropped]] = 0
     value_cache[blk[dropped]] = 0
     return out, key_cache, value_cache
+
+
+def _dropped_walked(lens, wable, bs, max_blocks, num_shards):
+    """The lanes whose dropped append zeroes its write page (the spill page
+    in the engine): ``wable == 0`` and the write page ``lens // bs`` inside
+    the launch's walk of S shards of P pages."""
+    S = decode_shards(max_blocks, num_shards)
+    walked = lens // bs < S * (-(-max_blocks // S))
+    return torch.nonzero(~wable & walked).flatten()
 
 
 def fused_decode_step_cuda(q, k_new, v_new, cos, sin, key_cache, value_cache,
@@ -140,7 +527,7 @@ def fused_decode_step_cuda(q, k_new, v_new, cos, sin, key_cache, value_cache,
     if scale is None:
         scale = 1.0 / math.sqrt(hd)
     max_blocks = block_tables.shape[1]
-    S = flash_decode_shards(max_blocks, num_shards)
+    S = decode_shards(max_blocks, num_shards)
     P = -(-max_blocks // S)
     rep = nh // nkv
     for name, t, shape in (("q", q, (b, nh, hd)), ("k_new", k_new, (b, nkv, hd)),
@@ -201,6 +588,130 @@ def fused_decode_step(q, k_new, v_new, cos, sin, key_cache, value_cache,
                                       num_shards=num_shards)
     return fused_decode_step_reference(*args, scale=scale,
                                        num_shards=num_shards)
+
+
+# ---------------------------------------------------------------------------
+# fused decode step over int8 / packed-int4 pools
+# ---------------------------------------------------------------------------
+
+def fused_quant_decode_step_reference(q, k_new, v_new, cos, sin, kq, ksc,
+                                      vq, vsc, block_tables, seq_lens,
+                                      write_blk, writeable, kv_quant,
+                                      scale=None, num_shards=None):
+    """Plain version of the quantized fused decode step, the unfused
+    composition: rope in the input dtype (``apply_rotary_pos_emb``), the
+    requantized appends (:func:`quant_append_decode`, the same encode the
+    kernel runs), dequant-on-read gather-oracle attention over
+    ``seq_lens + 1``.  It then applies the kernel's spill contract: a lane
+    with ``writeable == 0`` whose write page the walk reaches writes zero
+    codes and a zero scale there (the spill page in the engine).  Updates
+    codes and scales in place and returns ``(out, kq, ksc, vq, vsc)``."""
+    b, nh, hd = q.shape
+    nbp, nkv, bs, _ = kq.shape
+    if scale is None:
+        scale = 1.0 / math.sqrt(hd)
+    q_r, k_r = apply_rotary_pos_emb(q[:, None], k_new[:, None],
+                                    cos[:, None, :], sin[:, None, :])
+    q_r, k_r = q_r[:, 0], k_r[:, 0]
+    lens = seq_lens.long()
+    off = lens % bs
+    quant_append_decode(kq, ksc, k_r, write_blk, off, writeable, kv_quant)
+    quant_append_decode(vq, vsc, v_new, write_blk, off, writeable, kv_quant)
+    out = paged_attention_reference(q_r, kq, vq, block_tables, lens + 1,
+                                    scale=scale, kv_quant=kv_quant,
+                                    k_scale=ksc, v_scale=vsc)
+    blk = write_blk.long().clamp(0, nbp - 1)
+    dropped = blk[_dropped_walked(lens, writeable.bool(), bs,
+                                  block_tables.shape[1], num_shards)]
+    for t in (kq, ksc, vq, vsc):
+        t[dropped] = 0
+    return out, kq, ksc, vq, vsc
+
+
+def fused_quant_decode_step_cuda(q, k_new, v_new, cos, sin, kq, ksc, vq, vsc,
+                                 block_tables, seq_lens, write_blk, writeable,
+                                 kv_quant, scale=None, num_shards=None):
+    """Launch ``csrc/fused_quant_decode.cu``: the page walk with the
+    in-kernel requantized append (codes and scales updated in place) and
+    the log-sum-exp merge of its split-K partials."""
+    b, nh, hd = q.shape
+    nbp, nkv, bs, hd_st = kq.shape
+    dev, dt = q.device, q.dtype
+    if dt not in DTYPE_CODE:
+        raise ValueError(f"fused_quant_decode_step: dtype {dt} not supported")
+    if not kernel_supported(nh, nkv, hd, bs):
+        raise ValueError(f"fused_quant_decode_step: unsupported shape "
+                         f"nh={nh} nkv={nkv} hd={hd} block_size={bs}")
+    if scale is None:
+        scale = 1.0 / math.sqrt(hd)
+    max_blocks = block_tables.shape[1]
+    S = decode_shards(max_blocks, num_shards)
+    P = -(-max_blocks // S)
+    rep = nh // nkv
+    for name, t, shape, tdt in (
+            ("q", q, (b, nh, hd), dt), ("k_new", k_new, (b, nkv, hd), dt),
+            ("v_new", v_new, (b, nkv, hd), dt), ("cos", cos, (b, hd), dt),
+            ("sin", sin, (b, hd), dt),
+            ("key_codes", kq, (nbp, nkv, bs, hd_st), torch.int8),
+            ("value_codes", vq, (nbp, nkv, bs, hd_st), torch.int8),
+            ("key_scale", ksc, (nbp, nkv), torch.float32),
+            ("value_scale", vsc, (nbp, nkv), torch.float32),
+            ("block_tables", block_tables, (b, max_blocks), torch.int32),
+            ("seq_lens", seq_lens, (b,), torch.int32),
+            ("write_blk", write_blk, (b,), torch.int32),
+            ("writeable", writeable, (b,), torch.int32)):
+        check_cuda_tensor(f"fused_quant_decode_step {name}", t, shape, tdt,
+                          dev)
+    m = torch.empty((b, nkv, S, rep), dtype=torch.float32, device=dev)
+    l = torch.empty_like(m)
+    acc = torch.empty((b, nkv, S, rep, hd), dtype=torch.float32, device=dev)
+    out = torch.empty((b, nh, hd), dtype=dt, device=dev)
+    err = library().ptt_fused_quant_decode(
+        ptr(q), ptr(k_new), ptr(v_new), ptr(cos), ptr(sin), ptr(kq),
+        ptr(vq), ptr(ksc), ptr(vsc), ptr(block_tables), ptr(seq_lens),
+        ptr(write_blk), ptr(writeable), ptr(m), ptr(l), ptr(acc), ptr(out),
+        b, nh, nkv, hd, nbp, bs, max_blocks, S, P, float(scale),
+        DTYPE_CODE[dt], KV_FORMAT_CODE[kv_quant], stream_ptr(dev))
+    check_launch("fused_quant_decode_step", err)
+    LAUNCHES["fused_quant_decode_step"] += 1
+    return out, kq, ksc, vq, vsc
+
+
+def fused_quant_decode_step(q, k_new, v_new, cos, sin, kq, ksc, vq, vsc,
+                            block_tables, seq_lens, write_blk, writeable,
+                            kv_quant, scale=None, num_shards=None):
+    """Fused RoPE + requantized KV-page append + split-K dequant-on-read
+    paged attention for ONE decode token per slot over int8 / packed-int4
+    pools.
+
+    Args mirror :func:`fused_decode_step` with the fp pools replaced by
+    quantized storage: ``kq``/``vq`` [nbp, nkv, block_size, hd_store] int8
+    codes (hd_store = head_dim, or head_dim // 2 packed int4) and
+    ``ksc``/``vsc`` [nbp, nkv] f32 per-(page, kv head) scales, all updated
+    IN PLACE.  A dropped lane writes zero codes and a zero scale to its
+    write page (the engine's spill page).
+
+    Returns ``(out [b, nh, hd], kq, ksc, vq, vsc)``: attention over columns
+    < seq_lens + 1, reading the write page's requantized bytes.  CPU
+    tensors take :func:`fused_quant_decode_step_reference`; CUDA tensors
+    launch the kernel, or the plain version under the ``fused_quant_append``
+    or ``fused_decode_step`` switch."""
+    hd = _check_storage("fused_quant_decode_step", q, kq, kv_quant, ksc, vsc)
+    if kv_quant is None:
+        raise ValueError("fused_quant_decode_step: kv_quant must be 'int8' "
+                         "or 'int4'")
+    args = (q, k_new, v_new, cos, sin, kq, ksc, vq, vsc, block_tables,
+            seq_lens, write_blk, writeable)
+    if scale is None:
+        scale = 1.0 / math.sqrt(hd)
+    if use_kernel("fused_quant_decode_step", *args,
+                  switch=("fused_decode_step", "fused_quant_append")):
+        small = [t.contiguous() for t in args[:5]]
+        return fused_quant_decode_step_cuda(*small, *args[5:], kv_quant,
+                                            scale=scale,
+                                            num_shards=num_shards)
+    return fused_quant_decode_step_reference(*args, kv_quant, scale=scale,
+                                             num_shards=num_shards)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,8 @@
 """Weight bridge: numpy arrays (e.g. a JAX parameter tree read leaf by leaf
-with ``np.asarray``) into the port's tensors, and back.
+with ``np.asarray``) into the port's tensors, and back.  The same calls
+carry KV pools: a quantized pool is the JAX engine's ``{"q": int8 codes,
+"scale": f32 scales}`` pytree, the port engine's ``cache_k`` /
+``cache_v`` pair, exactly.
 
 bf16 arrives from JAX as an ``ml_dtypes`` bfloat16 array.  Its bits are
 viewed as uint16 and reinterpreted as ``torch.bfloat16`` without any
@@ -50,8 +53,9 @@ def numpy_from_tensor(t: torch.Tensor) -> np.ndarray:
 def params_from_numpy(tree, device=None):
     """A nested dict (or list/tuple) of arrays -> the same structure of
     tensors on ``device`` (None: the CUDA card, raising without one).
-    Takes JAX parameter trees and pools alike: every leaf goes through
-    ``np.asarray`` then :func:`tensor_from_numpy`."""
+    Takes JAX parameter trees and pools alike (fp pools, and quantized
+    ``{"q", "scale"}`` pairs: int8 and f32 leaves come over bit for bit):
+    every leaf goes through ``np.asarray`` then :func:`tensor_from_numpy`."""
     device = resolve_device(device)
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}

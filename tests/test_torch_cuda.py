@@ -261,3 +261,145 @@ def test_gumbel_noise_kernel_matches_plain(dev):
     assert tk.LAUNCHES["gumbel_noise"] == 1
     want = tsampling.gumbel_noise_ref(seeds, pos, 5000)
     torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+def _paged_case(g, dev, mode, dtype, b=4, nh=8, nkv=2, hd=128, bs=64, mb=8):
+    """Pools of random rows (quantized per page for int8 / int4), a table
+    of distinct pages with sentinel entries past each lane's live pages,
+    lengths 0, a page boundary, mid-table and the full table."""
+    nb = b * mb
+    q = _randn(g, dev, b, nh, hd, dtype=dtype)
+    kc = _randn(g, dev, nb + 1, nkv, bs, hd, dtype=dtype)
+    vc = _randn(g, dev, nb + 1, nkv, bs, hd, dtype=dtype)
+    ks = vs = None
+    if mode:
+        kc, ks = tpa.quantize_kv_cache(kc, mode)
+        vc, vs = tpa.quantize_kv_cache(vc, mode)
+    lens = torch.tensor([0, bs, 300, mb * bs][:b], dtype=torch.int32,
+                        device=dev)
+    tables = torch.full((b, mb), nb, dtype=torch.int32, device=dev)
+    perm = torch.randperm(nb, generator=g, device=dev).int()
+    for i in range(b):
+        n = max(1, -(-int(lens[i]) // bs))
+        tables[i, :n] = perm[i * mb:i * mb + n]
+    return q, kc, vc, tables, lens, ks, vs
+
+
+def _attn_close(got, want, dtype):
+    """One ulp of the value plus half an ulp of the largest output of the
+    same (slot, q head): f32 sums in another order, one rounding."""
+    ref = want.float().abs()
+    d = (got.float() - want.float()).abs()
+    assert (d <= ref * ULP[dtype]
+            + ref.amax(dim=-1, keepdim=True) * ULP[dtype] / 2).all(), \
+        d.max().item()
+
+
+@pytest.mark.parametrize("mode", [None, "int8", "int4"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_paged_decode_kernels_match_plain(dev, mode, dtype):
+    """The sequential walk (num_shards 1) and the split-K walk (2 and 4
+    shards) against their plain versions; the zero-length lane is 0."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    q, kc, vc, tables, lens, ks, vs = _paged_case(g, dev, mode, dtype)
+    kw = dict(kv_quant=mode, k_scale=ks, v_scale=vs)
+    args = (q, kc, vc, tables, lens)
+    want = tpa.paged_attention_reference(*args, **kw)
+    for num_shards, name in ((1, "paged_decode"), (None, "flash_decode"),
+                             (4, "flash_decode")):
+        tk.reset_counters()
+        got = tpa.paged_attention_decode(*args, num_shards=num_shards, **kw)
+        assert tk.LAUNCHES[name] == 1 and sum(tk.LAUNCHES.values()) == 1
+        torch.cuda.synchronize()
+        _attn_close(got, want, dtype)
+        if num_shards != 1:
+            plain = tpa.flash_decode_reference(
+                *args, 128 ** -0.5, tpa.decode_shards(8, num_shards), **kw)
+            _attn_close(got, plain, dtype)
+        assert (got[0] == 0).all()
+
+
+@pytest.mark.parametrize("mode", ["int8", "int4"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fused_quant_decode_kernel_matches_plain(dev, mode, dtype):
+    """Output within the attention tolerance; codes and scales bit-equal to
+    the plain composition (the same correctly rounded f32 steps; a code one
+    step apart would show a last-bit difference in the roped k row); pages
+    no lane writes untouched; the spill page zero codes and scales."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    b, nkv, hd, bs, mb = 4, 2, 128, 64, 8
+    nb = b * mb
+    q, kc, vc, _, _, ks, vs = _paged_case(g, dev, mode, dtype)
+    # appends at position 0, at a page boundary and mid-page; lane 3 is
+    # dropped (sentinel table, write page = the spill page nb)
+    lens = torch.tensor([0, 64, 300, 0], dtype=torch.int32, device=dev)
+    wable = torch.tensor([1, 1, 1, 0], dtype=torch.int32, device=dev)
+    tables = torch.full((b, mb), nb, dtype=torch.int32, device=dev)
+    perm = torch.randperm(nb, generator=g, device=dev).int()
+    for i in range(3):
+        n = int(lens[i]) // bs + 1
+        tables[i, :n] = perm[i * mb:i * mb + n]
+    lanes = torch.arange(b, device=dev)
+    wblk = torch.where(wable == 1, tables[lanes, (lens // bs).long()],
+                       torch.full_like(lens, nb)).int()
+    kn, vn = (_randn(g, dev, b, nkv, hd, dtype=dtype) for _ in range(2))
+    ang = torch.rand(b, hd // 2, generator=g, device=dev) * 3
+    ang = torch.cat([ang, ang], -1)
+    cos, sin = ang.cos().to(dtype), ang.sin().to(dtype)
+    kc[nb], ks[nb] = 5, 1.0          # the spill page starts non-zero
+    pools = (kc, ks, vc, vs)
+    plain = [t.clone() for t in pools]
+    small = (q, kn, vn, cos, sin)
+    tail = (tables, lens, wblk, wable)
+    tk.reset_counters()
+    out, *got = tpa.fused_quant_decode_step(*small, *pools, *tail, mode)
+    assert tk.LAUNCHES["fused_quant_decode_step"] == 1
+    want, *ref = tpa.fused_quant_decode_step_reference(*small, *plain, *tail,
+                                                       mode)
+    torch.cuda.synchronize()
+    _attn_close(out[:3], want[:3], dtype)
+    for a, e in zip(got, ref):
+        assert torch.equal(a, e)
+    assert (got[0][nb] == 0).all() and (got[1][nb] == 0).all()
+    keep = [p for p in range(nb) if p not in {int(x) for x in wblk[:3]}]
+    assert torch.equal(got[0][keep], plain[0][keep])
+
+
+def test_decode_switch_tokens_route_as_the_reference(dev, monkeypatch):
+    """``flash_decode`` turns the split-K walk into the sequential one,
+    ``paged_attention`` sends decode attention to the gather oracle (no
+    launch), ``fused_quant_append`` and ``fused_decode_step`` send the
+    quantized fused step to its plain composition; a misspelt token warns
+    and switches nothing."""
+    g = torch.Generator(device=dev).manual_seed(8)
+    q, kc, vc, tables, lens, ks, vs = _paged_case(g, dev, "int8",
+                                                  torch.bfloat16)
+    kw = dict(kv_quant="int8", k_scale=ks, v_scale=vs)
+    args = (q, kc, vc, tables, lens)
+    env = "PADDLE_TPU_TORCH_DISABLE_KERNELS"
+    for token, launched in (("flash_decode", "paged_decode"),
+                            ("paged_attention", None)):
+        monkeypatch.setenv(env, token)
+        tk.reset_counters()
+        tpa.paged_attention_decode(*args, **kw)
+        assert {k: v for k, v in tk.LAUNCHES.items() if v} == (
+            {launched: 1} if launched else {})
+    assert tk.PLAIN_CALLS["paged_decode"] == 1
+    b, nkv, hd = q.shape[0], kc.shape[1], q.shape[2]
+    small = (q, q[:, :nkv].contiguous(), q[:, :nkv].contiguous(),
+             torch.ones(b, hd, dtype=q.dtype, device=dev),
+             torch.zeros(b, hd, dtype=q.dtype, device=dev))
+    wblk = tables[:, 0].contiguous()
+    wable = torch.ones(b, dtype=torch.int32, device=dev)
+    for token in ("fused_quant_append", "fused_decode_step"):
+        monkeypatch.setenv(env, token)
+        tk.reset_counters()
+        tpa.fused_quant_decode_step(*small, kc, ks, vc, vs, tables, lens,
+                                    wblk, wable, "int8")
+        assert tk.LAUNCHES["fused_quant_decode_step"] == 0
+        assert tk.PLAIN_CALLS["fused_quant_decode_step"] == 1
+    monkeypatch.setenv(env, "flash_decod")
+    tk.reset_counters()
+    with pytest.warns(UserWarning, match="did you mean 'flash_decode'"):
+        tpa.paged_attention_decode(*args, **kw)
+    assert tk.LAUNCHES["flash_decode"] == 1
