@@ -6,15 +6,21 @@ Ported: ``Request``, ``_bucket`` and the ``ContinuousBatchingEngine`` path
 ``_prefill_impl_paged`` -> ``_decode_one`` -> ``_sample_tokens``, with
 its block allocator (``_alloc_to``, ``_release``), preemption
 (``_preempt``, ``_ensure_growth``) and retirement; fp or quantized KV
-pools (``kv_quant``); and the three decode arms of ``_decode_one``: the
+pools (``kv_quant``); the three decode arms of ``_decode_one``: the
 fused step (one kernel a layer, fp or quantized pools), and the unfused
 arm the ``fused_decode_step`` / ``fused_quant_append`` switches rebuild the
-engine on (an append, then the paged decode attention).  Not ported yet
-(ROADMAP.md): the dense-cache mode, prefix cache, speculation, chunked
-prefill, weight-only quant, tensor parallelism, the graceful fault ladder,
-metrics, the journal and async host runtime, snapshot/restore and the
-fleet.  Invalid requests therefore raise (the reference's
-``PADDLE_TPU_GRACEFUL=0`` contract).
+engine on (an append, then the paged decode attention); chunked prefill
+(``enable_chunked_prefill``: prompts stream in ``prefill_chunk``-row
+chunks through one mixed prefill/decode step a round, ``_mixed_step``)
+and n-gram speculative decoding (``enable_speculation``: prompt-lookup
+drafts checked by one multi-token verify step, ``_spec_step``), each
+token-identical to the bucketed, speculation-off engine.  Not ported yet
+(ROADMAP.md): the dense-cache mode, prefix cache, weight-only quant,
+tensor parallelism, the graceful fault ladder, metrics, the journal and
+async host runtime, snapshot/restore and the fleet.  Invalid requests
+therefore raise (the reference's ``PADDLE_TPU_GRACEFUL=0`` contract), and
+a chunked admission maps its whole prompt's pages at once, as the
+reference does in that mode.
 
 How the JAX engine's mechanisms map to PyTorch:
 
@@ -46,7 +52,9 @@ How the JAX engine's mechanisms map to PyTorch:
 from __future__ import annotations
 
 import math
+import os
 import time
+import warnings
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -59,6 +67,23 @@ from ..ops.kernels import paged_attention as _pa
 from ..ops.kernels import rope as rope_mod
 from ..ops.kernels import sampling
 from . import lm_head_logits, transformer_apply
+from .speculative import NGramDrafter
+
+_warned_env: set[tuple[str, str]] = set()
+
+
+def _env_bool(name: str, default: bool) -> bool:
+    """A boolean kill switch: '' -> default, '0' -> False, '1' -> True; any
+    other value warns once and keeps the default (the reference's
+    ``utils/envflags.env_bool``: a typo must not flip a switch)."""
+    raw = os.environ.get(name, "")
+    if raw in ("", "0", "1"):
+        return default if raw == "" else raw == "1"
+    if (name, raw) not in _warned_env:
+        _warned_env.add((name, raw))
+        warnings.warn(f"{name}={raw!r} is not '0' or '1'; using the default "
+                      f"({'1' if default else '0'})")
+    return default
 
 
 @dataclass
@@ -98,11 +123,24 @@ class ContinuousBatchingEngine:
     reference's ``paged=True`` mode, implied here): pages hold int8 codes
     (int4 packs two a byte) with per-(page, kv head) f32 scales; every
     attention read dequantizes, every append requantizes its page.
+    ``enable_speculation``: prompt-lookup n-gram drafting (``spec_ngram``
+    the longest suffix matched, up to ``num_draft_tokens`` = K drafts a
+    slot) checked by one verify step of K+1 rows a slot; the accepted
+    stream is token-identical to the speculation-off engine.  Kill switch
+    ``PADDLE_TPU_SPECULATE=0``.
+    ``enable_chunked_prefill``: prompts stream in ``prefill_chunk``-row
+    chunks co-scheduled with decode in one mixed step a round (decode rows
+    pack first, prefill chunks fill ``token_budget``, default
+    ``prefill_chunk + max_batch``, with a one-row floor), so decode never
+    stalls behind a prompt.  Kill switch ``PADDLE_TPU_CHUNKED_PREFILL=0``.
     """
 
     def __init__(self, cfg, params, max_batch: int = 8, max_seq: int = 512,
                  chunk: int = 1, block_size: int = 64,
                  num_blocks: int | None = None, kv_quant: str | None = None,
+                 enable_speculation: bool = False, num_draft_tokens: int = 4,
+                 spec_ngram: int = 3, enable_chunked_prefill: bool = False,
+                 prefill_chunk: int = 128, token_budget: int | None = None,
                  device=None):
         self.device = resolve_device(device)
         for leaf in [params["embed"], *params["layers"].values()]:
@@ -180,10 +218,40 @@ class ContinuousBatchingEngine:
         self._topp = np.ones(max_batch, np.float32)
         self._seed = np.zeros(max_batch, np.int32)
         self._queue: list[Request] = []
+        # speculation and chunked prefill: every behaviour of each hangs
+        # off self._spec / self._chunked, and the kill switch is read FIRST,
+        # so =0 turns the feature off whatever the arguments say
+        self._spec = None
+        self._spec_qmax = 0            # the verify step's rows a slot, K+1
+        if enable_speculation and _env_bool("PADDLE_TPU_SPECULATE", True):
+            self._spec = NGramDrafter(num_draft_tokens=num_draft_tokens,
+                                      max_ngram=spec_ngram)
+            self._spec_qmax = int(num_draft_tokens) + 1
+        self._chunked = False
+        if enable_chunked_prefill and _env_bool("PADDLE_TPU_CHUNKED_PREFILL",
+                                                True):
+            if prefill_chunk < 1:
+                raise ValueError(
+                    f"prefill_chunk must be >= 1, got {prefill_chunk}")
+            self._chunked = True
+            self._prefill_chunk = int(prefill_chunk)
+            self._token_budget = (int(token_budget)
+                                  if token_budget is not None
+                                  else self._prefill_chunk + max_batch)
+            # per-slot prefill progress: the FULL id stream (prompt, or
+            # prompt + generated on a resume) while the slot streams in,
+            # and the cursor, the next position whose K/V is computed
+            self._prefill_ids: list[np.ndarray | None] = [None] * max_batch
+            self._prefilled = np.zeros(max_batch, np.int32)
         self.stats = {"decode_steps": 0, "decode_tokens": 0,
                       "decode_time_s": 0.0, "prefills": 0,
-                      "prefill_time_s": 0.0, "preemptions": 0}
-        #: logits [B, V] of the last decode step run (inspection only)
+                      "prefill_time_s": 0.0, "preemptions": 0,
+                      "decode_stall_steps": 0, "mixed_steps": 0,
+                      "prefill_chunks": 0, "spec_steps": 0,
+                      "spec_drafted_tokens": 0, "spec_accepted_tokens": 0,
+                      "spec_rejected_tokens": 0}
+        #: logits [B, V] of the last step run (inspection only): a decode
+        #: step's, a mixed step's emit rows, a verify step's row 0
         self.last_logits: torch.Tensor | None = None
 
     def _sync(self):
@@ -320,6 +388,128 @@ class ContinuousBatchingEngine:
         self.last_logits = logits
         return torch.stack(toks), torch.stack(bads)
 
+    # ---------------- multi-row steps: mixed prefill/decode, verify --------
+
+    def _rows_forward(self, tokens, pos, active, q_lens, table, verify):
+        """The multi-row forward of the mixed and the verify step: tokens
+        [B, T] (row t of slot b = the token at position pos[b] + t), pos [B]
+        row-0 positions, active [B] bool, q_lens [B] live rows, table [B,
+        max_blocks] int32 (all on the device) -> final-normed hidden [B, T,
+        h].  Every live row's K/V goes into its page at pos + t; rows at or
+        past q_lens, inactive lanes and positions past max_seq land on the
+        spill page (fp pools) or drop out of the requantized event.
+        Attention is ONE ragged paged walk a layer under the per-row causal
+        law: the verify walk over fp pools when ``verify``, else (and over
+        quantized pools, which only the prefill walk dequantizes, as in the
+        reference) the chunked-prefill walk."""
+        cfg = self.cfg
+        B, S, bs = self.max_batch, self.max_seq, self.block_size
+        T = tokens.shape[1]
+        nh, hd = cfg.num_attention_heads, cfg.head_dim
+        kvq = self.kv_quant
+        rows = torch.arange(T, device=self.device)[None, :]
+        x = self.params["embed"][tokens].to(cfg.dtype)           # [B, T, h]
+        pos_t = pos[:, None] + rows                               # [B, T]
+        valid_t = active[:, None] & (rows < q_lens[:, None]) & (pos_t < S)
+        safe_t = torch.where(valid_t, pos_t, torch.zeros_like(pos_t))
+        cos = self._cos[0][safe_t]                                # [B, T, hd]
+        sin = self._sin[0][safe_t]
+        if kvq is not None:
+            write = self._quant_rows_write(table, pos_t, valid_t, view=False)
+        else:
+            lane = torch.arange(B, device=self.device)[:, None]
+            spill = self.num_blocks
+            blk = table[lane, safe_t // bs].long().clamp(max=spill)
+            wblk = torch.where(valid_t, blk, torch.full_like(blk, spill))
+            off = safe_t % bs
+
+            def write(ck, k):
+                # k [B, T, nkv, hd] roped.  Distinct slots own disjoint
+                # pages and distinct rows distinct positions: live writes
+                # never collide
+                ck[wblk, :, off] = k.to(ck.dtype)
+                return ck, ck
+        # total written length incl. the rows; an inactive lane attends one
+        # stale position (finite, never read)
+        seq_base = torch.where(active & (pos < S), pos, torch.zeros_like(pos))
+        seq_now = (seq_base + torch.where(active, q_lens,
+                                          torch.ones_like(q_lens))) \
+            .clamp(max=S).int()
+        ql = q_lens.int()
+
+        def attend_fn(q, k_pool, v_pool):
+            # q [B, T, nh, hd] roped
+            if kvq is not None:
+                o = _da.paged_prefill_attention(
+                    q, k_pool["q"], v_pool["q"], table, seq_now, ql,
+                    kv_quant=kvq, k_scale=k_pool["scale"],
+                    v_scale=v_pool["scale"])
+            elif verify:
+                o = _da.paged_verify_attention(q, k_pool, v_pool, table,
+                                               seq_now, ql)
+            else:
+                o = _da.paged_prefill_attention(q, k_pool, v_pool, table,
+                                                seq_now, ql)
+            return o.reshape(B, T, nh * hd)
+
+        x, _, _ = transformer_apply(cfg, self.params, x, self.cache_k,
+                                    self.cache_v, write, None, cos, sin,
+                                    attend_fn=attend_fn)
+        return x
+
+    def _mixed_impl(self, tokens, pos, active, q_lens, temp, topp, seeds,
+                    table, rows):
+        """One mixed prefill/decode step: decode-ready slots ride as
+        ``q_lens == 1`` lanes, prefilling slots carry a chunk of their
+        prompt.  ONLY each slot's last live row goes through the lm_head;
+        its token is drawn with the (seed, pos + q_lens - 1) key the plain
+        decode step uses at that position, so a decode lane's token and a
+        completing prefill's first token are the bucketed engine's.
+        Returns (next token [B], bad [B]: active lanes whose emit logits
+        were not finite)."""
+        B = self.max_batch
+        x = self._rows_forward(tokens, pos, active, q_lens, table,
+                               verify=False)
+        last = x[torch.arange(B, device=self.device), q_lens - 1]
+        logits = lm_head_logits(self.cfg, self.params, last)      # [B, V]
+        self.last_logits = logits
+        bad = active & ~torch.isfinite(logits).all(dim=-1)
+        nxt = self._sample_tokens(logits, pos + q_lens - 1, temp, topp,
+                                  seeds, rows)
+        return nxt, bad
+
+    def _verify_impl(self, tokens, pos, active, q_lens, temp, topp, seeds,
+                     table, rows):
+        """Verify + accept in one step.  tokens [B, Q]: row 0 the pending
+        token, rows 1.. the drafts.  Row t's token is drawn with the key
+        (seed, pos + t) the plain decode step would use there, so row 0's
+        token is what plain decode produces and a draft is accepted exactly
+        when it equals the token chosen one row earlier: the accepted
+        stream is token-identical to the speculation-off engine.  ``rows``
+        are the sampled lanes.  Returns (out [B, Q] chosen tokens,
+        n_emitted [B] in 1..q_lens: the leading run of accepted drafts + the
+        correction token, bad [B]: active lanes with a non-finite live
+        row)."""
+        B, Q = tokens.shape
+        dev = self.device
+        x = self._rows_forward(tokens, pos, active, q_lens, table,
+                               verify=True)
+        logits = lm_head_logits(self.cfg, self.params, x)         # [B, Q, V]
+        self.last_logits = logits[:, 0]
+        t = torch.arange(Q, device=dev)
+        live = t[None, :] < q_lens[:, None]
+        bad = active & (~torch.isfinite(logits).all(dim=-1) & live).any(-1)
+        flat_rows = None
+        if rows is not None:     # every row of a sampled lane draws
+            flat_rows = (rows[:, None] * Q + t[None, :]).reshape(-1)
+        out = self._sample_tokens(
+            logits.reshape(B * Q, -1), (pos[:, None] + t).reshape(-1),
+            temp.repeat_interleave(Q), topp.repeat_interleave(Q),
+            seeds.repeat_interleave(Q), flat_rows).reshape(B, Q)
+        ok = (tokens[:, 1:] == out[:, :-1]) & (t[None, 1:] < q_lens[:, None])
+        n_emitted = 1 + torch.cumprod(ok.long(), dim=1).sum(dim=1)
+        return out, n_emitted, bad
+
     # ---------------- prefill ----------------
 
     def _prefill_body(self, ids, length, bucket, write):
@@ -368,13 +558,15 @@ class ContinuousBatchingEngine:
 
         self._prefill_body(ids, length, bucket, write)
 
-    def _quant_rows_write(self, table, row_pos, valid):
-        """write_fn for a multi-row event (a prefill bucket) into quantized
-        pools: the page-batched requantize (``quant_append_rows``: only
-        dirty pages rewrite), then the dense attend's view, a dequantized
-        gather of the slot's pages in the model dtype (batch 1).  Sentinel
-        entries read the spill page, whose codes and scale stay zero, so
-        they read as zeros like the reference's fill."""
+    def _quant_rows_write(self, table, row_pos, valid, view=True):
+        """write_fn for a multi-row event into quantized pools: the
+        page-batched requantize (``quant_append_rows``: only dirty pages
+        change), then what attention reads.  A prefill bucket
+        (``view=True``) reads a dequantized gather of the slot's pages in
+        the model dtype (batch 1); sentinel entries read the spill page,
+        whose codes and scale stay zero, so they read as zeros like the
+        reference's fill.  The mixed and verify steps (``view=False``) read
+        the pools themselves through the paged walks."""
         cfg = self.cfg
         S = self.max_seq
         nkv, hd = cfg.num_key_value_heads, cfg.head_dim
@@ -384,10 +576,12 @@ class ContinuousBatchingEngine:
         def write(ck, k):
             _pa.quant_append_rows(ck["q"], ck["scale"], k, table, row_pos,
                                   valid, kvq)
-            view = _pa._dequant_page_content(ck["q"][pages],
-                                             ck["scale"][pages], kvq)
-            view = view.transpose(0, 1).reshape(1, nkv, S, hd)
-            return ck, view.to(cfg.dtype)
+            if not view:
+                return ck, ck
+            view_ = _pa._dequant_page_content(ck["q"][pages],
+                                              ck["scale"][pages], kvq)
+            view_ = view_.transpose(0, 1).reshape(1, nkv, S, hd)
+            return ck, view_.to(cfg.dtype)
 
         return write
 
@@ -426,21 +620,29 @@ class ContinuousBatchingEngine:
         self._release(slot)
         self._slot_req[slot] = None
         self._temp[slot] = 0.0  # re-set on readmission
+        if self._chunked:
+            # a mid-prefill victim resumes as a fresh admission
+            self._prefill_ids[slot] = None
+            self._prefilled[slot] = 0
         req.status = "PENDING"
         self._queue.insert(0, req)
         self.stats["preemptions"] += 1
 
-    def _ensure_growth(self, k: int):
-        """Before a decode chunk: every active slot needs pages covering
-        positions up to pos+k-1.  Oldest slots win; when the pool is dry
-        the youngest other active slot is preempted."""
+    def _ensure_growth(self, k):
+        """Before a step: every active slot needs pages covering positions
+        up to pos+k-1 (``k`` may be a per-slot vector: the verify step
+        appends q_lens rows to each slot and the mixed step a chunk or one
+        token).  Oldest slots win; when the pool is dry the youngest other
+        active slot is preempted."""
+        karr = np.broadcast_to(np.asarray(k, np.int64), (self.max_batch,))
         order = sorted((s for s in range(self.max_batch)
                         if self._slot_req[s] is not None),
                        key=lambda s: self._slot_age[s])
         for slot in order:
             if self._slot_req[slot] is None:
                 continue  # preempted by an older slot this pass
-            need = self._blocks_needed(int(self._pos[slot]) + k - 1)
+            need = self._blocks_needed(int(self._pos[slot])
+                                       + int(karr[slot]) - 1)
             while not self._alloc_to(slot, need):
                 victims = [s for s in range(self.max_batch)
                            if s != slot and self._slot_req[s] is not None]
@@ -480,8 +682,11 @@ class ContinuousBatchingEngine:
 
     def _admit(self):
         """Fill free slots from the queue: a request enters only when its
-        prompt's pages, plus the resident slots' next-chunk growth, fit in
-        the free pool.  Each admission prefills its whole prompt."""
+        prompt's pages, plus the resident slots' imminent growth (the next
+        decode chunk, or a verify step's K+1 rows), fit in the free pool.
+        A bucketed admission prefills its whole prompt now (stalling the
+        resident slots' decode for it); a chunked one only enqueues the
+        prompt for the mixed steps to stream."""
         for slot in range(self.max_batch):
             if self._slot_req[slot] is not None or not self._queue:
                 continue
@@ -490,7 +695,9 @@ class ContinuousBatchingEngine:
             if ids is None:
                 ids = np.asarray(req.prompt_ids, np.int32).ravel()
             s0 = ids.size
-            horizon = self.chunk
+            horizon = max(self.chunk, self._spec_qmax)
+            # per-slot clamp at 0: a mid-prefill slot owns its whole
+            # prompt's pages while pos (its cursor) trails them
             headroom = sum(
                 max(0, self._blocks_needed(int(self._pos[s]) + horizon - 1)
                     - len(self._slot_blocks[s]))
@@ -509,21 +716,33 @@ class ContinuousBatchingEngine:
             for attr in ("_resume_ids", "_resume_age"):
                 if hasattr(req, attr):
                     delattr(req, attr)
-            bucket = min(_bucket(s0), self.max_seq)
-            padded = np.zeros((1, bucket), np.int32)
-            padded[0, :s0] = ids
-            t_pf = time.perf_counter()
-            # the last real token is fed to decode, not prefill
-            self._prefill_impl_paged(
-                torch.as_tensor(padded, device=self.device).long(),
-                torch.as_tensor(self._table[slot], device=self.device),
-                s0 - 1, bucket)
-            self._sync()
-            self.stats["prefill_time_s"] += time.perf_counter() - t_pf
-            self.stats["prefills"] += 1
+            if self._chunked:
+                # enqueue without prefill: the mixed steps stream positions
+                # [0, s0), and the last one (the last prompt token) emits
+                # the first generated token
+                self._prefill_ids[slot] = ids
+                self._prefilled[slot] = 0
+                self._pos[slot] = 0
+            else:
+                # a whole-prompt prefill while other slots are seated
+                # stalls their decode for the prompt's length
+                stalls = any(r is not None for r in self._slot_req)
+                bucket = min(_bucket(s0), self.max_seq)
+                padded = np.zeros((1, bucket), np.int32)
+                padded[0, :s0] = ids
+                t_pf = time.perf_counter()
+                # the last real token is fed to decode, not prefill
+                self._prefill_impl_paged(
+                    torch.as_tensor(padded, device=self.device).long(),
+                    torch.as_tensor(self._table[slot], device=self.device),
+                    s0 - 1, bucket)
+                self._sync()
+                self.stats["prefill_time_s"] += time.perf_counter() - t_pf
+                self.stats["prefills"] += 1
+                self.stats["decode_stall_steps"] += int(stalls)
+                self._pos[slot] = s0 - 1
             self._slot_req[slot] = req
             req.status = "RUNNING"
-            self._pos[slot] = s0 - 1
             self._last_tok[slot] = ids[-1]
             self._temp[slot] = max(float(req.temperature or 0.0), 0.0)
             self._topp[slot] = float(req.top_p if req.top_p is not None
@@ -539,12 +758,25 @@ class ContinuousBatchingEngine:
         req.finished = True
         self._slot_req[slot] = None
         self._temp[slot] = 0.0
+        if self._chunked:
+            self._prefill_ids[slot] = None
+            self._prefilled[slot] = 0
         self._release(slot)
 
     def step(self) -> bool:
-        """One admit + decode iteration (``chunk`` decode steps, one host
-        fetch).  Returns False when idle."""
+        """One admit + device iteration with one host fetch: while any
+        prompt streams in (chunked prefill), ONE mixed prefill/decode step;
+        else, with speculation on and at least one slot drafting, ONE
+        multi-token verify step; else ``chunk`` decode steps.  Returns False
+        when idle."""
         self._admit()
+        if self._chunked and any(i is not None for i in self._prefill_ids):
+            return self._mixed_step()
+        if self._spec is not None:
+            drafts = self._draft_proposals()
+            if drafts is not None:
+                return self._spec_step(drafts)
+            # no slot drafted: the ordinary decode path, at no extra cost
         k = self.chunk
         self._ensure_growth(k)  # may preempt the youngest slot
         active_np = np.asarray([r is not None for r in self._slot_req])
@@ -597,6 +829,223 @@ class ContinuousBatchingEngine:
             if done or old_pos + k >= self.max_seq:
                 self._retire(slot)
         return True
+
+    # ---------------- chunked prefill: the mixed step (host side) ----------
+
+    def _device_args(self, active):
+        """The per-slot sampling state and the block table on the device,
+        and the sampled lanes among the ``active`` ones (None: none)."""
+        dev = self.device
+        sampled = [s for s in range(self.max_batch)
+                   if active[s] and self._temp[s] > 0]
+        return (torch.as_tensor(self._temp, device=dev),
+                torch.as_tensor(self._topp, device=dev),
+                torch.as_tensor(self._seed, device=dev),
+                torch.as_tensor(self._table, device=dev),
+                torch.as_tensor(sampled, dtype=torch.long, device=dev)
+                if sampled else None)
+
+    def _mixed_step(self) -> bool:
+        """One mixed prefill/decode round: pack up to ``token_budget`` rows
+        as [decode slots | prefill chunks] and run ONE device step.  Decode
+        rows pack FIRST (every decode-ready slot advances a token, so decode
+        never waits on a prompt), then prefill chunks fill the remaining
+        budget oldest slot first, at most ``prefill_chunk`` rows a slot,
+        with a one-row floor.  A lane whose chunk reaches its last prompt
+        token consumes the emitted token (its first generated token);
+        mid-prompt lanes ignore theirs.  One host fetch."""
+        B = self.max_batch
+        T = self._prefill_chunk
+        decode_slots = [s for s in range(B)
+                        if self._slot_req[s] is not None
+                        and self._prefill_ids[s] is None]
+        budget = max(self._token_budget - len(decode_slots), 1)
+        tokens = np.zeros((B, T), np.int32)
+        q_lens = np.ones(B, np.int32)
+        pos = self._pos.copy()                  # row-0 positions
+        active = np.zeros(B, bool)
+        growth = np.zeros(B, np.int64)
+        chunk_rows: dict[int, int] = {}
+        for s in decode_slots:
+            tokens[s, 0] = self._last_tok[s]
+            active[s] = True
+            growth[s] = 1
+        prefilling = sorted((s for s in range(B)
+                             if self._prefill_ids[s] is not None),
+                            key=lambda s: self._slot_age[s])
+        for s in prefilling:
+            ids = self._prefill_ids[s]
+            cur = int(self._prefilled[s])
+            n = min(T, ids.size - cur, budget)
+            if n <= 0:
+                continue    # budget drained: the lane idles this step
+            budget -= n
+            tokens[s, :n] = ids[cur:cur + n]
+            pos[s] = cur
+            q_lens[s] = n
+            active[s] = True
+            growth[s] = n
+            chunk_rows[s] = n
+        self._ensure_growth(growth)  # may preempt the youngest slot
+        for s in range(B):
+            if self._slot_req[s] is None:       # preempted after packing
+                active[s] = False
+                chunk_rows.pop(s, None)
+        if not active.any():
+            return bool(self._queue)
+        t0 = time.perf_counter()
+        dev = self.device
+        nxt, bad = self._mixed_impl(
+            torch.as_tensor(tokens, device=dev).long(),
+            torch.as_tensor(pos, device=dev).long(),
+            torch.as_tensor(active, device=dev),
+            torch.as_tensor(q_lens, device=dev).long(),
+            *self._device_args(active))
+        # ONE host round-trip: the tokens and the guard flags together
+        nxt_np, bad_np = torch.stack([nxt, bad.long()]).cpu().numpy()
+        self.stats["decode_time_s"] += time.perf_counter() - t0
+        self.stats["decode_steps"] += 1
+        self.stats["mixed_steps"] += 1
+        self.stats["prefill_chunks"] += len(chunk_rows)
+        if bad_np.any():
+            s = int(np.flatnonzero(bad_np)[0])
+            raise FloatingPointError(
+                f"non-finite logits for rid={self._slot_req[s].rid} in a "
+                f"mixed step (row-0 position {int(pos[s])})")
+        for s in decode_slots:
+            req = self._slot_req[s]
+            if req is None:
+                continue            # preempted by _ensure_growth
+            old_pos = int(self._pos[s])
+            self._pos[s] = old_pos + 1
+            self._consume_token(s, req, int(nxt_np[s]))
+            if self._slot_req[s] is not None and old_pos + 1 >= self.max_seq:
+                self._retire(s)
+        for s, n in chunk_rows.items():
+            req = self._slot_req[s]
+            ids = self._prefill_ids[s]
+            new_cur = int(self._prefilled[s]) + n
+            self._prefilled[s] = new_cur
+            self._pos[s] = new_cur
+            if new_cur >= ids.size:
+                # final chunk: its emit row sat at the last prompt token
+                self._prefill_ids[s] = None
+                self._prefilled[s] = 0
+                self._consume_token(s, req, int(nxt_np[s]))
+                if self._slot_req[s] is not None and new_cur >= self.max_seq:
+                    self._retire(s)
+        return True
+
+    def _consume_token(self, slot: int, req: Request, tok: int):
+        """Bank one generated token (a mixed-step emit, or one of a verify
+        step's accepted run): append, stamp TTFT, count it, feed it back,
+        retire on EOS or the token budget."""
+        req.output_ids.append(tok)
+        if req.ttft_s is None:
+            req.ttft_s = time.perf_counter() - req._submit_s
+        self.stats["decode_tokens"] += 1
+        self._last_tok[slot] = tok
+        if (len(req.output_ids) >= req.max_new_tokens
+                or (req.eos_token_id is not None
+                    and tok == req.eos_token_id)):
+            self._retire(slot)
+
+    # ---------------- speculation (host side) ----------------
+
+    def _draft_proposals(self) -> dict[int, np.ndarray] | None:
+        """The drafter over every seated slot's prompt + generated history:
+        {slot: drafts} when at least one slot proposed something, else None
+        (the caller then takes the ordinary decode path).  Drafts are capped
+        so the verify step never writes past max_seq nor drafts past the
+        request's remaining token budget."""
+        out: dict[int, np.ndarray] = {}
+        any_draft = False
+        for slot, req in enumerate(self._slot_req):
+            if req is None:
+                continue
+            cap = min(self.max_seq - 1 - int(self._pos[slot]),
+                      req.max_new_tokens - len(req.output_ids) - 1)
+            if cap <= 0:
+                out[slot] = np.zeros(0, np.int32)
+                continue
+            ctx = np.concatenate(
+                [np.asarray(req.prompt_ids, np.int32).ravel(),
+                 np.asarray(req.output_ids, np.int32)])
+            d = self._spec.propose(ctx)[:cap]
+            out[slot] = d
+            any_draft = any_draft or d.size > 0
+        return out if any_draft else None
+
+    def _spec_step(self, drafts: dict[int, np.ndarray]) -> bool:
+        """One draft-verify-accept round: grow pages for every slot's
+        appends, run the verify step once (ONE host fetch for up to K+1
+        tokens a slot), bank the accepted run + the correction token, and
+        roll ``pos`` back past rejected drafts.  Their K/V stay in the pool
+        above ``pos`` until overwritten (on quantized pools they take part
+        in their page's requantize, as in the reference)."""
+        B = self.max_batch
+        Q = self._spec_qmax
+        qlens = np.ones(B, np.int64)
+        for s, d in drafts.items():
+            qlens[s] = 1 + d.size
+        self._ensure_growth(qlens)  # may preempt the youngest slot
+        active_np = np.asarray([r is not None for r in self._slot_req])
+        if not active_np.any():
+            return False
+        tokens = np.zeros((B, Q), np.int32)
+        tokens[:, 0] = self._last_tok
+        q_lens = np.ones(B, np.int32)
+        for s, d in drafts.items():
+            if self._slot_req[s] is None or d.size == 0:
+                continue  # preempted after drafting, or no proposal
+            tokens[s, 1:1 + d.size] = d
+            q_lens[s] = 1 + d.size
+        t0 = time.perf_counter()
+        dev = self.device
+        out, n_acc, bad = self._verify_impl(
+            torch.as_tensor(tokens, device=dev).long(),
+            torch.as_tensor(self._pos, device=dev).long(),
+            torch.as_tensor(active_np, device=dev),
+            torch.as_tensor(q_lens, device=dev).long(),
+            *self._device_args(active_np))
+        # ONE host round-trip: tokens, accepted counts and guard flags
+        fetched = torch.cat([out, n_acc[:, None], bad.long()[:, None]],
+                            dim=1).cpu().numpy()
+        out_np, n_np, bad_np = fetched[:, :Q], fetched[:, Q], fetched[:, Q + 1]
+        self.stats["decode_time_s"] += time.perf_counter() - t0
+        self.stats["decode_steps"] += 1
+        self.stats["spec_steps"] += 1
+        if bad_np.any():
+            s = int(np.flatnonzero(bad_np)[0])
+            raise FloatingPointError(
+                f"non-finite logits for rid={self._slot_req[s].rid} in a "
+                f"verify step at positions {int(self._pos[s])}.."
+                f"{int(self._pos[s]) + int(q_lens[s]) - 1}")
+        for slot, req in enumerate(self._slot_req):
+            if req is None:
+                continue
+            old_pos = int(self._pos[slot])
+            n = int(n_np[slot])        # 1..q_lens: accepted run + correction
+            drafted = int(q_lens[slot]) - 1
+            self.stats["spec_drafted_tokens"] += drafted
+            self.stats["spec_accepted_tokens"] += n - 1
+            self.stats["spec_rejected_tokens"] += drafted - (n - 1)
+            for j in range(n):
+                self._consume_token(slot, req, int(out_np[slot, j]))
+                if self._slot_req[slot] is None:
+                    break           # EOS or the token budget: retired
+            else:
+                self._pos[slot] = old_pos + n
+                if old_pos + n >= self.max_seq:
+                    self._retire(slot)
+        return True
+
+    @property
+    def spec_acceptance_rate(self) -> float:
+        """Fraction of drafted tokens the verify step accepted (0.0 before
+        any speculative step, and with speculation off)."""
+        d = self.stats["spec_drafted_tokens"]
+        return self.stats["spec_accepted_tokens"] / d if d > 0 else 0.0
 
     def serve(self, requests: list[Request]) -> dict[int, list[int]]:
         """Run all requests to completion; returns {rid: generated tokens}.

@@ -2,15 +2,17 @@
 ``paddle_tpu/ops/decode_attention.py``).
 
 Ported: the serving engine's front doors ``paged_decode_attention`` (the
-unfused decode arm), ``fused_paged_decode_step`` (fp pools) and
-``fused_paged_quant_decode_step`` (int8 / packed-int4 pools).  The verify
-and chunked-prefill front doors follow with their kernels.
+unfused decode arm), ``fused_paged_decode_step`` (fp pools),
+``fused_paged_quant_decode_step`` (int8 / packed-int4 pools),
+``paged_verify_attention`` (the speculative verify step) and
+``paged_prefill_attention`` (the chunked-prefill mixed step).
 """
 
 from __future__ import annotations
 
 __all__ = ["paged_decode_attention", "fused_paged_decode_step",
-           "fused_paged_quant_decode_step"]
+           "fused_paged_quant_decode_step", "paged_verify_attention",
+           "paged_prefill_attention"]
 
 
 def paged_decode_attention(q, key_cache, value_cache, block_tables, seq_lens,
@@ -82,3 +84,47 @@ def fused_paged_quant_decode_step(q, k_new, v_new, cos, sin, key_codes,
         q, k_new, v_new, cos, sin, key_codes, key_scale, value_codes,
         value_scale, block_tables, seq_lens, write_blk, writeable, kv_quant,
         scale=scale, num_shards=num_shards)
+
+
+def paged_verify_attention(q, key_cache, value_cache, block_tables, seq_lens,
+                           q_lens, scale=None):
+    """Ragged multi-token verification (the speculative-decoding step):
+    each slot verifies ``q_lens[b]`` query tokens at consecutive positions
+    -- the pending token plus up to K n-gram drafts -- in ONE launch of the
+    paged family (``paged_verify``), drafted token t attending everything
+    up to and including itself, never the later drafts.  The gather oracle
+    under ``paged_attention``.
+
+    Shapes: q [b, qmax, nh, hd]; caches [nbp, nkv, block_size, hd] (the
+    drafts' K/V already written); block_tables [b, max_blocks]; seq_lens
+    [b] total written length incl. drafts; q_lens [b] in 1..qmax.  Returns
+    [b, qmax, nh, hd]."""
+    from .kernels import paged_attention as _pa
+
+    return _pa.paged_attention_verify(q, key_cache, value_cache,
+                                      block_tables, seq_lens, q_lens,
+                                      scale=scale)
+
+
+def paged_prefill_attention(q, key_cache, value_cache, block_tables,
+                            seq_lens, q_lens, scale=None, kv_quant=None,
+                            k_scale=None, v_scale=None):
+    """Ragged chunked prefill (the engine's unified mixed prefill/decode
+    step): each slot carries ``q_lens[b]`` query rows at consecutive
+    positions -- a ``prefill_chunk``-token slice of its prompt, or one
+    pending decode token riding the same launch -- attended in ONE launch
+    of the paged family (``paged_prefill``) under the verify walk's
+    per-row causal law, over fp or dequant-on-read quantized pools
+    (``kv_quant`` with per-page scales).  The gather oracle under
+    ``paged_attention``.
+
+    Shapes: q [b, T, nh, hd]; caches [nbp, nkv, block_size, hd] (or
+    quantized storage, hd // 2 for int4; the chunk's K/V already written);
+    block_tables [b, max_blocks]; seq_lens [b] total written length incl.
+    the chunk; q_lens [b] in 1..T.  Returns [b, T, nh, hd]."""
+    from .kernels import paged_attention as _pa
+
+    return _pa.paged_attention_prefill(q, key_cache, value_cache,
+                                       block_tables, seq_lens, q_lens,
+                                       scale=scale, kv_quant=kv_quant,
+                                       k_scale=k_scale, v_scale=v_scale)

@@ -56,11 +56,14 @@ KNOWN_KERNELS = frozenset({"all", "flash_attention", "rms_norm",
 
 #: kernel name -> launches made by its wrapper.  ``paged_decode`` is the
 #: sequential walk; ``flash_decode``, ``fused_decode_step`` and
-#: ``fused_quant_decode_step`` count a walk and its combine launch as one.
+#: ``fused_quant_decode_step`` count a walk and its combine launch as one;
+#: ``paged_prefill`` and ``paged_verify`` are the ragged multi-row walks of
+#: the mixed and the speculative verify step.
 LAUNCHES = {"rms_norm": 0, "fused_decode_step": 0, "fused_layer_mlp": 0,
             "flash_attention_fwd": 0, "flash_attention_dkv": 0,
             "flash_attention_dq": 0, "gumbel_noise": 0, "paged_decode": 0,
-            "flash_decode": 0, "fused_quant_decode_step": 0}
+            "flash_decode": 0, "fused_quant_decode_step": 0,
+            "paged_prefill": 0, "paged_verify": 0}
 #: kernel name -> dispatches that took the plain PyTorch version
 PLAIN_CALLS = {name: 0 for name in LAUNCHES}
 
@@ -129,7 +132,7 @@ CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "build"
 SOURCES = ("rms_norm.cu", "fused_decode.cu", "fused_mlp.cu", "flash_fwd.cu",
            "flash_bwd.cu", "gumbel.cu", "paged_decode.cu",
-           "fused_quant_decode.cu")
+           "fused_quant_decode.cu", "paged_prefill.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-lineinfo")
 _LIB_NAME = "libpaddle_tpu_torch_kernels.so"
@@ -231,6 +234,10 @@ _SIGNATURES = {
     # tables, lens, wblk, wable, m, l, acc, out, b, nh, nkv, hd, nbp, bs,
     # max_blocks, S, P, scale, dtype, kv_format, stream
     "ptt_fused_quant_decode": [_VP] * 17 + [_I] * 9 + [_F, _I, _I, _VP],
+    # q, key_pool, value_pool, k_scale, v_scale, tables, lens, q_lens, out,
+    # b, T, nh, nkv, hd, nbp, bs, max_blocks, scale, dtype, kv_format,
+    # stream
+    "ptt_paged_prefill": [_VP] * 9 + [_I] * 8 + [_F, _I, _I, _VP],
 }
 
 

@@ -11,12 +11,14 @@ the reference's ``_flash_combine``, whose plain version is here too); the
 fused decode step for fp pools (rope + KV-page append + split-K attention,
 ``csrc/fused_decode.cu``) and for int8 / packed-int4 pools (rope +
 requantized append + dequant-on-read attention,
-``csrc/fused_quant_decode.cu``); and the fused post-attention MLP half
-(residual + RMSNorm + SwiGLU, ``csrc/fused_mlp.cu``).  Each kernel has its
-plain PyTorch version beside it, with the helpers they share with the
+``csrc/fused_quant_decode.cu``); the ragged multi-row walks of the
+chunked-prefill mixed step (``paged_attention_prefill``, fp / int8 / int4
+pools) and of the speculative verify step (``paged_attention_verify``, fp
+pools), both ``csrc/paged_prefill.cu``; and the fused post-attention MLP
+half (residual + RMSNorm + SwiGLU, ``csrc/fused_mlp.cu``).  Each kernel has
+its plain PyTorch version beside it, with the helpers they share with the
 reference: ``kernel_supported``, ``flash_decode_shards``,
-``fused_mlp_block_cols`` and ``fused_mlp_supported``.  Verify and chunked
-prefill are still to port (ROADMAP.md).
+``fused_mlp_block_cols`` and ``fused_mlp_supported``.
 
 Layouts are the reference's: pools ``[nbp, nkv, block_size, head_dim]``
 (in the serving engine ``nbp = num_blocks + 1``, the last page being the
@@ -175,13 +177,22 @@ def quant_append_decode(qpool, scale, rows, blk, off, writeable,
 
 def quant_append_rows(qpool, scale, rows, table, row_pos, valid,
                       kv_quant: str):
-    """Requantized MULTI-row KV append (one write event: a prefill bucket)
-    into an int8 / packed-int4 pool, IN PLACE.  A slot's live rows are
-    consecutive positions, so the event touches at most ``(T-1)//bs + 2``
-    logical pages: only that window of each slot's table row is gathered
-    and dequantized, the rows inserted at their positions, the scales
-    recomputed, and ONLY the dirty pages (those that received a row) are
-    written back; clean pages keep their exact bytes.
+    """Requantized MULTI-row KV append (one write event: a prefill bucket,
+    a mixed step's chunk or a verify step's draft window) into an int8 /
+    packed-int4 pool, IN PLACE.  A slot's live rows are consecutive
+    positions, so the event touches at most ``(T-1)//bs + 2`` logical
+    pages: only that window of each slot's table row is gathered and
+    dequantized, the rows inserted at their positions, the scales
+    recomputed, and the dirty pages (those that received a row) take the
+    new codes; every other page keeps its exact bytes.
+
+    Nothing here waits for the device (no ``nonzero``, no boolean-mask
+    indexing): every row is scattered, a dropped one into an extra window
+    slot that is cut off; every window entry is written back, a dirty one
+    with its new codes and a clean or sentinel one (clamped to the pool)
+    with the bytes its page ends up holding -- its own, or the new codes of
+    the dirty entry that aliases the page -- so writes to one page agree
+    and their order does not matter.
 
     qpool [nbp, nkv, bs, hd_store]; scale [nbp, nkv] f32; rows
     [B, T, nkv, hd]; table [B, max_blocks] physical page ids; row_pos
@@ -201,15 +212,31 @@ def quant_append_rows(qpool, scale, rows, table, row_pos, valid,
     win = (p0[:, None] + torch.arange(nwin, device=dev)).clamp(0, maxblk - 1)
     wtab = table.long().gather(1, win)                   # [B, nwin]
     pages = wtab.clamp(0, nbp - 1)
-    deq = _dequant_page_content(qpool[pages], scale[pages], kv_quant)
-    wblk = torch.where(valid, lblk - p0[:, None], nwin)  # invalid rows drop
-    bi, ti = torch.nonzero(wblk < nwin, as_tuple=True)
-    deq[bi, wblk[bi, ti], :, loff[bi, ti]] = rows[bi, ti].float()
-    codes, nsc = _quant_encode_page(deq, kv_quant)
+    old_q, old_s = qpool[pages], scale[pages]
+    deq = _dequant_page_content(old_q, old_s, kv_quant)
+    # invalid rows (and, as the reference's drop, rows outside the window)
+    # land in window slot nwin, which is cut off below
+    wblk = lblk - p0[:, None]
+    wblk = torch.where(valid & (wblk < nwin), wblk, nwin)
+    deq = torch.cat([deq, deq.new_zeros((B, 1) + deq.shape[2:])], dim=1)
+    deq[torch.arange(B, device=dev)[:, None], wblk, :, loff] = rows.float()
+    codes, nsc = _quant_encode_page(deq[:, :nwin], kv_quant)
     dirty = (wblk[:, :, None] == torch.arange(nwin, device=dev)).any(dim=1)
     dirty &= (wtab >= 0) & (wtab < nbp)
-    qpool[wtab[dirty]] = codes[dirty]
-    scale[wtab[dirty]] = nsc[dirty]
+    # entry e's page ends up with the codes of the dirty entry that targets
+    # it (the allocator gives each dirty page one owner), else its own bytes
+    E = B * nwin
+    flat = pages.reshape(E)
+    hits = (flat[:, None] == flat[None, :]) & dirty.reshape(1, E)
+    src = hits.to(torch.int32).argmax(dim=1)
+    has = hits.any(dim=1)
+    new_q = torch.where(has[:, None, None, None],
+                        codes.reshape(E, *codes.shape[2:])[src],
+                        old_q.reshape(E, *old_q.shape[2:]))
+    new_s = torch.where(has[:, None], nsc.reshape(E, -1)[src],
+                        old_s.reshape(E, -1))
+    qpool[flat] = new_q
+    scale[flat] = new_s
     return qpool, scale
 
 
@@ -461,6 +488,178 @@ def paged_attention_decode(q, key_cache, value_cache, block_tables, seq_lens,
     if S > 1:
         return flash_decode_reference(*args, scale, S, **kw)
     return paged_attention_reference(*args, scale=scale, **kw)
+
+
+# ---------------------------------------------------------------------------
+# ragged multi-row paged attention: chunked prefill and speculative verify
+# ---------------------------------------------------------------------------
+
+def _row_lens(seq_lens, q_lens, T: int):
+    """[b, T] visible KV positions of each query row: row t of a slot sits
+    at position ``seq_lens - q_lens + t`` and sees ``seq_lens - (q_lens - 1
+    - t)`` positions; rows at or past ``q_lens`` see none."""
+    t = torch.arange(T, device=seq_lens.device)[None, :]
+    ql = q_lens.long()[:, None]
+    return torch.where(t < ql, seq_lens.long()[:, None] - (ql - 1 - t), 0)
+
+
+def paged_prefill_reference(q, key_cache, value_cache, block_tables,
+                            seq_lens, q_lens, scale=None, kv_quant=None,
+                            k_scale=None, v_scale=None):
+    """The gather oracle of the ragged multi-row walk (the plain version of
+    both ``paged_prefill`` and ``paged_verify``): every slot's pages read
+    out to max_blocks * bs (quantized pages dequantized after the gather),
+    each row under its own causal mask (:func:`_row_lens`).  q [b, T, nh,
+    hd]; caches [nbp, nkv, bs, hd] (or quantized storage per ``kv_quant``
+    with ``k_scale``/``v_scale`` [nbp, nkv] f32); block_tables [b,
+    max_blocks]; seq_lens [b] total written length incl. the rows; q_lens
+    [b] live rows.  Returns [b, T, nh, hd] in q's dtype; rows with nothing
+    to attend (past q_lens, or an empty window) are exact zeros."""
+    hd = _check_storage("paged_prefill_reference", q, key_cache, kv_quant,
+                        k_scale, v_scale)
+    nbp, nkv = key_cache.shape[:2]
+    b, T, nh, _ = q.shape
+    rep = nh // nkv
+    if scale is None:
+        scale = 1.0 / math.sqrt(hd)
+    safe = block_tables.long().clamp(0, nbp - 1)
+    k_seq = _gather_kv(key_cache, k_scale, safe, kv_quant)
+    v_seq = _gather_kv(value_cache, v_scale, safe, kv_quant)
+    S = k_seq.shape[2]
+    qg = q.reshape(b, T, nkv, rep, hd)
+    logits = torch.einsum("btngd,bnsd->btngs", qg.float(), k_seq) * scale
+    row_len = _row_lens(seq_lens, q_lens, T)[:, :, None, None, None]
+    cols = torch.arange(S, device=q.device)
+    logits = torch.where(cols < row_len, logits,
+                         torch.full_like(logits, NEG_INF))
+    p = torch.softmax(logits, dim=-1)
+    p = torch.where(row_len > 0, p, torch.zeros_like(p))
+    out = torch.einsum("btngs,bnsd->btngd", p, v_seq)
+    return out.reshape(b, T, nh, hd).to(q.dtype)
+
+
+def paged_verify_reference(q, key_cache, value_cache, block_tables,
+                           seq_lens, q_lens, scale=None):
+    """The verify walk's plain version: :func:`paged_prefill_reference` over
+    fp pools (verify is its T = K+1 case)."""
+    return paged_prefill_reference(q, key_cache, value_cache, block_tables,
+                                   seq_lens, q_lens, scale=scale)
+
+
+def _check_rows(name, q, key_cache, value_cache, block_tables, seq_lens,
+                q_lens, kv_quant, k_scale, v_scale):
+    """Wrapper-side validation of a multi-row walk's operands: the shared
+    paged predicate, and head_dim at most 256 (the f32 q, K and V tiles of
+    a block stay in shared memory)."""
+    b, T, nh, hd = q.shape
+    nbp, nkv, bs, hd_st = key_cache.shape
+    dt, dev = q.dtype, q.device
+    if dt not in DTYPE_CODE:
+        raise ValueError(f"{name}: dtype {dt} not supported")
+    if not kernel_supported(nh, nkv, hd, bs) or hd > 256:
+        raise ValueError(f"{name}: unsupported shape nh={nh} nkv={nkv} "
+                         f"hd={hd} block_size={bs}")
+    check_cuda_tensor(f"{name} q", q, (b, T, nh, hd), dt, dev)
+    pool_dt = torch.int8 if kv_quant else dt
+    for pname, t in (("key_cache", key_cache), ("value_cache", value_cache)):
+        check_cuda_tensor(f"{name} {pname}", t, (nbp, nkv, bs, hd_st),
+                          pool_dt, dev)
+    if kv_quant:
+        for pname, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+            check_cuda_tensor(f"{name} {pname}", t, (nbp, nkv),
+                              torch.float32, dev)
+    check_cuda_tensor(f"{name} block_tables", block_tables,
+                      (b, block_tables.shape[1]), torch.int32, dev)
+    for pname, t in (("seq_lens", seq_lens), ("q_lens", q_lens)):
+        check_cuda_tensor(f"{name} {pname}", t, (b,), torch.int32, dev)
+
+
+def paged_prefill_cuda(q, key_cache, value_cache, block_tables, seq_lens,
+                       q_lens, scale, kv_quant=None, k_scale=None,
+                       v_scale=None, name="paged_prefill"):
+    """Launch ``csrc/paged_prefill.cu``'s ``ptt_paged_prefill`` (grid: slot
+    x kv head, tiles of 64 rows); returns [b, T, nh, hd].  ``name`` is the
+    kernel the launch counts as: ``paged_verify`` for the verify step's
+    K+1 rows over fp pools (B10, the same walk)."""
+    _check_rows(name, q, key_cache, value_cache, block_tables,
+                seq_lens, q_lens, kv_quant, k_scale, v_scale)
+    b, T, nh, hd = q.shape
+    nbp, nkv, bs, _ = key_cache.shape
+    out = torch.empty_like(q)
+    err = library().ptt_paged_prefill(
+        ptr(q), ptr(key_cache), ptr(value_cache),
+        *_scale_ptrs(kv_quant, k_scale, v_scale), ptr(block_tables),
+        ptr(seq_lens), ptr(q_lens), ptr(out), b, T, nh, nkv, hd, nbp, bs,
+        block_tables.shape[1], float(scale), DTYPE_CODE[q.dtype],
+        KV_FORMAT_CODE[kv_quant], stream_ptr(q.device))
+    check_launch(name, err)
+    LAUNCHES[name] += 1
+    return out
+
+
+def _small_rows(q, block_tables, seq_lens, q_lens):
+    return (q.contiguous(), block_tables.int().contiguous(),
+            seq_lens.int().contiguous(), q_lens.int().contiguous())
+
+
+def paged_attention_prefill(q, key_cache, value_cache, block_tables,
+                            seq_lens, q_lens, scale=None, kv_quant=None,
+                            k_scale=None, v_scale=None):
+    """Ragged chunked prefill over a block-table KV cache (the serving
+    engine's mixed prefill/decode step).
+
+    Args:
+      q: [b, T, num_heads, head_dim], roped: per slot up to ``T`` query
+        rows at consecutive positions (row t at ``seq_lens - q_lens + t``):
+        a prefill chunk, or one pending decode token (``q_lens == 1``).
+      key_cache/value_cache: [nbp, num_kv_heads, block_size, head_dim]
+        pages of q's dtype with every row's K/V already written, or
+        quantized storage per ``kv_quant`` (:func:`quantize_kv_cache`).
+      block_tables: [b, max_blocks] int32 physical page ids.
+      seq_lens: [b] int32 total written length incl. the rows.
+      q_lens: [b] int32 live rows (1..T).
+      k_scale/v_scale: [nbp, num_kv_heads] f32 (quantized pools).
+
+    Returns [b, T, num_heads, head_dim] in q's dtype: row t attends the
+    written prefix and the rows through itself; rows at or past q_lens are
+    zeros.  CUDA tensors launch ``paged_prefill`` or raise; CPU tensors,
+    or the ``paged_attention`` switch, take :func:`paged_prefill_reference`
+    (the reference's one launch-or-gather decision for the paged family)."""
+    hd = _check_storage("paged_attention_prefill", q, key_cache, kv_quant,
+                        k_scale, v_scale)
+    if scale is None:
+        scale = 1.0 / math.sqrt(hd)
+    scales = (k_scale, v_scale) if kv_quant else ()
+    args = (q, key_cache, value_cache, block_tables, seq_lens, q_lens)
+    kw = dict(kv_quant=kv_quant, k_scale=k_scale, v_scale=v_scale)
+    if use_kernel("paged_prefill", *args, *scales, switch="paged_attention"):
+        q_, t_, s_, ql_ = _small_rows(q, block_tables, seq_lens, q_lens)
+        return paged_prefill_cuda(q_, key_cache, value_cache, t_, s_, ql_,
+                                  scale, **kw)
+    return paged_prefill_reference(*args, scale=scale, **kw)
+
+
+def paged_attention_verify(q, key_cache, value_cache, block_tables, seq_lens,
+                           q_lens, scale=None):
+    """Ragged multi-token verification over fp pools (the speculative
+    target step): q [b, K+1, num_heads, head_dim] (row 0 the pending token,
+    rows 1.. the drafts, at consecutive positions), the pools holding every
+    row's K/V, seq_lens [b] the total written length incl. the drafts,
+    q_lens [b] live rows.  Row t attends everything up to and including its
+    own position, never the later drafts.  Returns [b, K+1, nh, hd]; rows
+    past q_lens are zeros.  Dispatch as :func:`paged_attention_prefill`
+    (kernel ``paged_verify``); quantized pools go through the prefill walk,
+    as in the reference."""
+    hd = _check_storage("paged_attention_verify", q, key_cache, None, None,
+                        None)
+    if scale is None:
+        scale = 1.0 / math.sqrt(hd)
+    args = (q, key_cache, value_cache, block_tables, seq_lens, q_lens)
+    if use_kernel("paged_verify", *args, switch="paged_attention"):
+        q_, t_, s_, ql_ = _small_rows(q, block_tables, seq_lens, q_lens)
+        return paged_prefill_cuda(q_, key_cache, value_cache, t_, s_, ql_,
+                                  scale, name="paged_verify")
+    return paged_verify_reference(*args, scale=scale)
 
 
 # ---------------------------------------------------------------------------

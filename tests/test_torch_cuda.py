@@ -403,3 +403,140 @@ def test_decode_switch_tokens_route_as_the_reference(dev, monkeypatch):
     with pytest.warns(UserWarning, match="did you mean 'flash_decode'"):
         tpa.paged_attention_decode(*args, **kw)
     assert tk.LAUNCHES["flash_decode"] == 1
+
+
+def _rows_case(g, dev, mode, dtype, T, lens, q_lens):
+    """A multi-row walk's inputs: b = len(lens) lanes, 8/2 heads, head_dim
+    128, block 64, 8 table pages; lane i owns ceil(lens[i] / 64) pages of
+    a shuffled pool (at least one), the rest of its table the sentinel nb
+    (the spill page, all zeros)."""
+    b, nh, nkv, hd, bs, mb = len(lens), 8, 2, 128, 64, 8
+    nb = b * mb
+    q = _randn(g, dev, b, T, nh, hd, dtype=dtype)
+    kc = _randn(g, dev, nb + 1, nkv, bs, hd, dtype=dtype)
+    vc = _randn(g, dev, nb + 1, nkv, bs, hd, dtype=dtype)
+    kc[nb] = 0
+    vc[nb] = 0
+    ks = vs = None
+    if mode:
+        kc, ks = tpa.quantize_kv_cache(kc, mode)
+        vc, vs = tpa.quantize_kv_cache(vc, mode)
+    tables = torch.full((b, mb), nb, dtype=torch.int32, device=dev)
+    perm = torch.randperm(nb, generator=g, device=dev).int()
+    for i, n in enumerate(lens):
+        n = -(-n // bs) if n > 1 else 0
+        tables[i, :n] = perm[i * mb:i * mb + n]
+    as_i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=dev)
+    return q, kc, vc, tables, as_i32(lens), as_i32(q_lens), ks, vs
+
+
+def _rows_close(got, want, q_lens, dtype):
+    """The decode attention's tolerance per (slot, row, q head); rows at or
+    past q_len exactly 0 on both sides."""
+    for i, n in enumerate(q_lens.tolist()):
+        _attn_close(got[i, :n], want[i, :n], dtype)
+        assert (got[i, n:] == 0).all() and (want[i, n:] == 0).all()
+
+
+@pytest.mark.parametrize("mode", [None, "int8", "int4"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_paged_prefill_kernel_matches_plain(dev, mode, dtype):
+    """B9 over one mixed-step lane mix at T 16: a decode lane, a chunk that
+    crosses a page boundary, a ragged final chunk of 5 rows over a long
+    prefix, and an inactive lane (length 1 on the spill page)."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    q, kc, vc, tables, lens, qlens, ks, vs = _rows_case(
+        g, dev, mode, dtype, 16, [300, 70, 500, 1], [1, 16, 5, 1])
+    args = (q, kc, vc, tables, lens, qlens)
+    kw = dict(kv_quant=mode, k_scale=ks, v_scale=vs)
+    tk.reset_counters()
+    got = tpa.paged_attention_prefill(*args, **kw)
+    assert tk.LAUNCHES["paged_prefill"] == 1 and sum(tk.LAUNCHES.values()) == 1
+    want = tpa.paged_prefill_reference(*args, **kw)
+    torch.cuda.synchronize()
+    _rows_close(got, want, qlens, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_paged_verify_kernel_matches_plain(dev, dtype, monkeypatch):
+    """B10 at K + 1 = 5 rows over fp pools, ragged q_lens; the
+    ``paged_attention`` switch sends both walks to the oracle, no launch."""
+    g = torch.Generator(device=dev).manual_seed(10)
+    q, kc, vc, tables, lens, qlens, _, _ = _rows_case(
+        g, dev, None, dtype, 5, [5, 300, 64, 130], [5, 1, 3, 5])
+    args = (q, kc, vc, tables, lens, qlens)
+    tk.reset_counters()
+    got = tpa.paged_attention_verify(*args)
+    assert tk.LAUNCHES["paged_verify"] == 1 and sum(tk.LAUNCHES.values()) == 1
+    want = tpa.paged_verify_reference(*args)
+    torch.cuda.synchronize()
+    _rows_close(got, want, qlens, dtype)
+    monkeypatch.setenv("PADDLE_TPU_TORCH_DISABLE_KERNELS", "paged_attention")
+    tk.reset_counters()
+    plain = tpa.paged_attention_verify(*args)
+    tpa.paged_attention_prefill(*args)
+    assert not any(tk.LAUNCHES.values())
+    assert tk.PLAIN_CALLS["paged_verify"] == 1
+    assert tk.PLAIN_CALLS["paged_prefill"] == 1
+    assert torch.equal(plain, want)
+
+
+@pytest.mark.parametrize("kv_quant", [None, "int8"])
+def test_chunked_spec_engine_launches_on_the_card(dev, kv_quant,
+                                                  monkeypatch):
+    """A 2-layer f32 engine at head_dim 128 with chunked prefill and
+    speculation on self-repeating prompts (drafts accepted and rejected):
+    every layer of every mixed step
+    launches ``paged_prefill``, of every verify step ``paged_verify`` (fp
+    pools) or ``paged_prefill`` (int8 pools).  Greedy streams equal the
+    same engine's with every kernel off and, on fp pools, the bucketed
+    speculation-off engine's (int8 requantizes per write event, so the
+    event grouping moves its codes)."""
+    import dataclasses
+
+    import numpy as np
+
+    from paddle_tpu_torch.inference import serving
+    from paddle_tpu_torch.models import llama
+
+    cfg = dataclasses.replace(
+        llama.LlamaConfig.tiny(vocab=512, hidden=256, layers=2, heads=2,
+                               kv_heads=1, inter=512), dtype=torch.float32)
+    params = llama.init_params(cfg, seed=0, device=dev)
+    rs = np.random.RandomState(0)
+    prompts = [np.tile(rs.randint(1, 512, size=7), 12).astype(np.int32),
+               rs.randint(1, 512, size=40).astype(np.int32),
+               np.tile(rs.randint(1, 512, size=5), 20).astype(np.int32)]
+
+    def serve(**kw):
+        eng = serving.ContinuousBatchingEngine(
+            cfg, params, max_batch=2, max_seq=256, block_size=64,
+            kv_quant=kv_quant, device=dev, **kw)
+        tk.reset_counters()
+        out = eng.serve([serving.Request(rid=i, prompt_ids=p,
+                                         max_new_tokens=24)
+                         for i, p in enumerate(prompts)])
+        return out, eng, dict(tk.LAUNCHES)
+
+    feats = dict(enable_chunked_prefill=True, prefill_chunk=32,
+                 enable_speculation=True)
+    base, _, _ = serve()
+    monkeypatch.setenv("PADDLE_TPU_TORCH_DISABLE_KERNELS", "all")
+    plain, _, off = serve(**feats)
+    assert not any(off.values())
+    monkeypatch.delenv("PADDLE_TPU_TORCH_DISABLE_KERNELS")
+    got, eng, launches = serve(**feats)
+    st, L = eng.stats, cfg.num_hidden_layers
+    assert st["mixed_steps"] > 0 and st["spec_steps"] > 0
+    # drafts both accepted (a verify step banked a run) and rejected
+    assert st["spec_accepted_tokens"] > 0 and st["spec_rejected_tokens"] > 0
+    if kv_quant is None:
+        assert launches["paged_prefill"] == L * st["mixed_steps"]
+        assert launches["paged_verify"] == L * st["spec_steps"]
+    else:
+        assert launches["paged_prefill"] == L * (st["mixed_steps"]
+                                                 + st["spec_steps"])
+        assert launches["paged_verify"] == 0
+    assert got == plain
+    if kv_quant is None:
+        assert got == base
