@@ -23,7 +23,9 @@ non-zero as soon as one fails:
    versions at the training shape (batch 2, 2048 tokens, 32/8 heads,
    head_dim 128, bf16, causal), timed like phase 3 (library: PyTorch's
    scaled_dot_product_attention and its backward), and on ragged,
-   sq != skv, masked and packed (segment ids) cases;
+   sq != skv, masked and packed (segment ids) cases; the forward and
+   dK/dV on both routes, the tensor-core kernels the rule picks and the
+   CUDA-core kernels timed beside them;
 5. paged kernels: the sequential and the split-K paged decode over bf16,
    int8 and packed-int4 pools, and the fused requantizing decode step over
    int8 and int4 pools, at the serving shapes with ragged lengths (0 to
@@ -55,7 +57,8 @@ non-zero as soon as one fails:
 8. train: Llama-3-8B widths cut to 4 layers take 5 AdamW steps on one
    batch of 2 x 2048 seeded tokens with full recompute; the loss falls,
    and the launch counts prove every layer went through the three flash
-   kernels; step time, tokens/s, model FLOPs utilization, peak memory and
+   kernels, the forward and dK/dV on their tensor-core route; step time,
+   tokens/s, model FLOPs utilization, peak memory and
    a torch.profiler breakdown of one step;
 9. train kernels vs plain: a 2-layer full-width model's loss, gradient
    norm and every gradient leaf with the kernels and with
@@ -144,7 +147,8 @@ def phase_build(kernels) -> None:
     kernels.library()
     regs = [ln.strip() for ln in info.get("ptxas", "").splitlines()
             if "registers" in ln or "Compiling entry" in ln
-            or "spill" in ln or "warning" in ln.lower()]
+            or "spill" in ln or "warning" in ln.lower()
+            or "Performance Loss" in ln]
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "cached": info["cached"], "library": os.path.relpath(info["path"],
                                                                ROOT),
@@ -1240,37 +1244,57 @@ def _flash_case(torch, tfa, g, dev, b, sq, skv, hq, hkv, d, causal,
     return q, k, v, do, kw
 
 
+#: the two routes of the forward and dK/dV at bf16, d 128: the tensor-core
+#: kernels the rule picks, and the CUDA-core kernels (flash_route)
+FLASH_ROUTES = ("tc", "cc")
+
+
 def _flash_check(torch, tfa, q, k, v, do, kw, label) -> dict:
-    """All three kernels against their plain versions on one case; returns
-    the errors and the tensors the timing reuses."""
-    out, lse = tfa.flash_fwd_cuda(q, k, v, **kw)
+    """The three kernels against their plain versions on one case, the
+    forward and dK/dV on both routes; returns the errors by route and the
+    tensors the timing reuses."""
     out_p, lse_p = tfa.flash_fwd_ref(q, k, v, **kw)
     delta = (out_p.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
-    dk, dv = tfa.flash_dkv_cuda(q, k, v, do, lse_p, delta, **kw)
     dk_p, dv_p = tfa.flash_dkv_ref(q, k, v, do, lse_p, delta, **kw)
     dq = tfa.flash_dq_cuda(q, k, v, do, lse_p, delta, **kw)
     dq_p = tfa.flash_dq_ref(q, k, v, do, lse_p, delta, **kw)
-    torch.cuda.synchronize()
     live = lse_p > -1e29
-    res = {"fwd": _flash_err(out, out_p),
-           "lse_max_abs_err": (lse - lse_p)[live].abs().max().item(),
-           "dkv": {"dk": _flash_err(dk, dk_p), "dv": _flash_err(dv, dv_p)},
-           "dq": _flash_err(dq, dq_p)}
-    worst = max(res["fwd"]["worst_err_over_tol"],
-                res["dkv"]["dk"]["worst_err_over_tol"],
-                res["dkv"]["dv"]["worst_err_over_tol"],
-                res["dq"]["worst_err_over_tol"])
-    check(worst <= 1.0, f"flash {label}: kernels within tolerance of the "
-                        f"plain versions (worst err/tol {worst})")
-    check(res["lse_max_abs_err"] <= 1e-4 and bool(
-        (lse[~live] == lse_p[~live]).all()), f"flash {label}: lse")
-    # rows with nothing to attend: out and dq exactly 0, lse -1e30
     dead = (~live).transpose(1, 2)
-    if dead.any():
-        check(bool((out[dead] == 0).all() and (dq[dead] == 0).all()),
-              f"flash {label}: fully masked rows are exactly 0")
-    res["dead_rows"] = int(dead.sum())
+    res = {"dq": _flash_err(dq, dq_p), "dead_rows": int(dead.sum())}
+    for route in FLASH_ROUTES:
+        out, lse = tfa.flash_fwd_cuda(q, k, v, route=route, **kw)
+        dk, dv = tfa.flash_dkv_cuda(q, k, v, do, lse_p, delta, route=route,
+                                    **kw)
+        torch.cuda.synchronize()
+        r = res[route] = {
+            "fwd": _flash_err(out, out_p),
+            "lse_max_abs_err": (lse - lse_p)[live].abs().max().item(),
+            "dkv": {"dk": _flash_err(dk, dk_p), "dv": _flash_err(dv, dv_p)}}
+        worst = max(r["fwd"]["worst_err_over_tol"],
+                    r["dkv"]["dk"]["worst_err_over_tol"],
+                    r["dkv"]["dv"]["worst_err_over_tol"],
+                    res["dq"]["worst_err_over_tol"])
+        check(worst <= 1.0, f"flash {label} ({route}): kernels within "
+                            f"tolerance of the plain versions (worst "
+                            f"err/tol {worst})")
+        check(r["lse_max_abs_err"] <= 1e-4 and bool(
+            (lse[~live] == lse_p[~live]).all()), f"flash {label} "
+                                                 f"({route}): lse")
+        # rows with nothing to attend: out and dq exactly 0, lse -1e30
+        if dead.any():
+            check(bool((out[dead] == 0).all() and (dq[dead] == 0).all()),
+                  f"flash {label} ({route}): fully masked rows are "
+                  f"exactly 0")
     return res, (lse_p, delta)
+
+
+def _route_errs(r: dict, part: str) -> dict:
+    """One route's errors of the forward, or of dK/dV (the worse of dk and
+    dv), from ``_flash_check``."""
+    if part == "fwd":
+        return r["fwd"]
+    return {key: max(r["dkv"]["dk"][key], r["dkv"]["dv"][key])
+            for key in r["dkv"]["dk"]}
 
 
 def phase_flash_kernels(torch) -> dict:
@@ -1318,36 +1342,45 @@ def phase_flash_kernels(torch) -> dict:
     lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
         out_t, (qt, kt, vt), do_t, retain_graph=True), flush=flush)
     del out_t
+    # the forward and dK/dV on the route the rule picks (the tensor cores)
+    # and, timed beside them on the same inputs, the CUDA-core route
     timed = {
-        "fwd": (lambda: tfa.flash_fwd_cuda(q, k, v, **kw),
+        "fwd": (lambda r: lambda: tfa.flash_fwd_cuda(q, k, v, route=r, **kw),
                 lambda: tfa.flash_fwd_ref(q, k, v, **kw), lib_fwd),
-        "dkv": (lambda: tfa.flash_dkv_cuda(q, k, v, do, lse, delta, **kw),
+        "dkv": (lambda r: lambda: tfa.flash_dkv_cuda(q, k, v, do, lse, delta,
+                                                     route=r, **kw),
                 lambda: tfa.flash_dkv_ref(q, k, v, do, lse, delta, **kw),
                 lib_bwd),
-        "dq": (lambda: tfa.flash_dq_cuda(q, k, v, do, lse, delta, **kw),
+        "dq": (lambda r: lambda: tfa.flash_dq_cuda(q, k, v, do, lse, delta,
+                                                   **kw),
                lambda: tfa.flash_dq_ref(q, k, v, do, lse, delta, **kw),
                lib_bwd)}
     out = {}
     for part, (kern, plain, lib) in timed.items():
         name = {"fwd": "flash_attention_fwd", "dkv": "flash_attention_dkv",
                 "dq": "flash_attention_dq"}[part]
-        errs = res[part] if part != "dkv" else {
-            key: max(res["dkv"]["dk"][key], res["dkv"]["dv"][key])
-            for key in res["dkv"]["dk"]}
+        errs = res["dq"] if part == "dq" else _route_errs(res["tc"], part)
         bnd, by = bounds[part]
+        routes = {}
+        if part != "dq":
+            routes = {"route": "tc (flash_route)",
+                      "cuda_core": {"ms": time_ms(torch, kern("cc"),
+                                                  flush=flush),
+                                    **_route_errs(res["cc"], part)}}
         out[name] = {
             "shape": {"b": b, "sq": s, "skv": s, "hq": hq, "hkv": hkv,
                       "d": d, "dtype": "bfloat16", "causal": True},
             **errs, "tolerance": "|d| <= 2^-7|ref| + 2^-10 max|ref| (f32 "
                                  "order, one bf16 rounding)",
-            "ms": time_ms(torch, kern, flush=flush),
+            "ms": time_ms(torch, kern("tc"), flush=flush),
             "plain_ms": time_ms(torch, plain, flush=flush),
             "library_ms": lib,
             "library_call": ("scaled_dot_product_attention forward"
                              if part == "fwd" else
                              "scaled_dot_product_attention backward: "
                              "dq+dk+dv together"),
-            "bound_ms": bnd, "bound_by": by, "causal_pairs": pairs}
+            "bound_ms": bnd, "bound_by": by, "causal_pairs": pairs,
+            **routes}
         emit({"phase": "kernel", "name": name, **out[name]})
     del q, k, v, do, lse, delta, qt, kt, vt, do_t
 
@@ -1379,11 +1412,13 @@ def phase_flash_kernels(torch) -> dict:
             torch, tfa, g, dev, c["b"], c["sq"], c["skv"], hq, hkv, d,
             c["causal"], mask=c.get("mask"), segs=c.get("segs"))
         r, _ = _flash_check(torch, tfa, qq, kk, vv, dd, kw, label)
-        small[label] = {"worst_err_over_tol": max(
-            r["fwd"]["worst_err_over_tol"], r["dq"]["worst_err_over_tol"],
-            r["dkv"]["dk"]["worst_err_over_tol"],
-            r["dkv"]["dv"]["worst_err_over_tol"]),
-            "dead_rows": r["dead_rows"]}
+        small[label] = {"dead_rows": r["dead_rows"], **{
+            f"worst_err_over_tol_{route}": max(
+                r[route]["fwd"]["worst_err_over_tol"],
+                r["dq"]["worst_err_over_tol"],
+                r[route]["dkv"]["dk"]["worst_err_over_tol"],
+                r[route]["dkv"]["dv"]["worst_err_over_tol"])
+            for route in FLASH_ROUTES}}
     check(small["sq_ne_skv_causal_dead_rows"]["dead_rows"] > 0
           and small["bool_mask"]["dead_rows"] > 0,
           "the dead-row cases have rows with nothing to attend")
@@ -1394,7 +1429,9 @@ def phase_flash_kernels(torch) -> dict:
 
 
 #: device-kernel name fragments of a train step -> group
-_TRAIN_GROUPS = (("flash_fwd_kernel", "flash_fwd"),
+_TRAIN_GROUPS = (("flash_fwd_tc_kernel", "flash_fwd_tc"),
+                 ("flash_dkv_tc_kernel", "flash_dkv_tc"),
+                 ("flash_fwd_kernel", "flash_fwd"),
                  ("flash_dkv_kernel", "flash_dkv"),
                  ("flash_dq_kernel", "flash_dq"),
                  ("rms_norm_kernel", "rms_norm"),
@@ -1469,8 +1506,11 @@ def phase_train(torch, np) -> dict:
           f"step-1 loss {losses[0]} near ln(V) = "
           f"{math.log(cfg.vocab_size)}")
     check(losses[-1] < losses[0], f"the loss falls: {losses}")
+    # every forward and dK/dV launch took the tensor-core route
     want = {"flash_attention_fwd": 2 * L * steps,
+            "flash_attention_fwd_tc": 2 * L * steps,
             "flash_attention_dkv": L * steps,
+            "flash_attention_dkv_tc": L * steps,
             "flash_attention_dq": L * steps,
             "rms_norm": (4 * L + 1) * steps}
     for name, n in want.items():
@@ -1552,7 +1592,9 @@ def phase_train_end_to_end(torch, np) -> None:
         launches = dict(kernels.LAUNCHES)
         os.environ.pop(env, None)
         if disable is None:
-            check(all(launches[k] > 0 for k in FLASH_KERNELS + ("rms_norm",)),
+            check(all(launches[k] > 0 for k in FLASH_KERNELS + (
+                "flash_attention_fwd_tc", "flash_attention_dkv_tc",
+                "rms_norm")),
                   f"kernel run launched the train kernels: {launches}")
         else:
             check(all(v == 0 for v in launches.values()),
@@ -1620,6 +1662,10 @@ def main() -> int:
     launches.update({k: arm_launches[k] for k in ("paged_decode",
                                                   "flash_decode")})
     launches.update({k: train_launches[k] for k in FLASH_KERNELS})
+    # the forward's and dK/dV's entries are the tensor-core kernels, the
+    # route every launch of the train step took
+    for k in ("flash_attention_fwd", "flash_attention_dkv"):
+        launches[k] = train_launches[f"{k}_tc"]
     launches["rms_norm"] += train_launches["rms_norm"]
     pa = "paddle_tpu/ops/pallas/paged_attention.py"
     fa = "paddle_tpu/ops/pallas/flash_attention.py"
@@ -1627,8 +1673,8 @@ def main() -> int:
                                            "rms_norm.py:20"),
                "fused_decode_step": ("fused_decode.cu", f"{pa}:1377"),
                "fused_layer_mlp": ("fused_mlp.cu", f"{pa}:2020"),
-               "flash_attention_fwd": ("flash_fwd.cu", f"{fa}:173"),
-               "flash_attention_dkv": ("flash_bwd.cu", f"{fa}:295"),
+               "flash_attention_fwd": ("flash_fwd_tc.cu", f"{fa}:173"),
+               "flash_attention_dkv": ("flash_bwd_tc.cu", f"{fa}:295"),
                "flash_attention_dq": ("flash_bwd.cu", f"{fa}:344"),
                # no TPU kernel: the reference's jax.random.categorical
                # draw, which XLA compiles into its decode program

@@ -58,10 +58,14 @@ KNOWN_KERNELS = frozenset({"all", "flash_attention", "rms_norm",
 #: sequential walk; ``flash_decode``, ``fused_decode_step`` and
 #: ``fused_quant_decode_step`` count a walk and its combine launch as one;
 #: ``paged_prefill`` and ``paged_verify`` are the ragged multi-row walks of
-#: the mixed and the speculative verify step.
+#: the mixed and the speculative verify step.  ``flash_attention_fwd`` and
+#: ``flash_attention_dkv`` count every launch of either route;
+#: ``flash_attention_fwd_tc`` and ``flash_attention_dkv_tc`` count the
+#: launches that took the tensor-core route (``flash_route``).
 LAUNCHES = {"rms_norm": 0, "fused_decode_step": 0, "fused_layer_mlp": 0,
             "flash_attention_fwd": 0, "flash_attention_dkv": 0,
-            "flash_attention_dq": 0, "gumbel_noise": 0, "paged_decode": 0,
+            "flash_attention_dq": 0, "flash_attention_fwd_tc": 0,
+            "flash_attention_dkv_tc": 0, "gumbel_noise": 0, "paged_decode": 0,
             "flash_decode": 0, "fused_quant_decode_step": 0,
             "paged_prefill": 0, "paged_verify": 0}
 #: kernel name -> dispatches that took the plain PyTorch version
@@ -131,8 +135,8 @@ _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "build"
 SOURCES = ("rms_norm.cu", "fused_decode.cu", "fused_mlp.cu", "flash_fwd.cu",
-           "flash_bwd.cu", "gumbel.cu", "paged_decode.cu",
-           "fused_quant_decode.cu", "paged_prefill.cu")
+           "flash_bwd.cu", "flash_fwd_tc.cu", "flash_bwd_tc.cu", "gumbel.cu",
+           "paged_decode.cu", "fused_quant_decode.cu", "paged_prefill.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-lineinfo")
 _LIB_NAME = "libpaddle_tpu_torch_kernels.so"
@@ -217,8 +221,10 @@ _SIGNATURES = {
     # q, k, v, mask, q_seg, kv_seg, out, lse, b, sq, skv, hq, hkv, d, mb,
     # mh, mask_kind, causal, scale, dtype, stream
     "ptt_flash_fwd": [_VP] * 8 + [_I] * 10 + [_F, _I, _VP],
+    "ptt_flash_fwd_tc": [_VP] * 8 + [_I] * 10 + [_F, _I, _VP],
     # q, k, v, do, lse, delta, mask, q_seg, kv_seg, dk, dv, then as above
     "ptt_flash_dkv": [_VP] * 11 + [_I] * 10 + [_F, _I, _VP],
+    "ptt_flash_dkv_tc": [_VP] * 11 + [_I] * 10 + [_F, _I, _VP],
     # q, k, v, do, lse, delta, mask, q_seg, kv_seg, dq, then as above
     "ptt_flash_dq": [_VP] * 10 + [_I] * 10 + [_F, _I, _VP],
     # seeds, pos, out, rows, n, stream

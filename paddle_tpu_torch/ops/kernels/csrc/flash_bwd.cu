@@ -1,5 +1,10 @@
 // FlashAttention-2 backward: dK/dV and dQ, two kernels with no atomics.
 //
+// The CUDA-core route (`flash_attention.flash_route` "cc") of dK/dV: f32,
+// and bf16 / f16 at every head_dim other than 64 and 128 (a multiple of 8
+// up to 256); bf16 / f16 at head_dim 64 or 128 take the tensor-core kernel
+// of flash_bwd_tc.cu.  dQ runs here for every shape.
+//
 // Replaces: paddle_tpu/ops/pallas/flash_attention.py `_dkv_kernel` and
 // `_dq_kernel` (launched by `_flash_bwd`).  On the TPU the dk/dv grid was
 // (b*hkv, kv blocks, rep * q blocks) with the group's q blocks walked in
@@ -15,8 +20,8 @@
 // and dQ 6 * d * P (s, dp, dq) with P = b * hq * s(s+1)/2 = 134M pairs,
 // about a thousand flops per byte moved: tensor-core bound (989 TFLOP/s).
 //
-// Design (a first, simple kernel on the CUDA cores in f32, like
-// flash_fwd.cu, whose tile scheme it shares):
+// Design (a simple kernel on the CUDA cores in f32, like flash_fwd.cu,
+// whose tile scheme it shares):
 //  - dK/dV: grid (b*hkv, kv tiles of BKV rows), 4 * BKV threads.  The
 //    block keeps its K and V tile in shared memory (f32) and walks every q
 //    tile of every q head of its kv group (the TPU's rep * q-block axis;

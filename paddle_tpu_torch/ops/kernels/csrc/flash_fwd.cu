@@ -1,6 +1,11 @@
 // FlashAttention-2 forward: out = softmax(mask(q k^T * scale)) v per q head,
 // and the row log-sum-exp lse the backward recomputes probabilities from.
 //
+// The CUDA-core route (`flash_attention.flash_route` "cc"): f32, and bf16 /
+// f16 at every head_dim other than 64 and 128 (a multiple of 8 up to 256).
+// bf16 / f16 at head_dim 64 or 128 take the tensor-core kernel of
+// flash_fwd_tc.cu.
+//
 // Replaces: paddle_tpu/ops/pallas/flash_attention.py `_fwd_kernel`
 // (launched by `_flash_fwd`).  On the TPU its grid was (b*hq, q blocks, kv
 // blocks) with the kv axis run in order and m, l, acc carried in VMEM
@@ -12,8 +17,8 @@
 // GFLOP over 33.6 MB of q, k, v, out and lse: about 2000 flops a byte, far
 // above the card's ridge, so the tensor cores' 989 TFLOP/s set the bound.
 //
-// Design (a first, simple kernel; it runs on the CUDA cores in f32 and
-// does not reach that bound): grid (b*hq, q tiles of 64 rows), 256
+// Design (a simple kernel; it runs on the CUDA cores in f32 and does not
+// reach that bound): grid (b*hq, q tiles of 64 rows), 256
 // threads.  Blocks run in parallel in no order, so the TPU's sequential kv
 // axis becomes a loop inside the block, with the online-softmax state
 // living in registers for the block's lifetime:

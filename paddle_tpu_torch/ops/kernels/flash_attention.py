@@ -1,14 +1,21 @@
 """Flash attention with its backward (counterpart of
 ``paddle_tpu/ops/pallas/flash_attention.py``).
 
-Three CUDA kernels, each with its plain PyTorch version beside it:
+Three kernels, each with its plain PyTorch version beside it:
 
-- ``flash_fwd`` (``csrc/flash_fwd.cu``, the reference's ``_fwd_kernel``):
-  FlashAttention-2 forward, online softmax in f32, emits ``out`` and the
-  row log-sum-exp ``lse``;
-- ``flash_dkv`` (``csrc/flash_bwd.cu``, ``_dkv_kernel``): dK and dV, the
-  GQA group summed in the block's accumulator;
+- ``flash_fwd`` (the reference's ``_fwd_kernel``): FlashAttention forward,
+  online softmax in f32, emits ``out`` and the row log-sum-exp ``lse``;
+- ``flash_dkv`` (``_dkv_kernel``): dK and dV, the GQA group summed in the
+  block's accumulator;
 - ``flash_dq`` (``csrc/flash_bwd.cu``, ``_dq_kernel``): dQ.
+
+The forward and dK/dV each have two hand-written routes, chosen by
+:func:`flash_route` from (dtype, head_dim) alone: ``"tc"`` for bf16/f16 at
+head_dim 64 or 128 (``csrc/flash_fwd_tc.cu``, ``csrc/flash_bwd_tc.cu``:
+wgmma tensor cores with f32 accumulators, P and dS entering their products
+as hi + lo parts of the input dtype) and ``"cc"`` for every other shape
+(``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``: f32 on the CUDA cores).  A route never changes
+because a launch failed; a failed launch raises.
 
 Semantics are the reference's: q/k/v upcast to f32, logits
 ``dot(q, k) * scale``, then the mask (bool -> ``NEG_INF``, additive ->
@@ -272,21 +279,51 @@ def _opt_args(name, q, mask, mb, mh, segs, sq, skv):
     return mptr, kind, ptr(q_seg), ptr(kv_seg)
 
 
+#: dtypes and head dims of the tensor-core kernels (csrc/flash_fwd_tc.cu,
+#: csrc/flash_bwd_tc.cu)
+TC_DTYPES = (torch.bfloat16, torch.float16)
+TC_HEAD_DIMS = (64, 128)
+
+
+def flash_route(dtype: torch.dtype, head_dim: int) -> str:
+    """Which hand-written kernel the forward and dK/dV take on the card:
+    ``"tc"`` (wgmma tensor cores) for bf16/f16 at head_dim 64 or 128,
+    ``"cc"`` (the f32 CUDA-core kernels) for every other shape the wrappers
+    take.  dQ always takes the CUDA-core kernel."""
+    return "tc" if dtype in TC_DTYPES and head_dim in TC_HEAD_DIMS else "cc"
+
+
+def _pick_route(name, q, route):
+    """``route`` (None: :func:`flash_route`) after checking it fits q."""
+    rule = flash_route(q.dtype, q.shape[-1])
+    if route is None:
+        return rule
+    if route not in ("tc", "cc") or (route == "tc" and rule != "tc"):
+        raise ValueError(f"{name}: route {route!r} does not take dtype "
+                         f"{q.dtype}, head_dim {q.shape[-1]}")
+    return route
+
+
 def flash_fwd_cuda(q, k, v, mask=None, mb=1, mh=1, segs=None, scale=1.0,
-                   causal=False):
-    """Launch ``csrc/flash_fwd.cu``: (out, lse) as :func:`flash_fwd_ref`.
-    An additive mask must be f32 (``_FlashCore`` converts it)."""
+                   causal=False, route=None):
+    """Launch ``csrc/flash_fwd_tc.cu`` or ``csrc/flash_fwd.cu`` (``route``,
+    default :func:`flash_route`): (out, lse) as :func:`flash_fwd_ref`.  An
+    additive mask must be f32 (``_FlashCore`` converts it)."""
     b, sq, skv, hq, hkv, d = _check_shapes("flash_fwd", q, k, v)
     mptr, kind, qs, ks = _opt_args("flash_fwd", q, mask, mb, mh, segs, sq,
                                    skv)
+    route = _pick_route("flash_fwd", q, route)
     out = torch.empty_like(q)
     lse = torch.empty(b, hq, sq, dtype=torch.float32, device=q.device)
-    err = library().ptt_flash_fwd(
-        ptr(q), ptr(k), ptr(v), mptr, qs, ks, ptr(out), ptr(lse), b, sq, skv,
-        hq, hkv, d, mb, mh, kind, int(causal), float(scale),
-        _DTYPE[q.dtype], stream_ptr(q.device))
+    lib = library()
+    fn = lib.ptt_flash_fwd_tc if route == "tc" else lib.ptt_flash_fwd
+    err = fn(ptr(q), ptr(k), ptr(v), mptr, qs, ks, ptr(out), ptr(lse), b, sq,
+             skv, hq, hkv, d, mb, mh, kind, int(causal), float(scale),
+             _DTYPE[q.dtype], stream_ptr(q.device))
     check_launch("flash_fwd", err)
     LAUNCHES["flash_attention_fwd"] += 1
+    if route == "tc":
+        LAUNCHES["flash_attention_fwd_tc"] += 1
     return out, lse
 
 
@@ -301,19 +338,25 @@ def _check_bwd(name, q, do, lse, delta):
 
 
 def flash_dkv_cuda(q, k, v, do, lse, delta, mask=None, mb=1, mh=1,
-                   segs=None, scale=1.0, causal=False):
-    """Launch the dK/dV kernel of ``csrc/flash_bwd.cu``."""
+                   segs=None, scale=1.0, causal=False, route=None):
+    """Launch the dK/dV kernel of ``csrc/flash_bwd_tc.cu`` or
+    ``csrc/flash_bwd.cu`` (``route``, default :func:`flash_route`)."""
     b, sq, skv, hq, hkv, d = _check_shapes("flash_dkv", q, k, v)
     _check_bwd("flash_dkv", q, do, lse, delta)
     mptr, kind, qs, ks = _opt_args("flash_dkv", q, mask, mb, mh, segs, sq,
                                    skv)
+    route = _pick_route("flash_dkv", q, route)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    err = library().ptt_flash_dkv(
-        ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(delta), mptr, qs, ks,
-        ptr(dk), ptr(dv), b, sq, skv, hq, hkv, d, mb, mh, kind, int(causal),
-        float(scale), _DTYPE[q.dtype], stream_ptr(q.device))
+    lib = library()
+    fn = lib.ptt_flash_dkv_tc if route == "tc" else lib.ptt_flash_dkv
+    err = fn(ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(delta), mptr, qs,
+             ks, ptr(dk), ptr(dv), b, sq, skv, hq, hkv, d, mb, mh, kind,
+             int(causal), float(scale), _DTYPE[q.dtype],
+             stream_ptr(q.device))
     check_launch("flash_dkv", err)
     LAUNCHES["flash_attention_dkv"] += 1
+    if route == "tc":
+        LAUNCHES["flash_attention_dkv_tc"] += 1
     return dk, dv
 
 

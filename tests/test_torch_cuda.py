@@ -147,6 +147,13 @@ FLASH_CASES = {
                        torch.bfloat16),
     "f32_additive_mask": (1, 80, 80, 4, 2, 128, True, "add", None,
                           torch.float32),
+    # the tensor-core route (bf16/f16, head_dim 64 or 128)
+    "f16_gqa_causal_ragged": (2, 200, 200, 8, 2, 128, True, None, None,
+                              torch.float16),
+    "bf16_d64_bool_mask": (2, 64, 96, 4, 2, 64, False, "bool", None,
+                           torch.bfloat16),
+    "bf16_long_sq_ne_skv_segments": (1, 300, 517, 8, 2, 128, True, None,
+                                     "pair", torch.bfloat16),
 }
 
 
@@ -179,28 +186,36 @@ def test_flash_kernels_match_plain(dev, case):
         segs = (q_ids.contiguous(), kv_ids.contiguous())
     kw = dict(mask=m, mb=mb, mh=mh, segs=segs, scale=d ** -0.5,
               causal=causal)
-    tk.reset_counters()
-    out, lse = tfa.flash_fwd_cuda(q, k, v, **kw)
-    out_p, lse_p = tfa.flash_fwd_ref(q, k, v, **kw)
-    _flash_close("out", out, out_p, dtype)
-    live = lse_p > -1e29
-    assert torch.allclose(lse[live], lse_p[live], rtol=1e-5, atol=1e-5)
-    assert (lse[~live] == lse_p[~live]).all()
-    if seg == "pair":
-        assert (out[:, -7:] == 0).all()
-    delta = (out_p.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
-    dk, dv = tfa.flash_dkv_cuda(q, k, v, do, lse_p, delta, **kw)
-    dq = tfa.flash_dq_cuda(q, k, v, do, lse_p, delta, **kw)
-    dk_p, dv_p = tfa.flash_dkv_ref(q, k, v, do, lse_p, delta, **kw)
-    dq_p = tfa.flash_dq_ref(q, k, v, do, lse_p, delta, **kw)
-    torch.cuda.synchronize()
-    for name, a, e in (("dk", dk, dk_p), ("dv", dv, dv_p), ("dq", dq, dq_p)):
-        _flash_close(name, a, e, dtype)
-    assert {n: tk.LAUNCHES[n] for n in ("flash_attention_fwd",
-                                        "flash_attention_dkv",
-                                        "flash_attention_dq")} == \
-        {"flash_attention_fwd": 1, "flash_attention_dkv": 1,
-         "flash_attention_dq": 1}
+    route = tfa.flash_route(dtype, d)
+    # the rule's route, then (where it is the tensor-core one) the CUDA-core
+    # route on the same inputs: both held to the plain versions
+    for r in (route, "cc") if route == "tc" else (route,):
+        tk.reset_counters()
+        out, lse = tfa.flash_fwd_cuda(q, k, v, route=r, **kw)
+        out_p, lse_p = tfa.flash_fwd_ref(q, k, v, **kw)
+        _flash_close("out", out, out_p, dtype)
+        live = lse_p > -1e29
+        assert torch.allclose(lse[live], lse_p[live], rtol=1e-5, atol=1e-5)
+        assert (lse[~live] == lse_p[~live]).all()
+        if seg == "pair":
+            assert (out[:, -7:] == 0).all()
+        delta = (out_p.float() * do.float()).sum(-1).transpose(1, 2) \
+            .contiguous()
+        dk, dv = tfa.flash_dkv_cuda(q, k, v, do, lse_p, delta, route=r, **kw)
+        dq = tfa.flash_dq_cuda(q, k, v, do, lse_p, delta, **kw)
+        dk_p, dv_p = tfa.flash_dkv_ref(q, k, v, do, lse_p, delta, **kw)
+        dq_p = tfa.flash_dq_ref(q, k, v, do, lse_p, delta, **kw)
+        torch.cuda.synchronize()
+        for name, a, e in (("dk", dk, dk_p), ("dv", dv, dv_p),
+                           ("dq", dq, dq_p)):
+            _flash_close(name, a, e, dtype)
+        tc = int(r == "tc")
+        assert {n: tk.LAUNCHES[n] for n in (
+            "flash_attention_fwd", "flash_attention_dkv", "flash_attention_dq",
+            "flash_attention_fwd_tc", "flash_attention_dkv_tc")} == \
+            {"flash_attention_fwd": 1, "flash_attention_dkv": 1,
+             "flash_attention_dq": 1, "flash_attention_fwd_tc": tc,
+             "flash_attention_dkv_tc": tc}
 
 
 def test_flash_autograd_launches_and_refuses_large_heads(dev):
@@ -218,6 +233,8 @@ def test_flash_autograd_launches_and_refuses_large_heads(dev):
     assert (tk.LAUNCHES["flash_attention_fwd"],
             tk.LAUNCHES["flash_attention_dkv"],
             tk.LAUNCHES["flash_attention_dq"]) == (1, 1, 1)
+    assert (tk.LAUNCHES["flash_attention_fwd_tc"],
+            tk.LAUNCHES["flash_attention_dkv_tc"]) == (1, 1)
     assert all(t.grad is not None and torch.isfinite(t.grad).all()
                for t in (q, k, v))
     big = _randn(g, dev, 1, 16, 2, 264)
