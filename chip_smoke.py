@@ -45,8 +45,8 @@ non-zero as soon as one fails:
    bucketed speculation-off engine on the same requests (greedy streams
    part only after a near tie); the launch counts prove every layer of
    every mixed step went through the prefill walk and of every verify step
-   through the verify walk (the prefill walk on int8 pools), and a profile
-   of four mixed steps;
+   through the verify walk (the prefill walk on int8 pools), each on the
+   tensor-core route, and a profile of four mixed steps;
 7. arms: a 4-layer full-width model serves the same greedy requests on
    each decode arm of bf16, int8 and int4 pools (the fused step; the
    unfused split-K and sequential walks that
@@ -57,7 +57,7 @@ non-zero as soon as one fails:
 8. train: Llama-3-8B widths cut to 4 layers take 5 AdamW steps on one
    batch of 2 x 2048 seeded tokens with full recompute; the loss falls,
    and the launch counts prove every layer went through the three flash
-   kernels, the forward and dK/dV on their tensor-core route; step time,
+   kernels, each on its tensor-core route; step time,
    tokens/s, model FLOPs utilization, peak memory and
    a torch.profiler breakdown of one step;
 9. train kernels vs plain: a 2-layer full-width model's loss, gradient
@@ -84,6 +84,10 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory (data sheet)
 BF16_FLOPS = 989e12             # H100 SXM dense bf16 tensor-core peak
 F32_OPS = 67e12                 # H100 SXM float32 outside the tensor cores
 ROOT = os.path.dirname(os.path.abspath(__file__))
+#: the two routes of a two-route kernel at bf16, d 128: the tensor-core
+#: kernel the rule picks (flash_route, paged_rows_route), and the CUDA-core
+#: kernel
+ROUTES = ("tc", "cc")
 
 
 def emit(obj) -> None:
@@ -577,9 +581,12 @@ def _row_pairs(lens, qlens):
 def _rows_kernels(torch, pa, pools, table, randn, row_bytes, flush) -> dict:
     """B9 (the chunked-prefill walk) at T 128 over bf16, int8 and int4
     pools on one mixed-step lane mix, and B10 (the verify walk) at K+1 = 5
-    rows over bf16 pools, each against its plain version: the attention
-    tolerance per (slot, row, q head), rows past each lane's q_len exactly
-    0 on both sides."""
+    rows over bf16 pools, each on both routes against its plain version:
+    the attention tolerance per (slot, row, q head), rows past each lane's
+    q_len exactly 0 on both sides; timed on both routes.  Then, check
+    only, B9 at T 16 on every format, where every lane's live rows fit one
+    row tile, so the long lanes split their KV walk with up to 64 live rows
+    a split (the timed mixes split their decode and verify lanes)."""
     B, nh, nkv, hd, bs = 8, 32, 8, 128, 64
     scale = hd ** -0.5
     dev = torch.device("cuda")
@@ -589,10 +596,15 @@ def _rows_kernels(torch, pa, pools, table, randn, row_bytes, flush) -> dict:
         # on the spill page), three 128-row prefill chunks (lengths 128,
         # 768, 1920) and a final ragged chunk of 37 rows at length 1500
         ("paged_prefill", 128, [2048, 1000, 333, 1, 128, 768, 1920, 1500],
-         [1, 1, 1, 1, 128, 128, 128, 37], ("bf16", "int8", "int4")),
+         [1, 1, 1, 1, 128, 128, 128, 37], ("bf16", "int8", "int4"), True),
         ("paged_verify", 5, [5, 2048, 64, 127, 1000, 1500, 333, 1777],
-         [5, 5, 1, 3, 5, 2, 5, 4], ("bf16",)))
-    for name, T, lens_l, qlens_l, fmts in cases:
+         [5, 5, 1, 3, 5, 2, 5, 4], ("bf16",), True),
+        # 16-row chunks over long prefixes, ragged, a decode lane, an
+        # inactive lane
+        ("paged_prefill", 16, [2048, 1500, 64, 700, 1, 333, 128, 2000],
+         [16, 9, 16, 3, 1, 16, 16, 14], ("bf16", "int8", "int4"), False))
+    split_case = {}
+    for name, T, lens_l, qlens_l, fmts, timed in cases:
         pages = [-(-n // bs) if n > 1 else 0 for n in lens_l]
         tables = table(pages)
         lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
@@ -600,27 +612,38 @@ def _rows_kernels(torch, pa, pools, table, randn, row_bytes, flush) -> dict:
         q = randn(B, T, nh, hd)
         live = sum(max(p, 1) for p in pages)     # the inactive lane reads
         pairs = _row_pairs(lens_l, qlens_l)      # its one (spill) page
+        live_rows = torch.arange(T, device=dev)[None, :] < qlens[:, None]
         for fmt in fmts:
             kc, vc, ks, vs = pools[fmt]
             kvq = None if fmt == "bf16" else fmt
             kw = dict(kv_quant=kvq, k_scale=ks, v_scale=vs)
+            if name == "paged_verify":
+                kw = dict(name="paged_verify")
             args = (q, kc, vc, tables, lens, qlens)
+            kern = lambda r: lambda: pa.paged_prefill_cuda(*args, scale,
+                                                           route=r, **kw)
             if name == "paged_prefill":
-                kern = lambda: pa.paged_prefill_cuda(*args, scale, **kw)
-                plain = lambda: pa.paged_prefill_reference(*args, scale=scale,
-                                                           **kw)
+                plain = lambda: pa.paged_prefill_reference(
+                    *args, scale=scale, kv_quant=kvq, k_scale=ks, v_scale=vs)
             else:
-                kern = lambda: pa.paged_prefill_cuda(*args, scale,
-                                                     name="paged_verify")
                 plain = lambda: pa.paged_verify_reference(*args, scale=scale)
-            got, want = kern(), plain()
-            torch.cuda.synchronize()
-            live_rows = torch.arange(T, device=dev)[None, :] < qlens[:, None]
-            errs, ok = _attn_err(torch, got[live_rows], want[live_rows])
-            check(ok, f"{name} {fmt}: within the attention tolerance")
-            check(bool((got[~live_rows] == 0).all()
-                       and (want[~live_rows] == 0).all()),
-                  f"{name} {fmt}: rows past q_len are exactly 0")
+            want = plain()
+            errs = {}
+            for route in ROUTES:
+                got = kern(route)()
+                torch.cuda.synchronize()
+                errs[route], ok = _attn_err(torch, got[live_rows],
+                                            want[live_rows])
+                check(ok, f"{name} {fmt} T {T} ({route}): within the "
+                          f"attention tolerance")
+                check(bool((got[~live_rows] == 0).all()
+                           and (want[~live_rows] == 0).all()),
+                      f"{name} {fmt} T {T} ({route}): rows past q_len are "
+                      f"exactly 0")
+            if not timed:
+                split_case[fmt] = {f"worst_err_over_tol_{r}": e[
+                    "worst_err_over_tol"] for r, e in errs.items()}
+                continue
             # bytes: each lane's live pages of K and V (and their scales)
             # once, q's live rows (t < q_len: the walk reads no other), the
             # whole output, the live table entries, the lengths;
@@ -632,14 +655,19 @@ def _rows_kernels(torch, pa, pools, table, randn, row_bytes, flush) -> dict:
             flops = 4 * hd * nh * pairs
             bnd, by = bound_ms(nbytes, flops)
             out[name][fmt] = {
-                **errs, "rows": T, "lens": lens_l, "q_lens": qlens_l,
+                **errs["tc"], "rows": T, "lens": lens_l, "q_lens": qlens_l,
                 "tolerance": "|d| <= 2^-7|ref| + 2^-8 max|ref[slot, row, "
                              "head]|; rows past q_len exactly 0",
                 "rows_past_q_len_zero": True, "bound_bytes": nbytes,
                 "bound_flops": flops, "bound_ms": bnd, "bound_by": by,
-                "ms": time_ms(torch, kern, flush=flush),
+                "route": "tc (paged_rows_route)",
+                "max_splits": pa.rows_max_splits(tables.shape[1], bs),
+                "ms": time_ms(torch, kern("tc"), flush=flush),
+                "cuda_core": {"ms": time_ms(torch, kern("cc"), flush=flush),
+                              **errs["cc"]},
                 "plain_ms": time_ms(torch, plain, flush=flush),
                 "library_ms": None}
+    emit({"phase": "rows_split_case", "rows": 16, "formats": split_case})
     return out
 
 
@@ -869,8 +897,11 @@ def _serve_chunked_spec(torch, np, cfg, params, kv_quant, smi) -> dict:
           f"mixed steps {mixed} and verify steps {spec} both ran")
     check(st["prefills"] == 0 and st["decode_stall_steps"] == 0,
           "no bucketed prefill, no decode stall")
+    # every walk on the tensor-core route
     want = {"paged_prefill": L * (mixed + (spec if kv_quant else 0)),
             "paged_verify": 0 if kv_quant else L * spec,
+            "paged_prefill_tc": L * (mixed + (spec if kv_quant else 0)),
+            "paged_verify_tc": 0 if kv_quant else L * spec,
             FUSED_DECODE[kv_quant]: L * plain_steps,
             "fused_layer_mlp": L * plain_steps,
             "rms_norm": (L + 1) * plain_steps + (2 * L + 1) * (mixed + spec)}
@@ -949,6 +980,8 @@ def _serve_chunked_spec(torch, np, cfg, params, kv_quant, smi) -> dict:
 #: combine kernel goes with the decode kernel the profiled engine runs)
 _KERNEL_GROUPS = (("fused_quant_decode", "fused_quant_decode_step"),
                   ("rows_kernel", "paged_prefill / paged_verify"),
+                  ("rows_tc_kernel", "paged_prefill / paged_verify"),
+                  ("rows_combine_kernel", "paged_prefill / paged_verify"),
                   ("fused_decode", "fused_decode_step"),
                   ("paged_walk", "paged_decode / flash_decode"),
                   ("mlp_partial", "fused_layer_mlp"),
@@ -1244,36 +1277,32 @@ def _flash_case(torch, tfa, g, dev, b, sq, skv, hq, hkv, d, causal,
     return q, k, v, do, kw
 
 
-#: the two routes of the forward and dK/dV at bf16, d 128: the tensor-core
-#: kernels the rule picks, and the CUDA-core kernels (flash_route)
-FLASH_ROUTES = ("tc", "cc")
-
-
 def _flash_check(torch, tfa, q, k, v, do, kw, label) -> dict:
-    """The three kernels against their plain versions on one case, the
-    forward and dK/dV on both routes; returns the errors by route and the
-    tensors the timing reuses."""
+    """The three kernels against their plain versions on one case, each on
+    both routes; returns the errors by route and the tensors the timing
+    reuses."""
     out_p, lse_p = tfa.flash_fwd_ref(q, k, v, **kw)
     delta = (out_p.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
     dk_p, dv_p = tfa.flash_dkv_ref(q, k, v, do, lse_p, delta, **kw)
-    dq = tfa.flash_dq_cuda(q, k, v, do, lse_p, delta, **kw)
     dq_p = tfa.flash_dq_ref(q, k, v, do, lse_p, delta, **kw)
     live = lse_p > -1e29
     dead = (~live).transpose(1, 2)
-    res = {"dq": _flash_err(dq, dq_p), "dead_rows": int(dead.sum())}
-    for route in FLASH_ROUTES:
+    res = {"dead_rows": int(dead.sum())}
+    for route in ROUTES:
         out, lse = tfa.flash_fwd_cuda(q, k, v, route=route, **kw)
         dk, dv = tfa.flash_dkv_cuda(q, k, v, do, lse_p, delta, route=route,
                                     **kw)
+        dq = tfa.flash_dq_cuda(q, k, v, do, lse_p, delta, route=route, **kw)
         torch.cuda.synchronize()
         r = res[route] = {
             "fwd": _flash_err(out, out_p),
             "lse_max_abs_err": (lse - lse_p)[live].abs().max().item(),
-            "dkv": {"dk": _flash_err(dk, dk_p), "dv": _flash_err(dv, dv_p)}}
+            "dkv": {"dk": _flash_err(dk, dk_p), "dv": _flash_err(dv, dv_p)},
+            "dq": _flash_err(dq, dq_p)}
         worst = max(r["fwd"]["worst_err_over_tol"],
                     r["dkv"]["dk"]["worst_err_over_tol"],
                     r["dkv"]["dv"]["worst_err_over_tol"],
-                    res["dq"]["worst_err_over_tol"])
+                    r["dq"]["worst_err_over_tol"])
         check(worst <= 1.0, f"flash {label} ({route}): kernels within "
                             f"tolerance of the plain versions (worst "
                             f"err/tol {worst})")
@@ -1289,10 +1318,10 @@ def _flash_check(torch, tfa, q, k, v, do, kw, label) -> dict:
 
 
 def _route_errs(r: dict, part: str) -> dict:
-    """One route's errors of the forward, or of dK/dV (the worse of dk and
-    dv), from ``_flash_check``."""
-    if part == "fwd":
-        return r["fwd"]
+    """One route's errors of the forward, of dK/dV (the worse of dk and
+    dv) or of dQ, from ``_flash_check``."""
+    if part in ("fwd", "dq"):
+        return r[part]
     return {key: max(r["dkv"]["dk"][key], r["dkv"]["dv"][key])
             for key in r["dkv"]["dk"]}
 
@@ -1342,8 +1371,8 @@ def phase_flash_kernels(torch) -> dict:
     lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
         out_t, (qt, kt, vt), do_t, retain_graph=True), flush=flush)
     del out_t
-    # the forward and dK/dV on the route the rule picks (the tensor cores)
-    # and, timed beside them on the same inputs, the CUDA-core route
+    # each kernel on the route the rule picks (the tensor cores) and,
+    # timed beside it on the same inputs, the CUDA-core route
     timed = {
         "fwd": (lambda r: lambda: tfa.flash_fwd_cuda(q, k, v, route=r, **kw),
                 lambda: tfa.flash_fwd_ref(q, k, v, **kw), lib_fwd),
@@ -1352,21 +1381,18 @@ def phase_flash_kernels(torch) -> dict:
                 lambda: tfa.flash_dkv_ref(q, k, v, do, lse, delta, **kw),
                 lib_bwd),
         "dq": (lambda r: lambda: tfa.flash_dq_cuda(q, k, v, do, lse, delta,
-                                                   **kw),
+                                                   route=r, **kw),
                lambda: tfa.flash_dq_ref(q, k, v, do, lse, delta, **kw),
                lib_bwd)}
     out = {}
     for part, (kern, plain, lib) in timed.items():
         name = {"fwd": "flash_attention_fwd", "dkv": "flash_attention_dkv",
                 "dq": "flash_attention_dq"}[part]
-        errs = res["dq"] if part == "dq" else _route_errs(res["tc"], part)
+        errs = _route_errs(res["tc"], part)
         bnd, by = bounds[part]
-        routes = {}
-        if part != "dq":
-            routes = {"route": "tc (flash_route)",
-                      "cuda_core": {"ms": time_ms(torch, kern("cc"),
-                                                  flush=flush),
-                                    **_route_errs(res["cc"], part)}}
+        routes = {"route": "tc (flash_route)",
+                  "cuda_core": {"ms": time_ms(torch, kern("cc"), flush=flush),
+                                **_route_errs(res["cc"], part)}}
         out[name] = {
             "shape": {"b": b, "sq": s, "skv": s, "hq": hq, "hkv": hkv,
                       "d": d, "dtype": "bfloat16", "causal": True},
@@ -1415,10 +1441,10 @@ def phase_flash_kernels(torch) -> dict:
         small[label] = {"dead_rows": r["dead_rows"], **{
             f"worst_err_over_tol_{route}": max(
                 r[route]["fwd"]["worst_err_over_tol"],
-                r["dq"]["worst_err_over_tol"],
+                r[route]["dq"]["worst_err_over_tol"],
                 r[route]["dkv"]["dk"]["worst_err_over_tol"],
                 r[route]["dkv"]["dv"]["worst_err_over_tol"])
-            for route in FLASH_ROUTES}}
+            for route in ROUTES}}
     check(small["sq_ne_skv_causal_dead_rows"]["dead_rows"] > 0
           and small["bool_mask"]["dead_rows"] > 0,
           "the dead-row cases have rows with nothing to attend")
@@ -1431,6 +1457,7 @@ def phase_flash_kernels(torch) -> dict:
 #: device-kernel name fragments of a train step -> group
 _TRAIN_GROUPS = (("flash_fwd_tc_kernel", "flash_fwd_tc"),
                  ("flash_dkv_tc_kernel", "flash_dkv_tc"),
+                 ("flash_dq_tc_kernel", "flash_dq_tc"),
                  ("flash_fwd_kernel", "flash_fwd"),
                  ("flash_dkv_kernel", "flash_dkv"),
                  ("flash_dq_kernel", "flash_dq"),
@@ -1506,12 +1533,13 @@ def phase_train(torch, np) -> dict:
           f"step-1 loss {losses[0]} near ln(V) = "
           f"{math.log(cfg.vocab_size)}")
     check(losses[-1] < losses[0], f"the loss falls: {losses}")
-    # every forward and dK/dV launch took the tensor-core route
+    # every forward, dK/dV and dQ launch took the tensor-core route
     want = {"flash_attention_fwd": 2 * L * steps,
             "flash_attention_fwd_tc": 2 * L * steps,
             "flash_attention_dkv": L * steps,
             "flash_attention_dkv_tc": L * steps,
             "flash_attention_dq": L * steps,
+            "flash_attention_dq_tc": L * steps,
             "rms_norm": (4 * L + 1) * steps}
     for name, n in want.items():
         check(launches[name] == n, f"{name} launches {launches[name]} == "
@@ -1594,7 +1622,7 @@ def phase_train_end_to_end(torch, np) -> None:
         if disable is None:
             check(all(launches[k] > 0 for k in FLASH_KERNELS + (
                 "flash_attention_fwd_tc", "flash_attention_dkv_tc",
-                "rms_norm")),
+                "flash_attention_dq_tc", "rms_norm")),
                   f"kernel run launched the train kernels: {launches}")
         else:
             check(all(v == 0 for v in launches.values()),
@@ -1657,15 +1685,14 @@ def main() -> int:
     for k in ("rms_norm", "fused_layer_mlp", "gumbel_noise",
               "fused_quant_decode_step", "fused_decode_step"):
         launches[k] += q8_launches[k] + cs_launches[k]
-    launches.update({k: cs_launches[k] for k in ("paged_prefill",
-                                                 "paged_verify")})
     launches.update({k: arm_launches[k] for k in ("paged_decode",
                                                   "flash_decode")})
-    launches.update({k: train_launches[k] for k in FLASH_KERNELS})
-    # the forward's and dK/dV's entries are the tensor-core kernels, the
-    # route every launch of the train step took
-    for k in ("flash_attention_fwd", "flash_attention_dkv"):
-        launches[k] = train_launches[f"{k}_tc"]
+    # the flash entries are the tensor-core kernels, the route every
+    # launch of the train step took; the multi-row walks' likewise of the
+    # chunked + speculative serves
+    launches.update({k: train_launches[f"{k}_tc"] for k in FLASH_KERNELS})
+    launches.update({k: cs_launches[f"{k}_tc"] for k in ("paged_prefill",
+                                                         "paged_verify")})
     launches["rms_norm"] += train_launches["rms_norm"]
     pa = "paddle_tpu/ops/pallas/paged_attention.py"
     fa = "paddle_tpu/ops/pallas/flash_attention.py"
@@ -1675,7 +1702,7 @@ def main() -> int:
                "fused_layer_mlp": ("fused_mlp.cu", f"{pa}:2020"),
                "flash_attention_fwd": ("flash_fwd_tc.cu", f"{fa}:173"),
                "flash_attention_dkv": ("flash_bwd_tc.cu", f"{fa}:295"),
-               "flash_attention_dq": ("flash_bwd.cu", f"{fa}:344"),
+               "flash_attention_dq": ("flash_bwd_tc.cu", f"{fa}:344"),
                # no TPU kernel: the reference's jax.random.categorical
                # draw, which XLA compiles into its decode program
                "gumbel_noise": ("gumbel.cu", "paddle_tpu/inference/"
@@ -1684,8 +1711,8 @@ def main() -> int:
                "flash_decode": ("paged_decode.cu", f"{pa}:594"),
                "fused_quant_decode_step": ("fused_quant_decode.cu",
                                            f"{pa}:1720"),
-               "paged_prefill": ("paged_prefill.cu", f"{pa}:1126"),
-               "paged_verify": ("paged_prefill.cu", f"{pa}:927")}
+               "paged_prefill": ("paged_prefill_tc.cu", f"{pa}:1126"),
+               "paged_verify": ("paged_prefill_tc.cu", f"{pa}:927")}
     line = []
     for name, (src, replaces) in sources.items():
         m = measured[name]

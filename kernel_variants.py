@@ -1,0 +1,417 @@
+#!/usr/bin/env python3
+"""Design variants of the tensor-core dQ (``csrc/flash_bwd_tc.cu``) and
+multi-row paged walk (``csrc/paged_prefill_tc.cu``), timed and checked on
+one NVIDIA card against the committed kernels.
+
+    python3 kernel_variants.py
+
+Each variant is the committed source with one edit (the edits are listed
+below), compiled with the library's own nvcc flags into a temporary
+directory and swapped in for the library; the wrappers in
+``paddle_tpu_torch.ops.kernels`` launch it as they launch the committed
+kernel.  Every variant is timed in the same process as the committed one
+(CUDA events, L2 flushed, as ``chip_smoke.py`` times), in turns, and held
+to the same plain versions and tolerances as ``chip_smoke.py`` (probes
+that skip work are timed only).  Prints JSON lines; the last one is
+``{"ok": true, ...}``.  Without a card, or without the package beside it,
+exits non-zero.
+
+- dQ at the training shape (b 2, s 2048, 32/8 heads, d 128, bf16, causal)
+  and three smaller cases: dS rounded once instead of hi + lo; the P
+  exponentials no longer overlapped with the dP product.
+- The paged walk on ``chip_smoke.py``'s mixed-step lane mix (bf16 / int8 /
+  int4), on sub-mixes (the 1920-token chunk lane alone, the decode lanes
+  alone, no live row) and the verify mix: P rounded once; a three-stage
+  ring; no split of a long chunk tile; a four-way split from 8 KV tiles;
+  the first combine kernel (one thread a column, the splits' loads in a
+  runtime loop); probes without the K/V copies and without the products.
+- P rounded once against hi + lo over 40 random lane mixes (T 5, 16, 32
+  and 128; lengths up to 2048) on every pool format: the worst error over
+  the attention tolerance, and the cases beyond it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+from concurrent.futures import ThreadPoolExecutor
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+#: dQ: dS rounded once (the lo product dropped)
+DQ_SINGLE = ("flash_bwd_tc.cu",
+             "      mma_rs<D, 1, T>(dq, dl[kk], dkd);\n", "")
+#: dQ: S and dP in one commit group, P computed after both
+DQ_NO_OVERLAP = [
+    ("flash_bwd_tc.cu", """      mma_ss<BKV, 0, T>(s, desc_k(sQ + a), desc_k(sK + b), kc > 0);
+    }
+    wgmma_commit();
+#pragma unroll
+    for (int kc = 0; kc < D / 16; ++kc) {
+      const uint32_t a = (kc >> 2) * (BQ * 128) + (kc & 3) * 32;
+      const uint32_t b = (kc >> 2) * (BKV * 128) + (kc & 3) * 32;
+      mma_ss<BKV, 0, T>(dp, desc_k(sO + a), desc_k(sV + b), kc > 0);
+    }
+    wgmma_commit();
+    fence_regs(dp);
+    wgmma_wait<1>();
+    fence_regs(s);
+""", """      mma_ss<BKV, 0, T>(s, desc_k(sQ + a), desc_k(sK + b), kc > 0);
+      mma_ss<BKV, 0, T>(dp, desc_k(sO + a), desc_k(sV + b), kc > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+    fence_regs(dp);
+"""),
+    ("flash_bwd_tc.cu", """    wgmma_wait<0>();
+    fence_regs(dp);
+#pragma unroll
+    for (int i = 0; i < NS; ++i)
+      dp[i] =""", """#pragma unroll
+    for (int i = 0; i < NS; ++i)
+      dp[i] =""")]
+_LONG = "constexpr int kLongSplits = 2, kLongWalk = 16;"
+_OLD_COMBINE = """template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+    rows_combine_kernel(const RowsTcParams p) {
+  const Lane ln(p, blockIdx.x);
+  const int tile = blockIdx.y, r0 = tile * kBR;
+  if (r0 >= ln.live) return;
+  const int nr = min(ln.live - r0, kBR);
+  const int nkt = (ln.row_len(r0 + nr - 1) + kBKV - 1) / kBKV;
+  int per, n;
+  rows_split(nkt, p.max_splits, ln.live <= kBR, per, n);
+  if (n <= 1) return;
+  const size_t lane =
+      (size_t)blockIdx.x * lane_blocks(p.n_tiles, p.max_splits);
+  T* ob = static_cast<T*>(p.out);
+  for (int idx = threadIdx.x; idx < nr * D; idx += kThreads) {
+    const int row = idx / D, d = idx % D;
+    float m_max = kNeg;
+    for (int s = 0; s < n; ++s)
+      m_max = fmaxf(m_max, p.pm[(lane + split_slot(tile, s, p.n_tiles,
+                                                   p.max_splits)) *
+                                    p.prow + row]);
+    float l_tot = 0.f, a_tot = 0.f;
+    for (int s = 0; s < n; ++s) {
+      const size_t at =
+          (lane + split_slot(tile, s, p.n_tiles, p.max_splits)) * p.prow +
+          row;
+      const float ms = p.pm[at];
+      const float w = ms > 0.5f * kNeg ? expf(ms - m_max) : 0.f;
+      l_tot += w * p.pl[at];
+      a_tot += w * p.pacc[at * D + d];
+    }
+    ob[ln.row_off(p, r0 + row, D) + d] =
+        ptt::from_f32<T>(a_tot / (l_tot == 0.f ? 1.f : l_tot));
+  }
+}
+
+"""
+ROWS = "paged_prefill_tc.cu"
+#: paged walk variants: name -> (edits, long-tile split count the host
+#: sizes the partials for, checked?)
+ROWS_VARIANTS = {
+    "p_single": ([(ROWS, "      mma_rs<D, 1, T>(o, pl[kk], dvd);\n", "")],
+                 2, True),
+    "stages3": ([(ROWS, "constexpr int kStages = 2;",
+                  "constexpr int kStages = 3;")], 2, True),
+    "no_long_split": ([(ROWS, _LONG, "constexpr int kLongSplits = 2, "
+                        "kLongWalk = 1 << 30;")], 2, True),
+    "split4_from8": ([(ROWS, _LONG, "constexpr int kLongSplits = 4, "
+                       "kLongWalk = 8;")], 4, True),
+    "first_combine": ([(ROWS, None, _OLD_COMBINE)], 2, True),
+    "probe_no_kv_copies": ([(ROWS, "      cp_async16(s0 + dst, p.kpool + at, "
+                             "ok);\n      cp_async16(s0 + BKV * RB + dst, "
+                             "p.vpool + at, ok);\n", "")], 2, False),
+    "probe_no_products": ([(ROWS, "      mma_ss<BKV, 0, T>(s, desc_k(sQ + a), "
+                            "desc_k(sK + b), kc > 0);",
+                            "      if (kc == 0) for (int i = 0; i < NS; ++i) "
+                            "s[i] = 0.f;"),
+                           (ROWS, "      mma_rs<D, 1, T>(o, ph[kk], dvd);\n"
+                            "      mma_rs<D, 1, T>(o, pl[kk], dvd);\n", "")],
+                          2, False),
+}
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def _replace_combine(text: str, new: str) -> str:
+    """The committed combine kernel (from its template line to the launch
+    helper) replaced by ``new``."""
+    start = text.index("template <typename T, int D>\n__global__ void "
+                       "__launch_bounds__(kThreads)\n    rows_combine_kernel")
+    end = text.index("template <typename T, int F, int D>\nint launch(")
+    return text[:start] + new + text[end:]
+
+
+def build_variant(kernels, tmp: str, tag: str, edits, sources):
+    """The library's ``sources`` with ``edits`` applied, built with its
+    nvcc flags into ``tmp/tag``; returns the loaded ctypes library."""
+    d = os.path.join(tmp, tag)
+    shutil.copytree(kernels.CSRC, os.path.join(d, "csrc"))
+    for fname, old, new in edits:
+        path = os.path.join(d, "csrc", fname)
+        with open(path) as f:
+            text = f.read()
+        if old is None:
+            text = _replace_combine(text, new)
+        else:
+            if text.count(old) != 1:
+                raise RuntimeError(f"{tag}: edit target not found once in "
+                                   f"{fname}: {old[:60]!r}")
+            text = text.replace(old, new)
+        with open(path, "w") as f:
+            f.write(text)
+    nvcc = kernels._nvcc()
+
+    def one(src):
+        obj = os.path.join(d, src + ".o")
+        res = subprocess.run([nvcc, *kernels.NVCC_FLAGS, "-c",
+                              os.path.join(d, "csrc", src), "-o", obj],
+                             capture_output=True, text=True)
+        if res.returncode:
+            raise RuntimeError(f"{tag}: nvcc failed on {src}:\n"
+                               f"{res.stderr[-3000:]}")
+        return obj
+
+    with ThreadPoolExecutor(len(sources)) as pool:
+        objs = list(pool.map(one, sources))
+    lib_path = os.path.join(d, "lib.so")
+    res = subprocess.run([nvcc, *kernels.NVCC_FLAGS, "-shared", "-o",
+                          lib_path, *objs], capture_output=True, text=True)
+    if res.returncode:
+        raise RuntimeError(f"{tag}: link failed:\n{res.stderr[-3000:]}")
+    lib = ctypes.CDLL(lib_path)
+    for name, argtypes in kernels._SIGNATURES.items():
+        fn = getattr(lib, name, None)
+        if fn is not None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def dq_variants(torch, cs, kernels, tmp) -> None:
+    from paddle_tpu_torch.ops.kernels import flash_attention as tfa
+
+    committed = kernels.library()
+    srcs = ("flash_bwd_tc.cu",)
+    libs = {"committed": committed,
+            "ds_single": build_variant(kernels, tmp, "ds_single",
+                                       [DQ_SINGLE], srcs),
+            "no_overlap": build_variant(kernels, tmp, "no_overlap",
+                                        DQ_NO_OVERLAP, srcs)}
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(4321)
+    scratch = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
+    flush = scratch.zero_
+    cases = {}
+    for label, (b, sq, skv, d, causal) in (
+            ("train_shape", (2, 2048, 2048, 128, True)),
+            ("ragged_1000", (2, 1000, 1000, 128, True)),
+            ("sq_ne_skv", (1, 700, 1000, 128, True)),
+            ("full_d64", (2, 300, 517, 64, False))):
+        q, k, v, do, kw = cs._flash_case(torch, tfa, g, dev, b, sq, skv, 32,
+                                         8, d, causal)
+        out, lse = tfa.flash_fwd_ref(q, k, v, **kw)
+        delta = (out.float() * do.float()).sum(-1).transpose(1, 2) \
+            .contiguous()
+        cases[label] = ((q, k, v, do, lse, delta), kw,
+                        tfa.flash_dq_ref(q, k, v, do, lse, delta, **kw))
+    for rnd in range(2):
+        for tag, lib in libs.items():
+            kernels._lib = lib
+            res = {"kernel": "flash_dq_tc", "variant": tag, "round": rnd}
+            for label, (args, kw, want) in cases.items():
+                got = tfa.flash_dq_cuda(*args, route="tc", **kw)
+                torch.cuda.synchronize()
+                res[f"worst_err_over_tol_{label}"] = cs._flash_err(
+                    got, want)["worst_err_over_tol"]
+            args, kw, _ = cases["train_shape"]
+            res["ms_train_shape"] = cs.time_ms(
+                torch, lambda: tfa.flash_dq_cuda(*args, route="tc", **kw),
+                flush=flush)
+            emit(res)
+    kernels._lib = committed
+
+
+def _pools(torch, pa, g, dev, nbp, nkv, bs, hd):
+    """bf16 K/V pools from ``g`` and their int8 / int4 encodings."""
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    kp, vp = randn(nbp, nkv, bs, hd), randn(nbp, nkv, bs, hd)
+    pools = {"bf16": (kp, vp, None, None)}
+    for mode in ("int8", "int4"):
+        kq, ks = pa.quantize_kv_cache(kp, mode)
+        vq, vs = pa.quantize_kv_cache(vp, mode)
+        pools[mode] = (kq, vq, ks, vs)
+    return pools
+
+
+def _table(torch, perm, lens, B, max_blocks, nb, bs, dev):
+    t = torch.full((B, max_blocks), nb, dtype=torch.int32, device=dev)
+    for i, n in enumerate(lens):
+        n = -(-n // bs) if n > 1 else 0
+        t[i, :n] = perm[i * max_blocks:i * max_blocks + n]
+    return t
+
+
+def rows_variants(torch, cs, kernels, tmp) -> None:
+    from paddle_tpu_torch.ops.kernels import paged_attention as pa
+
+    committed = kernels.library()
+    libs = {"committed": (committed, 2, True)}
+    for tag, (edits, long_splits, checked) in ROWS_VARIANTS.items():
+        libs[tag] = (build_variant(kernels, tmp, tag, edits, (ROWS,)),
+                     long_splits, checked)
+    dev = torch.device("cuda")
+    B, nh, nkv, hd, bs, max_seq = 8, 32, 8, 128, 64, 2048
+    max_blocks = max_seq // bs
+    nb = B * max_blocks
+    g = torch.Generator(device=dev)
+    g.manual_seed(2024)
+    pools = _pools(torch, pa, g, dev, nb + 1, nkv, bs, hd)
+    perm = torch.randperm(nb, generator=g, device=dev).int()
+    scratch = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
+    flush = scratch.zero_
+    mix = [2048, 1000, 333, 1, 128, 768, 1920, 1500]
+    mixes = {
+        # chip_smoke.py's mixed-step lane mix and verify mix
+        "mixed": (128, mix, [1, 1, 1, 1, 128, 128, 128, 37],
+                  ("bf16", "int8", "int4")),
+        "mixed_1920_chunk_only": (128, mix, [0, 0, 0, 0, 0, 0, 128, 0],
+                                  ("bf16",)),
+        "mixed_decode_lanes_only": (128, mix, [1, 1, 1, 1, 0, 0, 0, 0],
+                                    ("bf16",)),
+        "mixed_no_live_row": (128, mix, [0] * 8, ("bf16",)),
+        "verify": (5, [5, 2048, 64, 127, 1000, 1500, 333, 1777],
+                   [5, 5, 1, 3, 5, 2, 5, 4], ("bf16",))}
+    data = {}
+    for name, (T, lens, qlens, fmts) in mixes.items():
+        data[name] = (T, _table(torch, perm, lens, B, max_blocks, nb, bs,
+                                dev),
+                      torch.tensor(lens, dtype=torch.int32, device=dev),
+                      torch.tensor(qlens, dtype=torch.int32, device=dev),
+                      torch.randn(B, T, nh, hd, generator=g, device=dev)
+                      .to(torch.bfloat16), fmts)
+    long_splits = pa._ROWS_LONG_SPLITS
+    for rnd in range(2):
+        for tag, (lib, splits, checked) in libs.items():
+            kernels._lib = lib
+            pa._ROWS_LONG_SPLITS = splits
+            res = {"kernel": "paged_rows_tc", "variant": tag, "round": rnd}
+            for name, (T, tables, lens, qlens, q, fmts) in data.items():
+                for fmt in fmts:
+                    kc, vc, ks, vs = pools[fmt]
+                    kw = dict(kv_quant=None if fmt == "bf16" else fmt,
+                              k_scale=ks, v_scale=vs)
+                    args = (q, kc, vc, tables, lens, qlens)
+                    def fn():
+                        return pa.paged_prefill_cuda(*args, hd ** -0.5,
+                                                     route="tc", **kw)
+
+                    entry = {"ms": cs.time_ms(torch, fn, flush=flush)}
+                    live = (torch.arange(T, device=dev)[None, :]
+                            < qlens[:, None])
+                    if checked and bool(live.any()):
+                        got = fn()
+                        want = pa.paged_prefill_reference(
+                            *args, scale=hd ** -0.5, **kw)
+                        torch.cuda.synchronize()
+                        errs, ok = cs._attn_err(torch, got[live], want[live])
+                        entry["worst_err_over_tol"] = errs[
+                            "worst_err_over_tol"]
+                        entry["ok"] = ok and bool((got[~live] == 0).all())
+                    res[f"{name}_{fmt}"] = entry
+            emit(res)
+    pa._ROWS_LONG_SPLITS = long_splits
+    kernels._lib = committed
+    rounding_sweep(torch, cs, kernels, pa, {
+        "committed": committed,
+        "p_single": libs["p_single"][0]})
+
+
+def rounding_sweep(torch, cs, kernels, pa, libs) -> None:
+    """P hi + lo against P rounded once over 40 random lane mixes."""
+    dev = torch.device("cuda")
+    B, nh, nkv, hd, bs, max_seq = 8, 32, 8, 128, 64, 2048
+    max_blocks = max_seq // bs
+    nb = B * max_blocks
+    worst = {tag: {} for tag in libs}
+    beyond = {tag: 0 for tag in libs}
+    for seed in range(40):
+        g = torch.Generator(device=dev)
+        g.manual_seed(1000 + seed)
+        pools = _pools(torch, pa, g, dev, nb + 1, nkv, bs, hd)
+        perm = torch.randperm(nb, generator=g, device=dev).int()
+        T = (128, 16, 5, 32)[seed % 4]
+        lens = torch.randint(1, max_seq + 1, (B,), generator=g, device=dev)
+        qlens = torch.minimum(torch.randint(0, T + 1, (B,), generator=g,
+                                            device=dev), lens)
+        qlens[0] = min(T, int(lens[0]))
+        tables = _table(torch, perm, lens.tolist(), B, max_blocks, nb, bs,
+                        dev)
+        lens, qlens = lens.int(), qlens.int()
+        q = torch.randn(B, T, nh, hd, generator=g, device=dev) \
+            .to(torch.bfloat16)
+        live = torch.arange(T, device=dev)[None, :] < qlens[:, None]
+        for fmt, (kc, vc, ks, vs) in pools.items():
+            kw = dict(kv_quant=None if fmt == "bf16" else fmt, k_scale=ks,
+                      v_scale=vs)
+            args = (q, kc, vc, tables, lens, qlens)
+            want = pa.paged_prefill_reference(*args, scale=hd ** -0.5, **kw)
+            for tag, lib in libs.items():
+                kernels._lib = lib
+                got = pa.paged_prefill_cuda(*args, hd ** -0.5, route="tc",
+                                            **kw)
+                torch.cuda.synchronize()
+                errs, ok = cs._attn_err(torch, got[live], want[live])
+                beyond[tag] += not (ok and bool((got[~live] == 0).all()))
+                worst[tag][fmt] = max(worst[tag].get(fmt, 0.0),
+                                      errs["worst_err_over_tol"])
+    kernels._lib = libs["committed"]
+    emit({"kernel": "paged_rows_tc", "sweep": "P hi + lo vs rounded once",
+          "cases": 40 * 3, "worst_err_over_tol": worst,
+          "cases_beyond_tolerance": beyond})
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError as e:
+        print(f"kernel_variants: {e}", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("kernel_variants: no CUDA device; this script runs on the "
+              "card only", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    try:
+        import chip_smoke as cs
+        from paddle_tpu_torch.ops import kernels
+    except ImportError as e:
+        print(f"kernel_variants: the repository is missing beside this "
+              f"script ({e})", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _, smi = cs.phase_device(torch)
+    kernels.build()
+    with tempfile.TemporaryDirectory() as tmp:
+        dq_variants(torch, cs, kernels, tmp)
+        rows_variants(torch, cs, kernels, tmp)
+    emit({"ok": True, "nvidia_smi": smi})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -58,16 +58,22 @@ KNOWN_KERNELS = frozenset({"all", "flash_attention", "rms_norm",
 #: sequential walk; ``flash_decode``, ``fused_decode_step`` and
 #: ``fused_quant_decode_step`` count a walk and its combine launch as one;
 #: ``paged_prefill`` and ``paged_verify`` are the ragged multi-row walks of
-#: the mixed and the speculative verify step.  ``flash_attention_fwd`` and
-#: ``flash_attention_dkv`` count every launch of either route;
-#: ``flash_attention_fwd_tc`` and ``flash_attention_dkv_tc`` count the
-#: launches that took the tensor-core route (``flash_route``).
+#: the mixed and the speculative verify step.  ``flash_attention_fwd``,
+#: ``flash_attention_dkv`` and ``flash_attention_dq`` count every launch of
+#: either route; ``flash_attention_fwd_tc``, ``flash_attention_dkv_tc`` and
+#: ``flash_attention_dq_tc`` count the launches that took the tensor-core
+#: route (``flash_route``).  Likewise ``paged_prefill`` / ``paged_verify``
+#: count both routes and ``paged_prefill_tc`` / ``paged_verify_tc`` the
+#: tensor-core one (``paged_rows_route``; a walk and the combine of its
+#: split lanes count as one launch).
 LAUNCHES = {"rms_norm": 0, "fused_decode_step": 0, "fused_layer_mlp": 0,
             "flash_attention_fwd": 0, "flash_attention_dkv": 0,
             "flash_attention_dq": 0, "flash_attention_fwd_tc": 0,
-            "flash_attention_dkv_tc": 0, "gumbel_noise": 0, "paged_decode": 0,
+            "flash_attention_dkv_tc": 0, "flash_attention_dq_tc": 0,
+            "gumbel_noise": 0, "paged_decode": 0,
             "flash_decode": 0, "fused_quant_decode_step": 0,
-            "paged_prefill": 0, "paged_verify": 0}
+            "paged_prefill": 0, "paged_verify": 0, "paged_prefill_tc": 0,
+            "paged_verify_tc": 0}
 #: kernel name -> dispatches that took the plain PyTorch version
 PLAIN_CALLS = {name: 0 for name in LAUNCHES}
 
@@ -127,6 +133,20 @@ def use_kernel(name: str, *tensors: torch.Tensor,
                      f"all on the CPU or all on one CUDA device")
 
 
+def pick_route(name: str, q: torch.Tensor, route: str | None,
+               rule: str) -> str:
+    """A two-route kernel's route: ``rule`` (the module's plain route
+    function of q's dtype and head_dim) when ``route`` is None; ``"cc"``
+    (the CUDA-core kernel) takes every shape its wrapper takes, ``"tc"``
+    (the tensor cores) only where the rule names it."""
+    if route is None:
+        return rule
+    if route not in ("tc", "cc") or (route == "tc" and rule != "tc"):
+        raise ValueError(f"{name}: route {route!r} does not take dtype "
+                         f"{q.dtype}, head_dim {q.shape[-1]}")
+    return route
+
+
 # ---------------------------------------------------------------------------
 # build and load
 # ---------------------------------------------------------------------------
@@ -136,7 +156,8 @@ CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "build"
 SOURCES = ("rms_norm.cu", "fused_decode.cu", "fused_mlp.cu", "flash_fwd.cu",
            "flash_bwd.cu", "flash_fwd_tc.cu", "flash_bwd_tc.cu", "gumbel.cu",
-           "paged_decode.cu", "fused_quant_decode.cu", "paged_prefill.cu")
+           "paged_decode.cu", "fused_quant_decode.cu", "paged_prefill.cu",
+           "paged_prefill_tc.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-lineinfo")
 _LIB_NAME = "libpaddle_tpu_torch_kernels.so"
@@ -227,6 +248,7 @@ _SIGNATURES = {
     "ptt_flash_dkv_tc": [_VP] * 11 + [_I] * 10 + [_F, _I, _VP],
     # q, k, v, do, lse, delta, mask, q_seg, kv_seg, dq, then as above
     "ptt_flash_dq": [_VP] * 10 + [_I] * 10 + [_F, _I, _VP],
+    "ptt_flash_dq_tc": [_VP] * 10 + [_I] * 10 + [_F, _I, _VP],
     # seeds, pos, out, rows, n, stream
     "ptt_gumbel_noise": [_VP, _VP, _VP, _I, _I, _VP],
     # q, key_pool, value_pool, k_scale, v_scale, tables, lens, out, b, nh,
@@ -244,6 +266,9 @@ _SIGNATURES = {
     # b, T, nh, nkv, hd, nbp, bs, max_blocks, scale, dtype, kv_format,
     # stream
     "ptt_paged_prefill": [_VP] * 9 + [_I] * 8 + [_F, _I, _I, _VP],
+    # as ptt_paged_prefill with the split partials m, l, acc after out, and
+    # max_splits after max_blocks
+    "ptt_paged_prefill_tc": [_VP] * 12 + [_I] * 9 + [_F, _I, _I, _VP],
 }
 
 

@@ -1,9 +1,9 @@
 // FlashAttention-2 backward: dK/dV and dQ, two kernels with no atomics.
 //
-// The CUDA-core route (`flash_attention.flash_route` "cc") of dK/dV: f32,
-// and bf16 / f16 at every head_dim other than 64 and 128 (a multiple of 8
-// up to 256); bf16 / f16 at head_dim 64 or 128 take the tensor-core kernel
-// of flash_bwd_tc.cu.  dQ runs here for every shape.
+// The CUDA-core route (`flash_attention.flash_route` "cc") of dK/dV and
+// dQ: f32, and bf16 / f16 at every head_dim other than 64 and 128 (a
+// multiple of 8 up to 256); bf16 / f16 at head_dim 64 or 128 take the
+// tensor-core kernels of flash_bwd_tc.cu.
 //
 // Replaces: paddle_tpu/ops/pallas/flash_attention.py `_dkv_kernel` and
 // `_dq_kernel` (launched by `_flash_bwd`).  On the TPU the dk/dv grid was

@@ -1,18 +1,21 @@
-// FlashAttention backward dK/dV on the tensor cores, for bf16 / f16 with
-// head_dim 64 or 128 (the route `flash_attention.flash_route` names "tc";
-// every other dtype and head_dim, and dQ always, take the CUDA-core
-// kernels of flash_bwd.cu).
+// FlashAttention backward on the tensor cores: dK/dV and dQ, for bf16 / f16
+// with head_dim 64 or 128 (the route `flash_attention.flash_route` names
+// "tc"; every other dtype and head_dim takes the CUDA-core kernels of
+// flash_bwd.cu).
 //
-// Replaces: paddle_tpu/ops/pallas/flash_attention.py `_dkv_kernel`
-// (launched by `_flash_bwd`), whose grid (b*hkv, kv blocks, rep * q
-// blocks) walked the kv group's q blocks in order into VMEM accumulators.
+// Replaces: paddle_tpu/ops/pallas/flash_attention.py `_dkv_kernel` and
+// `_dq_kernel` (launched by `_flash_bwd`).  The TPU's dk/dv grid (b*hkv,
+// kv blocks, rep * q blocks) walked the kv group's q blocks in order into
+// VMEM accumulators; its dq grid (b*hq, q blocks, kv blocks) walked the kv
+// blocks in order.
 //
 // Bound on the H100: operations.  Causal at the training shape (b 2,
-// s 2048, 32 q heads, d 128) it does 8 * d * b * hq * s(s+1)/2 = 137
-// GFLOP (s, dp, dv, dk) over about 70 MB: tensor-core bound (0.139 ms at
+// s 2048, 32 q heads, d 128) dK/dV does 8 * d * b * hq * s(s+1)/2 = 137
+// GFLOP (s, dp, dv, dk) and dQ 6 * d * b * hq * s(s+1)/2 = 103 GFLOP (s,
+// dp, dq) over about 70 MB each: tensor-core bound (0.139 / 0.104 ms at
 // 989 TFLOP/s).
 //
-// Design (FlashAttention-3's transposed form): grid (b*hkv, kv tiles of
+// dK/dV (FlashAttention-3's transposed form): grid (b*hkv, kv tiles of
 // 64 rows, heaviest first under causal), 128 threads = one warpgroup a
 // block, two blocks an SM.  The block's K and V tiles stay resident in
 // shared memory (128-byte-swizzled bf16/f16, wgmma.cuh; no f32 copies); it
@@ -32,8 +35,25 @@
 // The GQA group sum stays in the f32 accumulators; each dK/dV row is owned
 // by one block and written once, so there are no atomics and the result
 // is deterministic.
+//
+// dQ (the forward's shape, flash_fwd_tc.cu): grid (b*hq, q tiles of 64
+// rows, heaviest first under causal), one warpgroup a block, two blocks an
+// SM.  The block's Q and dO tiles stay resident in shared memory and each
+// thread keeps the lse and delta of its two rows in registers; K and V
+// tiles (64 rows) come through a two-stage cp.async ring, one tile ahead.
+// Per kv tile up to the diagonal:
+//  - S = Q K^T and dP = dO V^T on wgmma (m64n64k16, all K-major), in two
+//    commit groups: P = safe_exp(S scale - lse) is computed while the dP
+//    product still runs, with the forward's uniform mask branch a tile;
+//  - dS = P (dP - delta) scale in registers;
+//  - dQ += dS K on wgmma (m64nDk16), dS from registers as hi + lo parts of
+//    the input dtype and K MN-major from shared memory (the same tile the
+//    S product read K-major).
+// dQ is written once in q's dtype: no atomics, deterministic.  GQA: K/V of
+// kv head h / rep, never copied; the rep heads of a group read the same
+// tiles through L2.
 // Not yet used: TMA, a producer warp with setmaxnreg, overlap between
-// products of consecutive q tiles.
+// products of consecutive tiles.
 #include "flash.cuh"
 #include "wgmma.cuh"
 
@@ -261,6 +281,189 @@ int dispatch_dkv(const Params& p, cudaStream_t stream) {
   return (int)cudaErrorInvalidValue;
 }
 
+// Q, dO, two stages of K and V, alignment slack
+template <int D>
+__host__ __device__ constexpr size_t dq_smem_bytes() {
+  return (size_t)(2 * kBQ + 4 * kBKV) * D * 2 + 1024;
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, 2)
+    flash_dq_tc_kernel(const Params p) {
+  constexpr int BQ = kBQ, BKV = kBKV, NT = kThreads;
+  constexpr int NA = D / 2, NS = BKV / 2;  // accumulator floats a thread
+  constexpr uint32_t QB = BQ * D * 2, KVB = BKV * D * 2;
+  extern __shared__ char smem_raw[];
+  const uint32_t sQ = (smem_u32(smem_raw) + 1023) & ~1023u, sO = sQ + QB;
+  const uint32_t sKV = sO + QB;  // stage s: K at sKV + 2 s KVB, V after it
+
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int g = (tid & 31) >> 2, t4 = tid & 3;
+  const int bh = blockIdx.x, batch = bh / p.hq, h = bh % p.hq;
+  const int hk = h / (p.hq / p.hkv);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest first
+  const int row0 = q0 + 16 * warp + g, row1 = row0 + 8;
+  const size_t qstride = (size_t)p.hq * D, kstride = (size_t)p.hkv * D;
+  const size_t qoff = (size_t)batch * p.sq * qstride + (size_t)h * D;
+  const T* kb = static_cast<const T*>(p.k) +
+                (size_t)batch * p.skv * kstride + (size_t)hk * D;
+  const T* vb = static_cast<const T*>(p.v) +
+                (size_t)batch * p.skv * kstride + (size_t)hk * D;
+  const char* plane = mask_plane(p, batch, h);
+  const int* qs = p.q_seg ? p.q_seg + (size_t)batch * p.sq : nullptr;
+  const int* ks = p.q_seg ? p.kv_seg + (size_t)batch * p.skv : nullptr;
+  const bool bare = p.mask_kind == kMaskNone && qs == nullptr;
+
+  int n_kv = (p.skv + BKV - 1) / BKV;
+  if (p.causal) n_kv = min(n_kv, (min(q0 + BQ, p.sq) - 1) / BKV + 1);
+
+  load_tile<T, BQ, D, NT>(sQ, static_cast<const T*>(p.q) + qoff, qstride,
+                          q0, p.sq);
+  load_tile<T, BQ, D, NT>(sO, static_cast<const T*>(p.dout) + qoff, qstride,
+                          q0, p.sq);
+  if (n_kv > 0) {
+    load_tile<T, BKV, D, NT>(sKV, kb, kstride, 0, p.skv);
+    load_tile<T, BKV, D, NT>(sKV + KVB, vb, kstride, 0, p.skv);
+  }
+  cp_async_commit();
+  // the lse and delta of this thread's two rows; rows past sq have q = dO
+  // = 0 and lse = delta = 0, so their dS is 0
+  const float* lrow = p.lse_in + (size_t)bh * p.sq;
+  const float* erow = p.delta + (size_t)bh * p.sq;
+  const float nl0 = row0 < p.sq ? -lrow[row0] * kLog2e : 0.f;
+  const float nl1 = row1 < p.sq ? -lrow[row1] * kLog2e : 0.f;
+  const float e0 = row0 < p.sq ? erow[row0] : 0.f;
+  const float e1 = row1 < p.sq ? erow[row1] : 0.f;
+
+  float dq[NA];
+#pragma unroll
+  for (int i = 0; i < NA; ++i) dq[i] = 0.f;
+
+  for (int it = 0; it < n_kv; ++it) {
+    const int j0 = it * BKV;
+    if (it + 1 < n_kv) {
+      const uint32_t nxt = sKV + ((it + 1) & 1) * 2 * KVB;
+      load_tile<T, BKV, D, NT>(nxt, kb, kstride, j0 + BKV, p.skv);
+      load_tile<T, BKV, D, NT>(nxt + KVB, vb, kstride, j0 + BKV, p.skv);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    fence_proxy_async();
+    __syncthreads();
+    const uint32_t sK = sKV + (it & 1) * 2 * KVB, sV = sK + KVB;
+
+    float s[NS], dp[NS];
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < D / 16; ++kc) {
+      const uint32_t a = (kc >> 2) * (BQ * 128) + (kc & 3) * 32;
+      const uint32_t b = (kc >> 2) * (BKV * 128) + (kc & 3) * 32;
+      mma_ss<BKV, 0, T>(s, desc_k(sQ + a), desc_k(sK + b), kc > 0);
+    }
+    wgmma_commit();
+#pragma unroll
+    for (int kc = 0; kc < D / 16; ++kc) {
+      const uint32_t a = (kc >> 2) * (BQ * 128) + (kc & 3) * 32;
+      const uint32_t b = (kc >> 2) * (BKV * 128) + (kc & 3) * 32;
+      mma_ss<BKV, 0, T>(dp, desc_k(sO + a), desc_k(sV + b), kc > 0);
+    }
+    wgmma_commit();
+    fence_regs(dp);
+    wgmma_wait<1>();
+    fence_regs(s);
+
+    // p = exp(x - lse) = 2^(x log2e - lse log2e), exactly 0 where masked;
+    // one uniform branch a tile, as in the forward
+    const bool plain = bare && j0 + BKV <= p.skv &&
+                       !(p.causal && j0 + BKV - 1 > q0);
+    if (plain) {
+#pragma unroll
+      for (int i = 0; i < NS; ++i)
+        s[i] = exp2f(fmaf(s[i] * p.scale, kLog2e, (i & 2) ? nl1 : nl0));
+    } else {
+      if (bare) {
+#pragma unroll
+        for (int i = 0; i < NS; ++i) {
+          const int col = j0 + 8 * (i >> 2) + 2 * t4 + (i & 1);
+          s[i] = col >= p.skv || (p.causal && col > ((i & 2) ? row1 : row0))
+                     ? kNegInf
+                     : s[i] * p.scale;
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < NS; ++i)
+          s[i] = masked_logit(p, s[i] * p.scale, plane, qs, ks,
+                              (i & 2) ? row1 : row0,
+                              j0 + 8 * (i >> 2) + 2 * t4 + (i & 1));
+      }
+#pragma unroll
+      for (int i = 0; i < NS; ++i)
+        s[i] = s[i] > 0.5f * kNegInf
+                   ? exp2f(fmaf(s[i], kLog2e, (i & 2) ? nl1 : nl0))
+                   : 0.f;
+    }
+    wgmma_wait<0>();
+    fence_regs(dp);
+#pragma unroll
+    for (int i = 0; i < NS; ++i)
+      dp[i] = s[i] * (dp[i] - ((i & 2) ? e1 : e0)) * p.scale;  // dS
+
+    // dQ += dS K, dS in hi + lo parts of T, K MN-major
+    uint32_t dh[BKV / 16][4], dl[BKV / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk)
+      acc_to_a_split<T>(dp, kk, dh[kk], dl[kk]);
+    fence_regs(dq);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk) {
+      const uint64_t dkd = desc_mn(sK + kk * 2048, BKV * 128);
+      mma_rs<D, 1, T>(dq, dh[kk], dkd);
+      mma_rs<D, 1, T>(dq, dl[kk], dkd);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(dq);
+    __syncthreads();  // every warp is done with this stage
+  }
+  cp_async_wait<0>();  // n_kv == 0 leaves the q tile's copies in flight
+
+  T* dqb = static_cast<T*>(p.dq) + qoff;
+#pragma unroll
+  for (int c = 0; c < D / 8; ++c) {
+    const int col = 8 * c + 2 * t4;
+    if (row0 < p.sq)
+      *reinterpret_cast<uint32_t*>(dqb + (size_t)row0 * qstride + col) =
+          pack2<T>(dq[4 * c], dq[4 * c + 1]);
+    if (row1 < p.sq)
+      *reinterpret_cast<uint32_t*>(dqb + (size_t)row1 * qstride + col) =
+          pack2<T>(dq[4 * c + 2], dq[4 * c + 3]);
+  }
+}
+
+template <typename T, int D>
+int launch_dq(const Params& p, cudaStream_t stream) {
+  constexpr size_t smem = dq_smem_bytes<D>();
+  auto kernel = flash_dq_tc_kernel<T, D>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(p.b * p.hq, (p.sq + kBQ - 1) / kBQ);
+  kernel<<<grid, kThreads, smem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int dispatch_dq(const Params& p, cudaStream_t stream) {
+  if (p.d == 64) return launch_dq<T, 64>(p, stream);
+  if (p.d == 128) return launch_dq<T, 128>(p, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // As ptt_flash_dkv (flash_bwd.cu), for bf16 / f16 (dtype 1 / 2) and d 64
@@ -287,5 +490,31 @@ extern "C" int ptt_flash_dkv_tc(const void* q, const void* k, const void* v,
   if (b == 0 || hkv == 0 || skv == 0) return (int)cudaGetLastError();
   if (dtype == ptt::kBF16) return dispatch_dkv<__nv_bfloat16>(p, stream);
   if (dtype == ptt::kF16) return dispatch_dkv<__half>(p, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// As ptt_flash_dq (flash_bwd.cu), for bf16 / f16 (dtype 1 / 2) and d 64 or
+// 128 only; anything else returns cudaErrorInvalidValue unlaunched.
+extern "C" int ptt_flash_dq_tc(const void* q, const void* k, const void* v,
+                               const void* dout, const void* lse,
+                               const void* delta, const void* mask,
+                               const void* q_seg, const void* kv_seg,
+                               void* dq, int b, int sq, int skv, int hq,
+                               int hkv, int d, int mb, int mh, int mask_kind,
+                               int causal, float scale, int dtype,
+                               cudaStream_t stream) {
+  ptt::flash::Params p = ptt::flash::make_params(
+      b, sq, skv, hq, hkv, d, mb, mh, mask_kind, causal, scale, mask, q_seg,
+      kv_seg);
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.dout = dout;
+  p.lse_in = static_cast<const float*>(lse);
+  p.delta = static_cast<const float*>(delta);
+  p.dq = dq;
+  if (b == 0 || hq == 0 || sq == 0) return (int)cudaGetLastError();
+  if (dtype == ptt::kBF16) return dispatch_dq<__nv_bfloat16>(p, stream);
+  if (dtype == ptt::kF16) return dispatch_dq<__half>(p, stream);
   return (int)cudaErrorInvalidValue;
 }

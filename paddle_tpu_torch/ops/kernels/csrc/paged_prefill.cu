@@ -2,6 +2,10 @@
 // the chunked-prefill rows of the mixed step and the K+1 rows of the
 // speculative verify step, each row under its own causal law.
 //
+// The CUDA-core route (`paged_attention.paged_rows_route` "cc"): f32 q, and
+// bf16 q at head dims other than 64 and 128; bf16 at head_dim 64 or 128
+// takes the tensor-core walk of paged_prefill_tc.cu.
+//
 // Replaces: paddle_tpu/ops/pallas/paged_attention.py `_prefill_kernel`
 // (B9; fp / int8 / int4 pools dequantized on read) and `_verify_kernel`
 // (B10; fp pools, the T = K+1 case of B9).  On the TPU both ran the decode
@@ -47,8 +51,8 @@
 //    stages K/V columns and meets the barriers, so a long decode lane's
 //    walk costs the loads and one warp's products, not 64 rows';
 //  - finalize: acc / l, l == 0 -> exact zeros.
-// Not yet used: tensor cores, TMA / cp.async double buffering of the page
-// columns, a split over the KV axis for the few long rows of decode lanes.
+// Not used here: tensor cores, cp.async double buffering of the page
+// columns and a split over the KV axis (paged_prefill_tc.cu has all three).
 #include "flash.cuh"
 #include "paged.cuh"
 

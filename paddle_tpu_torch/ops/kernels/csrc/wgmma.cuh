@@ -1,5 +1,6 @@
-// Hopper building blocks of the tensor-core flash kernels (flash_fwd_tc.cu,
-// flash_bwd_tc.cu): warpgroup matrix multiplies (wgmma) with their shared
+// Hopper building blocks of the tensor-core kernels (flash_fwd_tc.cu,
+// flash_bwd_tc.cu, paged_prefill_tc.cu): warpgroup matrix multiplies
+// (wgmma) with their shared
 // memory descriptors, 16-byte cp.async copies into the 128-byte swizzle the
 // descriptors name, and the fences between them.  Header-only; sm_90a.
 //
@@ -54,6 +55,11 @@ __device__ __forceinline__ void wgmma_commit() {
 }
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// wait until at most N committed groups are still running
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 // keep the compiler from moving accumulator reads or writes across an
 // asynchronous wgmma

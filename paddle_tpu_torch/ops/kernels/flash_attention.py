@@ -7,15 +7,15 @@ Three kernels, each with its plain PyTorch version beside it:
   online softmax in f32, emits ``out`` and the row log-sum-exp ``lse``;
 - ``flash_dkv`` (``_dkv_kernel``): dK and dV, the GQA group summed in the
   block's accumulator;
-- ``flash_dq`` (``csrc/flash_bwd.cu``, ``_dq_kernel``): dQ.
+- ``flash_dq`` (``_dq_kernel``): dQ.
 
-The forward and dK/dV each have two hand-written routes, chosen by
-:func:`flash_route` from (dtype, head_dim) alone: ``"tc"`` for bf16/f16 at
-head_dim 64 or 128 (``csrc/flash_fwd_tc.cu``, ``csrc/flash_bwd_tc.cu``:
-wgmma tensor cores with f32 accumulators, P and dS entering their products
-as hi + lo parts of the input dtype) and ``"cc"`` for every other shape
-(``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``: f32 on the CUDA cores).  A route never changes
-because a launch failed; a failed launch raises.
+Each has two hand-written routes, chosen by :func:`flash_route` from
+(dtype, head_dim) alone: ``"tc"`` for bf16/f16 at head_dim 64 or 128
+(``csrc/flash_fwd_tc.cu``, ``csrc/flash_bwd_tc.cu``: wgmma tensor cores
+with f32 accumulators, P and dS entering their products as hi + lo parts
+of the input dtype) and ``"cc"`` for every other shape
+(``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``: f32 on the CUDA cores).  A
+route never changes because a launch failed; a failed launch raises.
 
 Semantics are the reference's: q/k/v upcast to f32, logits
 ``dot(q, k) * scale``, then the mask (bool -> ``NEG_INF``, additive ->
@@ -48,7 +48,8 @@ import math
 import torch
 
 from . import (DTYPE_CODE, LAUNCHES, check_cuda_tensor, check_launch,
-               kernel_disabled, library, ptr, stream_ptr, use_kernel)
+               kernel_disabled, library, pick_route, ptr, stream_ptr,
+               use_kernel)
 
 #: dtype codes of the flash entry points: the library's, plus float16
 _DTYPE = {**DTYPE_CODE, torch.float16: 2}
@@ -280,28 +281,22 @@ def _opt_args(name, q, mask, mb, mh, segs, sq, skv):
 
 
 #: dtypes and head dims of the tensor-core kernels (csrc/flash_fwd_tc.cu,
-#: csrc/flash_bwd_tc.cu)
+#: csrc/flash_bwd_tc.cu; csrc/paged_prefill_tc.cu by the same rule)
 TC_DTYPES = (torch.bfloat16, torch.float16)
 TC_HEAD_DIMS = (64, 128)
 
 
 def flash_route(dtype: torch.dtype, head_dim: int) -> str:
-    """Which hand-written kernel the forward and dK/dV take on the card:
-    ``"tc"`` (wgmma tensor cores) for bf16/f16 at head_dim 64 or 128,
+    """Which hand-written kernel the forward, dK/dV and dQ take on the
+    card: ``"tc"`` (wgmma tensor cores) for bf16/f16 at head_dim 64 or 128,
     ``"cc"`` (the f32 CUDA-core kernels) for every other shape the wrappers
-    take.  dQ always takes the CUDA-core kernel."""
+    take."""
     return "tc" if dtype in TC_DTYPES and head_dim in TC_HEAD_DIMS else "cc"
 
 
 def _pick_route(name, q, route):
     """``route`` (None: :func:`flash_route`) after checking it fits q."""
-    rule = flash_route(q.dtype, q.shape[-1])
-    if route is None:
-        return rule
-    if route not in ("tc", "cc") or (route == "tc" and rule != "tc"):
-        raise ValueError(f"{name}: route {route!r} does not take dtype "
-                         f"{q.dtype}, head_dim {q.shape[-1]}")
-    return route
+    return pick_route(name, q, route, flash_route(q.dtype, q.shape[-1]))
 
 
 def flash_fwd_cuda(q, k, v, mask=None, mb=1, mh=1, segs=None, scale=1.0,
@@ -361,19 +356,24 @@ def flash_dkv_cuda(q, k, v, do, lse, delta, mask=None, mb=1, mh=1,
 
 
 def flash_dq_cuda(q, k, v, do, lse, delta, mask=None, mb=1, mh=1, segs=None,
-                  scale=1.0, causal=False):
-    """Launch the dQ kernel of ``csrc/flash_bwd.cu``."""
+                  scale=1.0, causal=False, route=None):
+    """Launch the dQ kernel of ``csrc/flash_bwd_tc.cu`` or
+    ``csrc/flash_bwd.cu`` (``route``, default :func:`flash_route`)."""
     b, sq, skv, hq, hkv, d = _check_shapes("flash_dq", q, k, v)
     _check_bwd("flash_dq", q, do, lse, delta)
     mptr, kind, qs, ks = _opt_args("flash_dq", q, mask, mb, mh, segs, sq,
                                    skv)
+    route = _pick_route("flash_dq", q, route)
     dq = torch.empty_like(q)
-    err = library().ptt_flash_dq(
-        ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(delta), mptr, qs, ks,
-        ptr(dq), b, sq, skv, hq, hkv, d, mb, mh, kind, int(causal),
-        float(scale), _DTYPE[q.dtype], stream_ptr(q.device))
+    lib = library()
+    fn = lib.ptt_flash_dq_tc if route == "tc" else lib.ptt_flash_dq
+    err = fn(ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(delta), mptr, qs,
+             ks, ptr(dq), b, sq, skv, hq, hkv, d, mb, mh, kind, int(causal),
+             float(scale), _DTYPE[q.dtype], stream_ptr(q.device))
     check_launch("flash_dq", err)
     LAUNCHES["flash_attention_dq"] += 1
+    if route == "tc":
+        LAUNCHES["flash_attention_dq_tc"] += 1
     return dq
 
 

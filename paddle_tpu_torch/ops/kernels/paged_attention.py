@@ -14,7 +14,9 @@ requantized append + dequant-on-read attention,
 ``csrc/fused_quant_decode.cu``); the ragged multi-row walks of the
 chunked-prefill mixed step (``paged_attention_prefill``, fp / int8 / int4
 pools) and of the speculative verify step (``paged_attention_verify``, fp
-pools), both ``csrc/paged_prefill.cu``; and the fused post-attention MLP
+pools), both one walk on two routes (:func:`paged_rows_route`: the
+tensor-core ``csrc/paged_prefill_tc.cu`` with its split over the KV axis,
+the CUDA-core ``csrc/paged_prefill.cu``); and the fused post-attention MLP
 half (residual + RMSNorm + SwiGLU, ``csrc/fused_mlp.cu``).  Each kernel has
 its plain PyTorch version beside it, with the helpers they share with the
 reference: ``kernel_supported``, ``flash_decode_shards``,
@@ -39,8 +41,9 @@ import math
 import torch
 
 from . import (DTYPE_CODE, KV_FORMAT_CODE, LAUNCHES, check_cuda_tensor,
-               check_launch, kernel_disabled, library, ptr, stream_ptr,
-               use_kernel)
+               check_launch, kernel_disabled, library, pick_route, ptr,
+               stream_ptr, use_kernel)
+from .flash_attention import flash_route
 from .rms_norm import rms_norm_ref
 from .rope import apply_rotary_pos_emb
 from .swiglu import swiglu
@@ -574,26 +577,104 @@ def _check_rows(name, q, key_cache, value_cache, block_tables, seq_lens,
         check_cuda_tensor(f"{name} {pname}", t, (b,), torch.int32, dev)
 
 
+#: rows of a tensor-core row tile (one warpgroup's wgmma M) and columns of
+#: a KV tile
+ROWS_TILE = 64
+#: the split over the KV axis: at most this many blocks a few-row lane,
+#: one per _ROWS_TILES_PER_SPLIT of the table's KV tiles; a longer lane's
+#: row tile in at most _ROWS_LONG_SPLITS, from _ROWS_LONG_WALK KV tiles up
+_ROWS_MAX_SPLITS = 8
+_ROWS_TILES_PER_SPLIT = 4
+_ROWS_LONG_SPLITS = 2
+_ROWS_LONG_WALK = 16
+
+
+def paged_rows_route(dtype: torch.dtype, head_dim: int) -> str:
+    """Which hand-written walk the multi-row paged attention (prefill and
+    verify) takes on the card, by the rule of
+    :func:`~.flash_attention.flash_route`: ``"tc"`` (wgmma tensor cores,
+    split over the KV axis) for bf16/f16 q at head_dim 64 or 128, ``"cc"``
+    (the f32 CUDA-core walk) for every other shape the wrappers take (they
+    take f32 and bf16 q)."""
+    return flash_route(dtype, head_dim)
+
+
+def rows_max_splits(max_blocks: int, block_size: int) -> int:
+    """Blocks a lane's KV walk may split into, fixed on the host from the
+    table width alone (no host sync): one per _ROWS_TILES_PER_SPLIT KV
+    tiles the table can reach, 1 to _ROWS_MAX_SPLITS (8 at max_seq 2048)."""
+    tiles = -(-max_blocks * block_size // ROWS_TILE)
+    return max(1, min(_ROWS_MAX_SPLITS, tiles // _ROWS_TILES_PER_SPLIT))
+
+
+def rows_split(n_tiles: int, max_splits: int, few_rows: bool):
+    """The KV-tile ranges ``[(start, end), ...]`` the blocks of one row
+    tile walk (csrc/paged_prefill_tc.cu ``rows_split``, the same rule): a
+    lane whose live rows fit one row tile (``few_rows``: a decode lane,
+    verify rows) splits its ``n_tiles`` into up to ``max_splits`` runs of
+    equal length (the last shorter), none empty; a longer lane's row tile
+    into up to two from _ROWS_LONG_WALK tiles up, else one.  Every tile
+    lies in exactly one range (one empty range when there is none)."""
+    if few_rows:
+        n = min(max_splits, n_tiles)
+    else:
+        n = (min(_ROWS_LONG_SPLITS, max_splits)
+             if n_tiles >= _ROWS_LONG_WALK else 1)
+    n = max(1, n)
+    per = -(-n_tiles // n)
+    n = -(-n_tiles // per) if per else 1
+    return [(s * per, min(n_tiles, (s + 1) * per)) for s in range(n)]
+
+
 def paged_prefill_cuda(q, key_cache, value_cache, block_tables, seq_lens,
                        q_lens, scale, kv_quant=None, k_scale=None,
-                       v_scale=None, name="paged_prefill"):
-    """Launch ``csrc/paged_prefill.cu``'s ``ptt_paged_prefill`` (grid: slot
-    x kv head, tiles of 64 rows); returns [b, T, nh, hd].  ``name`` is the
-    kernel the launch counts as: ``paged_verify`` for the verify step's
-    K+1 rows over fp pools (B10, the same walk)."""
+                       v_scale=None, name="paged_prefill", route=None):
+    """Launch the multi-row walk on ``route`` (default
+    :func:`paged_rows_route`): ``csrc/paged_prefill_tc.cu``'s
+    ``ptt_paged_prefill_tc`` (grid: slot x kv head, 64-row tiles and their
+    splits over the KV axis, then the combine of the partials) or
+    ``csrc/paged_prefill.cu``'s ``ptt_paged_prefill`` (slot x kv head,
+    64-row tiles); returns [b, T, nh, hd].  ``name`` is the kernel the
+    launch counts as: ``paged_verify`` for the verify step's K+1 rows over
+    fp pools (B10, the same walk)."""
     _check_rows(name, q, key_cache, value_cache, block_tables,
                 seq_lens, q_lens, kv_quant, k_scale, v_scale)
     b, T, nh, hd = q.shape
     nbp, nkv, bs, _ = key_cache.shape
+    max_blocks = block_tables.shape[1]
+    route = pick_route(name, q, route, paged_rows_route(q.dtype, hd))
     out = torch.empty_like(q)
-    err = library().ptt_paged_prefill(
-        ptr(q), ptr(key_cache), ptr(value_cache),
-        *_scale_ptrs(kv_quant, k_scale, v_scale), ptr(block_tables),
-        ptr(seq_lens), ptr(q_lens), ptr(out), b, T, nh, nkv, hd, nbp, bs,
-        block_tables.shape[1], float(scale), DTYPE_CODE[q.dtype],
-        KV_FORMAT_CODE[kv_quant], stream_ptr(q.device))
+    head = (ptr(q), ptr(key_cache), ptr(value_cache),
+            *_scale_ptrs(kv_quant, k_scale, v_scale), ptr(block_tables),
+            ptr(seq_lens), ptr(q_lens), ptr(out))
+    tail = (float(scale), DTYPE_CODE[q.dtype], KV_FORMAT_CODE[kv_quant],
+            stream_ptr(q.device))
+    if route == "tc":
+        splits = rows_max_splits(max_blocks, bs)
+        rows = T * (nh // nkv)
+        prow = min(ROWS_TILE, rows)
+        parts = (ctypes.c_void_p(0),) * 3
+        if splits > 1:
+            # a partial slot for each block the walk launches: the split
+            # blocks of every row tile and the further ones of row tile 0
+            ts = min(_ROWS_LONG_SPLITS, splits)
+            slots = -(-rows // ROWS_TILE) * ts + splits - ts
+            m = torch.empty((b * nkv, slots, prow), dtype=torch.float32,
+                            device=q.device)
+            l = torch.empty_like(m)
+            acc = torch.empty((b * nkv, slots, prow, hd),
+                              dtype=torch.float32, device=q.device)
+            parts = (ptr(m), ptr(l), ptr(acc))
+        err = library().ptt_paged_prefill_tc(
+            *head, *parts, b, T, nh, nkv, hd, nbp, bs, max_blocks, splits,
+            *tail)
+    else:
+        err = library().ptt_paged_prefill(
+            *head, b, T, nh, nkv, hd, nbp, bs, max_blocks, *tail)
     check_launch(name, err)
     LAUNCHES[name] += 1
+    if route == "tc":
+        LAUNCHES[f"{name}_tc"] += 1
     return out
 
 

@@ -26,7 +26,8 @@ numpy from a seed, handed to both.
   launch counts by kind; on int8 pools (chunked + speculation: the mixed
   step, and the verify step through the prefill walk with rejected drafts
   left in their pages) tokens and pool codes equal to the JAX engine's,
-  tokens also to its bucketed engine's;
+  tokens also to its bucketed engine's; on int4 pools the same against the
+  JAX engine's int4 run;
 - EOS under speculation cuts each stream where the bucketed one ends;
 - the kill switches and the validation errors.
 
@@ -184,10 +185,11 @@ def models():
 def jax_runs(models):
     """The JAX engine on the request stream, once per mode (shared by the
     tests below): label -> (tokens, stats, pools).  Chunked + speculation
-    runs on int8 pools only: its routing reads no pool bytes, and on this
-    stream its tokens are the fp engines' too, so it is the reference of
-    the fp combined mode as well, and the fp bucketed run the int8
-    engine's bucketed reference (two JAX engine runs less)."""
+    runs on int8 and int4 pools only: its routing reads no pool bytes, and
+    on this stream its int8 tokens are the fp engines' too, so the int8
+    run is the reference of the fp combined mode as well, and the fp
+    bucketed run the int8 engine's bucketed reference (two JAX engine runs
+    less)."""
     jcfg, jparams, _, _ = models
     mp = pytest.MonkeyPatch()
     mp.setenv("PADDLE_TPU_GRACEFUL", "0")
@@ -196,7 +198,8 @@ def jax_runs(models):
     for label, kv_quant, feats in (("bucketed", None, {}),
                                    ("chunked", None, CHUNKED),
                                    ("spec", None, SPEC),
-                                   ("both_int8", "int8", {**CHUNKED, **SPEC})):
+                                   ("both_int8", "int8", {**CHUNKED, **SPEC}),
+                                   ("both_int4", "int4", {**CHUNKED, **SPEC})):
         eng = ContinuousBatchingEngine(jcfg, jparams, paged=True,
                                        kv_quant=kv_quant, **ENGINE, **feats)
         out = eng.serve(_requests(Request))
@@ -272,11 +275,26 @@ def test_int8_chunked_spec_matches_jax_pools(models, jax_runs):
     stream the tokens also equal the JAX bucketed engine's (requantizing
     per write event can move a code, so the reference guarantees this
     only between the arms of one configuration)."""
-    got, eng, calls, victims = _serve_port(models, kv_quant="int8",
-                                           **CHUNKED, **SPEC)
-    want, jstats, jpools = jax_runs["both_int8"]
-    assert got == want
+    got, eng = _check_quant_chunked_spec(models, jax_runs, "int8")
     assert got == jax_runs["bucketed"][0]
+
+
+def test_int4_chunked_spec_matches_jax_pools(models, jax_runs):
+    """The int8 test's checks on packed-int4 pools, against the JAX
+    engine's int4 run: tokens and statistics equal, the verify step
+    through the prefill walk, codes over the first num_blocks pages equal
+    and scales within rtol 1e-5."""
+    _check_quant_chunked_spec(models, jax_runs, "int4")
+
+
+def _check_quant_chunked_spec(models, jax_runs, kv_quant):
+    """The port's chunked + speculative engine on ``kv_quant`` pools held
+    to the JAX engine's run on the same pools; returns its tokens and
+    engine."""
+    got, eng, calls, victims = _serve_port(models, kv_quant=kv_quant,
+                                           **CHUNKED, **SPEC)
+    want, jstats, jpools = jax_runs[f"both_{kv_quant}"]
+    assert got == want
     st = {k: eng.stats[k] for k in STATS}
     assert st == jstats
     assert st["spec_rejected_tokens"] > 0 and any(victims)
@@ -291,6 +309,7 @@ def test_int8_chunked_spec_matches_jax_pools(models, jax_runs):
         assert torch.equal(tpool["q"][:, :nb], ref["q"][:, :nb])
         torch.testing.assert_close(tpool["scale"][:, :nb],
                                    ref["scale"][:, :nb], rtol=1e-5, atol=0)
+    return got, eng
 
 
 def test_kill_switches_and_validation(models, jax_runs, monkeypatch):

@@ -154,6 +154,12 @@ FLASH_CASES = {
                            torch.bfloat16),
     "bf16_long_sq_ne_skv_segments": (1, 300, 517, 8, 2, 128, True, None,
                                      "pair", torch.bfloat16),
+    "f16_d64_full_additive_mask": (1, 80, 144, 4, 2, 64, False, "add", None,
+                                   torch.float16),
+    "bf16_full_sq_gt_skv_ragged": (2, 130, 70, 4, 4, 128, False, None, None,
+                                   torch.bfloat16),
+    "f16_d64_causal_segments": (2, 190, 190, 4, 1, 64, True, None, "pair",
+                                torch.float16),
 }
 
 
@@ -202,20 +208,23 @@ def test_flash_kernels_match_plain(dev, case):
         delta = (out_p.float() * do.float()).sum(-1).transpose(1, 2) \
             .contiguous()
         dk, dv = tfa.flash_dkv_cuda(q, k, v, do, lse_p, delta, route=r, **kw)
-        dq = tfa.flash_dq_cuda(q, k, v, do, lse_p, delta, **kw)
+        dq = tfa.flash_dq_cuda(q, k, v, do, lse_p, delta, route=r, **kw)
         dk_p, dv_p = tfa.flash_dkv_ref(q, k, v, do, lse_p, delta, **kw)
         dq_p = tfa.flash_dq_ref(q, k, v, do, lse_p, delta, **kw)
         torch.cuda.synchronize()
         for name, a, e in (("dk", dk, dk_p), ("dv", dv, dv_p),
                            ("dq", dq, dq_p)):
             _flash_close(name, a, e, dtype)
+        if seg == "pair":
+            assert (dq[:, -7:] == 0).all()
         tc = int(r == "tc")
         assert {n: tk.LAUNCHES[n] for n in (
             "flash_attention_fwd", "flash_attention_dkv", "flash_attention_dq",
-            "flash_attention_fwd_tc", "flash_attention_dkv_tc")} == \
+            "flash_attention_fwd_tc", "flash_attention_dkv_tc",
+            "flash_attention_dq_tc")} == \
             {"flash_attention_fwd": 1, "flash_attention_dkv": 1,
              "flash_attention_dq": 1, "flash_attention_fwd_tc": tc,
-             "flash_attention_dkv_tc": tc}
+             "flash_attention_dkv_tc": tc, "flash_attention_dq_tc": tc}
 
 
 def test_flash_autograd_launches_and_refuses_large_heads(dev):
@@ -234,7 +243,8 @@ def test_flash_autograd_launches_and_refuses_large_heads(dev):
             tk.LAUNCHES["flash_attention_dkv"],
             tk.LAUNCHES["flash_attention_dq"]) == (1, 1, 1)
     assert (tk.LAUNCHES["flash_attention_fwd_tc"],
-            tk.LAUNCHES["flash_attention_dkv_tc"]) == (1, 1)
+            tk.LAUNCHES["flash_attention_dkv_tc"],
+            tk.LAUNCHES["flash_attention_dq_tc"]) == (1, 1, 1)
     assert all(t.grad is not None and torch.isfinite(t.grad).all()
                for t in (q, k, v))
     big = _randn(g, dev, 1, 16, 2, 264)
@@ -422,12 +432,12 @@ def test_decode_switch_tokens_route_as_the_reference(dev, monkeypatch):
     assert tk.LAUNCHES["flash_decode"] == 1
 
 
-def _rows_case(g, dev, mode, dtype, T, lens, q_lens):
+def _rows_case(g, dev, mode, dtype, T, lens, q_lens, bs=64, mb=8, hd=128):
     """A multi-row walk's inputs: b = len(lens) lanes, 8/2 heads, head_dim
-    128, block 64, 8 table pages; lane i owns ceil(lens[i] / 64) pages of
-    a shuffled pool (at least one), the rest of its table the sentinel nb
-    (the spill page, all zeros)."""
-    b, nh, nkv, hd, bs, mb = len(lens), 8, 2, 128, 64, 8
+    ``hd``, block ``bs``, ``mb`` table pages; lane i owns ceil(lens[i] /
+    bs) pages of a shuffled pool (at least one), the rest of its table the
+    sentinel nb (the spill page, all zeros)."""
+    b, nh, nkv = len(lens), 8, 2
     nb = b * mb
     q = _randn(g, dev, b, T, nh, hd, dtype=dtype)
     kc = _randn(g, dev, nb + 1, nkv, bs, hd, dtype=dtype)
@@ -468,7 +478,10 @@ def test_paged_prefill_kernel_matches_plain(dev, mode, dtype):
     kw = dict(kv_quant=mode, k_scale=ks, v_scale=vs)
     tk.reset_counters()
     got = tpa.paged_attention_prefill(*args, **kw)
-    assert tk.LAUNCHES["paged_prefill"] == 1 and sum(tk.LAUNCHES.values()) == 1
+    tc = int(dtype == torch.bfloat16)      # paged_rows_route
+    assert tk.LAUNCHES["paged_prefill"] == 1
+    assert tk.LAUNCHES["paged_prefill_tc"] == tc
+    assert sum(tk.LAUNCHES.values()) == 1 + tc
     want = tpa.paged_prefill_reference(*args, **kw)
     torch.cuda.synchronize()
     _rows_close(got, want, qlens, dtype)
@@ -484,7 +497,10 @@ def test_paged_verify_kernel_matches_plain(dev, dtype, monkeypatch):
     args = (q, kc, vc, tables, lens, qlens)
     tk.reset_counters()
     got = tpa.paged_attention_verify(*args)
-    assert tk.LAUNCHES["paged_verify"] == 1 and sum(tk.LAUNCHES.values()) == 1
+    tc = int(dtype == torch.bfloat16)      # paged_rows_route
+    assert tk.LAUNCHES["paged_verify"] == 1
+    assert tk.LAUNCHES["paged_verify_tc"] == tc
+    assert sum(tk.LAUNCHES.values()) == 1 + tc
     want = tpa.paged_verify_reference(*args)
     torch.cuda.synchronize()
     _rows_close(got, want, qlens, dtype)
@@ -496,6 +512,76 @@ def test_paged_verify_kernel_matches_plain(dev, dtype, monkeypatch):
     assert tk.PLAIN_CALLS["paged_verify"] == 1
     assert tk.PLAIN_CALLS["paged_prefill"] == 1
     assert torch.equal(plain, want)
+
+
+@pytest.mark.parametrize("mode", [None, "int8", "int4"])
+@pytest.mark.parametrize("bs,hd", [(64, 128), (16, 64)])
+def test_paged_rows_routes_match_plain(dev, mode, bs, hd):
+    """B9 / B10 on both routes against the plain version, at two block
+    sizes (16: a KV tile spans four pages, each column resolving its own)
+    and both tensor-core head dims.  The table reaches 1024 positions, so
+    the tensor-core walk splits a few-row lane's KV walk in up to 4
+    blocks: 16-row lanes of long prefixes (64 live rows, a whole tile), a
+    decode lane, ragged chunks, an inactive lane; then the verify rows
+    (fp pools: B10; quantized: the prefill walk, as the verify step takes
+    on quantized pools).  Rows past q_len exactly 0."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    mb = 1024 // bs
+    assert tpa.rows_max_splits(mb, bs) == 4
+    for T, lens, q_lens in ((16, [1000, 700, 64, 1, 333, 1024], [16, 9, 16,
+                                                               1, 3, 1]),
+                            (5, [5, 1024, 300, 77], [5, 5, 2, 4])):
+        q, kc, vc, tables, lens_t, qlens, ks, vs = _rows_case(
+            g, dev, mode, torch.bfloat16, T, lens, q_lens, bs=bs, mb=mb,
+            hd=hd)
+        args = (q, kc, vc, tables, lens_t, qlens)
+        kw = dict(kv_quant=mode, k_scale=ks, v_scale=vs)
+        verify = T == 5 and mode is None
+        name = "paged_verify" if verify else "paged_prefill"
+        want = tpa.paged_prefill_reference(*args, **kw)
+        for route in ("tc", "cc"):
+            tk.reset_counters()
+            got = tpa.paged_prefill_cuda(*args, hd ** -0.5, name=name,
+                                         route=route, **kw)
+            torch.cuda.synchronize()
+            assert tk.LAUNCHES[name] == 1
+            assert tk.LAUNCHES[f"{name}_tc"] == int(route == "tc")
+            _rows_close(got, want, qlens, torch.bfloat16)
+
+
+@pytest.mark.parametrize("mode", [None, "int8", "int4"])
+def test_paged_rows_tc_without_split(dev, mode):
+    """A table too narrow to split (2 pages of 64: one split, no partials,
+    no combine launch): the tensor-core walk alone against the plain
+    version."""
+    g = torch.Generator(device=dev).manual_seed(13)
+    q, kc, vc, tables, lens, qlens, ks, vs = _rows_case(
+        g, dev, mode, torch.bfloat16, 16, [100, 128, 1, 70], [4, 16, 1, 0],
+        mb=2)
+    assert tpa.rows_max_splits(tables.shape[1], 64) == 1
+    args = (q, kc, vc, tables, lens, qlens)
+    kw = dict(kv_quant=mode, k_scale=ks, v_scale=vs)
+    tk.reset_counters()
+    got = tpa.paged_attention_prefill(*args, **kw)
+    assert tk.LAUNCHES["paged_prefill_tc"] == 1
+    want = tpa.paged_prefill_reference(*args, **kw)
+    torch.cuda.synchronize()
+    _rows_close(got, want, qlens, torch.bfloat16)
+
+
+def test_paged_rows_tc_refuses_other_shapes(dev):
+    """"tc" is refused where the rule names "cc" (no fall back); the
+    default route of such a shape launches the CUDA-core walk."""
+    g = torch.Generator(device=dev).manual_seed(12)
+    q, kc, vc, tables, lens, qlens, _, _ = _rows_case(
+        g, dev, None, torch.float32, 4, [30, 9], [4, 2])
+    args = (q, kc, vc, tables, lens, qlens)
+    with pytest.raises(ValueError, match="route 'tc'"):
+        tpa.paged_prefill_cuda(*args, 0.1, route="tc")
+    tk.reset_counters()
+    tpa.paged_prefill_cuda(*args, 0.1)
+    assert tk.LAUNCHES["paged_prefill"] == 1
+    assert tk.LAUNCHES["paged_prefill_tc"] == 0
 
 
 @pytest.mark.parametrize("kv_quant", [None, "int8"])

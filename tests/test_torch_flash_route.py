@@ -1,4 +1,4 @@
-"""The flash forward's and dK/dV's route rule, without a card.
+"""The flash forward's, dK/dV's and dQ's route rule, without a card.
 
 ``flash_route`` picks the hand-written kernel the CUDA wrappers launch from
 (dtype, head_dim) alone: the wgmma tensor-core kernels for bf16/f16 at
@@ -35,3 +35,21 @@ def test_flash_route_rule(key, route):
     else:
         with pytest.raises(ValueError, match="route 'tc'"):
             tfa._pick_route("flash_dkv", q, "tc")
+
+
+@pytest.mark.parametrize("key,route", ROUTES,
+                         ids=[f"{dt}-{d}".replace("torch.", "")
+                              for (dt, d), _ in ROUTES])
+def test_flash_dq_route_follows_the_rule(key, route):
+    """dQ takes the same rule as the forward and dK/dV: the tensor-core
+    kernel by default where the rule names it, the CUDA-core one on
+    request, and "tc" refused for every other shape."""
+    dtype, d = key
+    q = torch.empty(1, 2, 1, d, dtype=dtype)
+    assert tfa._pick_route("flash_dq", q, None) == route
+    assert tfa._pick_route("flash_dq", q, "cc") == "cc"
+    if route == "tc":
+        assert tfa._pick_route("flash_dq", q, "tc") == "tc"
+    else:
+        with pytest.raises(ValueError, match="flash_dq: route 'tc'"):
+            tfa._pick_route("flash_dq", q, "tc")
