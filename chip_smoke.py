@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --serve-sweep 3-14
 
 Drives ``paddle_tpu_torch`` only (it imports no JAX and nothing of
 ``paddle_tpu``) through its phases, each printing JSON lines, and exits
@@ -42,11 +43,15 @@ non-zero as soon as one fails:
    and the sampler timed alone; then the same weights with chunked prefill
    (chunk 128) and n-gram speculation (K 4) on 12 requests, half of whose
    prompts repeat a span, on bf16 and on int8 pools, each held to a
-   bucketed speculation-off engine on the same requests (greedy streams
-   part only after a near tie); the launch counts prove every layer of
-   every mixed step went through the prefill walk and of every verify step
-   through the verify walk (the prefill walk on int8 pools), each on the
-   tensor-core route, and a profile of four mixed steps;
+   reference on the same requests (bf16: the bucketed speculation-off
+   engine; int8: the same configuration with every kernel off): every
+   greedy token both runs scored from the same context (up to and
+   including the first token where they part) has its whole logit row
+   within ``SERVE_LOGIT_TOL`` of the reference's; the launch counts prove
+   every layer of every mixed step went through the prefill walk and of
+   every verify step through the verify walk (the prefill walk on int8
+   pools), each on the tensor-core route, and a profile of four mixed
+   steps;
 7. arms: a 4-layer full-width model serves the same greedy requests on
    each decode arm of bf16, int8 and int4 pools (the fused step; the
    unfused split-K and sequential walks that
@@ -65,7 +70,11 @@ non-zero as soon as one fails:
    ``PADDLE_TPU_TORCH_DISABLE_KERNELS=all``.
 
 The line before the last lists every kernel with its numbers; the last line
-is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
+is ``{"ok": true, "device": {...}}``.  ``--serve-sweep FIRST-LAST`` runs
+only phases 1, 2 and phase 6's chunked + speculative serves at each
+request seed in the range (the script's own run uses seed 3), reporting
+each serve's largest logit difference against ``SERVE_LOGIT_TOL`` without
+failing on it.  Without a CUDA card, or without the
 package beside it, the script exits non-zero and prints no result.
 """
 
@@ -786,71 +795,161 @@ def phase_serve(torch, np, smi: str) -> tuple[dict, dict, dict]:
     q8 = _serve_llama(torch, np, cfg, params, "int8", t_init)
     cs = {}
     for kvq in (None, "int8"):
-        for k, v in _serve_chunked_spec(torch, np, cfg, params, kvq,
-                                        smi).items():
+        launches, _ = _serve_chunked_spec(torch, np, cfg, params, kvq, smi)
+        for k, v in launches.items():
             cs[k] = cs.get(k, 0) + v
     del params
     torch.cuda.empty_cache()
     return fp, q8, cs
 
 
-#: the near tie of a 32-layer serve: two runs whose bf16 activations round
-#: at other places (batched matmul shapes, kernel vs plain attention)
-#: through 32 layers part where the top-2 logits are within a few bf16
-#: ulps (0.03125 at these random-weight logits); measured: partings at
-#: gaps 0 to 0.0625 against the bucketed engine on bf16 pools, 0 to 0.125
-#: against the plain arm on int8 pools (H100, this script); the 4-layer
-#: arms' bound, inclusive
-SERVE_TIE = 0.125
+def serve_sweep(torch, np, smi: str, seeds: list[int]) -> None:
+    """``--serve-sweep``: the chunked + speculative serve's logit check of
+    phase 6 at each request seed, on bf16 and int8 pools, each line
+    reporting the largest logit difference against ``SERVE_LOGIT_TOL``
+    without failing on it (the readings the bound is set from)."""
+    from paddle_tpu_torch.models import llama
+
+    cfg = llama.LlamaConfig.llama3_8b()
+    params = llama.init_params(cfg, seed=0, device="cuda")
+    worst = {}
+    for seed in seeds:
+        for kvq in (None, "int8"):
+            _, res = _serve_chunked_spec(torch, np, cfg, params, kvq, smi,
+                                         seed=seed, sweep=True)
+            key = kvq or "bf16"
+            worst[key] = max(worst.get(key, 0.0), res["max_abs_logit_diff"])
+    emit({"phase": "serve_sweep_summary", "seeds": seeds,
+          "max_abs_logit_diff": worst,
+          "logit_tolerance": {k or "bf16": v
+                              for k, v in SERVE_LOGIT_TOL.items()}})
+
+
+#: pool kind -> the largest |z_run - z_ref| over a whole 128256-entry
+#: logit row that the 32-layer chunked + speculative serve may show against
+#: its reference at a token both runs scored from the same context (every
+#: index up to and including the first one whose greedy tokens differ):
+#: bf16 activations rounded at other places (batched matmul shapes, kernel
+#: vs plain attention) through 32 layers.  Set on the parent's CUDA-core
+#: decode kernels, before the tensor-core decode route existed, from
+#: ``--serve-sweep 3-14`` on one H100 ("NVIDIA H100 80GB HBM3, 700.00 W"):
+#: the largest reading of each pool kind times 1.25, rounded up to a
+#: multiple of 1/32.  Readings at request seeds 3..14, bf16 pools against
+#: the bucketed engine: 0.34375 0.29492 0.30908 0.31787 0.32812 0.32422
+#: 0.28516 0.31055 0.30469 0.34180 0.32031 0.34375 (max 0.34375 -> 0.4375);
+#: int8 pools against the kernels-off run: 0.54102 0.34375 0.29980 0.32397
+#: 0.54761 0.34277 0.35156 0.31299 0.62598 0.42188 0.56055 0.34766 (max
+#: 0.62598 -> 0.8125)
+SERVE_LOGIT_TOL = {None: 0.4375, "int8": 0.8125}
 
 
 def _serve_stepwise(torch, eng, reqs) -> dict:
-    """Serve ``reqs`` step by step; returns rid -> the top-2 logit gap of
-    the step that emitted each of its tokens (None where the step's logits
-    are not kept: a verify step's accepted drafts)."""
+    """Serve ``reqs`` step by step; returns rid -> [tokens, V] logits, for
+    each greedy request the logit row that chose each of its tokens.  The
+    serving module's ``lm_head_logits`` is wrapped to keep every row the
+    engine scores: a decode step's [B, V], a mixed step's emit rows [B, V],
+    a verify step's [B, Q, V] (row t chose the token t after the pending
+    one; rows past the accepted run scored rejected drafts and are not
+    kept).  The engine itself runs unchanged."""
+    from paddle_tpu_torch.inference import serving
+
+    head = serving.lm_head_logits
+    calls = []
+
+    def capture(cfg, params, x):
+        z = head(cfg, params, x)
+        calls.append(z)
+        return z
+
     for r in reqs:
         eng.add_request(r)
-    gaps = {r.rid: [] for r in reqs}
-    while True:
-        before = {r.rid: len(r.output_ids) for r in reqs}
-        # a request retired by this step held its slot before it, one
-        # admitted by it holds its slot after it
-        slot_of = {r.rid: s for s, r in enumerate(eng._slot_req)
-                   if r is not None}
-        if not eng.step() and not eng._queue:
-            break
-        slot_of.update({r.rid: s for s, r in enumerate(eng._slot_req)
-                        if r is not None})
-        top2 = eng.last_logits.float().topk(2, dim=-1).values
-        gap = (top2[:, 0] - top2[:, 1]).cpu().tolist()
-        for r in reqs:
-            new = len(r.output_ids) - before[r.rid]
-            if new:
-                gaps[r.rid] += [gap[slot_of[r.rid]]] + [None] * (new - 1)
-    return gaps
+    rows = {r.rid: [] for r in reqs if r.temperature == 0}
+    serving.lm_head_logits = capture
+    try:
+        while True:
+            before = {r.rid: len(r.output_ids) for r in reqs}
+            # a request retired by this step held its slot before it, one
+            # admitted by it holds its slot after it
+            slot_of = {r.rid: s for s, r in enumerate(eng._slot_req)
+                       if r is not None}
+            calls.clear()
+            if not eng.step() and not eng._queue:
+                break
+            slot_of.update({r.rid: s for s, r in enumerate(eng._slot_req)
+                            if r is not None})
+            for r in reqs:
+                new = len(r.output_ids) - before[r.rid]
+                if new and r.rid in rows:
+                    s = slot_of[r.rid]
+                    seq = torch.cat([z[s].reshape(-1, z.shape[-1])
+                                     for z in calls])
+                    rows[r.rid].append(seq[:new].clone())
+    finally:
+        serving.lm_head_logits = head
+    return {rid: torch.cat(v) if v else None for rid, v in rows.items()}
 
 
-def _serve_chunked_spec(torch, np, cfg, params, kv_quant, smi) -> dict:
+def _logit_check(torch, reqs, rows, ref_reqs, ref_rows) -> dict:
+    """The greedy requests of a run against its reference: the tokens agree
+    up to index i and differ at i (i = the length when they never part),
+    so at every index <= i both runs scored the same context, and the
+    largest |z_run - z_ref| over those rows is what the run's numbers
+    moved.  At the parting the reference's top-2 gap is at most twice the
+    difference there (else the captured rows are not the ones that chose
+    the tokens: checked)."""
+    worst, agree, total, parted = 0.0, 0, 0, []
+    for a, b in zip(reqs, ref_reqs):
+        if a.temperature > 0:
+            continue
+        za, zb = rows[a.rid], ref_rows[b.rid]
+        check(za.shape[0] == len(a.output_ids)
+              and zb.shape[0] == len(b.output_ids),
+              f"rid {a.rid}: one logit row for each emitted token")
+        n = min(len(a.output_ids), len(b.output_ids))
+        i = next((j for j in range(n) if a.output_ids[j] != b.output_ids[j]),
+                 n)
+        agree += i
+        total += n
+        d = (za[:i + 1].float() - zb[:i + 1].float()).abs().amax(dim=-1)
+        worst = max(worst, d.max().item())
+        if i < n:
+            top2 = zb[i].float().topk(2).values
+            gap = (top2[0] - top2[1]).item()
+            parted.append({"rid": a.rid, "token": i, "ref_top2_gap": gap,
+                           "max_abs_logit_diff": d[i].item()})
+            check(gap <= 2 * d[i].item(),
+                  f"rid {a.rid} token {i}: the reference's top-2 gap {gap} "
+                  f"is at most twice the logit difference {d[i].item()}")
+    return {"max_abs_logit_diff": worst, "greedy_tokens_agreeing": agree,
+            "greedy_tokens": total,
+            "greedy_agreeing_share": agree / total if total else None,
+            "diverged": parted}
+
+
+def _serve_chunked_spec(torch, np, cfg, params, kv_quant, smi, seed=3,
+                        sweep=False) -> tuple[dict, dict]:
     """Chunked prefill (chunk 128, the default token budget of 136) and
-    n-gram speculation (K 4, ngram 3) on 12 requests, half of whose prompts
-    repeat a span, against a bucketed speculation-off engine on the same
-    requests and pool kind.  256 new tokens a request: the random-weight
-    model does not copy its context, so the drafter proposes only where a
-    generated token repeats one already in the context, which 12 requests
-    of 64 new tokens never did on the H100.  The launch counts prove every
-    layer of every mixed step went through ``paged_prefill``, of every
-    verify step through ``paged_verify`` (``paged_prefill`` on int8 pools:
-    only the prefill walk dequantizes), and of every other decode step
-    through the pool kind's fused decode kernel.  Greedy streams part from
-    the reference's only after a near tie (the reference's top-2 logit gap
-    at the parting token within ``SERVE_TIE``): on bf16 pools the
-    reference is the bucketed
-    engine; on int8 pools, whose requantization is lossy per write event
-    (a chunk, a verify window with its rejected drafts), so that event
-    grouping moves the codes by design, it is the same chunked +
-    speculative configuration with every kernel off (the reference's own
-    guarantee is between the arms of one configuration).  Returns the
-    chunked + speculative run's launches."""
+    n-gram speculation (K 4, ngram 3) on 12 requests (request seed
+    ``seed``), half of whose prompts repeat a span, against a reference on
+    the same requests and pool kind.  256 new tokens a request: the
+    random-weight model does not copy its context, so the drafter proposes
+    only where a generated token repeats one already in the context, which
+    12 requests of 64 new tokens never did on the H100.  The launch counts
+    prove every layer of every mixed step went through ``paged_prefill``,
+    of every verify step through ``paged_verify`` (``paged_prefill`` on
+    int8 pools: only the prefill walk dequantizes), and of every other
+    decode step through the pool kind's fused decode kernel.  On bf16 pools
+    the reference is the bucketed speculation-off engine; on int8 pools,
+    whose requantization is lossy per write event (a chunk, a verify window
+    with its rejected drafts), so that event grouping moves the codes by
+    design, it is the same chunked + speculative configuration with every
+    kernel off (the reference's own guarantee is between the arms of one
+    configuration).  Every greedy token both runs scored from the same
+    context has its whole logit row within ``SERVE_LOGIT_TOL`` of the
+    reference's (``_logit_check``).  ``sweep``: no bucketed run on int8
+    pools (its numbers are reported only), no profile, and the logit bound
+    reported instead of checked.  Returns the chunked + speculative run's
+    launches and the logit check's result."""
     from paddle_tpu_torch.inference.serving import (ContinuousBatchingEngine,
                                                     Request)
     from paddle_tpu_torch.ops import kernels
@@ -860,31 +959,32 @@ def _serve_chunked_spec(torch, np, cfg, params, kv_quant, smi) -> dict:
     feats = dict(enable_chunked_prefill=True, prefill_chunk=128,
                  enable_speculation=True, num_draft_tokens=4, spec_ngram=3)
     env = "PADDLE_TPU_TORCH_DISABLE_KERNELS"
+    against = "bucketed" if kv_quant is None else "plain"
     runs = {}
     for label, kw, disable in (("bucketed", {}, None),
                                ("chunked_spec", feats, None),
                                ("plain", feats, "all")):
         if label == "plain" and kv_quant is None:
             continue
+        if label == "bucketed" and kv_quant and sweep:
+            continue
         if disable:
             os.environ[env] = disable
         eng = ContinuousBatchingEngine(cfg, params, **base, **kw)
         reqs = make_requests(Request, np, 12, cfg.vocab_size, sampled=2,
-                             seed=3, repeat=True, new=256)
+                             seed=seed, repeat=True, new=256)
         kernels.reset_counters()
         t0 = time.perf_counter()
-        gaps = _serve_stepwise(torch, eng, reqs)
+        rows = _serve_stepwise(torch, eng, reqs)
         torch.cuda.synchronize()
-        runs[label] = (eng, reqs, gaps, dict(kernels.LAUNCHES),
+        runs[label] = (eng, reqs, rows, dict(kernels.LAUNCHES),
                        time.perf_counter() - t0)
         os.environ.pop(env, None)
     if "plain" in runs:
         check(not any(runs["plain"][3].values()),
               f"the plain run launched no kernel: {runs['plain'][3]}")
-    eng, reqs, gaps, launches, wall = runs["chunked_spec"]
-    ref_eng, ref_reqs, ref_gaps, _, ref_wall = runs["bucketed"]
-    against = "bucketed" if kv_quant is None else "plain"
-    _, tok_reqs, tok_gaps, _, _ = runs[against]
+    eng, reqs, rows, launches, wall = runs["chunked_spec"]
+    _, tok_reqs, tok_rows, _, _ = runs[against]
     st, L = eng.stats, cfg.num_hidden_layers
     mixed, spec = st["mixed_steps"], st["spec_steps"]
     plain_steps = st["decode_steps"] - mixed - spec
@@ -912,23 +1012,21 @@ def _serve_chunked_spec(torch, np, cfg, params, kv_quant, smi) -> dict:
               if k != FUSED_DECODE[kv_quant]}
     check(not any(others.values()), f"no other decode kernel ran: {others}")
     check(launches["gumbel_noise"] > 0, "the sampled lanes drew noise")
-    agree = total = 0
-    diverged = []
-    for a, b in zip(reqs, tok_reqs):
-        if a.temperature > 0:
-            continue
-        n = min(len(a.output_ids), len(b.output_ids))
-        i = next((j for j in range(n) if a.output_ids[j] != b.output_ids[j]),
-                 n)
-        agree += i
-        total += n
-        if i < n:
-            # the reference's gap at the parting token (the kernel run's
-            # where the reference banked it as an accepted draft)
-            gap = tok_gaps[b.rid][i]
-            if gap is None:
-                gap = gaps[a.rid][i]
-            diverged.append({"rid": a.rid, "token": i, "ref_top2_gap": gap})
+    logits = _logit_check(torch, reqs, rows, tok_reqs, tok_rows)
+    del rows, tok_rows
+    tol = SERVE_LOGIT_TOL[kv_quant]
+    within = logits["max_abs_logit_diff"] <= tol
+    if sweep:
+        emit({"phase": "serve_sweep", "seed": seed, "kv_quant": kv_quant,
+              "nvidia_smi": smi, "greedy_against": against,
+              "logit_tolerance": tol, "within_tolerance": within,
+              **logits, "launches": {k: v for k, v in launches.items() if v},
+              "decode_steps": st["decode_steps"], "mixed_steps": mixed,
+              "spec_steps": spec, "wall_s": wall})
+        del runs, eng, tok_reqs
+        torch.cuda.empty_cache()
+        return launches, logits
+    ref_eng, ref_reqs, _, _, ref_wall = runs["bucketed"]
     emit({"phase": "serve_chunked_spec", "model": "llama3_8b", "layers": L,
           "kv_quant": kv_quant, "nvidia_smi": smi, "requests": len(reqs),
           "sampled": sum(r.temperature > 0 for r in reqs),
@@ -949,9 +1047,8 @@ def _serve_chunked_spec(torch, np, cfg, params, kv_quant, smi) -> dict:
           "mean_ttft_s": statistics.mean(r.ttft_s for r in reqs),
           "wall_s": wall,
           "tokens_per_wall_s": sum(len(r.output_ids) for r in reqs) / wall,
-          "greedy_against": against, "near_tie": SERVE_TIE,
-          "greedy_tokens_agreeing": agree, "greedy_tokens": total,
-          "diverged": diverged,
+          "request_seed": seed, "greedy_against": against,
+          "logit_tolerance": tol, **logits,
           "bucketed": {"decode_tokens_per_s": ref_eng.decode_tokens_per_s,
                        "mean_ttft_s": statistics.mean(r.ttft_s
                                                       for r in ref_reqs),
@@ -963,17 +1060,14 @@ def _serve_chunked_spec(torch, np, cfg, params, kv_quant, smi) -> dict:
                        "tokens_per_wall_s": sum(len(r.output_ids)
                                                 for r in ref_reqs)
                        / ref_wall}})
-    for d in diverged:
-        check(d["ref_top2_gap"] is not None
-              and d["ref_top2_gap"] <= SERVE_TIE,
-              f"{kv_quant} chunked+spec rid {d['rid']} parted from the "
-              f"{against} stream at token {d['token']} only after a near "
-              f"tie (gap {d['ref_top2_gap']})")
+    check(within, f"{kv_quant} chunked+spec: every greedy token scored "
+                  f"from the {against} run's context has its logit row "
+                  f"within {tol} of it (max {logits['max_abs_logit_diff']})")
     del runs, ref_eng, tok_reqs
     phase_profile(torch, np, eng, Request, FUSED_DECODE[kv_quant])
     del eng
     torch.cuda.empty_cache()
-    return launches
+    return launches, logits
 
 
 #: device-kernel name fragments -> the layer they belong to (the split-K
@@ -1647,7 +1741,15 @@ def phase_train_end_to_end(torch, np) -> None:
     torch.cuda.empty_cache()
 
 
-def main() -> int:
+def main(argv: list[str]) -> int:
+    seeds = None
+    if argv:
+        if len(argv) != 2 or argv[0] != "--serve-sweep":
+            print("usage: chip_smoke.py [--serve-sweep FIRST-LAST]",
+                  file=sys.stderr)
+            return 2
+        first, last = (int(x) for x in argv[1].split("-"))
+        seeds = list(range(first, last + 1))
     try:
         import numpy as np
         import torch
@@ -1669,6 +1771,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev, smi = phase_device(torch)
     phase_build(kernels)
+    if seeds is not None:
+        serve_sweep(torch, np, smi, seeds)
+        return 0
     measured = phase_kernels(torch)
     measured.update(phase_flash_kernels(torch))
     # the paged kernels' line entries: the decode walks' int8 numbers (the
@@ -1729,4 +1834,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))
