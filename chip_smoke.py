@@ -32,14 +32,18 @@ non-zero as soon as one fails:
    int8 and int4 pools, at the serving shapes with ragged lengths (0 to
    2048), timed like phase 3; the requantized codes and scales held bit
    for bit (their share reported), untouched pages exact, the spill page
-   zeroed; the ragged chunked-prefill walk at 128 rows over bf16, int8 and
+   zeroed; both fused decode steps (phase 3's over bf16 pools too) on both
+   routes, the tensor-core kernel ``decode_route`` picks and the CUDA-core
+   one, at that lane mix and at the decode step's 8 lanes of 512;
+   the ragged chunked-prefill walk at 128 rows over bf16, int8 and
    int4 pools on one mixed-step lane mix, and the speculative verify walk
    at 5 rows over bf16 pools, rows past each lane's q_len exactly 0;
 6. serve: the continuous-batching engine serving Llama-3-8B at full width
    and depth (random bf16 weights from a seed) to 12 requests on fp pools,
    then on int8 pools; the launch counts prove each decode step of each
-   layer went through the pool kind's fused decode kernel and the fused
-   MLP and no other decode kernel; a profile of four decode steps each,
+   layer went through the pool kind's fused decode kernel, on its
+   tensor-core route, and the fused MLP and no other decode kernel; a
+   profile of four decode steps each,
    and the sampler timed alone; then the same weights with chunked prefill
    (chunk 128) and n-gram speculation (K 4) on 12 requests, half of whose
    prompts repeat a span, on bf16 and on int8 pools, each held to a
@@ -168,6 +172,119 @@ def phase_build(kernels) -> None:
           "ptxas": regs})
 
 
+#: the fused decode steps' lane mixes: (label, lengths before the append,
+#: writeable): the smoke mix (an append at 0, at page boundaries, mid-page
+#: and near the table's end, the last lane dropped) and the decode step's
+#: serve shape (8 lanes at 512, the profile's contexts)
+DECODE_MIXES = (("smoke_mix", [0, 64, 127, 1000, 1500, 2046, 333, 0],
+                 [1, 1, 1, 1, 1, 1, 1, 0]),
+                ("serve_8x512", [512] * 8, [1] * 8))
+
+
+def _decode_tail(torch, perm, lens_l, wable_l, bs, max_blocks, hd):
+    """Tables, lengths, write pages, writeable flags and the rope rows of a
+    fused decode step's lane mix: a writeable lane owns lens // bs + 1
+    pages of ``perm``, a dropped lane's table is the sentinel nb (its write
+    page the spill page)."""
+    dev = perm.device
+    B = len(lens_l)
+    nb = B * max_blocks
+    lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
+    wable = torch.tensor(wable_l, dtype=torch.int32, device=dev)
+    tables = torch.full((B, max_blocks), nb, dtype=torch.int32, device=dev)
+    for b in range(B):
+        if wable_l[b]:
+            n = lens_l[b] // bs + 1
+            tables[b, :n] = perm[b * max_blocks:b * max_blocks + n]
+    lanes = torch.arange(B, device=dev)
+    wblk = torch.where(wable == 1, tables[lanes, (lens // bs).long()],
+                       torch.full_like(lens, nb)).int()
+    inv_freq = 1.0 / (500000.0 ** (torch.arange(0, hd, 2, device=dev).float()
+                                   / hd))
+    ang = lens.float()[:, None] * inv_freq
+    ang = torch.cat([ang, ang], dim=-1)
+    return (tables, lens, wblk, wable), (ang.cos().to(torch.bfloat16),
+                                         ang.sin().to(torch.bfloat16))
+
+
+def _b7_case(torch, pa, q, k_new, v_new, kp0, vp0, perm, lens_l, wable_l,
+             flush) -> dict:
+    """B7 on one lane mix, on both routes from the same pools: the output
+    within the attention tolerance of the plain version, pages off the
+    appended rows exact, committed rows within 1 ulp, the spill page
+    zeroed; times of both routes, the plain version and the bound."""
+    nbp, nkv, bs, hd = kp0.shape
+    B, nh = q.shape[:2]
+    nb, max_blocks = nbp - 1, (nbp - 1) // B
+    tail, (cos, sin) = _decode_tail(torch, perm, lens_l, wable_l, bs,
+                                    max_blocks, hd)
+    tables, lens, wblk, wable = tail
+    args = (q, k_new, v_new, cos, sin)
+    kq, vq = kp0.clone(), vp0.clone()
+    o_p, _, _ = pa.fused_decode_step_reference(*args, kq, vq, *tail)
+    touched = torch.zeros(nbp, nkv, bs, dtype=torch.bool, device=q.device)
+    for b in range(B):
+        if wable_l[b]:
+            touched[int(wblk[b]), :, lens_l[b] % bs] = True
+    keep = ~touched
+    keep[nb] = False
+    routes = {}
+    for route in ROUTES:
+        kp, vp = kp0.clone(), vp0.clone()
+        o_k, _, _ = pa.fused_decode_step_cuda(*args, kp, vp, *tail,
+                                              route=route)
+        torch.cuda.synchronize()
+        errs, ok = _attn_err(torch, o_k, o_p)
+        check(ok, f"fused_decode_step ({route}): output tolerance")
+        for name, new, ref, old in (("key", kp, kq, kp0),
+                                    ("value", vp, vq, vp0)):
+            check(bool(torch.equal(new[keep], old[keep])),
+                  f"fused_decode_step ({route}) {name} pool: untouched rows "
+                  f"unchanged")
+            d = (new[touched].float() - ref[touched].float()).abs()
+            check(bool((d <= ref[touched].float().abs() * 2.0 ** -7).all()),
+                  f"fused_decode_step ({route}) {name} pool: committed rows "
+                  f"within 1 ulp")
+            if not all(wable_l):
+                check(bool((new[nb] == 0).all()),
+                      f"fused_decode_step ({route}) {name} spill page holds "
+                      f"zeros")
+        routes[route] = {**errs, "ms": time_ms(
+            torch, lambda: pa.fused_decode_step_cuda(*args, kp, vp, *tail,
+                                                     route=route),
+            flush=flush)}
+    # the bytes the function must move: a writeable lane reads its lens
+    # cached rows of K and V (the appended row comes from k_new/v_new) and
+    # writes that row once per kv head to each pool; a dropped lane reads
+    # the pool's row at its position (its output attends over it), and each
+    # spill page it zeroes is written once per kv head and pool
+    rows_read = sum(n if w else n + 1 for n, w in zip(lens_l, wable_l))
+    rows_written = sum(wable_l)
+    spill_pages = len({int(wblk[b]) for b in range(B) if not wable_l[b]})
+    row_bytes = nkv * hd * 2 * 2                  # one token's K and V rows
+    kv_bytes = ((rows_read + rows_written) * row_bytes
+                + spill_pages * nkv * bs * hd * 2 * 2)
+    small = ((q.numel() + 2 * k_new.numel() + 2 * cos.numel()
+              + o_p.numel()) * 2
+             + (tables.numel() + lens.numel() + wblk.numel()
+                + wable.numel()) * 4)
+    flops = 4 * nh * hd * int((lens + 1).sum())
+    bnd, by = bound_ms(kv_bytes + small, flops)
+    return {**routes["tc"], "lens": lens_l, "writeable": wable_l,
+            "route": "tc (decode_route)",
+            "cuda_core": routes["cc"],
+            "tolerance": "|d| <= 2^-7|ref| + 2^-8 max|ref[slot, head]| (f32 "
+                         "order, bf16 rounding); pools exact off the "
+                         "appended rows",
+            "bound_bytes": kv_bytes + small,
+            "shards": pa.flash_decode_shards(max_blocks),
+            "untouched_pool_rows_exact": True, "committed_rows_within_1_ulp":
+            True, "spill_page_zeros": not all(wable_l),
+            "plain_ms": time_ms(torch, lambda: pa.fused_decode_step_reference(
+                *args, kq, vq, *tail), flush=flush),
+            "library_ms": None, "bound_ms": bnd, "bound_by": by}
+
+
 def phase_kernels(torch) -> dict:
     """Each kernel against its plain version at the serving path's shapes.
     Returns name -> measured numbers for the final kernels line."""
@@ -223,99 +340,24 @@ def phase_kernels(torch) -> dict:
     emit({"phase": "kernel", "name": "rms_norm", **res})
     out["rms_norm"] = dict(res["decode"])
 
-    # ---- fused decode step: mixed live lengths (0, page boundaries, long),
-    # one dropped lane on the spill page
+    # ---- fused decode step (B7) on both routes: the smoke mix (live
+    # lengths 0 to 2046, page boundaries, one dropped lane on the spill
+    # page), then the decode step's serve shape (8 lanes at 512)
     nb = B * max_blocks
     nbp = nb + 1
-    lens = torch.tensor([0, 64, 127, 1000, 1500, 2046, 333, 0],
-                        dtype=torch.int32, device=dev)
-    wable = torch.tensor([1, 1, 1, 1, 1, 1, 1, 0], dtype=torch.int32,
-                         device=dev)
-    perm = torch.randperm(nb, generator=g, device=dev).int()
-    tables = torch.full((B, max_blocks), nb, dtype=torch.int32, device=dev)
-    for b in range(B):
-        if wable[b]:
-            n = int(lens[b]) // bs + 1
-            tables[b, :n] = perm[b * max_blocks:b * max_blocks + n]
-    lanes = torch.arange(B, device=dev)
-    wblk = torch.where(wable == 1, tables[lanes, (lens // bs).long()],
-                       torch.full_like(lens, nb)).int()
-    q, k_new, v_new = randn(B, nh, hd), randn(B, nkv, hd), randn(B, nkv, hd)
-    pos = lens.long()[:, None].float()
-    inv_freq = 1.0 / (500000.0 ** (torch.arange(0, hd, 2, device=dev).float()
-                                   / hd))
-    ang = torch.cat([pos * inv_freq, pos * inv_freq], dim=-1)
-    cos, sin = ang.cos().to(bf16), ang.sin().to(bf16)
     kp0, vp0 = randn(nbp, nkv, bs, hd), randn(nbp, nkv, bs, hd)
     kp0[nb] = 0
     vp0[nb] = 0
-    kp, vp, kq, vq = kp0.clone(), vp0.clone(), kp0.clone(), vp0.clone()
-    args = (q, k_new, v_new, cos, sin)
-    tail = (tables, lens, wblk, wable)
-    o_k, _, _ = pa.fused_decode_step_cuda(*args, kp, vp, *tail)
-    o_p, _, _ = pa.fused_decode_step_reference(*args, kq, vq, *tail)
-    torch.cuda.synchronize()
-    err = (o_k.float() - o_p.float()).abs()
-    # attention output: f32 dot/softmax/accumulation in another order (per
-    # page vs whole row, split-K merge), then one bf16 rounding: within a
-    # bf16 ulp of the value plus 2^-8 of the largest output of the same
-    # (slot, q head), so a long lane is held to its own scale, not to the
-    # larger outputs of a short one
-    ref_abs = o_p.float().abs()
-    tol = ref_abs * 2.0 ** -7 + ref_abs.amax(dim=-1, keepdim=True) * 2.0 ** -8
-    check(bool((err <= tol).all()), "fused_decode_step output tolerance")
-    touched = torch.zeros(nbp, nkv, bs, dtype=torch.bool, device=dev)
-    for b in range(B):
-        if wable[b]:
-            touched[int(wblk[b]), :, int(lens[b]) % bs] = True
-    for name, new, ref, old in (("key", kp, kq, kp0), ("value", vp, vq, vp0)):
-        keep = ~touched
-        keep[nb] = False
-        check(bool(torch.equal(new[keep], old[keep])),
-              f"fused_decode_step {name} pool: untouched rows unchanged")
-        d = (new[touched].float() - ref[touched].float()).abs()
-        check(bool((d <= ref[touched].float().abs() * 2.0 ** -7).all()),
-              f"fused_decode_step {name} pool: committed rows within 1 ulp")
-        check(bool((new[nb] == 0).all()), f"{name} spill page holds zeros")
-    # the bytes the function must move: a writeable lane reads its lens
-    # cached rows of K and V (the appended row comes from k_new/v_new) and
-    # writes that row once per kv head to each pool; a dropped lane reads
-    # the pool's row at its position (its output attends over it), and each
-    # spill page it zeroes is written once per kv head and pool
-    lens_l, wable_l = lens.tolist(), wable.tolist()
-    rows_read = sum(n if w else n + 1 for n, w in zip(lens_l, wable_l))
-    rows_written = sum(wable_l)
-    spill_pages = len({int(wblk[b]) for b in range(B) if not wable_l[b]})
-    row_bytes = nkv * hd * 2 * 2                  # one token's K and V rows
-    kv_bytes = ((rows_read + rows_written) * row_bytes
-                + spill_pages * nkv * bs * hd * 2 * 2)
-    small = ((q.numel() + 2 * k_new.numel() + 2 * cos.numel()
-              + o_k.numel()) * 2
-             + (tables.numel() + lens.numel() + wblk.numel()
-                + wable.numel()) * 4)
-    flops = 4 * nh * hd * int((lens + 1).sum())
-    bnd, by = bound_ms(kv_bytes + small, flops)
-    res = {"max_abs_err": err.max().item(),
-           "max_rel_err": (err / ref_abs.clamp(min=1e-3)).max().item(),
-           # an exact zero output (the dropped lane over a zeroed row) has
-           # tol 0 and err 0: it counts as 0, not 0/0
-           "worst_err_over_tol": torch.where(err == 0, 0.0, err / tol).max()
-           .item(),
-           "tolerance": "|d| <= 2^-7|ref| + 2^-8 max|ref[slot, head]| (f32 "
-                        "order, bf16 rounding); pools exact off the "
-                        "appended rows",
-           "bound_bytes": kv_bytes + small,
-           "shards": pa.flash_decode_shards(max_blocks),
-           "untouched_pool_rows_exact": True, "committed_rows_within_1_ulp":
-           True, "spill_page_zeros": True,
-           "ms": time_ms(torch, lambda: pa.fused_decode_step_cuda(
-               *args, kp, vp, *tail), flush=flush),
-           "plain_ms": time_ms(torch, lambda: pa.fused_decode_step_reference(
-               *args, kq, vq, *tail), flush=flush),
-           "library_ms": None, "bound_ms": bnd, "bound_by": by}
+    q, k_new, v_new = randn(B, nh, hd), randn(B, nkv, hd), randn(B, nkv, hd)
+    perm = torch.randperm(nb, generator=g, device=dev).int()
+    cases = {}
+    for label, lens_l, wable_l in DECODE_MIXES:
+        cases[label] = _b7_case(torch, pa, q, k_new, v_new, kp0, vp0, perm,
+                                lens_l, wable_l, flush)
+    res = dict(cases["smoke_mix"], serve_8x512=cases["serve_8x512"])
     emit({"phase": "kernel", "name": "fused_decode_step", **res})
     out["fused_decode_step"] = res
-    del kp, vp, kq, vq, kp0, vp0
+    del kp0, vp0
 
     # ---- fused MLP half at the decode step's [8, 4096] rows
     x, ay = randn(B, h), randn(B, h, std=0.1)
@@ -486,45 +528,64 @@ def phase_paged_kernels(torch) -> dict:
                 "plain_ms": time_ms(torch, plain, flush=flush),
                 "library_ms": None}
 
-    # ---- B11: appends at 0, at a page boundary, mid-page, at the last
-    # position; the last lane dropped (sentinel table, the spill page)
-    lens_pre = torch.tensor([0, 2047, 64, 127, 1000, 1500, 333, 0],
-                            dtype=torch.int32, device=dev)
-    wable = torch.tensor([1, 1, 1, 1, 1, 1, 1, 0], dtype=torch.int32,
-                         device=dev)
-    wpages = [int(n) // bs + 1 if w else 0
-              for n, w in zip(lens_pre.tolist(), wable.tolist())]
-    tables_w = table(wpages)
-    lanes = torch.arange(B, device=dev)
-    wblk = torch.where(wable == 1, tables_w[lanes, (lens_pre // bs).long()],
-                       torch.full_like(lens_pre, nb)).int()
+    # ---- B11 on both routes: the smoke mix (appends at 0, at a page
+    # boundary, mid-page, at the last position; the last lane dropped) and
+    # the serve shape (8 lanes at 512)
     k_new, v_new = randn(B, nkv, hd), randn(B, nkv, hd)
-    inv_freq = 1.0 / (500000.0 ** (torch.arange(0, hd, 2, device=dev).float()
-                                   / hd))
-    ang = lens_pre.float()[:, None] * inv_freq
-    ang = torch.cat([ang, ang], dim=-1)
-    cos, sin = ang.cos().to(bf16), ang.sin().to(bf16)
-    small = (q, k_new, v_new, cos, sin)
-    tail = (tables_w, lens_pre, wblk, wable)
-    written = sorted({int(p) for p, w in zip(wblk.tolist(), wable.tolist())
-                      if w})
-    untouched = [p for p in range(nb) if p not in written]
     for fmt in ("int8", "int4"):
-        kq, vq, ks, vs = pools[fmt]
-        base = [t.clone() for t in (kq, ks, vq, vs)]
-        base[0][nb], base[1][nb] = 5, 1.0    # a non-zero spill page
-        base[2][nb], base[3][nb] = 5, 1.0
+        res = {}
+        for label, lens_l, wable_l in DECODE_MIXES:
+            if label == "smoke_mix":
+                lens_l = [2047 if n == 2046 else n for n in lens_l]
+            res[label] = _b11_case(torch, pa, q, k_new, v_new, pools[fmt],
+                                   perm, lens_l, wable_l, fmt, row_bytes,
+                                   flush)
+        out["fused_quant_decode_step"][fmt] = dict(
+            res["smoke_mix"], serve_8x512=res["serve_8x512"])
+    out.update(_rows_kernels(torch, pa, pools, table, randn, row_bytes,
+                             flush))
+    for name, res in out.items():
+        emit({"phase": "kernel", "name": name,
+              "library": "none: no single PyTorch call computes it", **res})
+    del scratch, pools, kp, vp
+    torch.cuda.empty_cache()
+    return out
+
+
+def _b11_case(torch, pa, q, k_new, v_new, pool, perm, lens_l, wable_l,
+              fmt, row_bytes, flush) -> dict:
+    """B11 over one pool format and lane mix, on both routes from the same
+    pools (the spill page starting non-zero): the output within the
+    attention tolerance, the requantized codes and scales bit for bit
+    (their share reported; codes within one step and scales within 2^-7
+    checked), pages no lane writes unchanged, the spill page zero codes and
+    scales; times of both routes, the plain version and the bound."""
+    kq, vq, ks, vs = pool
+    nbp, nkv, bs = kq.shape[:3]
+    B, nh, hd = q.shape
+    nb, max_blocks = nbp - 1, (nbp - 1) // B
+    tail, (cos, sin) = _decode_tail(torch, perm, lens_l, wable_l, bs,
+                                    max_blocks, hd)
+    small = (q, k_new, v_new, cos, sin)
+    lens_pre, wblk = tail[1], tail[2]
+    written = sorted({int(p) for p, w in zip(wblk.tolist(), wable_l) if w})
+    untouched = [p for p in range(nb) if p not in written]
+    base = [t.clone() for t in (kq, ks, vq, vs)]
+    base[0][nb], base[1][nb] = 5, 1.0    # a non-zero spill page
+    base[2][nb], base[3][nb] = 5, 1.0
+    plain_pools = [t.clone() for t in base]
+    o_p, *ref = pa.fused_quant_decode_step_reference(*small, *plain_pools,
+                                                     *tail, fmt)
+    codes = (lambda c: pa._unpack_int4(c) if fmt == "int4" else c.float())
+    routes = {}
+    for route in ROUTES:
         kern_pools = [t.clone() for t in base]
-        plain_pools = [t.clone() for t in base]
         o_k, *new = pa.fused_quant_decode_step_cuda(*small, *kern_pools,
-                                                    *tail, fmt)
-        o_p, *ref = pa.fused_quant_decode_step_reference(*small, *plain_pools,
-                                                         *tail, fmt)
+                                                    *tail, fmt, route=route)
         torch.cuda.synchronize()
         errs, ok = _attn_err(torch, o_k, o_p)
-        check(ok, f"fused_quant_decode_step {fmt}: output tolerance")
-        codes = (lambda c: pa._unpack_int4(c) if fmt == "int4"
-                 else c.float())
+        check(ok, f"fused_quant_decode_step {fmt} ({route}): output "
+                  f"tolerance")
         equal, culprits = {}, []
         for label, a, e in (("key_codes", new[0], ref[0]),
                             ("key_scale", new[1], ref[1]),
@@ -534,50 +595,50 @@ def phase_paged_kernels(torch) -> dict:
             equal[label] = eq.float().mean().item()
             if "codes" in label:
                 step = (codes(a) - codes(e)).abs().max().item()
-                check(step <= 1, f"{fmt} {label} within one step ({step})")
+                check(step <= 1, f"{fmt} ({route}) {label} within one step "
+                                 f"({step})")
                 bad = (~eq).flatten(2).any(-1).nonzero().tolist()
             else:
                 rel = ((a - e).abs() / e.abs().clamp(min=1e-30)).max().item()
-                check(rel <= 2.0 ** -7, f"{fmt} {label} within 2^-7 ({rel})")
+                check(rel <= 2.0 ** -7, f"{fmt} ({route}) {label} within "
+                                        f"2^-7 ({rel})")
                 bad = (~eq).nonzero().tolist()
             culprits += [{"pool": label, "page_head": pg} for pg in bad[:8]]
         for i, label in ((0, "key codes"), (1, "key scales"),
                          (2, "value codes"), (3, "value scales")):
             check(bool(torch.equal(new[i][untouched], base[i][untouched])),
-                  f"{fmt} {label}: pages no lane writes are unchanged")
-            check(bool((new[i][nb] == 0).all()),
-                  f"{fmt} {label}: the spill page holds zeros")
-        # bytes: each lane's walked pages (codes and scales of K and V), the
-        # requantized write page rewritten per (lane, head) and pool, the
-        # spill page zeroed, the small operands
-        walked = sum(-(-(int(n) + 1) // bs) for n in lens_pre.tolist())
-        page = nkv * bs * row_bytes[fmt] * 2 + nkv * 4 * 2
-        nbytes = ((walked + B) * page
-                  + (q.numel() * 2 + 2 * k_new.numel() + 2 * cos.numel()) * 2
-                  + walked * 4 + 4 * B * 4)
-        bnd, by = bound_ms(nbytes, 4 * nh * hd * int((lens_pre + 1).sum()))
-        out["fused_quant_decode_step"][fmt] = {
-            **errs, "bit_equal_share": equal, "differing": culprits,
+                  f"{fmt} ({route}) {label}: pages no lane writes are "
+                  f"unchanged")
+            if not all(wable_l):
+                check(bool((new[i][nb] == 0).all()),
+                      f"{fmt} ({route}) {label}: the spill page holds zeros")
+        routes[route] = {**errs, "bit_equal_share": equal,
+                         "differing": culprits,
+                         "ms": time_ms(torch, lambda: pa
+                                       .fused_quant_decode_step_cuda(
+                                           *small, *kern_pools, *tail, fmt,
+                                           route=route), flush=flush)}
+    # bytes: each lane's walked pages (codes and scales of K and V), the
+    # requantized write page rewritten per (lane, head) and pool, the spill
+    # page zeroed, the small operands
+    walked = sum(-(-(n + 1) // bs) for n in lens_l)
+    page = nkv * bs * row_bytes[fmt] * 2 + nkv * 4 * 2
+    nbytes = ((walked + B) * page
+              + (q.numel() * 2 + 2 * k_new.numel() + 2 * cos.numel()) * 2
+              + walked * 4 + 4 * B * 4)
+    bnd, by = bound_ms(nbytes, 4 * nh * hd * int((lens_pre + 1).sum()))
+    return {**routes["tc"], "lens": lens_l, "writeable": wable_l,
+            "route": "tc (decode_route)", "cuda_core": routes["cc"],
             "tolerance": "output as the decode attention; codes within one "
                          "step, scales within 2^-7 relative (bit-equal "
                          "expected); untouched pages exact; spill zeros",
-            "shards": S, "bound_bytes": nbytes, "bound_ms": bnd,
-            "bound_by": by,
-            "ms": time_ms(torch, lambda: pa.fused_quant_decode_step_cuda(
-                *small, *kern_pools, *tail, fmt), flush=flush),
+            "shards": pa.flash_decode_shards(max_blocks),
+            "bound_bytes": nbytes, "bound_ms": bnd, "bound_by": by,
             "plain_ms": time_ms(torch,
                                 lambda: pa.fused_quant_decode_step_reference(
                                     *small, *plain_pools, *tail, fmt),
                                 flush=flush),
             "library_ms": None}
-    out.update(_rows_kernels(torch, pa, pools, table, randn, row_bytes,
-                             flush))
-    for name, res in out.items():
-        emit({"phase": "kernel", "name": name,
-              "library": "none: no single PyTorch call computes it", **res})
-    del scratch, pools, kp, vp
-    torch.cuda.empty_cache()
-    return out
 
 
 def _row_pairs(lens, qlens):
@@ -738,9 +799,10 @@ def _serve_llama(torch, np, cfg, params, kv_quant, t_init) -> dict:
     # step; the last step's logits are checked here as well
     check(bool(torch.isfinite(eng.last_logits).all()), "last logits finite")
     decode = FUSED_DECODE[kv_quant]
-    check(launches[decode] == L * steps,
-          f"{decode} launches {launches[decode]} == {L} x {steps} decode "
-          f"steps")
+    for name in (decode, f"{decode}_tc"):
+        check(launches[name] == L * steps,
+              f"{name} launches {launches[name]} == {L} x {steps} decode "
+              f"steps (every one on the tensor-core route)")
     others = {k: launches[k] for k in DECODE_KERNELS if k != decode}
     check(not any(others.values()), f"no other decode kernel ran: {others}")
     check(launches["fused_layer_mlp"] == L * steps,
@@ -757,7 +819,8 @@ def _serve_llama(torch, np, cfg, params, kv_quant, t_init) -> dict:
           "prompt_tokens": int(sum(len(r.prompt_ids) for r in reqs)),
           "decode_steps": steps, "prefills": prefills,
           "preemptions": st["preemptions"], "launches": launches,
-          "launches_per_decode_step": {decode: L, "fused_layer_mlp": L,
+          "launches_per_decode_step": {decode: L, f"{decode}_tc": L,
+                                       "fused_layer_mlp": L,
                                        "rms_norm": L + 1},
           "decode_tokens": st["decode_tokens"],
           "decode_tokens_per_s": eng.decode_tokens_per_s,
@@ -997,12 +1060,13 @@ def _serve_chunked_spec(torch, np, cfg, params, kv_quant, smi, seed=3,
           f"mixed steps {mixed} and verify steps {spec} both ran")
     check(st["prefills"] == 0 and st["decode_stall_steps"] == 0,
           "no bucketed prefill, no decode stall")
-    # every walk on the tensor-core route
+    # every walk and fused decode step on the tensor-core route
     want = {"paged_prefill": L * (mixed + (spec if kv_quant else 0)),
             "paged_verify": 0 if kv_quant else L * spec,
             "paged_prefill_tc": L * (mixed + (spec if kv_quant else 0)),
             "paged_verify_tc": 0 if kv_quant else L * spec,
             FUSED_DECODE[kv_quant]: L * plain_steps,
+            f"{FUSED_DECODE[kv_quant]}_tc": L * plain_steps,
             "fused_layer_mlp": L * plain_steps,
             "rms_norm": (L + 1) * plain_steps + (2 * L + 1) * (mixed + spec)}
     for name, n in want.items():
@@ -1071,7 +1135,8 @@ def _serve_chunked_spec(torch, np, cfg, params, kv_quant, smi, seed=3,
 
 
 #: device-kernel name fragments -> the layer they belong to (the split-K
-#: combine kernel goes with the decode kernel the profiled engine runs)
+#: combine kernel and the tensor-core fused decode kernel, which serves
+#: both pool kinds, go with the decode kernel the profiled engine runs)
 _KERNEL_GROUPS = (("fused_quant_decode", "fused_quant_decode_step"),
                   ("rows_kernel", "paged_prefill / paged_verify"),
                   ("rows_tc_kernel", "paged_prefill / paged_verify"),
@@ -1123,7 +1188,8 @@ def phase_profile(torch, np, eng, Request, decode) -> None:
             continue
         total += dev_us
         name = evt.key.lower()
-        group = decode if "combine_kernel" in name else next(
+        group = decode if ("combine_kernel" in name
+                           or "fused_decode_tc" in name) else next(
             (g for frag, g in _KERNEL_GROUPS if frag in name), "other")
         groups[group] = groups.get(group, 0.0) + dev_us
         if group == "other":
@@ -1285,6 +1351,10 @@ def phase_arms(torch, np) -> dict:
                       * eng.stats["decode_steps"],
                       f"{kvq} {label} arm: {kernel} every layer of every "
                       f"step ({decode})")
+                if label == "fused":
+                    check(launches[f"{kernel}_tc"] == decode[kernel],
+                          f"{kvq} fused arm: every {kernel} launch on the "
+                          f"tensor-core route ({launches})")
                 check(not any(v for k, v in decode.items() if k != kernel),
                       f"{kvq} {label} arm: no other decode kernel "
                       f"({decode})")
@@ -1788,14 +1858,16 @@ def main(argv: list[str]) -> int:
     # each kernel's launches on the main paths that run it: the fp and the
     # int8 serve, the decode arms (the unfused walks), the train step
     for k in ("rms_norm", "fused_layer_mlp", "gumbel_noise",
-              "fused_quant_decode_step", "fused_decode_step"):
+              "fused_quant_decode_step_tc", "fused_decode_step_tc"):
         launches[k] += q8_launches[k] + cs_launches[k]
     launches.update({k: arm_launches[k] for k in ("paged_decode",
                                                   "flash_decode")})
     # the flash entries are the tensor-core kernels, the route every
     # launch of the train step took; the multi-row walks' likewise of the
-    # chunked + speculative serves
+    # chunked + speculative serves, the fused decode steps' of the serves
     launches.update({k: train_launches[f"{k}_tc"] for k in FLASH_KERNELS})
+    launches.update({k: launches[f"{k}_tc"] for k in (
+        "fused_decode_step", "fused_quant_decode_step")})
     launches.update({k: cs_launches[f"{k}_tc"] for k in ("paged_prefill",
                                                          "paged_verify")})
     launches["rms_norm"] += train_launches["rms_norm"]
@@ -1803,7 +1875,7 @@ def main(argv: list[str]) -> int:
     fa = "paddle_tpu/ops/pallas/flash_attention.py"
     sources = {"rms_norm": ("rms_norm.cu", "paddle_tpu/ops/pallas/"
                                            "rms_norm.py:20"),
-               "fused_decode_step": ("fused_decode.cu", f"{pa}:1377"),
+               "fused_decode_step": ("fused_decode_tc.cu", f"{pa}:1377"),
                "fused_layer_mlp": ("fused_mlp.cu", f"{pa}:2020"),
                "flash_attention_fwd": ("flash_fwd_tc.cu", f"{fa}:173"),
                "flash_attention_dkv": ("flash_bwd_tc.cu", f"{fa}:295"),
@@ -1814,7 +1886,7 @@ def main(argv: list[str]) -> int:
                                 "serving.py:1246"),
                "paged_decode": ("paged_decode.cu", f"{pa}:412"),
                "flash_decode": ("paged_decode.cu", f"{pa}:594"),
-               "fused_quant_decode_step": ("fused_quant_decode.cu",
+               "fused_quant_decode_step": ("fused_decode_tc.cu",
                                            f"{pa}:1720"),
                "paged_prefill": ("paged_prefill_tc.cu", f"{pa}:1126"),
                "paged_verify": ("paged_prefill_tc.cu", f"{pa}:927")}

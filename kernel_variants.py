@@ -28,6 +28,18 @@ exits non-zero.
 - P rounded once against hi + lo over 40 random lane mixes (T 5, 16, 32
   and 128; lengths up to 2048) on every pool format: the worst error over
   the attention tolerance, and the cases beyond it.
+- The tensor-core fused decode step (``csrc/fused_decode_tc.cu``, B7 over
+  bf16 pools and B11 over int8 / int4 pools) on lane mixes of one page, four
+  pages (one shard), five and nine pages (two and three shards: the
+  in-launch merge) and ``chip_smoke.py``'s smoke mix, beside the CUDA-core
+  route: the write-page requantize one row at a time with the library
+  division (``paged.cuh``'s earlier ``requant_page``); its code inlined
+  twice (once for K, once for V); P rounded once; a two-stage ring; probes
+  without the merge of the shards and without the products.
+
+    python3 kernel_variants.py [dq] [rows] [decode]
+
+runs the named parts (all three by default).
 """
 
 from __future__ import annotations
@@ -164,6 +176,9 @@ def build_variant(kernels, tmp: str, tag: str, edits, sources):
             text = f.read()
         if old is None:
             text = _replace_combine(text, new)
+        elif isinstance(old, tuple):  # (start marker, end marker): a span
+            start, end = text.index(old[0]), text.index(old[1])
+            text = text[:start] + new + text[end:]
         else:
             if text.count(old) != 1:
                 raise RuntimeError(f"{tag}: edit target not found once in "
@@ -385,6 +400,148 @@ def rounding_sweep(torch, cs, kernels, pa, libs) -> None:
           "cases_beyond_tolerance": beyond})
 
 
+#: ``paged.cuh``'s requantize as the CUDA-core decode kernels first ran it:
+#: one row at a time (read, library division, a byte store to the tile and
+#: one to the pool)
+_SERIAL_REQUANT = """template <int F>
+__device__ __forceinline__ float requant_page(unsigned char* tile, int ld,
+                                              float old_sc, int wrow,
+                                              float ins, unsigned char* dst,
+                                              int bs, int hd, float* red) {
+  const int d = threadIdx.x;
+  const int row_bytes = KV<float, F>::row_bytes(hd);
+  const float bound = F == kInt4 ? 7.f : 127.f;
+  const float inv_bound = F == kInt4 ? 1.f / 7.f : 1.f / 127.f;
+  float amax = 0.f;
+  for (int t = 0; t < bs; ++t) {
+    const float x = t == wrow ? ins : KV<float, F>::load1(tile + t * ld, d,
+                                                          old_sc);
+    amax = fmaxf(amax, fabsf(x));
+  }
+  amax = block_max(amax, red);  // every read of the old tile is done
+  const float sc = __fmul_rn(amax, inv_bound);
+  const float den = fmaxf(sc, 1e-10f);
+  for (int t = 0; t < bs; ++t) {
+    const float x = t == wrow ? ins : KV<float, F>::load1(tile + t * ld, d,
+                                                          old_sc);
+    const int c = (int)fminf(fmaxf(rintf(__fdiv_rn(x, den)), -bound), bound);
+    if constexpr (F == kInt8) {
+      tile[t * ld + d] = (unsigned char)c;
+      dst[(size_t)t * row_bytes + d] = (unsigned char)c;
+    } else {
+      const int hi = __shfl_down_sync(0xffffffffu, c, 1);
+      if ((d & 1) == 0) {
+        const unsigned char byte =
+            (unsigned char)((c & 0xF) | ((hi & 0xF) << 4));
+        tile[t * ld + d / 2] = byte;
+        dst[(size_t)t * row_bytes + d / 2] = byte;
+      }
+    }
+  }
+  __syncthreads();  // the tile's new codes are visible to every thread
+  return sc;
+}
+
+"""
+DEC = "fused_decode_tc.cu"
+#: fused decode variants: name -> (edits, checked?)
+DECODE_VARIANTS = {
+    "requant_serial": ([("paged.cuh", ("template <int F>\n__device__ "
+                                       "__forceinline__ float requant_page(",
+                                       "// Exact log-sum-exp merge"),
+                         _SERIAL_REQUANT)], True),
+    "requant_inlined_twice": ([(DEC, "#pragma unroll 1\n          for (int kv "
+                                "= 0; kv < 2; ++kv) {", "#pragma unroll\n"
+                                "          for (int kv = 0; kv < 2; ++kv) {")],
+                              True),
+    "p_single": ([(DEC, "        mma16816(o[n], l0, l2, vb[0], vb[1]);\n", ""),
+                  (DEC, "        mma16816(o[n + 1], l0, l2, vb[2], vb[3]);\n",
+                   "")], True),
+    "stages2": ([(DEC, "constexpr int kStages = 3;",
+                  "constexpr int kStages = 2;")], True),
+    "probe_no_merge": ([(DEC, "  if (nlive > 1) {\n    // the ticket",
+                         "  if (false) {\n    // the ticket")], False),
+    "probe_no_products": ([(DEC, "for (int c0 = 16 * warp; c0 < ncol;",
+                            "for (int c0 = 16 * warp; c0 < 0;")], False),
+}
+#: lane mixes of the fused decode step (lengths before the append, all
+#: lanes writeable but the smoke mix's last)
+DECODE_MIXES = {"1_page": [62] * 8, "4_pages": [254] * 8,
+                "5_pages": [300] * 8, "9_pages": [512] * 8}
+
+
+def decode_variants(torch, cs, kernels, tmp) -> None:
+    from paddle_tpu_torch.ops.kernels import paged_attention as pa
+
+    committed = kernels.library()
+    libs = {"committed": (committed, True)}
+    for tag, (edits, checked) in DECODE_VARIANTS.items():
+        libs[tag] = (build_variant(kernels, tmp, tag, edits, (DEC,)), checked)
+    dev = torch.device("cuda")
+    B, nh, nkv, hd, bs, max_blocks = 8, 32, 8, 128, 64, 32
+    nb = B * max_blocks
+    g = torch.Generator(device=dev)
+    g.manual_seed(77)
+    pools = _pools(torch, pa, g, dev, nb + 1, nkv, bs, hd)
+    perm = torch.randperm(nb, generator=g, device=dev).int()
+    q = torch.randn(B, nh, hd, generator=g, device=dev).to(torch.bfloat16)
+    kv_new = [torch.randn(B, nkv, hd, generator=g, device=dev)
+              .to(torch.bfloat16) for _ in range(2)]
+    scratch = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
+    flush = scratch.zero_
+    mixes = dict(DECODE_MIXES)
+    _, smoke_lens, smoke_wable = cs.DECODE_MIXES[0]
+    mixes["smoke_mix"] = smoke_lens
+    for rnd in range(2):
+        for tag, (lib, checked) in list(libs.items()) + [
+                ("cuda_core", (committed, True))]:
+            kernels._lib = lib
+            route = "cc" if tag == "cuda_core" else "tc"
+            res = {"kernel": "fused_decode_tc", "variant": tag, "round": rnd}
+            for name, lens in mixes.items():
+                wable = smoke_wable if name == "smoke_mix" else [1] * B
+                tail, (cos, sin) = cs._decode_tail(torch, perm, lens, wable,
+                                                   bs, max_blocks, hd)
+                small = (q, *kv_new, cos, sin)
+                for fmt, (kc, vc, ks, vs) in pools.items():
+                    pl = [kc, vc] if fmt == "bf16" else [kc, ks, vc, vs]
+                    if fmt == "bf16":
+                        def run(pl_):
+                            return pa.fused_decode_step_cuda(
+                                *small, *pl_, *tail, route=route)
+
+                        def plain(pl_):
+                            return pa.fused_decode_step_reference(
+                                *small, *pl_, *tail)
+                    else:
+                        def run(pl_):
+                            return pa.fused_quant_decode_step_cuda(
+                                *small, *pl_, *tail, fmt, route=route)
+
+                        def plain(pl_):
+                            return pa.fused_quant_decode_step_reference(
+                                *small, *pl_, *tail, fmt)
+                    mine = [t.clone() for t in pl]
+                    entry = {"ms": cs.time_ms(torch, lambda: run(mine),
+                                              flush=flush)}
+                    if checked:
+                        got = run([t.clone() for t in pl])
+                        want = plain([t.clone() for t in pl])
+                        torch.cuda.synchronize()
+                        errs, ok = cs._attn_err(torch, got[0][:7],
+                                                want[0][:7])
+                        entry["worst_err_over_tol"] = errs[
+                            "worst_err_over_tol"]
+                        entry["ok"] = ok
+                        if fmt != "bf16":
+                            entry["pools_bit_equal"] = all(
+                                bool(torch.equal(a, b_))
+                                for a, b_ in zip(got[1:], want[1:]))
+                    res[f"{name}_{fmt}"] = entry
+            emit(res)
+    kernels._lib = committed
+
+
 def main() -> int:
     try:
         import torch
@@ -404,11 +561,20 @@ def main() -> int:
               f"script ({e})", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
+    parts = sys.argv[1:] or ["dq", "rows", "decode"]
+    if set(parts) - {"dq", "rows", "decode"}:
+        print("usage: kernel_variants.py [dq] [rows] [decode]",
+              file=sys.stderr)
+        return 2
     _, smi = cs.phase_device(torch)
     kernels.build()
     with tempfile.TemporaryDirectory() as tmp:
-        dq_variants(torch, cs, kernels, tmp)
-        rows_variants(torch, cs, kernels, tmp)
+        if "dq" in parts:
+            dq_variants(torch, cs, kernels, tmp)
+        if "rows" in parts:
+            rows_variants(torch, cs, kernels, tmp)
+        if "decode" in parts:
+            decode_variants(torch, cs, kernels, tmp)
     emit({"ok": True, "nvidia_smi": smi})
     return 0
 

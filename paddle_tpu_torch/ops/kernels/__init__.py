@@ -65,7 +65,9 @@ KNOWN_KERNELS = frozenset({"all", "flash_attention", "rms_norm",
 #: route (``flash_route``).  Likewise ``paged_prefill`` / ``paged_verify``
 #: count both routes and ``paged_prefill_tc`` / ``paged_verify_tc`` the
 #: tensor-core one (``paged_rows_route``; a walk and the combine of its
-#: split lanes count as one launch).
+#: split lanes count as one launch), and ``fused_decode_step`` /
+#: ``fused_quant_decode_step`` both routes, ``fused_decode_step_tc`` /
+#: ``fused_quant_decode_step_tc`` the tensor-core one (``decode_route``).
 LAUNCHES = {"rms_norm": 0, "fused_decode_step": 0, "fused_layer_mlp": 0,
             "flash_attention_fwd": 0, "flash_attention_dkv": 0,
             "flash_attention_dq": 0, "flash_attention_fwd_tc": 0,
@@ -73,7 +75,8 @@ LAUNCHES = {"rms_norm": 0, "fused_decode_step": 0, "fused_layer_mlp": 0,
             "gumbel_noise": 0, "paged_decode": 0,
             "flash_decode": 0, "fused_quant_decode_step": 0,
             "paged_prefill": 0, "paged_verify": 0, "paged_prefill_tc": 0,
-            "paged_verify_tc": 0}
+            "paged_verify_tc": 0, "fused_decode_step_tc": 0,
+            "fused_quant_decode_step_tc": 0}
 #: kernel name -> dispatches that took the plain PyTorch version
 PLAIN_CALLS = {name: 0 for name in LAUNCHES}
 
@@ -157,7 +160,7 @@ BUILD_DIR = _HERE / "build"
 SOURCES = ("rms_norm.cu", "fused_decode.cu", "fused_mlp.cu", "flash_fwd.cu",
            "flash_bwd.cu", "flash_fwd_tc.cu", "flash_bwd_tc.cu", "gumbel.cu",
            "paged_decode.cu", "fused_quant_decode.cu", "paged_prefill.cu",
-           "paged_prefill_tc.cu")
+           "paged_prefill_tc.cu", "fused_decode_tc.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-lineinfo")
 _LIB_NAME = "libpaddle_tpu_torch_kernels.so"
@@ -262,6 +265,10 @@ _SIGNATURES = {
     # tables, lens, wblk, wable, m, l, acc, out, b, nh, nkv, hd, nbp, bs,
     # max_blocks, S, P, scale, dtype, kv_format, stream
     "ptt_fused_quant_decode": [_VP] * 17 + [_I] * 9 + [_F, _I, _I, _VP],
+    # the tensor-core routes: as ptt_fused_decode / ptt_fused_quant_decode
+    # with the tickets after acc
+    "ptt_fused_decode_tc": [_VP] * 16 + [_I] * 9 + [_F, _I, _VP],
+    "ptt_fused_quant_decode_tc": [_VP] * 18 + [_I] * 9 + [_F, _I, _I, _VP],
     # q, key_pool, value_pool, k_scale, v_scale, tables, lens, q_lens, out,
     # b, T, nh, nkv, hd, nbp, bs, max_blocks, scale, dtype, kv_format,
     # stream

@@ -49,7 +49,10 @@
 // A second small kernel merges the S partials of each (slot, kv head) with
 // the exact log-sum-exp of `_flash_combine` and writes the output in the
 // input dtype.
-// Not yet used: tensor cores (a 4-row head group is too small a tile), TMA.
+// The CUDA-core route (`paged_attention.decode_route` "cc"): f32 q, and
+// head dims other than 64 and 128.  bf16 q at head_dim 64 or 128 takes
+// the tensor-core fused_decode_tc.cu, which pads the head group to one
+// m16 tile of mma.sync and merges the shards inside its launch.
 #include "paged.cuh"
 
 namespace {

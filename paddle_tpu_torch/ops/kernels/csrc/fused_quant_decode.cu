@@ -40,7 +40,10 @@
 //    only discarded outputs depend on that order, never the pools.
 // Each live lane's write page is its own (the allocator's invariant), so no
 // other block reads or writes it during the launch.
-// Not yet used: tensor cores (a 4-row head group is too small a tile), TMA.
+// The CUDA-core route (`paged_attention.decode_route` "cc"): f32 q, and
+// head dims other than 64 and 128.  bf16 q at head_dim 64 or 128 takes
+// the tensor-core fused_decode_tc.cu, which pads the head group to one
+// m16 tile of mma.sync and merges the shards inside its launch.
 #include "paged.cuh"
 
 namespace {

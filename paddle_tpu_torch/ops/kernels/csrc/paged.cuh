@@ -227,11 +227,25 @@ __device__ __forceinline__ void page_update(
 // absmax * (1 / bound) (the reference's compiled programs turn its
 // `absmax / bound` into this multiply by the f32 reciprocal), codes =
 // clip(rint(x / max(scale, 1e-10)), -bound, bound) (rint rounds half to
-// even, as jnp.round and torch.round; the division is correctly rounded).  The codes go back into the tile and to `dst`,
-// the pool page; returns the new scale.  Thread d owns column d; every
-// thread calls it.  For int4 the even thread of a pair packs its code with
-// its neighbour's (a shuffle after both have read the byte, so the write
-// cannot overtake the read).
+// even, as jnp.round and torch.round; the division is correctly rounded).
+// The codes go back into the tile, then from it to `dst`, the pool page;
+// returns the new scale.  Thread d owns column d; every thread calls it.
+//
+// Each pass reads eight rows before it uses them (bs is a multiple of 8),
+// the encode writes them back only after their eight divisions, which
+// carry no branch, and the page goes to the pool in 16-byte copies: one
+// row at a time (each row's read, library division and byte stores one
+// chain of dependent steps per thread, 64 rows long) the write page cost
+// its launch 12 us (int8) to 20 us (int4) more on the H100
+// (kernel_variants.py, "requant_serial").  The division x / den is
+// Markstein's: q = RN(x * r) with r = RN(1 / den) is
+// within an ulp of x / den, the residual x - q den is exact in one FMA,
+// and RN(q + residual * r) is the correctly rounded quotient, for every
+// den here (1e-10 <= den <= 2^100, |x| <= 128 den) wherever the quotient
+// is a normal float; a subnormal quotient rounds to the code 0 either way.
+// A larger or non-finite den takes the library division.  For int4 the
+// even thread of a pair packs its code with its neighbour's (a shuffle
+// after both have read the byte, so the write cannot overtake the read).
 template <int F>
 __device__ __forceinline__ float requant_page(unsigned char* tile, int ld,
                                               float old_sc, int wrow,
@@ -241,33 +255,61 @@ __device__ __forceinline__ float requant_page(unsigned char* tile, int ld,
   const int row_bytes = KV<float, F>::row_bytes(hd);
   const float bound = F == kInt4 ? 7.f : 127.f;
   const float inv_bound = F == kInt4 ? 1.f / 7.f : 1.f / 127.f;
+  auto rows8 = [&](int t0, float (&x)[8]) {
+#pragma unroll
+    for (int u = 0; u < 8; ++u)
+      x[u] = t0 + u == wrow ? ins : KV<float, F>::load1(tile + (t0 + u) * ld,
+                                                        d, old_sc);
+  };
   float amax = 0.f;
-  for (int t = 0; t < bs; ++t) {
-    const float x = t == wrow ? ins : KV<float, F>::load1(tile + t * ld, d,
-                                                          old_sc);
-    amax = fmaxf(amax, fabsf(x));
+  for (int t0 = 0; t0 < bs; t0 += 8) {
+    float x[8];
+    rows8(t0, x);
+#pragma unroll
+    for (int u = 0; u < 8; ++u) amax = fmaxf(amax, fabsf(x[u]));
   }
   amax = block_max(amax, red);  // every read of the old tile is done
   const float sc = __fmul_rn(amax, inv_bound);
   const float den = fmaxf(sc, 1e-10f);
-  for (int t = 0; t < bs; ++t) {
-    const float x = t == wrow ? ins : KV<float, F>::load1(tile + t * ld, d,
-                                                          old_sc);
-    const int c = (int)fminf(fmaxf(rintf(__fdiv_rn(x, den)), -bound), bound);
-    if constexpr (F == kInt8) {
-      tile[t * ld + d] = (unsigned char)c;
-      dst[(size_t)t * row_bytes + d] = (unsigned char)c;
-    } else {
-      const int hi = __shfl_down_sync(0xffffffffu, c, 1);
-      if ((d & 1) == 0) {
-        const unsigned char byte =
-            (unsigned char)((c & 0xF) | ((hi & 0xF) << 4));
-        tile[t * ld + d / 2] = byte;
-        dst[(size_t)t * row_bytes + d / 2] = byte;
+  auto encode = [&](auto div) {
+    for (int t0 = 0; t0 < bs; t0 += 8) {
+      float x[8];
+      rows8(t0, x);
+      int c[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        c[u] = (int)fminf(fmaxf(rintf(div(x[u])), -bound), bound);
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int t = t0 + u;
+        if constexpr (F == kInt8) {
+          tile[t * ld + d] = (unsigned char)c[u];
+        } else {
+          const int hi = __shfl_down_sync(0xffffffffu, c[u], 1);
+          if ((d & 1) == 0)
+            tile[t * ld + d / 2] =
+                (unsigned char)((c[u] & 0xF) | ((hi & 0xF) << 4));
+        }
       }
     }
+  };
+  if (den <= 0x1p100f) {
+    const float r = __frcp_rn(den);
+    encode([&](float x) {
+      const float q = __fmul_rn(x, r);
+      return __fmaf_rn(__fmaf_rn(-q, den, x), r, q);
+    });
+  } else {
+    encode([&](float x) { return __fdiv_rn(x, den); });
   }
   __syncthreads();  // the tile's new codes are visible to every thread
+  // the page's codes to the pool, 16 bytes a store
+  const int chunks = row_bytes / 16;
+  for (int i = d; i < bs * chunks; i += blockDim.x) {
+    const int t = i / chunks, k = i % chunks;
+    *reinterpret_cast<uint4*>(dst + (size_t)t * row_bytes + 16 * k) =
+        *reinterpret_cast<const uint4*>(tile + t * ld + 16 * k);
+  }
   return sc;
 }
 

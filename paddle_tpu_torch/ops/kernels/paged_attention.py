@@ -8,9 +8,11 @@ unfused decode attention ``paged_attention_decode`` over the sequential
 walk (``csrc/paged_decode.cu`` ``ptt_paged_decode``) and the split-K walk
 (``ptt_flash_decode``, its partials merged on the card by a second launch,
 the reference's ``_flash_combine``, whose plain version is here too); the
-fused decode step for fp pools (rope + KV-page append + split-K attention,
-``csrc/fused_decode.cu``) and for int8 / packed-int4 pools (rope +
-requantized append + dequant-on-read attention,
+fused decode step for fp pools (rope + KV-page append + split-K attention)
+and for int8 / packed-int4 pools (rope + requantized append +
+dequant-on-read attention), both on two routes (:func:`decode_route`: the
+tensor-core ``csrc/fused_decode_tc.cu``, its split-K partials merged in
+the same launch, the CUDA-core ``csrc/fused_decode.cu`` /
 ``csrc/fused_quant_decode.cu``); the ragged multi-row walks of the
 chunked-prefill mixed step (``paged_attention_prefill``, fp / int8 / int4
 pools) and of the speculative verify step (``paged_attention_verify``, fp
@@ -363,6 +365,31 @@ def decode_shards(max_blocks: int, num_shards: int | None = None) -> int:
     if kernel_disabled("flash_decode"):
         return 1
     return flash_decode_shards(max_blocks, num_shards)
+
+
+def decode_route(dtype: torch.dtype, head_dim: int) -> str:
+    """Which hand-written kernel the fused decode steps (fp and quantized
+    pools) take on the card, by the rule of
+    :func:`~.flash_attention.flash_route`: ``"tc"`` (mma.sync tensor cores,
+    ``csrc/fused_decode_tc.cu``) for bf16/f16 q at head_dim 64 or 128,
+    ``"cc"`` (the f32 CUDA-core kernels) for every other shape the wrappers
+    take (they take f32 and bf16 q)."""
+    return flash_route(dtype, head_dim)
+
+
+#: (device, stream) -> the tensor-core decode kernels' merge tickets, one
+#: int32 a (slot, kv head), zero between launches (each launch leaves them
+#: zero); one buffer a stream, so launches on two streams never share one
+_TICKETS: dict = {}
+
+
+def _decode_tickets(dev: torch.device, n: int) -> torch.Tensor:
+    key = (dev, torch.cuda.current_stream(dev).cuda_stream)
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < n:
+        t = _TICKETS[key] = torch.zeros(max(n, 64), dtype=torch.int32,
+                                        device=dev)
+    return t
 
 
 def _check_walk(name, q, key_cache, value_cache, block_tables, seq_lens,
@@ -793,9 +820,13 @@ def _dropped_walked(lens, wable, bs, max_blocks, num_shards):
 
 def fused_decode_step_cuda(q, k_new, v_new, cos, sin, key_cache, value_cache,
                            block_tables, seq_lens, write_blk, writeable,
-                           scale=None, num_shards=None):
-    """Launch ``csrc/fused_decode.cu``: the page walk (pools updated in
-    place) and the exact log-sum-exp merge of its split-K partials."""
+                           scale=None, num_shards=None, route=None):
+    """Launch the page walk (pools updated in place) and the exact
+    log-sum-exp merge of its split-K partials on ``route`` (default
+    :func:`decode_route`): ``csrc/fused_decode_tc.cu``'s
+    ``ptt_fused_decode_tc`` (one launch, the merge inside it) or
+    ``csrc/fused_decode.cu``'s ``ptt_fused_decode`` (the walk, then the
+    combine launch)."""
     b, nh, hd = q.shape
     nbp, nkv, bs, hd_p = key_cache.shape
     dev, dt = q.device, q.dtype
@@ -804,6 +835,7 @@ def fused_decode_step_cuda(q, k_new, v_new, cos, sin, key_cache, value_cache,
     if not kernel_supported(nh, nkv, hd, bs) or hd_p != hd:
         raise ValueError(f"fused_decode_step: unsupported shape nh={nh} "
                          f"nkv={nkv} hd={hd} block_size={bs}")
+    route = pick_route("fused_decode_step", q, route, decode_route(dt, hd))
     if scale is None:
         scale = 1.0 / math.sqrt(hd)
     max_blocks = block_tables.shape[1]
@@ -825,14 +857,21 @@ def fused_decode_step_cuda(q, k_new, v_new, cos, sin, key_cache, value_cache,
     l = torch.empty_like(m)
     acc = torch.empty((b, nkv, S, rep, hd), dtype=torch.float32, device=dev)
     out = torch.empty((b, nh, hd), dtype=dt, device=dev)
-    err = library().ptt_fused_decode(
-        ptr(q), ptr(k_new), ptr(v_new), ptr(cos), ptr(sin), ptr(key_cache),
-        ptr(value_cache), ptr(block_tables), ptr(seq_lens), ptr(write_blk),
-        ptr(writeable), ptr(m), ptr(l), ptr(acc), ptr(out), b, nh, nkv, hd,
-        nbp, bs, max_blocks, S, P, float(scale), DTYPE_CODE[dt],
-        stream_ptr(dev))
+    head = (ptr(q), ptr(k_new), ptr(v_new), ptr(cos), ptr(sin),
+            ptr(key_cache), ptr(value_cache), ptr(block_tables),
+            ptr(seq_lens), ptr(write_blk), ptr(writeable), ptr(m), ptr(l),
+            ptr(acc))
+    tail = (b, nh, nkv, hd, nbp, bs, max_blocks, S, P, float(scale),
+            DTYPE_CODE[dt], stream_ptr(dev))
+    if route == "tc":
+        err = library().ptt_fused_decode_tc(
+            *head, ptr(_decode_tickets(dev, b * nkv)), ptr(out), *tail)
+    else:
+        err = library().ptt_fused_decode(*head, ptr(out), *tail)
     check_launch("fused_decode_step", err)
     LAUNCHES["fused_decode_step"] += 1
+    if route == "tc":
+        LAUNCHES["fused_decode_step_tc"] += 1
     return out, key_cache, value_cache
 
 
@@ -910,10 +949,14 @@ def fused_quant_decode_step_reference(q, k_new, v_new, cos, sin, kq, ksc,
 
 def fused_quant_decode_step_cuda(q, k_new, v_new, cos, sin, kq, ksc, vq, vsc,
                                  block_tables, seq_lens, write_blk, writeable,
-                                 kv_quant, scale=None, num_shards=None):
-    """Launch ``csrc/fused_quant_decode.cu``: the page walk with the
-    in-kernel requantized append (codes and scales updated in place) and
-    the log-sum-exp merge of its split-K partials."""
+                                 kv_quant, scale=None, num_shards=None,
+                                 route=None):
+    """Launch the page walk with the in-kernel requantized append (codes and
+    scales updated in place) and the log-sum-exp merge of its split-K
+    partials on ``route`` (default :func:`decode_route`):
+    ``csrc/fused_decode_tc.cu``'s ``ptt_fused_quant_decode_tc`` (one
+    launch) or ``csrc/fused_quant_decode.cu``'s ``ptt_fused_quant_decode``
+    (the walk, then the combine launch)."""
     b, nh, hd = q.shape
     nbp, nkv, bs, hd_st = kq.shape
     dev, dt = q.device, q.dtype
@@ -922,6 +965,8 @@ def fused_quant_decode_step_cuda(q, k_new, v_new, cos, sin, kq, ksc, vq, vsc,
     if not kernel_supported(nh, nkv, hd, bs):
         raise ValueError(f"fused_quant_decode_step: unsupported shape "
                          f"nh={nh} nkv={nkv} hd={hd} block_size={bs}")
+    route = pick_route("fused_quant_decode_step", q, route,
+                       decode_route(dt, hd))
     if scale is None:
         scale = 1.0 / math.sqrt(hd)
     max_blocks = block_tables.shape[1]
@@ -946,14 +991,20 @@ def fused_quant_decode_step_cuda(q, k_new, v_new, cos, sin, kq, ksc, vq, vsc,
     l = torch.empty_like(m)
     acc = torch.empty((b, nkv, S, rep, hd), dtype=torch.float32, device=dev)
     out = torch.empty((b, nh, hd), dtype=dt, device=dev)
-    err = library().ptt_fused_quant_decode(
-        ptr(q), ptr(k_new), ptr(v_new), ptr(cos), ptr(sin), ptr(kq),
-        ptr(vq), ptr(ksc), ptr(vsc), ptr(block_tables), ptr(seq_lens),
-        ptr(write_blk), ptr(writeable), ptr(m), ptr(l), ptr(acc), ptr(out),
-        b, nh, nkv, hd, nbp, bs, max_blocks, S, P, float(scale),
-        DTYPE_CODE[dt], KV_FORMAT_CODE[kv_quant], stream_ptr(dev))
+    head = (ptr(q), ptr(k_new), ptr(v_new), ptr(cos), ptr(sin), ptr(kq),
+            ptr(vq), ptr(ksc), ptr(vsc), ptr(block_tables), ptr(seq_lens),
+            ptr(write_blk), ptr(writeable), ptr(m), ptr(l), ptr(acc))
+    tail = (b, nh, nkv, hd, nbp, bs, max_blocks, S, P, float(scale),
+            DTYPE_CODE[dt], KV_FORMAT_CODE[kv_quant], stream_ptr(dev))
+    if route == "tc":
+        err = library().ptt_fused_quant_decode_tc(
+            *head, ptr(_decode_tickets(dev, b * nkv)), ptr(out), *tail)
+    else:
+        err = library().ptt_fused_quant_decode(*head, ptr(out), *tail)
     check_launch("fused_quant_decode_step", err)
     LAUNCHES["fused_quant_decode_step"] += 1
+    if route == "tc":
+        LAUNCHES["fused_quant_decode_step_tc"] += 1
     return out, kq, ksc, vq, vsc
 
 

@@ -392,6 +392,113 @@ def test_fused_quant_decode_kernel_matches_plain(dev, mode, dtype):
     assert torch.equal(got[0][keep], plain[0][keep])
 
 
+def _fused_case(g, dev, mode, bs, hd, nh=8, nkv=2, max_seq=1024):
+    """The fused decode step's inputs at block ``bs``, head_dim ``hd``:
+    appends at position 0, at the first row of a new page (``bs``), mid
+    page and near the table's end, and a dropped lane (sentinel table,
+    write page = the spill page, which starts non-zero).  Pools of random
+    rows, quantized per page for int8 / int4."""
+    lens_l = [0, bs, 300, max_seq - 3, 0]
+    wable_l = [1, 1, 1, 1, 0]
+    b, mb = len(lens_l), max_seq // bs
+    nb = b * mb
+    dtype = torch.bfloat16
+    q, kn, vn = (_randn(g, dev, b, h, hd, dtype=dtype)
+                 for h in (nh, nkv, nkv))
+    ang = torch.rand(b, hd // 2, generator=g, device=dev) * 3
+    ang = torch.cat([ang, ang], -1)
+    cos, sin = ang.cos().to(dtype), ang.sin().to(dtype)
+    kc = _randn(g, dev, nb + 1, nkv, bs, hd, dtype=dtype)
+    vc = _randn(g, dev, nb + 1, nkv, bs, hd, dtype=dtype)
+    pools = (kc, vc)
+    if mode:
+        kq, ks = tpa.quantize_kv_cache(kc, mode)
+        vq, vs = tpa.quantize_kv_cache(vc, mode)
+        kq[nb], ks[nb] = 5, 1.0
+        pools = (kq, ks, vq, vs)
+    lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
+    wable = torch.tensor(wable_l, dtype=torch.int32, device=dev)
+    tables = torch.full((b, mb), nb, dtype=torch.int32, device=dev)
+    perm = torch.randperm(nb, generator=g, device=dev).int()
+    for i, (n, w) in enumerate(zip(lens_l, wable_l)):
+        if w:
+            tables[i, :n // bs + 1] = perm[i * mb:i * mb + n // bs + 1]
+    lanes = torch.arange(b, device=dev)
+    wblk = torch.where(wable == 1, tables[lanes, (lens // bs).long()],
+                       torch.full_like(lens, nb)).int()
+    return (q, kn, vn, cos, sin), pools, (tables, lens, wblk, wable), nb
+
+
+@pytest.mark.parametrize("mode", [None, "int8", "int4"])
+@pytest.mark.parametrize("bs,hd", [(64, 128), (16, 64), (64, 64), (16, 128)])
+def test_fused_decode_routes_match_plain(dev, mode, bs, hd):
+    """B7 (fp pools) and B11 (int8 / int4) on both routes against the plain
+    version: the output within the attention tolerance for every live lane
+    (several shards a lane: the in-launch merge of the tensor-core route),
+    the pools bit-equal to the plain composition's (fp: the committed rows;
+    quantized: every code and scale), pages no lane writes untouched, the
+    spill page zeroed; each launch counted on its route's counter."""
+    g = torch.Generator(device=dev).manual_seed(14)
+    small, pools, tail, nb = _fused_case(g, dev, mode, bs, hd)
+    name = "fused_quant_decode_step" if mode else "fused_decode_step"
+    assert tpa.decode_shards(tail[0].shape[1]) > 1
+    plain = [t.clone() for t in pools]
+    if mode:
+        want, *ref = tpa.fused_quant_decode_step_reference(*small, *plain,
+                                                           *tail, mode)
+    else:
+        want, *ref = tpa.fused_decode_step_reference(*small, *plain, *tail)
+    written = {int(x) for x, w in zip(tail[2], tail[3]) if w}
+    keep = [p for p in range(nb) if p not in written]
+    for route in ("tc", "cc"):
+        got_pools = [t.clone() for t in pools]
+        tk.reset_counters()
+        if mode:
+            out, *got = tpa.fused_quant_decode_step_cuda(
+                *small, *got_pools, *tail, mode, route=route)
+        else:
+            out, *got = tpa.fused_decode_step_cuda(*small, *got_pools, *tail,
+                                                   route=route)
+        torch.cuda.synchronize()
+        assert tk.LAUNCHES[name] == 1
+        assert tk.LAUNCHES[f"{name}_tc"] == int(route == "tc")
+        assert sum(tk.LAUNCHES.values()) == 1 + int(route == "tc")
+        _attn_close(out[:4], want[:4], torch.bfloat16)
+        for i, (a, e) in enumerate(zip(got, ref)):
+            if mode is None and i == 0:
+                # the roped k rows: the same bf16 rope arithmetic on both
+                # sides, held to one ulp as the CUDA-core test holds them
+                assert torch.allclose(a, e, rtol=2.0 ** -7, atol=1e-6)
+            else:
+                assert torch.equal(a, e), route
+        for a, e in zip(got, pools):
+            assert torch.equal(a[keep], e[keep]), route
+            assert (a[nb] == 0).all(), route
+
+
+def test_fused_decode_tc_refuses_other_shapes(dev):
+    """"tc" is refused for f32 q and for head_dim 96 (no fall back); the
+    default route of such a shape launches the CUDA-core kernel."""
+    g = torch.Generator(device=dev).manual_seed(15)
+    small, pools, tail, _ = _fused_case(g, dev, None, 64, 128)
+    f32 = [t.float() for t in small]
+    fpools = [t.float() for t in pools]
+    with pytest.raises(ValueError, match="route 'tc'"):
+        tpa.fused_decode_step_cuda(*f32, *fpools, *tail, route="tc")
+    tk.reset_counters()
+    tpa.fused_decode_step_cuda(*f32, *fpools, *tail)
+    assert tk.LAUNCHES["fused_decode_step"] == 1
+    assert tk.LAUNCHES["fused_decode_step_tc"] == 0
+    small96, pools96, tail96, _ = _fused_case(g, dev, "int8", 64, 96)
+    with pytest.raises(ValueError, match="route 'tc'"):
+        tpa.fused_quant_decode_step_cuda(*small96, *pools96, *tail96, "int8",
+                                         route="tc")
+    tk.reset_counters()
+    tpa.fused_quant_decode_step_cuda(*small96, *pools96, *tail96, "int8")
+    assert tk.LAUNCHES["fused_quant_decode_step"] == 1
+    assert tk.LAUNCHES["fused_quant_decode_step_tc"] == 0
+
+
 def test_decode_switch_tokens_route_as_the_reference(dev, monkeypatch):
     """``flash_decode`` turns the split-K walk into the sequential one,
     ``paged_attention`` sends decode attention to the gather oracle (no
