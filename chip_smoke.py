@@ -14,9 +14,9 @@ non-zero as soon as one fails:
    kernel's registers and spills, and any compiler warning);
 3. kernels: each kernel against its plain PyTorch version on the card at
    the serving path's shapes (Llama-3-8B widths, bf16, batch 8, block 64,
-   max_seq 2048; rms_norm also at the train step's rows; the sampler's
-   Gumbel noise over the 128256-token vocabulary): errors against stated
-   tolerances, and CUDA-event times
+   max_seq 2048; rms_norm also at a prefill's and the train step's rows;
+   the sampler's Gumbel noise over the 128256-token vocabulary): errors
+   against stated tolerances, and CUDA-event times
    of the kernel, the plain version, one PyTorch library call where one
    computes the same function, and the bound (the least time the card
    could take: bytes over 3.35 TB/s or operations over the bf16 peak);
@@ -30,7 +30,9 @@ non-zero as soon as one fails:
 5. paged kernels: the sequential and the split-K paged decode over bf16,
    int8 and packed-int4 pools, and the fused requantizing decode step over
    int8 and int4 pools, at the serving shapes with ragged lengths (0 to
-   2048), timed like phase 3; the requantized codes and scales held bit
+   2048), timed like phase 3, the sequential walk on both routes (the
+   tensor-core kernel ``decode_route`` picks, split over the KV axis, and
+   the CUDA-core one) and also at 8 lanes of 512; the requantized codes and scales held bit
    for bit (their share reported), untouched pages exact, the spill page
    zeroed; both fused decode steps (phase 3's over bf16 pools too) on both
    routes, the tensor-core kernel ``decode_route`` picks and the CUDA-core
@@ -62,7 +64,8 @@ non-zero as soon as one fails:
    ``PADDLE_TPU_TORCH_DISABLE_KERNELS=fused_decode_step`` /
    ``fused_quant_append`` [``,flash_decode``] rebuild the engine on; and
    ``all``, every kernel off): each arm launches its own decode kernel
-   only, and its logits and greedy streams agree with the plain arm's;
+   only, the fused and the sequential arms every launch on the tensor-core
+   route, and its logits and greedy streams agree with the plain arm's;
 8. train: Llama-3-8B widths cut to 4 layers take 5 AdamW steps on one
    batch of 2 x 2048 seeded tokens with full recompute; the loss falls,
    and the launch counts prove every layer went through the three flash
@@ -328,8 +331,8 @@ def phase_kernels(torch) -> dict:
         bnd, by = bound_ms(rows * h * 2 * 2 + h * 2, rows * h * 4)
         res[label] = {
             "shape": list(shape), "max_abs_err": err.max().item(),
-            "max_rel_err": (err / ref.float().abs().clamp(min=1e-6)).max()
-            .item(), "tolerance": "1 bf16 ulp per element (|d| <= 2^-7|ref|)",
+            "worst_err_over_tol": (err / tol).max().item(),
+            "tolerance": "1 bf16 ulp per element (|d| <= 2^-7|ref|)",
             "ms": time_ms(torch, lambda: rms.rms_norm_cuda(x, w, eps),
                           flush=flush),
             "plain_ms": time_ms(torch, lambda: rms.rms_norm_ref(x, w, eps),
@@ -487,46 +490,72 @@ def phase_paged_kernels(torch) -> dict:
     out = {"paged_decode": {}, "flash_decode": {}, "fused_quant_decode_step":
            {}}
 
-    # ---- B5 / B6: lengths 0 and 2048 and spread between
-    lens = torch.tensor([0, 2048, 64, 127, 1000, 1500, 333, 1777],
-                        dtype=torch.int32, device=dev)
-    pages = [-(-int(n) // bs) for n in lens.tolist()]
-    tables = table(pages)
-    live = sum(pages)
-    for fmt, (kc, vc, ks, vs) in pools.items():
-        kvq = None if fmt == "bf16" else fmt
-        kw = dict(kv_quant=kvq, k_scale=ks, v_scale=vs)
-        # the bytes the function must move: each live page's K and V rows
-        # (and its two scales) once, q and the output, the live table
-        # entries and the lengths
-        nbytes = (live * nkv * bs * row_bytes[fmt] * 2
-                  + (live * nkv * 4 * 2 if kvq else 0)
-                  + q.numel() * 2 * 2 + live * 4 + B * 4)
-        bnd, by = bound_ms(nbytes, 4 * nh * hd * int(lens.sum()))
-        for name, kern, plain in (
-                ("paged_decode",
-                 lambda: pa.paged_decode_cuda(q, kc, vc, tables, lens, scale,
-                                              **kw),
-                 lambda: pa.paged_attention_reference(q, kc, vc, tables, lens,
-                                                      scale=scale, **kw)),
-                ("flash_decode",
-                 lambda: pa.flash_decode_cuda(q, kc, vc, tables, lens, scale,
-                                              S, **kw),
-                 lambda: pa.flash_decode_reference(q, kc, vc, tables, lens,
-                                                   scale, S, **kw))):
-            got, want = kern(), plain()
-            torch.cuda.synchronize()
-            errs, ok = _attn_err(torch, got, want)
-            check(ok, f"{name} {fmt}: within the attention tolerance")
-            check(bool((got[0] == 0).all() and (want[0] == 0).all()),
-                  f"{name} {fmt}: the zero-length lane is exactly 0")
-            out[name][fmt] = {
-                **errs, "shards": 1 if name == "paged_decode" else S,
-                "tolerance": "|d| <= 2^-7|ref| + 2^-8 max|ref[slot, head]|",
-                "bound_bytes": nbytes, "bound_ms": bnd, "bound_by": by,
-                "ms": time_ms(torch, kern, flush=flush),
-                "plain_ms": time_ms(torch, plain, flush=flush),
-                "library_ms": None}
+    # ---- B5 / B6: lengths 0 and 2048 and spread between; B5 on both
+    # routes (the tensor-core walk split over the KV axis, which the route
+    # rule picks at bf16 q, and the CUDA-core walk), also at the serve
+    # shape (8 lanes at 512)
+    check(pa.decode_route(bf16, hd) == "tc",
+          "the sequential walk takes the tensor-core route at bf16, d 128")
+    mixes = (("smoke_mix", [0, 2048, 64, 127, 1000, 1500, 333, 1777]),
+             ("serve_8x512", [512] * B))
+    for label, lens_l in mixes:
+        lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
+        pages = [-(-int(n) // bs) for n in lens_l]
+        tables = table(pages)
+        live = sum(pages)
+        for fmt, (kc, vc, ks, vs) in pools.items():
+            kvq = None if fmt == "bf16" else fmt
+            kw = dict(kv_quant=kvq, k_scale=ks, v_scale=vs)
+            # the bytes the function must move: each live page's K and V
+            # rows (and its two scales) once, q and the output, the live
+            # table entries and the lengths
+            nbytes = (live * nkv * bs * row_bytes[fmt] * 2
+                      + (live * nkv * 4 * 2 if kvq else 0)
+                      + q.numel() * 2 * 2 + live * 4 + B * 4)
+            bnd, by = bound_ms(nbytes, 4 * nh * hd * int(lens.sum()))
+            kerns = [("paged_decode", route,
+                      lambda r=route: pa.paged_decode_cuda(
+                          q, kc, vc, tables, lens, scale, **kw, route=r),
+                      lambda: pa.paged_attention_reference(
+                          q, kc, vc, tables, lens, scale=scale, **kw))
+                     for route in ROUTES]
+            if label == "smoke_mix":
+                kerns.append(("flash_decode", None,
+                              lambda: pa.flash_decode_cuda(
+                                  q, kc, vc, tables, lens, scale, S, **kw),
+                              lambda: pa.flash_decode_reference(
+                                  q, kc, vc, tables, lens, scale, S, **kw)))
+            plain_ms = {}
+            for name, route, kern, plain in kerns:
+                got, want = kern(), plain()
+                torch.cuda.synchronize()
+                errs, ok = _attn_err(torch, got, want)
+                what = f"{name} {route or ''} {fmt} {label}"
+                check(ok, f"{what}: within the attention tolerance")
+                check(bool((got[lens == 0] == 0).all()
+                           and (want[lens == 0] == 0).all()),
+                      f"{what}: a zero-length lane is exactly 0")
+                r = {**errs, "ms": time_ms(torch, kern, flush=flush),
+                     "bound_bytes": nbytes, "bound_ms": bnd,
+                     "bound_by": by, "library_ms": None,
+                     "tolerance": "|d| <= 2^-7|ref| + 2^-8 "
+                                  "max|ref[slot, head]|"}
+                if name not in plain_ms:
+                    plain_ms[name] = time_ms(torch, plain, flush=flush)
+                r["plain_ms"] = plain_ms[name]
+                if name == "flash_decode":
+                    out[name][fmt] = dict(r, shards=S)
+                    continue
+                # the tensor-core route's numbers at the top of the format's
+                # (smoke mix) or the mix's entry, the CUDA-core route's
+                # under "cuda_core", whatever the order of ROUTES
+                dst = out[name].setdefault(fmt, {})
+                if label != "smoke_mix":
+                    dst = dst.setdefault(label, {})
+                if route == "tc":
+                    dst.update(r, splits=pa.seq_decode_splits(max_blocks))
+                else:
+                    dst["cuda_core"] = r
 
     # ---- B11 on both routes: the smoke mix (appends at 0, at a page
     # boundary, mid-page, at the last position; the last lane dropped) and
@@ -1135,14 +1164,17 @@ def _serve_chunked_spec(torch, np, cfg, params, kv_quant, smi, seed=3,
 
 
 #: device-kernel name fragments -> the layer they belong to (the split-K
-#: combine kernel and the tensor-core fused decode kernel, which serves
-#: both pool kinds, go with the decode kernel the profiled engine runs)
+#: combine kernel and the tensor-core fused decode kernel,
+#: ``decode_tc_kernel<true, ...>`` for both pool kinds, go with the decode
+#: kernel the profiled engine runs; ``decode_tc_kernel<false, ...>`` is the
+#: sequential walk)
 _KERNEL_GROUPS = (("fused_quant_decode", "fused_quant_decode_step"),
                   ("rows_kernel", "paged_prefill / paged_verify"),
                   ("rows_tc_kernel", "paged_prefill / paged_verify"),
                   ("rows_combine_kernel", "paged_prefill / paged_verify"),
                   ("fused_decode", "fused_decode_step"),
                   ("paged_walk", "paged_decode / flash_decode"),
+                  ("decode_tc_kernel<false", "paged_decode / flash_decode"),
                   ("mlp_partial", "fused_layer_mlp"),
                   ("mlp_reduce", "fused_layer_mlp"),
                   ("rms_norm_kernel", "rms_norm"),
@@ -1189,7 +1221,7 @@ def phase_profile(torch, np, eng, Request, decode) -> None:
         total += dev_us
         name = evt.key.lower()
         group = decode if ("combine_kernel" in name
-                           or "fused_decode_tc" in name) else next(
+                           or "decode_tc_kernel<true" in name) else next(
             (g for frag, g in _KERNEL_GROUPS if frag in name), "other")
         groups[group] = groups.get(group, 0.0) + dev_us
         if group == "other":
@@ -1327,7 +1359,7 @@ def phase_arms(torch, np) -> dict:
     # logits of two arms: f32 sums in another order and bf16 roundings at
     # other places through 4 layers; measured, then held to this bound
     logit_tol = 0.125
-    totals = {k: 0 for k in DECODE_KERNELS}
+    totals = {k: 0 for k in DECODE_KERNELS + ("paged_decode_tc",)}
     summary = {}
     for kvq, arms in ARMS.items():
         runs = {}
@@ -1351,10 +1383,12 @@ def phase_arms(torch, np) -> dict:
                       * eng.stats["decode_steps"],
                       f"{kvq} {label} arm: {kernel} every layer of every "
                       f"step ({decode})")
-                if label == "fused":
+                if label in ("fused", "sequential"):
                     check(launches[f"{kernel}_tc"] == decode[kernel],
-                          f"{kvq} fused arm: every {kernel} launch on the "
-                          f"tensor-core route ({launches})")
+                          f"{kvq} {label} arm: every {kernel} launch on "
+                          f"the tensor-core route ({launches})")
+                    if label == "sequential":
+                        totals["paged_decode_tc"] += decode[kernel]
                 check(not any(v for k, v in decode.items() if k != kernel),
                       f"{kvq} {label} arm: no other decode kernel "
                       f"({decode})")
@@ -1862,6 +1896,9 @@ def main(argv: list[str]) -> int:
         launches[k] += q8_launches[k] + cs_launches[k]
     launches.update({k: arm_launches[k] for k in ("paged_decode",
                                                   "flash_decode")})
+    # the sequential walk's entry is the tensor-core kernel, the route
+    # every launch of the sequential arms took
+    launches["paged_decode"] = arm_launches["paged_decode_tc"]
     # the flash entries are the tensor-core kernels, the route every
     # launch of the train step took; the multi-row walks' likewise of the
     # chunked + speculative serves, the fused decode steps' of the serves
@@ -1884,7 +1921,7 @@ def main(argv: list[str]) -> int:
                # draw, which XLA compiles into its decode program
                "gumbel_noise": ("gumbel.cu", "paddle_tpu/inference/"
                                 "serving.py:1246"),
-               "paged_decode": ("paged_decode.cu", f"{pa}:412"),
+               "paged_decode": ("paged_decode_tc.cu", f"{pa}:412"),
                "flash_decode": ("paged_decode.cu", f"{pa}:594"),
                "fused_quant_decode_step": ("fused_decode_tc.cu",
                                            f"{pa}:1720"),

@@ -35,11 +35,30 @@ exits non-zero.
   route: the write-page requantize one row at a time with the library
   division (``paged.cuh``'s earlier ``requant_page``); its code inlined
   twice (once for K, once for V); P rounded once; a two-stage ring; probes
-  without the merge of the shards and without the products.
+  without the merge of the shards and without the products (the kernel
+  lives in ``csrc/paged_tc.cuh``).
+- ``parent DIR``: the same fused decode step from another checkout's
+  ``csrc`` (``DIR/paddle_tpu_torch/ops/kernels/csrc``, for example the
+  parent commit unpacked with ``git archive``), timed in turns with this
+  checkout's on the same lane mixes: what a change to the shared code
+  costs B7 and B11; then the two builds' fused kernels compared
+  instruction for instruction (``cuobjdump -sass``); with ``rmsnorm``,
+  that checkout's rms_norm beside this one's.
+- The sequential paged decode (``csrc/paged_decode_tc.cu``, B5) on the
+  smoke mix, 8 lanes of 512, the 2048-token lane alone and one page a
+  lane, over bf16 / int8 / int4 pools: the committed split rule (runs of 4
+  table pages), runs of 2 and of 8 pages, no split, and the CUDA-core
+  walk.
+- rms_norm at 8 to 4096 rows of 4096 bf16, L2 flushed and warm: the
+  kernel as committed; with the weight loaded after the reduction; with 8
+  vectors of registers a thread whatever the row; one warp a row (the weight in shared memory, a grid sized to
+  the SMs' residency, the next row's loads in flight); ``F.rms_norm``; a
+  probe (timed only): the launch alone.
 
-    python3 kernel_variants.py [dq] [rows] [decode]
+    python3 kernel_variants.py [dq] [rows] [decode] [seqdecode] [rmsnorm]
+                               [parent DIR]
 
-runs the named parts (all three by default).
+runs the named parts (dq, rows and decode by default).
 """
 
 from __future__ import annotations
@@ -47,6 +66,7 @@ from __future__ import annotations
 import ctypes
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -165,11 +185,12 @@ def _replace_combine(text: str, new: str) -> str:
     return text[:start] + new + text[end:]
 
 
-def build_variant(kernels, tmp: str, tag: str, edits, sources):
-    """The library's ``sources`` with ``edits`` applied, built with its
-    nvcc flags into ``tmp/tag``; returns the loaded ctypes library."""
+def build_variant(kernels, tmp: str, tag: str, edits, sources, csrc=None):
+    """The library's ``sources`` (from ``csrc``, default this checkout's)
+    with ``edits`` applied, built with its nvcc flags into ``tmp/tag``;
+    returns the loaded ctypes library."""
     d = os.path.join(tmp, tag)
-    shutil.copytree(kernels.CSRC, os.path.join(d, "csrc"))
+    shutil.copytree(csrc or kernels.CSRC, os.path.join(d, "csrc"))
     for fname, old, new in edits:
         path = os.path.join(d, "csrc", fname)
         with open(path) as f:
@@ -444,39 +465,91 @@ __device__ __forceinline__ float requant_page(unsigned char* tile, int ld,
 
 """
 DEC = "fused_decode_tc.cu"
+WALK = "paged_tc.cuh"
 #: fused decode variants: name -> (edits, checked?)
 DECODE_VARIANTS = {
     "requant_serial": ([("paged.cuh", ("template <int F>\n__device__ "
                                        "__forceinline__ float requant_page(",
                                        "// Exact log-sum-exp merge"),
                          _SERIAL_REQUANT)], True),
-    "requant_inlined_twice": ([(DEC, "#pragma unroll 1\n          for (int kv "
-                                "= 0; kv < 2; ++kv) {", "#pragma unroll\n"
+    "requant_inlined_twice": ([(WALK, "#pragma unroll 1\n          for (int "
+                                "kv = 0; kv < 2; ++kv) {", "#pragma unroll\n"
                                 "          for (int kv = 0; kv < 2; ++kv) {")],
                               True),
-    "p_single": ([(DEC, "        mma16816(o[n], l0, l2, vb[0], vb[1]);\n", ""),
-                  (DEC, "        mma16816(o[n + 1], l0, l2, vb[2], vb[3]);\n",
-                   "")], True),
-    "stages2": ([(DEC, "constexpr int kStages = 3;",
+    "p_single": ([(WALK, "        mma16816(o[n], l0, l2, vb[0], vb[1]);\n",
+                   ""),
+                  (WALK, "        mma16816(o[n + 1], l0, l2, vb[2], vb[3]);"
+                   "\n", "")], True),
+    "stages2": ([(WALK, "constexpr int kStages = 3;",
                   "constexpr int kStages = 2;")], True),
-    "probe_no_merge": ([(DEC, "  if (nlive > 1) {\n    // the ticket",
+    "probe_no_merge": ([(WALK, "  if (nlive > 1) {\n    // the ticket",
                          "  if (false) {\n    // the ticket")], False),
-    "probe_no_products": ([(DEC, "for (int c0 = 16 * warp; c0 < ncol;",
+    "probe_no_products": ([(WALK, "for (int c0 = 16 * warp; c0 < ncol;",
                             "for (int c0 = 16 * warp; c0 < 0;")], False),
 }
+def _sass(kernels, obj: str) -> dict:
+    """``cuobjdump -sass`` of an object file: the fused decode kernels'
+    instructions (addresses and encodings dropped) by "F<format>_D<hd>"."""
+    tool = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", obj], capture_output=True,
+                          text=True, check=True).stdout
+    out, key = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            m = re.search(r"decode_tc_kernelI(?:Lb1E)?Li(\d+)ELi(\d+)E",
+                          name)
+            key = f"F{m.group(1)}_D{m.group(2)}" if m else None
+            if key:
+                out[key] = []
+        elif key:
+            ins = re.sub(r"/\*[^*]*\*/", "", line).strip()
+            if ins:
+                out[key].append(" ".join(ins.split()))
+    return out
+
+
+def sass_vs_parent(kernels, tmp) -> None:
+    """The fused decode kernels' machine code against the parent
+    checkout's (built by ``decode_variants``): instruction for instruction,
+    per pool format and head_dim."""
+    mine = _sass(kernels, str(kernels.build().parent /
+                              "fused_decode_tc.o"))
+    theirs = _sass(kernels, os.path.join(tmp, "parent", DEC + ".o"))
+    res = {"kernel": "fused_decode_tc", "variant": "sass_vs_parent"}
+    for key in sorted(set(mine) | set(theirs)):
+        a, b_ = mine.get(key, []), theirs.get(key, [])
+        res[key] = {"instructions": len(a), "parent_instructions": len(b_),
+                    "identical": a == b_,
+                    "lines_differing": sum(x != y for x, y in zip(a, b_))
+                    + abs(len(a) - len(b_))}
+    emit(res)
+
+
 #: lane mixes of the fused decode step (lengths before the append, all
 #: lanes writeable but the smoke mix's last)
 DECODE_MIXES = {"1_page": [62] * 8, "4_pages": [254] * 8,
                 "5_pages": [300] * 8, "9_pages": [512] * 8}
 
 
-def decode_variants(torch, cs, kernels, tmp) -> None:
+def decode_variants(torch, cs, kernels, tmp, parent=None) -> None:
+    """The fused decode step's variants, or with ``parent`` (a checkout's
+    root) the committed kernel in turns with that checkout's, three
+    rounds, no CUDA-core route."""
     from paddle_tpu_torch.ops.kernels import paged_attention as pa
 
     committed = kernels.library()
     libs = {"committed": (committed, True)}
-    for tag, (edits, checked) in DECODE_VARIANTS.items():
-        libs[tag] = (build_variant(kernels, tmp, tag, edits, (DEC,)), checked)
+    if parent is None:
+        for tag, (edits, checked) in DECODE_VARIANTS.items():
+            libs[tag] = (build_variant(kernels, tmp, tag, edits, (DEC,)),
+                         checked)
+        extra = [("cuda_core", (committed, True))]
+    else:
+        libs["parent"] = (build_variant(
+            kernels, tmp, "parent", [], (DEC,), csrc=os.path.join(
+                parent, "paddle_tpu_torch", "ops", "kernels", "csrc")), True)
+        extra = []
     dev = torch.device("cuda")
     B, nh, nkv, hd, bs, max_blocks = 8, 32, 8, 128, 64, 32
     nb = B * max_blocks
@@ -492,9 +565,11 @@ def decode_variants(torch, cs, kernels, tmp) -> None:
     mixes = dict(DECODE_MIXES)
     _, smoke_lens, smoke_wable = cs.DECODE_MIXES[0]
     mixes["smoke_mix"] = smoke_lens
-    for rnd in range(2):
-        for tag, (lib, checked) in list(libs.items()) + [
-                ("cuda_core", (committed, True))]:
+    for rnd in range(2 if parent is None else 3):
+        order = list(libs.items()) + extra
+        if parent is not None and rnd % 2:
+            order.reverse()         # committed, parent, parent, committed
+        for tag, (lib, checked) in order:
             kernels._lib = lib
             route = "cc" if tag == "cuda_core" else "tc"
             res = {"kernel": "fused_decode_tc", "variant": tag, "round": rnd}
@@ -542,6 +617,240 @@ def decode_variants(torch, cs, kernels, tmp) -> None:
     kernels._lib = committed
 
 
+#: sequential-walk lane mixes (live lengths): chip_smoke's smoke mix and
+#: serve shape, the 2048-token lane alone, one page a lane
+SEQ_MIXES = {"smoke_mix": [0, 2048, 64, 127, 1000, 1500, 333, 1777],
+             "serve_8x512": [512] * 8, "lane_2048": [2048] + [0] * 7,
+             "1_page": [64] * 8}
+
+
+def seqdecode_variants(torch, cs, kernels) -> None:
+    """B5 on the tensor cores under other split rules (the module's
+    ``_SEQ_PAGES_PER_SPLIT`` / ``_SEQ_MAX_SPLITS`` set for the variant: no
+    rebuild), and the CUDA-core walk."""
+    from paddle_tpu_torch.ops.kernels import paged_attention as pa
+
+    dev = torch.device("cuda")
+    B, nh, nkv, hd, bs, max_blocks = 8, 32, 8, 128, 64, 32
+    nb = B * max_blocks
+    g = torch.Generator(device=dev)
+    g.manual_seed(2025)
+    pools = _pools(torch, pa, g, dev, nb + 1, nkv, bs, hd)
+    perm = torch.randperm(nb, generator=g, device=dev).int()
+    q = torch.randn(B, nh, hd, generator=g, device=dev).to(torch.bfloat16)
+    scratch = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
+    flush = scratch.zero_
+    variants = {"committed": ("tc", {}),
+                "runs_of_2": ("tc", {"_SEQ_PAGES_PER_SPLIT": 2}),
+                "runs_of_8": ("tc", {"_SEQ_PAGES_PER_SPLIT": 8}),
+                "no_split": ("tc", {"_SEQ_MAX_SPLITS": 1}),
+                "cuda_core": ("cc", {})}
+    rule = {name: getattr(pa, name)
+            for name in ("_SEQ_PAGES_PER_SPLIT", "_SEQ_MAX_SPLITS")}
+    tables = {}
+    for name, lens in SEQ_MIXES.items():
+        t = torch.full((B, max_blocks), nb, dtype=torch.int32, device=dev)
+        for i, n in enumerate(lens):
+            t[i, :-(-n // bs)] = perm[i * max_blocks:i * max_blocks
+                                      - (-n // bs)]
+        tables[name] = (t, torch.tensor(lens, dtype=torch.int32, device=dev))
+    for rnd in range(2):
+        for tag, (route, consts) in variants.items():
+            for name, value in {**rule, **consts}.items():
+                setattr(pa, name, value)
+            res = {"kernel": "paged_decode", "variant": tag, "round": rnd,
+                   "splits": (pa.seq_decode_splits(max_blocks)
+                              if route == "tc" else None)}
+            for name, (t, lens) in tables.items():
+                for fmt, (kc, vc, ks, vs) in pools.items():
+                    kw = dict(kv_quant=None if fmt == "bf16" else fmt,
+                              k_scale=ks, v_scale=vs)
+
+                    def run():
+                        return pa.paged_decode_cuda(
+                            q, kc, vc, t, lens, hd ** -0.5, **kw,
+                            route=route)
+
+                    got = run()
+                    want = pa.paged_attention_reference(
+                        q, kc, vc, t, lens, scale=hd ** -0.5, **kw)
+                    torch.cuda.synchronize()
+                    errs, ok = cs._attn_err(torch, got, want)
+                    res[f"{name}_{fmt}"] = {
+                        "ms": cs.time_ms(torch, run, flush=flush),
+                        "worst_err_over_tol": errs["worst_err_over_tol"],
+                        "ok": ok}
+            emit(res)
+    for name, value in rule.items():
+        setattr(pa, name, value)
+
+
+RMS = "rms_norm.cu"
+#: rms_norm variants of the warp kernel: name -> edits
+#: the one-warp-a-row design this redesign also tried: the block's first
+#: warp loads the weight into shared memory beside each warp's first row,
+#: a grid sized to the SMs' residency walks the rows, each warp loading its
+#: next row before it reduces the current one (16-byte vectors: VPL a lane)
+_WARP_A_ROW = """constexpr int kWarpRows = 4;
+
+template <typename T, int VPL>
+__global__ void __launch_bounds__(32 * kWarpRows, 2)
+    rms_norm_warp_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                         T* __restrict__ out, int rows, float eps) {
+  constexpr int V = 16 / sizeof(T);
+  constexpr int H = 32 * VPL * V;
+  const int lane = threadIdx.x & 31;
+  const int nwarps = gridDim.x * (blockDim.x >> 5);
+  int row = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  auto load = [&](uint4 (&r)[VPL], int at) {
+    const uint4* xr = reinterpret_cast<const uint4*>(x + (size_t)at * H);
+#pragma unroll
+    for (int i = 0; i < VPL; ++i) r[i] = xr[lane + 32 * i];
+  };
+  __shared__ uint4 ws[32 * VPL];
+  uint4 cur[VPL];
+  if (row < rows) load(cur, row);
+  if (threadIdx.x < 32) {
+    uint4 wr[VPL];
+#pragma unroll
+    for (int i = 0; i < VPL; ++i)
+      wr[i] = reinterpret_cast<const uint4*>(w)[lane + 32 * i];
+#pragma unroll
+    for (int i = 0; i < VPL; ++i) ws[lane + 32 * i] = wr[i];
+  }
+  __syncthreads();
+  while (row < rows) {
+    const int next = row + nwarps;
+    uint4 nxt[VPL];
+    if (next < rows) load(nxt, next);
+    float ss = 0.f;
+#pragma unroll
+    for (int i = 0; i < VPL; ++i) {
+      const T* e = reinterpret_cast<const T*>(&cur[i]);
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const float f = ptt::to_f32(e[j]);
+        ss += f * f;
+      }
+    }
+    ss = ptt::warp_sum(ss);
+    const float inv = rsqrtf(ss / (float)H + eps);
+    uint4* outr = reinterpret_cast<uint4*>(out + (size_t)row * H);
+#pragma unroll
+    for (int i = 0; i < VPL; ++i) {
+      const uint4 wv = ws[lane + 32 * i];
+      const T* e = reinterpret_cast<const T*>(&cur[i]);
+      const T* we = reinterpret_cast<const T*>(&wv);
+      uint4 o;
+      T* oe = reinterpret_cast<T*>(&o);
+#pragma unroll
+      for (int j = 0; j < V; ++j)
+        oe[j] = ptt::from_f32<T>(ptt::to_f32(e[j]) * inv * ptt::to_f32(we[j]));
+      outr[lane + 32 * i] = o;
+    }
+#pragma unroll
+    for (int i = 0; i < VPL; ++i) cur[i] = nxt[i];
+    row = next;
+  }
+}
+
+template <typename T, int VPL>
+int warp_launch(const void* x, const void* w, void* out, int rows, float eps,
+                cudaStream_t stream) {
+  auto kernel = rms_norm_warp_kernel<T, VPL>;
+  int dev = 0, sms = 0, resident = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, kernel,
+                                                32 * kWarpRows, 0);
+  const int wpb = min(kWarpRows, max(1, (rows + sms - 1) / sms));
+  const int blocks = min((rows + wpb - 1) / wpb, sms * resident);
+  kernel<<<blocks, 32 * wpb, 0, stream>>>((const T*)x, (const T*)w, (T*)out,
+                                          rows, eps);
+  return (int)cudaGetLastError();
+}
+
+"""
+_FIXED_VPT = ("""  auto fn = vpt <= 1   ? launch<T, 1>
+            : vpt <= 2 ? launch<T, 2>
+            : vpt <= 4 ? launch<T, 4>
+                       : launch<T, kMaxVecPerThread>;""",
+              """  (void)vpt;
+  auto fn = launch<T, kMaxVecPerThread>;""")
+_W_AFTER = [(RMS, "      regs[i] = xr[v];\n      wregs[i] = wr[v];",
+             "      regs[i] = xr[v];"),
+            (RMS, "      const uint4 wv = wregs[i];",
+             "      const uint4 wv = wr[v];")]
+#: rms_norm variants: name -> (edits, checked?)
+RMS_VARIANTS = {
+    # the weight loaded after the reduction (a second round trip)
+    "weight_after": (_W_AFTER, True),
+    # every launch with 8 vectors of registers a thread, whatever the row
+    "unsized_registers": ([(RMS, *_FIXED_VPT)], True),
+    # one warp a row (bf16 at h 4096: 16 vectors a lane)
+    "warp_a_row": ([(RMS, "}  // namespace\n", _WARP_A_ROW
+                     + "}  // namespace\n"),
+                    (RMS, "      dispatch<__nv_bfloat16>(x, w, out, rows, h, "
+                     "eps, stream);", "      warp_launch<__nv_bfloat16, 16>"
+                     "(x, w, out, rows, eps, stream);")], True),
+    # probe (wrong output, timed only): the launch alone
+    "probe_empty": ([(RMS, "  constexpr int V = 16 / sizeof(T);  // elements "
+                      "per 16-byte vector\n", "  if (h > 0) return;\n  "
+                      "constexpr int V = 16 / sizeof(T);  // elements per "
+                      "16-byte vector\n")], False),
+}
+
+
+def rmsnorm_variants(torch, cs, kernels, tmp, parent=None) -> None:
+    """rms_norm's variants, and with ``parent`` (a checkout's root) that
+    checkout's kernel beside them."""
+    from paddle_tpu_torch.ops.kernels import rms_norm as rms
+
+    committed = kernels.library()
+    libs = {"committed": (committed, True)}
+    if parent is not None:
+        libs["parent"] = (build_variant(
+            kernels, tmp, "rms_parent", [], (RMS,), csrc=os.path.join(
+                parent, "paddle_tpu_torch", "ops", "kernels", "csrc")), True)
+    for tag, (edits, checked) in RMS_VARIANTS.items():
+        libs[tag] = (build_variant(kernels, tmp, tag, edits, (RMS,)), checked)
+    libs["F.rms_norm"] = (None, True)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(99)
+    h, eps = 4096, 1e-5
+    w = (1.0 + 0.1 * torch.randn(h, generator=g, device=dev)).to(
+        torch.bfloat16)
+    xs = {rows: torch.randn(rows, h, generator=g, device=dev).to(
+        torch.bfloat16) for rows in (8, 32, 132, 264, 528, 1500, 4096)}
+    scratch = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
+    flush = scratch.zero_
+    for rnd in range(2):
+        for tag, (lib, checked) in libs.items():
+            kernels._lib = lib or committed
+            res = {"kernel": "rms_norm", "variant": tag, "round": rnd}
+            for rows, x in xs.items():
+                if lib is None:
+                    def run():
+                        return torch.nn.functional.rms_norm(x, (h,), w, eps)
+                else:
+                    def run():
+                        return rms.rms_norm_cuda(x, w, eps)
+                # flushed, as chip_smoke times; warm, as in the decode step
+                # where the previous kernel just wrote x
+                res[f"rows_{rows}"] = {
+                    "ms": cs.time_ms(torch, run, flush=flush),
+                    "warm_ms": cs.time_ms(torch, run)}
+                if checked:
+                    got = run().float()
+                    want = rms.rms_norm_ref(x, w, eps).float()
+                    tol = want.abs() * 2.0 ** -7 + 1e-6
+                    res[f"rows_{rows}"]["worst_err_over_tol"] = (
+                        (got - want).abs() / tol).max().item()
+            emit(res)
+    kernels._lib = committed
+
+
 def main() -> int:
     try:
         import torch
@@ -562,9 +871,17 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     parts = sys.argv[1:] or ["dq", "rows", "decode"]
-    if set(parts) - {"dq", "rows", "decode"}:
-        print("usage: kernel_variants.py [dq] [rows] [decode]",
-              file=sys.stderr)
+    parent = None
+    if "parent" in parts:
+        i = parts.index("parent")
+        if i + 1 >= len(parts):
+            parts = ["?"]
+        else:
+            parent = parts.pop(i + 1)
+    if set(parts) - {"dq", "rows", "decode", "seqdecode", "rmsnorm",
+                     "parent"}:
+        print("usage: kernel_variants.py [dq] [rows] [decode] [seqdecode] "
+              "[rmsnorm] [parent DIR]", file=sys.stderr)
         return 2
     _, smi = cs.phase_device(torch)
     kernels.build()
@@ -575,6 +892,13 @@ def main() -> int:
             rows_variants(torch, cs, kernels, tmp)
         if "decode" in parts:
             decode_variants(torch, cs, kernels, tmp)
+        if parent is not None:
+            decode_variants(torch, cs, kernels, tmp, parent=parent)
+            sass_vs_parent(kernels, tmp)
+        if "seqdecode" in parts:
+            seqdecode_variants(torch, cs, kernels)
+        if "rmsnorm" in parts:
+            rmsnorm_variants(torch, cs, kernels, tmp, parent=parent)
     emit({"ok": True, "nvidia_smi": smi})
     return 0
 

@@ -67,7 +67,9 @@ KNOWN_KERNELS = frozenset({"all", "flash_attention", "rms_norm",
 #: tensor-core one (``paged_rows_route``; a walk and the combine of its
 #: split lanes count as one launch), and ``fused_decode_step`` /
 #: ``fused_quant_decode_step`` both routes, ``fused_decode_step_tc`` /
-#: ``fused_quant_decode_step_tc`` the tensor-core one (``decode_route``).
+#: ``fused_quant_decode_step_tc`` the tensor-core one (``decode_route``),
+#: and ``paged_decode`` both routes of the sequential walk and
+#: ``paged_decode_tc`` its tensor-core one (``decode_route``).
 LAUNCHES = {"rms_norm": 0, "fused_decode_step": 0, "fused_layer_mlp": 0,
             "flash_attention_fwd": 0, "flash_attention_dkv": 0,
             "flash_attention_dq": 0, "flash_attention_fwd_tc": 0,
@@ -76,7 +78,7 @@ LAUNCHES = {"rms_norm": 0, "fused_decode_step": 0, "fused_layer_mlp": 0,
             "flash_decode": 0, "fused_quant_decode_step": 0,
             "paged_prefill": 0, "paged_verify": 0, "paged_prefill_tc": 0,
             "paged_verify_tc": 0, "fused_decode_step_tc": 0,
-            "fused_quant_decode_step_tc": 0}
+            "fused_quant_decode_step_tc": 0, "paged_decode_tc": 0}
 #: kernel name -> dispatches that took the plain PyTorch version
 PLAIN_CALLS = {name: 0 for name in LAUNCHES}
 
@@ -160,7 +162,8 @@ BUILD_DIR = _HERE / "build"
 SOURCES = ("rms_norm.cu", "fused_decode.cu", "fused_mlp.cu", "flash_fwd.cu",
            "flash_bwd.cu", "flash_fwd_tc.cu", "flash_bwd_tc.cu", "gumbel.cu",
            "paged_decode.cu", "fused_quant_decode.cu", "paged_prefill.cu",
-           "paged_prefill_tc.cu", "fused_decode_tc.cu")
+           "paged_prefill_tc.cu", "fused_decode_tc.cu",
+           "paged_decode_tc.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-lineinfo")
 _LIB_NAME = "libpaddle_tpu_torch_kernels.so"
@@ -261,6 +264,9 @@ _SIGNATURES = {
     # out, b, nh, nkv, hd, nbp, bs, max_blocks, S, P, scale, dtype,
     # kv_format, stream
     "ptt_flash_decode": [_VP] * 11 + [_I] * 9 + [_F, _I, _I, _VP],
+    # the sequential walk's tensor-core route: as ptt_flash_decode with the
+    # tickets after acc
+    "ptt_paged_decode_tc": [_VP] * 12 + [_I] * 9 + [_F, _I, _I, _VP],
     # q, k_new, v_new, cos, sin, key_codes, value_codes, k_scale, v_scale,
     # tables, lens, wblk, wable, m, l, acc, out, b, nh, nkv, hd, nbp, bs,
     # max_blocks, S, P, scale, dtype, kv_format, stream

@@ -30,9 +30,10 @@
 //    to even) of a correctly rounded division, clipped.  It
 //    commits the whole page of codes to pool page `wblk` and the new scale
 //    in place, and keeps the new codes in its tile, so attention reads the
-//    round trip.  No FMA contraction reaches the rope or the encode
-//    (round-to-nearest intrinsics), and no fast math is used, so the codes
-//    and scales equal the plain composition's bit for bit;
+//    round trip.  The rope is the plain version's (paged.cuh
+//    `rope_elem`), no FMA contraction reaches the encode (round-to-nearest
+//    intrinsics), and no fast math is used, so the codes and scales equal
+//    the plain composition's bit for bit;
 //  - a lane with wable == 0 writes ZERO codes over page `wblk` (the spill
 //    page) and a zero scale; its attention reads the old tile with the old
 //    scale (the reference's `k_deq` branch).  Several dropped lanes write

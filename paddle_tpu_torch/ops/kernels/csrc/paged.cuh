@@ -8,6 +8,8 @@
 // cp.async).  A block runs one thread per head_dim element.
 #pragma once
 
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace ptt {
@@ -101,16 +103,19 @@ struct KV<T, kInt4> {
   }
 };
 
-// x * cos + rotate_half(x) * sin at element d, every op rounded to T
-// (PyTorch's eager arithmetic in dtype T, so the kernel feeds the score dot
-// and the pools the values the unfused composition computes); explicit
-// round-to-nearest intrinsics keep the compiler from contracting the f32
-// multiply-add into an FMA.  Negation is exact.
+// x * cos + rotate_half(x) * sin at element d, the plain version's
+// arithmetic (rope.py), so the kernel feeds the score dot and the pools the
+// values the unfused composition computes: in f32 one FMA,
+// fma(x, cos, rot * sin), as the reference's compiled programs contract it;
+// in bf16 / f16 every op rounded to T, with explicit round-to-nearest
+// intrinsics so the compiler contracts nothing.  Negation is exact.
 template <typename T>
 __device__ __forceinline__ float rope_elem(const T* __restrict__ x, int d,
                                            int half, float c, float s) {
   const float xd = to_f32(x[d]);
   const float rot = d < half ? -to_f32(x[d + half]) : to_f32(x[d - half]);
+  if constexpr (std::is_same_v<T, float>)
+    return __fmaf_rn(xd, c, __fmul_rn(rot, s));
   return round_to<T>(__fadd_rn(round_to<T>(__fmul_rn(xd, c)),
                                round_to<T>(__fmul_rn(rot, s))));
 }

@@ -30,10 +30,13 @@
 // unpacked in registers.
 //  - `ptt_paged_decode` (the sequential kernel): S = 1, P = max_blocks;
 //    the block finalizes acc / l itself (l == 0, an empty slot, -> 0).
+//    The CUDA-core route of the sequential walk: bf16 q at head_dim 64 or
+//    128 takes paged_decode_tc.cu (`paged_attention.decode_route`).
 //  - `ptt_flash_decode` (split-K): S shards emit partials; an empty shard
 //    emits m = -1e30, l = 0, acc = 0; paged.cuh's combine kernel merges
 //    them (a second launch).
-// Not yet used: tensor cores (a 4-row head group is too small a tile), TMA.
+// Not used here: tensor cores (paged_decode_tc.cu runs the sequential walk
+// on them with mma.sync), TMA.
 #include "paged.cuh"
 
 namespace {

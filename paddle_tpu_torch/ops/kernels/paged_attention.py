@@ -5,7 +5,10 @@ Ported: the quantized-KV storage helpers and the requantized appends
 (plain PyTorch, XLA in the reference); the gather oracle
 ``paged_attention_reference`` for fp, int8 and packed-int4 pools; the
 unfused decode attention ``paged_attention_decode`` over the sequential
-walk (``csrc/paged_decode.cu`` ``ptt_paged_decode``) and the split-K walk
+walk, on two routes (:func:`decode_route`: the tensor-core
+``csrc/paged_decode_tc.cu``, split over the KV axis and merged in the same
+launch, the CUDA-core ``csrc/paged_decode.cu`` ``ptt_paged_decode``) and
+the split-K walk
 (``ptt_flash_decode``, its partials merged on the card by a second launch,
 the reference's ``_flash_combine``, whose plain version is here too); the
 fused decode step for fp pools (rope + KV-page append + split-K attention)
@@ -369,11 +372,11 @@ def decode_shards(max_blocks: int, num_shards: int | None = None) -> int:
 
 def decode_route(dtype: torch.dtype, head_dim: int) -> str:
     """Which hand-written kernel the fused decode steps (fp and quantized
-    pools) take on the card, by the rule of
+    pools) and the unfused sequential walk take on the card, by the rule of
     :func:`~.flash_attention.flash_route`: ``"tc"`` (mma.sync tensor cores,
-    ``csrc/fused_decode_tc.cu``) for bf16/f16 q at head_dim 64 or 128,
-    ``"cc"`` (the f32 CUDA-core kernels) for every other shape the wrappers
-    take (they take f32 and bf16 q)."""
+    ``csrc/fused_decode_tc.cu`` / ``csrc/paged_decode_tc.cu``) for bf16/f16
+    q at head_dim 64 or 128, ``"cc"`` (the CUDA-core kernels) for every
+    other shape the wrappers take (they take f32 and bf16 q)."""
     return flash_route(dtype, head_dim)
 
 
@@ -423,23 +426,65 @@ def _scale_ptrs(kv_quant, k_scale, v_scale):
     return ctypes.c_void_p(0), ctypes.c_void_p(0)
 
 
+#: the sequential walk's tensor-core route splits a lane's walk into runs
+#: of this many table pages, at most _SEQ_MAX_SPLITS of them (the most
+#: ``csrc/paged_decode_tc.cu`` launches: ``kMaxSplits``)
+_SEQ_PAGES_PER_SPLIT = 4
+_SEQ_MAX_SPLITS = 16
+
+
+def seq_decode_splits(max_blocks: int) -> int:
+    """Splits of the sequential walk's tensor-core launch, from the table
+    width alone (8 at max_seq 2048 / block 64): runs of about
+    ``_SEQ_PAGES_PER_SPLIT`` pages, at most ``_SEQ_MAX_SPLITS``, none past
+    the table.  Its own rule, not :func:`decode_shards`, which the
+    ``flash_decode`` switch sets to 1."""
+    S = max(1, min(_SEQ_MAX_SPLITS, -(-max_blocks // _SEQ_PAGES_PER_SPLIT)))
+    return -(-max_blocks // -(-max_blocks // S))
+
+
 def paged_decode_cuda(q, key_cache, value_cache, block_tables, seq_lens,
-                      scale, kv_quant=None, k_scale=None, v_scale=None):
-    """Launch ``csrc/paged_decode.cu``'s sequential walk (one block per
-    slot and kv head); returns [b, nh, hd]."""
+                      scale, kv_quant=None, k_scale=None, v_scale=None,
+                      route=None):
+    """Launch the sequential walk on ``route`` (default
+    :func:`decode_route`): ``csrc/paged_decode_tc.cu``'s
+    ``ptt_paged_decode_tc`` (tensor cores, the walk split over the KV axis
+    in :func:`seq_decode_splits` runs of table pages, merged in the same
+    launch) or ``csrc/paged_decode.cu``'s
+    ``ptt_paged_decode`` (one block per slot and kv head); returns
+    [b, nh, hd]."""
     _check_walk("paged_decode", q, key_cache, value_cache, block_tables,
                 seq_lens, kv_quant, k_scale, v_scale)
     b, nh, hd = q.shape
     nbp, nkv, bs, _ = key_cache.shape
+    max_blocks = block_tables.shape[1]
+    dev = q.device
+    route = pick_route("paged_decode", q, route, decode_route(q.dtype, hd))
     out = torch.empty_like(q)
-    err = library().ptt_paged_decode(
-        ptr(q), ptr(key_cache), ptr(value_cache),
-        *_scale_ptrs(kv_quant, k_scale, v_scale), ptr(block_tables),
-        ptr(seq_lens), ptr(out), b, nh, nkv, hd, nbp, bs,
-        block_tables.shape[1], float(scale), DTYPE_CODE[q.dtype],
-        KV_FORMAT_CODE[kv_quant], stream_ptr(q.device))
+    head = (ptr(q), ptr(key_cache), ptr(value_cache),
+            *_scale_ptrs(kv_quant, k_scale, v_scale), ptr(block_tables),
+            ptr(seq_lens))
+    tail = (float(scale), DTYPE_CODE[q.dtype], KV_FORMAT_CODE[kv_quant],
+            stream_ptr(dev))
+    if route == "tc":
+        S = seq_decode_splits(max_blocks)
+        P = -(-max_blocks // S)
+        rep = nh // nkv
+        m = torch.empty((b, nkv, S, rep), dtype=torch.float32, device=dev)
+        l = torch.empty_like(m)
+        acc = torch.empty((b, nkv, S, rep, hd), dtype=torch.float32,
+                          device=dev)
+        err = library().ptt_paged_decode_tc(
+            *head, ptr(m), ptr(l), ptr(acc),
+            ptr(_decode_tickets(dev, b * nkv)), ptr(out), b, nh, nkv, hd,
+            nbp, bs, max_blocks, S, P, *tail)
+    else:
+        err = library().ptt_paged_decode(
+            *head, ptr(out), b, nh, nkv, hd, nbp, bs, max_blocks, *tail)
     check_launch("paged_decode", err)
     LAUNCHES["paged_decode"] += 1
+    if route == "tc":
+        LAUNCHES["paged_decode_tc"] += 1
     return out
 
 

@@ -53,6 +53,30 @@ def test_rms_norm_kernel_matches_plain(dev):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("h", [64, 256, 2048, 4096, "widest"])
+@pytest.mark.parametrize("rows", [1, 7, 8, 1500, 4096])
+def test_rms_norm_shapes_match_plain(dev, dtype, h, rows):
+    """The kernel against the plain version at every register size it is
+    built for (16-byte vectors a thread: bf16 64, 256 and 2048 take 1, 4096
+    takes 2; f32 64 and 256 take 1, 2048 takes 2, 4096 takes 4; the widest
+    row it takes, bf16 16384 and f32 8192, takes 8) and at the decode
+    step's, a prefill's and the train step's row counts: within one ulp of
+    the dtype plus f32 sums in another order."""
+    if h == "widest":
+        h = 256 * 8 * (16 // torch.tensor([], dtype=dtype).element_size())
+    g = torch.Generator(device=dev).manual_seed(rows + h)
+    x = _randn(g, dev, rows, h, dtype=dtype)
+    w = _randn(g, dev, h, std=0.1, dtype=dtype) + 1
+    want = trms.rms_norm_ref(x, w, 1e-5).float()
+    tk.reset_counters()
+    got = trms.rms_norm_cuda(x, w, 1e-5)
+    assert tk.LAUNCHES["rms_norm"] == 1
+    torch.cuda.synchronize()
+    assert ((got.float() - want).abs()
+            <= want.abs() * ULP[dtype] + 1e-6).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_fused_decode_kernel_matches_plain(dev, dtype):
     g = torch.Generator(device=dev).manual_seed(1)
     b, nh, nkv, hd, bs, mb = 4, 8, 2, 128, 64, 8
@@ -336,7 +360,11 @@ def test_paged_decode_kernels_match_plain(dev, mode, dtype):
                              (4, "flash_decode")):
         tk.reset_counters()
         got = tpa.paged_attention_decode(*args, num_shards=num_shards, **kw)
-        assert tk.LAUNCHES[name] == 1 and sum(tk.LAUNCHES.values()) == 1
+        # the sequential walk at bf16 takes the tensor-core route, counted
+        # beside its total
+        tc = name == "paged_decode" and dtype == torch.bfloat16
+        assert {k: v for k, v in tk.LAUNCHES.items() if v} == (
+            {name: 1, f"{name}_tc": 1} if tc else {name: 1})
         torch.cuda.synchronize()
         _attn_close(got, want, dtype)
         if num_shards != 1:
@@ -344,6 +372,75 @@ def test_paged_decode_kernels_match_plain(dev, mode, dtype):
                 *args, 128 ** -0.5, tpa.decode_shards(8, num_shards), **kw)
             _attn_close(got, plain, dtype)
         assert (got[0] == 0).all()
+
+
+@pytest.mark.parametrize("mode", [None, "int8", "int4"])
+@pytest.mark.parametrize("rep,hd", [(4, 128), (8, 64), (8, 128)])
+def test_paged_decode_tc_matches_plain(dev, mode, rep, hd, monkeypatch):
+    """The sequential walk on the tensor cores (bf16 q) against its plain
+    version: a zero-length lane (exactly 0), one column, one page, a page
+    and a column, mid-table, the full 2048-token table; sentinel entries
+    past each lane's live pages; the split rule as committed (8 splits),
+    held to no split, and set to runs of 2 pages (16 splits, the most a
+    launch takes: the in-launch merge reads its partials in two batches).
+    Twice each: the merge tickets are left zero, so a launch repeats bit
+    for bit."""
+    g = torch.Generator(device=dev).manual_seed(20 + rep + hd)
+    nkv, bs, mb = 2, 64, 32
+    lens_l = [0, 1, bs, bs + 1, 700, mb * bs]
+    b, nb = len(lens_l), len(lens_l) * mb
+    q = _randn(g, dev, b, rep * nkv, hd)
+    kc = _randn(g, dev, nb + 1, nkv, bs, hd)
+    vc = _randn(g, dev, nb + 1, nkv, bs, hd)
+    ks = vs = None
+    if mode:
+        kc, ks = tpa.quantize_kv_cache(kc, mode)
+        vc, vs = tpa.quantize_kv_cache(vc, mode)
+    lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
+    tables = torch.full((b, mb), nb + 7, dtype=torch.int32, device=dev)
+    perm = torch.randperm(nb, generator=g, device=dev).int()
+    for i, n in enumerate(lens_l):
+        tables[i, :-(-n // bs)] = perm[i * mb:i * mb - (-n // bs)]
+    kw = dict(kv_quant=mode, k_scale=ks, v_scale=vs)
+    args = (q, kc, vc, tables, lens)
+    want = tpa.paged_attention_reference(*args, **kw)
+    rules = (({}, 8), ({"_SEQ_MAX_SPLITS": 1}, 1),
+             ({"_SEQ_PAGES_PER_SPLIT": 2}, 16))
+    for consts, splits in rules:
+        with monkeypatch.context() as mp:
+            for name, value in consts.items():
+                mp.setattr(tpa, name, value)
+            assert tpa.seq_decode_splits(mb) == splits
+            outs = []
+            for _ in range(2):
+                tk.reset_counters()
+                outs.append(tpa.paged_decode_cuda(*args, hd ** -0.5, **kw))
+                assert tk.LAUNCHES["paged_decode"] == 1
+                assert tk.LAUNCHES["paged_decode_tc"] == 1
+        torch.cuda.synchronize()
+        _attn_close(outs[0], want, torch.bfloat16)
+        assert torch.equal(outs[0], outs[1])
+        assert (outs[0][0] == 0).all()
+    cc = tpa.paged_decode_cuda(*args, hd ** -0.5, **kw, route="cc")
+    torch.cuda.synchronize()
+    _attn_close(cc, want, torch.bfloat16)
+
+
+def test_paged_decode_tc_refuses_other_shapes(dev):
+    """"tc" is refused for f32 q and for head_dim 96 (no fall back); the
+    default route of such a shape launches the CUDA-core walk."""
+    g = torch.Generator(device=dev).manual_seed(16)
+    for dtype, hd in ((torch.float32, 128), (torch.bfloat16, 96)):
+        q, kc, vc, tables, lens, ks, vs = _paged_case(g, dev, "int8", dtype,
+                                                      hd=hd)
+        args = (q, kc, vc, tables, lens, hd ** -0.5)
+        kw = dict(kv_quant="int8", k_scale=ks, v_scale=vs)
+        with pytest.raises(ValueError, match="route 'tc'"):
+            tpa.paged_decode_cuda(*args, **kw, route="tc")
+        tk.reset_counters()
+        tpa.paged_decode_cuda(*args, **kw)
+        assert tk.LAUNCHES["paged_decode"] == 1
+        assert tk.LAUNCHES["paged_decode_tc"] == 0
 
 
 @pytest.mark.parametrize("mode", ["int8", "int4"])
@@ -511,13 +608,14 @@ def test_decode_switch_tokens_route_as_the_reference(dev, monkeypatch):
     kw = dict(kv_quant="int8", k_scale=ks, v_scale=vs)
     args = (q, kc, vc, tables, lens)
     env = "PADDLE_TPU_TORCH_DISABLE_KERNELS"
-    for token, launched in (("flash_decode", "paged_decode"),
-                            ("paged_attention", None)):
+    for token, launched in (("flash_decode", ("paged_decode",
+                                              "paged_decode_tc")),
+                            ("paged_attention", ())):
         monkeypatch.setenv(env, token)
         tk.reset_counters()
         tpa.paged_attention_decode(*args, **kw)
-        assert {k: v for k, v in tk.LAUNCHES.items() if v} == (
-            {launched: 1} if launched else {})
+        assert {k: v for k, v in tk.LAUNCHES.items() if v} == {
+            k: 1 for k in launched}
     assert tk.PLAIN_CALLS["paged_decode"] == 1
     b, nkv, hd = q.shape[0], kc.shape[1], q.shape[2]
     small = (q, q[:, :nkv].contiguous(), q[:, :nkv].contiguous(),

@@ -1,12 +1,17 @@
-"""The fused decode steps' route rule, without a card.
+"""The decode kernels' route rule, without a card.
 
 ``decode_route`` picks the hand-written kernel the fused decode step over
-fp pools (B7) and over int8 / int4 pools (B11) launches, from (dtype,
-head_dim) alone: the tensor-core ``csrc/fused_decode_tc.cu`` for bf16/f16
-q at head_dim 64 or 128, the CUDA-core ``csrc/fused_decode.cu`` /
-``csrc/fused_quant_decode.cu`` for every other shape.  The kernels
+fp pools (B7) and over int8 / int4 pools (B11), and the unfused sequential
+walk (B5), launch, from (dtype, head_dim) alone: the tensor-core
+``csrc/fused_decode_tc.cu`` / ``csrc/paged_decode_tc.cu`` for bf16/f16 q at
+head_dim 64 or 128, the CUDA-core ``csrc/fused_decode.cu`` /
+``csrc/fused_quant_decode.cu`` / ``csrc/paged_decode.cu`` for every other
+shape.  The sequential walk's tensor-core launch splits over the KV axis
+by its own rule of the table width (``seq_decode_splits``).  The kernels
 themselves are checked on the card (``tests/test_torch_cuda.py``).
 """
+
+from pathlib import Path
 
 import pytest
 import torch
@@ -33,7 +38,8 @@ def test_decode_route_rule(key, route):
     def pick(name, r):
         return tk.pick_route(name, q, r, pa.decode_route(dtype, d))
 
-    for name in ("fused_decode_step", "fused_quant_decode_step"):
+    for name in ("fused_decode_step", "fused_quant_decode_step",
+                 "paged_decode"):
         assert pick(name, None) == route
         assert pick(name, "cc") == "cc"
         if route == "tc":
@@ -44,10 +50,48 @@ def test_decode_route_rule(key, route):
 
 
 def test_decode_tc_counters_sit_beside_the_totals():
-    """Each fused decode step has a tensor-core counter beside its total,
-    and a reset zeroes both."""
-    for name in ("fused_decode_step", "fused_quant_decode_step"):
+    """Each fused decode step and the sequential walk have a tensor-core
+    counter beside their total, and a reset zeroes both."""
+    for name in ("fused_decode_step", "fused_quant_decode_step",
+                 "paged_decode"):
         assert name in tk.LAUNCHES and f"{name}_tc" in tk.LAUNCHES
         tk.LAUNCHES[f"{name}_tc"] += 1
     tk.reset_counters()
     assert not any(tk.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("max_blocks", [1, 2, 3, 4, 5, 7, 8, 9, 16, 31, 32,
+                                        33, 64, 100])
+def test_seq_decode_splits_cover_every_page_once(max_blocks, monkeypatch):
+    """The sequential walk's tensor-core splits: S runs of P table pages
+    (P = ceil(max_blocks / S)) cover the table, none of them past it, at
+    most 16; for every live length each page lies in exactly one live
+    split (the kernel's ``nlive = ceil(npages / P)``, split s walking pages
+    [s P, min((s + 1) P, npages))).  The ``flash_decode`` switch, which
+    turns the split-K route's fan-out to 1, leaves this rule alone."""
+    S = pa.seq_decode_splits(max_blocks)
+    P = -(-max_blocks // S)
+    assert 1 <= S <= min(16, max_blocks)
+    assert S * P >= max_blocks and (S - 1) * P < max_blocks
+    runs = max(1, min(16, -(-max_blocks // 4)))      # about 4 pages a run
+    assert P == -(-max_blocks // runs)
+    for npages in range(max_blocks + 1):
+        nlive = min(S, -(-npages // P))
+        seen = [j for s in range(nlive)
+                for j in range(s * P, min((s + 1) * P, npages))]
+        assert seen == list(range(npages))
+        assert all(s * P < npages for s in range(nlive))
+    monkeypatch.setenv("PADDLE_TPU_TORCH_DISABLE_KERNELS", "flash_decode")
+    assert pa.decode_shards(max_blocks) == 1
+    assert pa.seq_decode_splits(max_blocks) == S
+
+
+def test_seq_decode_split_bound_matches_the_kernel():
+    """The rule's most splits is the most the tensor-core launch takes
+    (``csrc/paged_decode_tc.cu`` refuses more), and a table of any width
+    stays within it."""
+    src = (Path(tk.__file__).parent / "csrc" /
+           "paged_decode_tc.cu").read_text()
+    assert f"constexpr int kMaxSplits = {pa._SEQ_MAX_SPLITS};" in src
+    assert max(pa.seq_decode_splits(n) for n in range(1, 4097)) == \
+        pa._SEQ_MAX_SPLITS

@@ -231,12 +231,10 @@ def test_fused_quant_decode_step_matches_pallas(mode):
     write pages (stale rows decide the scale), the untouched pages, and the
     spill page the dropped lane zeroes (it starts non-zero).  Lanes as the
     fp fused test's: an append at position 0, one at a page boundary, one
-    mid-page, one dropped.  The v pool is exact.  The k pool is exact up to
-    the rope: XLA's CPU compiler contracts the f32 ``k * cos + rot * sin``
-    into an FMA (some of this case's elements land one ulp apart from the
-    port's rounded product), and where the new row holds its page's absmax
-    that page's scale moves by that ulp (within 2^-22 relative), which may
-    move a code by one step."""
+    mid-page, one dropped.  The v pool is exact; the k pool is held within
+    2^-22 relative on the scales and one code step (the port's f32 rope is
+    the reference's FMA, and ``test_requantize_matches_jax_exactly`` holds
+    the k side bit for bit)."""
     rs = np.random.RandomState(4)
     b, nh, nkv, hd, bs, mb, nb = 4, 2, 1, 16, 8, 4, 12
     nbp = nb + 1
@@ -275,6 +273,90 @@ def test_fused_quant_decode_step_matches_pallas(mode):
     assert (tkq[nb] == 0).all() and (tks[nb] == 0).all()
     untouched = [p for p in range(nb) if p not in (7, 9, 5)]
     np.testing.assert_array_equal(tkq.numpy()[untouched], kq[untouched])
+
+
+def _pack_codes(c, mode):
+    """Integer codes [..., hd] -> the pool's int8 storage."""
+    if mode == "int8":
+        return c.astype(np.int8)
+    return ((c[..., 0::2] & 0xF) | ((c[..., 1::2] & 0xF) << 4)).astype(np.int8)
+
+
+@pytest.mark.parametrize("mode", ["int8", "int4"])
+def test_requantize_matches_jax_exactly(mode):
+    """The requantized append where the engines' int4 pools once parted,
+    held bit for bit against the JAX package on equal inputs: the fused
+    decode step (its Pallas kernel in interpret mode, and its XLA
+    composition compiled with ``jax.jit``) against the port's plain
+    version, codes and scales exactly equal.  Three write pages, built
+    from a numpy seed around one appended row each:
+
+    - lane 0, exact ties: the row overwritten held the page's only
+      ``bound`` code, so the new absmax is a dequantized ``bound - 1`` code
+      and every ``(bound - 1) / 2`` code requantizes to exactly
+      ``bound / 2`` (3.5 for int4), which rounds half to even;
+    - lane 1, near ties: the new row's absmax sits a few ulps above that
+      dequantized code (rope angle 0), so the quotients fall just under the
+      half;
+    - lanes 2-3, the rope: large new rows hold their pages' absmax, so the
+      scale is the roped row's, which the reference's compiled f32 rope
+      computes as ``fma(k, cos, rot * sin)``."""
+    rs = np.random.RandomState(12)
+    bound = 127 if mode == "int8" else 7
+    b, nh, nkv, hd, bs, mb, nb = 4, 2, 1, 32, 8, 2, 6
+    nbp = nb + 1
+    codes = rs.randint(-(bound - 2), bound - 1, size=(nbp, nkv, bs, hd))
+    off = np.array([5, 2, 3, 6], np.int32)
+    wblk = np.array([4, 1, 2, 5], np.int32)
+    half = (bound - 1) // 2
+    for p, o in zip(wblk[:2], off[:2]):
+        page = codes[p, 0]
+        page[page == half] = half - 1
+        page[page == -half] = 1 - half
+        page[o, 0] = bound                     # the absmax the append removes
+        page[(o + 1) % bs, 1] = -(bound - 1)   # the absmax after it
+        ties = rs.choice([r for r in range(bs) if r != o], 6)
+        page[ties, rs.randint(2, hd, size=6)] = half * rs.choice([-1, 1], 6)
+    kq = _pack_codes(codes, mode)
+    vq = _random_codes(rs, (nbp, nkv, bs, hd), mode)
+    ksc = (0.04 + rs.rand(nbp, nkv) * 0.03).astype(f32)
+    vsc = (rs.rand(nbp, nkv) * 0.05).astype(f32)
+    q = rs.randn(b, nh, hd).astype(f32)
+    v_new = rs.randn(b, nkv, hd).astype(f32)
+    k_new = (rs.randn(b, nkv, hd) * 0.2).astype(f32)
+    ang = np.concatenate([rs.rand(b, hd // 2)] * 2, -1).astype(f32) * 3
+    ang[1] = 0
+    cos, sin = np.cos(ang).astype(f32), np.sin(ang).astype(f32)
+    below = f32(bound - 1) * ksc[wblk[0], 0]
+    k_new[0] *= f32(0.5) * below / np.abs(k_new[0]).max()
+    near = f32(bound - 1) * ksc[wblk[1], 0]
+    k_new[1] *= f32(0.9) * near / np.abs(k_new[1]).max()
+    for _ in range(4):                         # four ulps above
+        near = np.nextafter(near, f32(np.inf))
+    k_new[1, 0, 7] = near
+    k_new[2:] *= 30
+    tables = np.full((b, mb), nb, np.int32)
+    tables[:, 0] = wblk
+    lens = off.copy()
+    wable = np.ones(b, np.int32)
+    case = (q, k_new, v_new, cos, sin, kq, ksc, vq, vsc, tables, lens, wblk,
+            wable)
+    want = [np.asarray(a) for a in jpa.fused_quant_decode_step(
+        *map(_j, case), mode)[1:]]
+    xla = [np.asarray(a) for a in jax.jit(functools.partial(
+        jpa.fused_quant_decode_step_reference, kv_quant=mode))(
+        *map(_j, case))[1:]]
+    got = [t.numpy() for t in tda.fused_paged_quant_decode_step(
+        *map(_t, case), mode)[1:]]
+    for g, w, x in zip(got, want, xla):
+        np.testing.assert_array_equal(g, w)
+        np.testing.assert_array_equal(g, x)
+    # the cases are what they say: lane 0's page requantized onto exact
+    # ties, lane 1's scale is its new row's, lanes 2-3's the roped rows'
+    new_sc = got[1][wblk, 0]
+    assert new_sc[0] == f32(f32(bound - 1) * ksc[wblk[0], 0]) * f32(1 / bound)
+    assert new_sc[1] > f32(f32(bound - 1) * ksc[wblk[1], 0]) * f32(1 / bound)
+    assert (new_sc[2:] > ksc[wblk[2:], 0]).all()
 
 
 # ---------------------------------------------------------------------------
