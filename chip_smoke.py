@@ -30,9 +30,10 @@ non-zero as soon as one fails:
 5. paged kernels: the sequential and the split-K paged decode over bf16,
    int8 and packed-int4 pools, and the fused requantizing decode step over
    int8 and int4 pools, at the serving shapes with ragged lengths (0 to
-   2048), timed like phase 3, the sequential walk on both routes (the
-   tensor-core kernel ``decode_route`` picks, split over the KV axis, and
-   the CUDA-core one) and also at 8 lanes of 512; the requantized codes and scales held bit
+   2048), timed like phase 3, both walks on both routes (the tensor-core
+   kernel ``decode_route`` / ``flash_decode_route`` picks, split over the
+   KV axis and merged in the launch, and the CUDA-core one) and also at 8
+   lanes of 512; the requantized codes and scales held bit
    for bit (their share reported), untouched pages exact, the spill page
    zeroed; both fused decode steps (phase 3's over bf16 pools too) on both
    routes, the tensor-core kernel ``decode_route`` picks and the CUDA-core
@@ -64,8 +65,9 @@ non-zero as soon as one fails:
    ``PADDLE_TPU_TORCH_DISABLE_KERNELS=fused_decode_step`` /
    ``fused_quant_append`` [``,flash_decode``] rebuild the engine on; and
    ``all``, every kernel off): each arm launches its own decode kernel
-   only, the fused and the sequential arms every launch on the tensor-core
-   route, and its logits and greedy streams agree with the plain arm's;
+   only, every launch of the fused, the split-K and the sequential arms on
+   the tensor-core route, and its logits and greedy streams agree with the
+   plain arm's;
 8. train: Llama-3-8B widths cut to 4 layers take 5 AdamW steps on one
    batch of 2 x 2048 seeded tokens with full recompute; the loss falls,
    and the launch counts prove every layer went through the three flash
@@ -490,12 +492,15 @@ def phase_paged_kernels(torch) -> dict:
     out = {"paged_decode": {}, "flash_decode": {}, "fused_quant_decode_step":
            {}}
 
-    # ---- B5 / B6: lengths 0 and 2048 and spread between; B5 on both
-    # routes (the tensor-core walk split over the KV axis, which the route
-    # rule picks at bf16 q, and the CUDA-core walk), also at the serve
-    # shape (8 lanes at 512)
+    # ---- B5 / B6: lengths 0 and 2048 and spread between, and the serve
+    # shape (8 lanes at 512); each on both routes (the tensor-core walk
+    # split over the KV axis and merged in the launch, which the route
+    # rules pick at bf16 q, and the CUDA-core walk)
     check(pa.decode_route(bf16, hd) == "tc",
           "the sequential walk takes the tensor-core route at bf16, d 128")
+    check(pa.flash_decode_route(bf16, hd, S) == "tc",
+          f"the split-K walk takes the tensor-core route at bf16, d 128, "
+          f"{S} shards")
     mixes = (("smoke_mix", [0, 2048, 64, 127, 1000, 1500, 333, 1777]),
              ("serve_8x512", [512] * B))
     for label, lens_l in mixes:
@@ -519,12 +524,12 @@ def phase_paged_kernels(torch) -> dict:
                       lambda: pa.paged_attention_reference(
                           q, kc, vc, tables, lens, scale=scale, **kw))
                      for route in ROUTES]
-            if label == "smoke_mix":
-                kerns.append(("flash_decode", None,
-                              lambda: pa.flash_decode_cuda(
-                                  q, kc, vc, tables, lens, scale, S, **kw),
-                              lambda: pa.flash_decode_reference(
-                                  q, kc, vc, tables, lens, scale, S, **kw)))
+            kerns += [("flash_decode", route,
+                       lambda r=route: pa.flash_decode_cuda(
+                           q, kc, vc, tables, lens, scale, S, **kw, route=r),
+                       lambda: pa.flash_decode_reference(
+                           q, kc, vc, tables, lens, scale, S, **kw))
+                      for route in ROUTES]
             plain_ms = {}
             for name, route, kern, plain in kerns:
                 got, want = kern(), plain()
@@ -543,9 +548,6 @@ def phase_paged_kernels(torch) -> dict:
                 if name not in plain_ms:
                     plain_ms[name] = time_ms(torch, plain, flush=flush)
                 r["plain_ms"] = plain_ms[name]
-                if name == "flash_decode":
-                    out[name][fmt] = dict(r, shards=S)
-                    continue
                 # the tensor-core route's numbers at the top of the format's
                 # (smoke mix) or the mix's entry, the CUDA-core route's
                 # under "cuda_core", whatever the order of ROUTES
@@ -553,7 +555,9 @@ def phase_paged_kernels(torch) -> dict:
                 if label != "smoke_mix":
                     dst = dst.setdefault(label, {})
                 if route == "tc":
-                    dst.update(r, splits=pa.seq_decode_splits(max_blocks))
+                    dst.update(r, **({"shards": S} if name == "flash_decode"
+                                     else {"splits": pa.seq_decode_splits(
+                                         max_blocks)}))
                 else:
                     dst["cuda_core"] = r
 
@@ -1359,7 +1363,8 @@ def phase_arms(torch, np) -> dict:
     # logits of two arms: f32 sums in another order and bf16 roundings at
     # other places through 4 layers; measured, then held to this bound
     logit_tol = 0.125
-    totals = {k: 0 for k in DECODE_KERNELS + ("paged_decode_tc",)}
+    totals = {k: 0 for k in DECODE_KERNELS + ("paged_decode_tc",
+                                              "flash_decode_tc")}
     summary = {}
     for kvq, arms in ARMS.items():
         runs = {}
@@ -1383,12 +1388,11 @@ def phase_arms(torch, np) -> dict:
                       * eng.stats["decode_steps"],
                       f"{kvq} {label} arm: {kernel} every layer of every "
                       f"step ({decode})")
-                if label in ("fused", "sequential"):
-                    check(launches[f"{kernel}_tc"] == decode[kernel],
-                          f"{kvq} {label} arm: every {kernel} launch on "
-                          f"the tensor-core route ({launches})")
-                    if label == "sequential":
-                        totals["paged_decode_tc"] += decode[kernel]
+                check(launches[f"{kernel}_tc"] == decode[kernel],
+                      f"{kvq} {label} arm: every {kernel} launch on the "
+                      f"tensor-core route ({launches})")
+                if label in ("split_k", "sequential"):
+                    totals[f"{kernel}_tc"] += decode[kernel]
                 check(not any(v for k, v in decode.items() if k != kernel),
                       f"{kvq} {label} arm: no other decode kernel "
                       f"({decode})")
@@ -1894,11 +1898,10 @@ def main(argv: list[str]) -> int:
     for k in ("rms_norm", "fused_layer_mlp", "gumbel_noise",
               "fused_quant_decode_step_tc", "fused_decode_step_tc"):
         launches[k] += q8_launches[k] + cs_launches[k]
-    launches.update({k: arm_launches[k] for k in ("paged_decode",
-                                                  "flash_decode")})
-    # the sequential walk's entry is the tensor-core kernel, the route
-    # every launch of the sequential arms took
-    launches["paged_decode"] = arm_launches["paged_decode_tc"]
+    # the unfused walks' entries are the tensor-core kernel, the route
+    # every launch of the sequential and the split-K arms took
+    launches.update({k: arm_launches[f"{k}_tc"] for k in ("paged_decode",
+                                                        "flash_decode")})
     # the flash entries are the tensor-core kernels, the route every
     # launch of the train step took; the multi-row walks' likewise of the
     # chunked + speculative serves, the fused decode steps' of the serves
@@ -1922,7 +1925,7 @@ def main(argv: list[str]) -> int:
                "gumbel_noise": ("gumbel.cu", "paddle_tpu/inference/"
                                 "serving.py:1246"),
                "paged_decode": ("paged_decode_tc.cu", f"{pa}:412"),
-               "flash_decode": ("paged_decode.cu", f"{pa}:594"),
+               "flash_decode": ("paged_decode_tc.cu", f"{pa}:594"),
                "fused_quant_decode_step": ("fused_decode_tc.cu",
                                            f"{pa}:1720"),
                "paged_prefill": ("paged_prefill_tc.cu", f"{pa}:1126"),

@@ -49,14 +49,20 @@ exits non-zero.
   lane, over bf16 / int8 / int4 pools: the committed split rule (runs of 4
   table pages), runs of 2 and of 8 pages, no split, and the CUDA-core
   walk.
+- The split-K paged decode on the tensor cores (``ptt_flash_decode_tc``,
+  B6) under the reference's shard rule (``flash_decode_shards``: at most 8
+  shards) against the sequential walk's runs of 4 pages (B5, and B6 given
+  that partition), at 32 table pages (max_seq 2048: the same partition)
+  and 64 (max_seq 4096: 8 shards of 8 pages against 16 runs of 4), on lane
+  mixes over bf16 / int8 / int4 pools, beside B6's CUDA-core route.
 - rms_norm at 8 to 4096 rows of 4096 bf16, L2 flushed and warm: the
   kernel as committed; with the weight loaded after the reduction; with 8
   vectors of registers a thread whatever the row; one warp a row (the weight in shared memory, a grid sized to
   the SMs' residency, the next row's loads in flight); ``F.rms_norm``; a
   probe (timed only): the launch alone.
 
-    python3 kernel_variants.py [dq] [rows] [decode] [seqdecode] [rmsnorm]
-                               [parent DIR]
+    python3 kernel_variants.py [dq] [rows] [decode] [seqdecode] [splitk]
+                               [rmsnorm] [parent DIR]
 
 runs the named parts (dq, rows and decode by default).
 """
@@ -685,6 +691,87 @@ def seqdecode_variants(torch, cs, kernels) -> None:
         setattr(pa, name, value)
 
 
+#: split-K lane mixes (live lengths) by table width: chip_smoke's smoke
+#: mix and serve shape and the longest lane alone at 32 pages; the smoke
+#: mix's lengths doubled, 8 lanes of 1024 and the 4096-token lane alone at
+#: 64
+SPLITK_MIXES = {32: {k: SEQ_MIXES[k] for k in ("smoke_mix", "serve_8x512",
+                                               "lane_2048")},
+                64: {"smoke_mix_x2": [2 * n for n in SEQ_MIXES["smoke_mix"]],
+                     "serve_8x1024": [1024] * 8,
+                     "lane_4096": [4096] + [0] * 7}}
+
+
+def splitk_variants(torch, cs, kernels) -> None:
+    """B6 on the tensor cores under the reference's shard rule against the
+    sequential walk's runs of 4 table pages (B5's own launch, and B6 given
+    B5's partition: the same kernel, so the same time), and B6's CUDA-core
+    route, at 32 and 64 table pages; each held to its plain version."""
+    from paddle_tpu_torch.ops.kernels import paged_attention as pa
+
+    dev = torch.device("cuda")
+    B, nh, nkv, hd, bs = 8, 32, 8, 128, 64
+    scale = hd ** -0.5
+    g = torch.Generator(device=dev)
+    g.manual_seed(2026)
+    q = torch.randn(B, nh, hd, generator=g, device=dev).to(torch.bfloat16)
+    scratch = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
+    flush = scratch.zero_
+    for max_blocks, mixes in SPLITK_MIXES.items():
+        nb = B * max_blocks
+        pools = _pools(torch, pa, g, dev, nb + 1, nkv, bs, hd)
+        perm = torch.randperm(nb, generator=g, device=dev).int()
+        tables = {}
+        for name, lens in mixes.items():
+            t = torch.full((B, max_blocks), nb, dtype=torch.int32, device=dev)
+            for i, n in enumerate(lens):
+                t[i, :-(-n // bs)] = perm[i * max_blocks:i * max_blocks
+                                          - (-n // bs)]
+            tables[name] = (t, torch.tensor(lens, dtype=torch.int32,
+                                            device=dev))
+        shard_rule = pa.flash_decode_shards(max_blocks)
+        runs_of_4 = pa.seq_decode_splits(max_blocks)
+        # variant -> (kernel, route, shards); the sequential walk takes its
+        # splits from seq_decode_splits, here runs of 4 pages
+        variants = {"b6_shard_rule": ("flash_decode", "tc", shard_rule),
+                    "b6_runs_of_4": ("flash_decode", "tc", runs_of_4),
+                    "b5_runs_of_4": ("paged_decode", "tc", runs_of_4),
+                    "b6_cuda_core": ("flash_decode", "cc", shard_rule)}
+        for rnd in range(2):
+            for tag, (kernel, route, shards) in variants.items():
+                res = {"kernel": kernel, "variant": tag, "round": rnd,
+                       "table_pages": max_blocks, "shards": shards,
+                       "pages_a_shard": -(-max_blocks // shards)}
+                for name, (t, lens) in tables.items():
+                    for fmt, (kc, vc, ks, vs) in pools.items():
+                        kw = dict(kv_quant=None if fmt == "bf16" else fmt,
+                                  k_scale=ks, v_scale=vs)
+                        args = (q, kc, vc, t, lens, scale)
+                        if kernel == "flash_decode":
+                            def run():
+                                return pa.flash_decode_cuda(
+                                    *args, shards, **kw, route=route)
+
+                            want = pa.flash_decode_reference(*args, shards,
+                                                             **kw)
+                        else:
+                            def run():
+                                return pa.paged_decode_cuda(*args, **kw,
+                                                            route=route)
+
+                            want = pa.paged_attention_reference(
+                                *args[:5], scale=scale, **kw)
+                        got = run()
+                        torch.cuda.synchronize()
+                        errs, ok = cs._attn_err(torch, got, want)
+                        res[f"{name}_{fmt}"] = {
+                            "ms": cs.time_ms(torch, run, flush=flush),
+                            "worst_err_over_tol": errs["worst_err_over_tol"],
+                            "ok": ok}
+                emit(res)
+        del pools
+
+
 RMS = "rms_norm.cu"
 #: rms_norm variants of the warp kernel: name -> edits
 #: the one-warp-a-row design this redesign also tried: the block's first
@@ -878,10 +965,10 @@ def main() -> int:
             parts = ["?"]
         else:
             parent = parts.pop(i + 1)
-    if set(parts) - {"dq", "rows", "decode", "seqdecode", "rmsnorm",
-                     "parent"}:
+    if set(parts) - {"dq", "rows", "decode", "seqdecode", "splitk",
+                     "rmsnorm", "parent"}:
         print("usage: kernel_variants.py [dq] [rows] [decode] [seqdecode] "
-              "[rmsnorm] [parent DIR]", file=sys.stderr)
+              "[splitk] [rmsnorm] [parent DIR]", file=sys.stderr)
         return 2
     _, smi = cs.phase_device(torch)
     kernels.build()
@@ -897,6 +984,8 @@ def main() -> int:
             sass_vs_parent(kernels, tmp)
         if "seqdecode" in parts:
             seqdecode_variants(torch, cs, kernels)
+        if "splitk" in parts:
+            splitk_variants(torch, cs, kernels)
         if "rmsnorm" in parts:
             rmsnorm_variants(torch, cs, kernels, tmp, parent=parent)
     emit({"ok": True, "nvidia_smi": smi})

@@ -68,8 +68,11 @@ KNOWN_KERNELS = frozenset({"all", "flash_attention", "rms_norm",
 #: split lanes count as one launch), and ``fused_decode_step`` /
 #: ``fused_quant_decode_step`` both routes, ``fused_decode_step_tc`` /
 #: ``fused_quant_decode_step_tc`` the tensor-core one (``decode_route``),
-#: and ``paged_decode`` both routes of the sequential walk and
-#: ``paged_decode_tc`` its tensor-core one (``decode_route``).
+#: ``paged_decode`` both routes of the sequential walk and
+#: ``paged_decode_tc`` its tensor-core one (``decode_route``), and
+#: ``flash_decode`` both routes of the split-K walk and ``flash_decode_tc``
+#: its tensor-core one (``flash_decode_route``: one launch, the partials
+#: merged in it).
 LAUNCHES = {"rms_norm": 0, "fused_decode_step": 0, "fused_layer_mlp": 0,
             "flash_attention_fwd": 0, "flash_attention_dkv": 0,
             "flash_attention_dq": 0, "flash_attention_fwd_tc": 0,
@@ -78,7 +81,8 @@ LAUNCHES = {"rms_norm": 0, "fused_decode_step": 0, "fused_layer_mlp": 0,
             "flash_decode": 0, "fused_quant_decode_step": 0,
             "paged_prefill": 0, "paged_verify": 0, "paged_prefill_tc": 0,
             "paged_verify_tc": 0, "fused_decode_step_tc": 0,
-            "fused_quant_decode_step_tc": 0, "paged_decode_tc": 0}
+            "fused_quant_decode_step_tc": 0, "paged_decode_tc": 0,
+            "flash_decode_tc": 0}
 #: kernel name -> dispatches that took the plain PyTorch version
 PLAIN_CALLS = {name: 0 for name in LAUNCHES}
 
@@ -139,16 +143,17 @@ def use_kernel(name: str, *tensors: torch.Tensor,
 
 
 def pick_route(name: str, q: torch.Tensor, route: str | None,
-               rule: str) -> str:
+               rule: str, extra: str = "") -> str:
     """A two-route kernel's route: ``rule`` (the module's plain route
-    function of q's dtype and head_dim) when ``route`` is None; ``"cc"``
+    function of q's dtype and head_dim, and of ``extra``, the rest of the
+    shape it reads, when there is one) when ``route`` is None; ``"cc"``
     (the CUDA-core kernel) takes every shape its wrapper takes, ``"tc"``
     (the tensor cores) only where the rule names it."""
     if route is None:
         return rule
     if route not in ("tc", "cc") or (route == "tc" and rule != "tc"):
         raise ValueError(f"{name}: route {route!r} does not take dtype "
-                         f"{q.dtype}, head_dim {q.shape[-1]}")
+                         f"{q.dtype}, head_dim {q.shape[-1]}{extra}")
     return route
 
 
@@ -264,9 +269,10 @@ _SIGNATURES = {
     # out, b, nh, nkv, hd, nbp, bs, max_blocks, S, P, scale, dtype,
     # kv_format, stream
     "ptt_flash_decode": [_VP] * 11 + [_I] * 9 + [_F, _I, _I, _VP],
-    # the sequential walk's tensor-core route: as ptt_flash_decode with the
-    # tickets after acc
+    # the sequential and the split-K walk's tensor-core routes: as
+    # ptt_flash_decode with the tickets after acc
     "ptt_paged_decode_tc": [_VP] * 12 + [_I] * 9 + [_F, _I, _I, _VP],
+    "ptt_flash_decode_tc": [_VP] * 12 + [_I] * 9 + [_F, _I, _I, _VP],
     # q, k_new, v_new, cos, sin, key_codes, value_codes, k_scale, v_scale,
     # tables, lens, wblk, wable, m, l, acc, out, b, nh, nkv, hd, nbp, bs,
     # max_blocks, S, P, scale, dtype, kv_format, stream

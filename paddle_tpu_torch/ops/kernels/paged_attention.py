@@ -8,8 +8,9 @@ unfused decode attention ``paged_attention_decode`` over the sequential
 walk, on two routes (:func:`decode_route`: the tensor-core
 ``csrc/paged_decode_tc.cu``, split over the KV axis and merged in the same
 launch, the CUDA-core ``csrc/paged_decode.cu`` ``ptt_paged_decode``) and
-the split-K walk
-(``ptt_flash_decode``, its partials merged on the card by a second launch,
+the split-K walk, also on two routes (:func:`flash_decode_route`: the same
+tensor-core kernel over the caller's shards, merged in the launch; the
+CUDA-core ``ptt_flash_decode``, its partials merged by a second launch,
 the reference's ``_flash_combine``, whose plain version is here too); the
 fused decode step for fp pools (rope + KV-page append + split-K attention)
 and for int8 / packed-int4 pools (rope + requantized append +
@@ -488,11 +489,35 @@ def paged_decode_cuda(q, key_cache, value_cache, block_tables, seq_lens,
     return out
 
 
+#: the most shards the split-K walk's tensor-core launch takes
+#: (``csrc/paged_decode_tc.cu`` ``kMaxSplitKShards``: its in-launch merge
+#: keeps m and l of every shard in shared memory)
+_SPLITK_MAX_SHARDS = 64
+
+
+def flash_decode_route(dtype: torch.dtype, head_dim: int,
+                       num_shards: int) -> str:
+    """Which hand-written kernel the split-K walk takes on the card:
+    ``"tc"`` (``csrc/paged_decode_tc.cu`` ``ptt_flash_decode_tc``: mma.sync,
+    the shards' partials merged in the same launch) where
+    :func:`decode_route` names the tensor cores and ``num_shards`` is at
+    most ``_SPLITK_MAX_SHARDS``; ``"cc"`` (``csrc/paged_decode.cu``
+    ``ptt_flash_decode`` and its combine launch) for every other shape."""
+    if decode_route(dtype, head_dim) == "tc" and \
+            num_shards <= _SPLITK_MAX_SHARDS:
+        return "tc"
+    return "cc"
+
+
 def flash_decode_cuda(q, key_cache, value_cache, block_tables, seq_lens,
                       scale, num_shards, kv_quant=None, k_scale=None,
-                      v_scale=None):
-    """Launch ``csrc/paged_decode.cu``'s split-K walk over ``num_shards``
-    shards and the combine of its partials; returns [b, nh, hd]."""
+                      v_scale=None, route=None):
+    """Launch the split-K walk over ``num_shards`` shards of
+    ``ceil(max_blocks / num_shards)`` table pages on ``route`` (default
+    :func:`flash_decode_route`): ``csrc/paged_decode_tc.cu``'s
+    ``ptt_flash_decode_tc`` (tensor cores, the partials merged in the same
+    launch) or ``csrc/paged_decode.cu``'s ``ptt_flash_decode`` and the
+    combine of its partials; returns [b, nh, hd]."""
     _check_walk("flash_decode", q, key_cache, value_cache, block_tables,
                 seq_lens, kv_quant, k_scale, v_scale)
     b, nh, hd = q.shape
@@ -502,18 +527,26 @@ def flash_decode_cuda(q, key_cache, value_cache, block_tables, seq_lens,
     P = -(-max_blocks // S)
     rep = nh // nkv
     dev = q.device
+    route = pick_route("flash_decode", q, route,
+                       flash_decode_route(q.dtype, hd, S), f", {S} shards")
     m = torch.empty((b, nkv, S, rep), dtype=torch.float32, device=dev)
     l = torch.empty_like(m)
     acc = torch.empty((b, nkv, S, rep, hd), dtype=torch.float32, device=dev)
     out = torch.empty_like(q)
-    err = library().ptt_flash_decode(
-        ptr(q), ptr(key_cache), ptr(value_cache),
-        *_scale_ptrs(kv_quant, k_scale, v_scale), ptr(block_tables),
-        ptr(seq_lens), ptr(m), ptr(l), ptr(acc), ptr(out), b, nh, nkv, hd,
-        nbp, bs, max_blocks, S, P, float(scale), DTYPE_CODE[q.dtype],
-        KV_FORMAT_CODE[kv_quant], stream_ptr(dev))
+    head = (ptr(q), ptr(key_cache), ptr(value_cache),
+            *_scale_ptrs(kv_quant, k_scale, v_scale), ptr(block_tables),
+            ptr(seq_lens), ptr(m), ptr(l), ptr(acc))
+    tail = (b, nh, nkv, hd, nbp, bs, max_blocks, S, P, float(scale),
+            DTYPE_CODE[q.dtype], KV_FORMAT_CODE[kv_quant], stream_ptr(dev))
+    if route == "tc":
+        err = library().ptt_flash_decode_tc(
+            *head, ptr(_decode_tickets(dev, b * nkv)), ptr(out), *tail)
+    else:
+        err = library().ptt_flash_decode(*head, ptr(out), *tail)
     check_launch("flash_decode", err)
     LAUNCHES["flash_decode"] += 1
+    if route == "tc":
+        LAUNCHES["flash_decode_tc"] += 1
     return out
 
 

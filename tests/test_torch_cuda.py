@@ -360,9 +360,9 @@ def test_paged_decode_kernels_match_plain(dev, mode, dtype):
                              (4, "flash_decode")):
         tk.reset_counters()
         got = tpa.paged_attention_decode(*args, num_shards=num_shards, **kw)
-        # the sequential walk at bf16 takes the tensor-core route, counted
-        # beside its total
-        tc = name == "paged_decode" and dtype == torch.bfloat16
+        # both walks at bf16 take the tensor-core route, counted beside
+        # their total
+        tc = dtype == torch.bfloat16
         assert {k: v for k, v in tk.LAUNCHES.items() if v} == (
             {name: 1, f"{name}_tc": 1} if tc else {name: 1})
         torch.cuda.synchronize()
@@ -441,6 +441,75 @@ def test_paged_decode_tc_refuses_other_shapes(dev):
         tpa.paged_decode_cuda(*args, **kw)
         assert tk.LAUNCHES["paged_decode"] == 1
         assert tk.LAUNCHES["paged_decode_tc"] == 0
+
+
+@pytest.mark.parametrize("mode", [None, "int8", "int4"])
+@pytest.mark.parametrize("rep,hd", [(4, 128), (8, 64), (8, 128)])
+def test_flash_decode_tc_matches_plain(dev, mode, rep, hd):
+    """The split-K walk on the tensor cores (bf16 q) against its plain
+    version at the same shard count: a zero-length lane (exactly 0), one
+    column, one page, a page and a column, mid-table, the full 2048-token
+    table; sentinel entries past each lane's live pages; 2, 8, 16 and 32
+    shards of a 32-page table (at 32 most shards lie past a lane's live
+    pages, and the full lane's merge reads its partials in four batches).
+    Twice each: the merge tickets are left zero, so a launch repeats bit
+    for bit."""
+    g = torch.Generator(device=dev).manual_seed(40 + rep + hd)
+    nkv, bs, mb = 2, 64, 32
+    lens_l = [0, 1, bs, bs + 1, 700, mb * bs]
+    b, nb = len(lens_l), len(lens_l) * mb
+    q = _randn(g, dev, b, rep * nkv, hd)
+    kc = _randn(g, dev, nb + 1, nkv, bs, hd)
+    vc = _randn(g, dev, nb + 1, nkv, bs, hd)
+    ks = vs = None
+    if mode:
+        kc, ks = tpa.quantize_kv_cache(kc, mode)
+        vc, vs = tpa.quantize_kv_cache(vc, mode)
+    lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
+    tables = torch.full((b, mb), nb + 7, dtype=torch.int32, device=dev)
+    perm = torch.randperm(nb, generator=g, device=dev).int()
+    for i, n in enumerate(lens_l):
+        tables[i, :-(-n // bs)] = perm[i * mb:i * mb - (-n // bs)]
+    kw = dict(kv_quant=mode, k_scale=ks, v_scale=vs)
+    args = (q, kc, vc, tables, lens, hd ** -0.5)
+    for S in (2, 8, 16, 32):
+        assert tpa.flash_decode_route(torch.bfloat16, hd, S) == "tc"
+        want = tpa.flash_decode_reference(*args, S, **kw)
+        outs = []
+        for _ in range(2):
+            tk.reset_counters()
+            outs.append(tpa.flash_decode_cuda(*args, S, **kw))
+            assert {k: v for k, v in tk.LAUNCHES.items() if v} == {
+                "flash_decode": 1, "flash_decode_tc": 1}
+        torch.cuda.synchronize()
+        _attn_close(outs[0], want, torch.bfloat16)
+        assert torch.equal(outs[0], outs[1])
+        assert (outs[0][0] == 0).all()
+    cc = tpa.flash_decode_cuda(*args, 8, **kw, route="cc")
+    torch.cuda.synchronize()
+    _attn_close(cc, tpa.flash_decode_reference(*args, 8, **kw),
+                torch.bfloat16)
+
+
+def test_flash_decode_past_the_tc_shards_takes_the_cuda_cores(dev):
+    """65 shards of a 128-page table are more than the tensor-core launch
+    merges: the rule names the CUDA-core walk, an explicit ``"tc"`` raises
+    (no fall back), and the default launch is the CUDA-core walk, within
+    the tolerance of its plain version."""
+    g = torch.Generator(device=dev).manual_seed(17)
+    q, kc, vc, tables, lens, ks, vs = _paged_case(g, dev, "int8",
+                                                  torch.bfloat16, mb=128)
+    args = (q, kc, vc, tables, lens, 128 ** -0.5, 65)
+    kw = dict(kv_quant="int8", k_scale=ks, v_scale=vs)
+    assert tpa.flash_decode_route(torch.bfloat16, 128, 65) == "cc"
+    with pytest.raises(ValueError, match="route 'tc' .* 65 shards"):
+        tpa.flash_decode_cuda(*args, **kw, route="tc")
+    tk.reset_counters()
+    got = tpa.flash_decode_cuda(*args, **kw)
+    assert {k: v for k, v in tk.LAUNCHES.items() if v} == {"flash_decode": 1}
+    torch.cuda.synchronize()
+    _attn_close(got, tpa.flash_decode_reference(*args, **kw), torch.bfloat16)
+    assert (got[0] == 0).all()
 
 
 @pytest.mark.parametrize("mode", ["int8", "int4"])

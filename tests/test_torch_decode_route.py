@@ -7,10 +7,15 @@ walk (B5), launch, from (dtype, head_dim) alone: the tensor-core
 head_dim 64 or 128, the CUDA-core ``csrc/fused_decode.cu`` /
 ``csrc/fused_quant_decode.cu`` / ``csrc/paged_decode.cu`` for every other
 shape.  The sequential walk's tensor-core launch splits over the KV axis
-by its own rule of the table width (``seq_decode_splits``).  The kernels
-themselves are checked on the card (``tests/test_torch_cuda.py``).
+by its own rule of the table width (``seq_decode_splits``).  The split-K
+walk (B6) takes the same tensor-core kernel (``ptt_flash_decode_tc``) over
+the caller's shards where ``decode_route`` names it and the shards are at
+most 64 (``flash_decode_route``), else the CUDA-core ``ptt_flash_decode``
+and its combine launch.  The kernels themselves are checked on the card
+(``tests/test_torch_cuda.py``).
 """
 
+import re
 from pathlib import Path
 
 import pytest
@@ -50,10 +55,10 @@ def test_decode_route_rule(key, route):
 
 
 def test_decode_tc_counters_sit_beside_the_totals():
-    """Each fused decode step and the sequential walk have a tensor-core
+    """Each fused decode step and both unfused walks have a tensor-core
     counter beside their total, and a reset zeroes both."""
     for name in ("fused_decode_step", "fused_quant_decode_step",
-                 "paged_decode"):
+                 "paged_decode", "flash_decode"):
         assert name in tk.LAUNCHES and f"{name}_tc" in tk.LAUNCHES
         tk.LAUNCHES[f"{name}_tc"] += 1
     tk.reset_counters()
@@ -95,3 +100,72 @@ def test_seq_decode_split_bound_matches_the_kernel():
     assert f"constexpr int kMaxSplits = {pa._SEQ_MAX_SPLITS};" in src
     assert max(pa.seq_decode_splits(n) for n in range(1, 4097)) == \
         pa._SEQ_MAX_SPLITS
+
+
+SPLITK = ([((dt, d, S), "tc") for dt in (torch.bfloat16, torch.float16)
+           for d in (64, 128) for S in (1, 2, 8, 32, 64)]
+          + [((torch.bfloat16, d, S), "cc") for d in (64, 128)
+             for S in (65, 128)]
+          + [((torch.float32, d, S), "cc") for d in (64, 128) for S in (2, 8)]
+          + [((torch.bfloat16, d, 8), "cc") for d in (32, 96, 256)])
+
+
+@pytest.mark.parametrize("key,route", SPLITK,
+                         ids=[f"{dt}-{d}-S{S}".replace("torch.", "")
+                              for (dt, d, S), _ in SPLITK])
+def test_flash_decode_route_rule(key, route):
+    """The split-K walk's route: the tensor cores where ``decode_route``
+    names them and the shards fit one launch's merge (at most 64), the
+    CUDA-core walk and its combine launch for every other shape; an
+    explicit ``"tc"`` the rule does not name raises, naming the shards."""
+    dtype, d, S = key
+    assert pa.flash_decode_route(dtype, d, S) == route
+    assert route == "cc" or pa.decode_route(dtype, d) == "tc"
+    q = torch.empty(1, 2, d, dtype=dtype)
+
+    def pick(r):
+        return tk.pick_route("flash_decode", q, r,
+                             pa.flash_decode_route(dtype, d, S),
+                             f", {S} shards")
+
+    assert pick(None) == route
+    assert pick("cc") == "cc"
+    if route == "tc":
+        assert pick("tc") == "tc"
+    else:
+        with pytest.raises(ValueError,
+                           match=f"flash_decode: route 'tc' .* {S} shards"):
+            pick("tc")
+
+
+@pytest.mark.parametrize("max_blocks", [1, 4, 32, 64, 128])
+def test_flash_decode_shard_rule_takes_the_tensor_cores(max_blocks,
+                                                        monkeypatch):
+    """The reference's shard rule (at most 8 shards) always takes the
+    tensor cores at bf16, d 128, and so does every explicit count up to 64;
+    only a larger explicit count takes the CUDA cores.  The
+    ``flash_decode`` switch leaves one shard (the sequential walk, which
+    ``paged_attention_decode`` then takes)."""
+    for n in (None, *range(1, max_blocks + 1)):
+        S = pa.flash_decode_shards(max_blocks, n)
+        assert S <= max_blocks
+        want = "tc" if S <= pa._SPLITK_MAX_SHARDS else "cc"
+        assert pa.flash_decode_route(torch.bfloat16, 128, S) == want
+        assert want == "tc" or (n is not None and n > 64)
+    monkeypatch.setenv("PADDLE_TPU_TORCH_DISABLE_KERNELS", "flash_decode")
+    assert pa.decode_shards(max_blocks) == 1
+
+
+def test_splitk_shard_bound_matches_the_kernel():
+    """The rule's most shards is the most the split-K tensor-core entry
+    takes (``csrc/paged_decode_tc.cu`` refuses more), and no more than the
+    kernel template's merge holds (``csrc/paged_tc.cuh``)."""
+    csrc = Path(tk.__file__).parent / "csrc"
+    src = (csrc / "paged_decode_tc.cu").read_text()
+    tmpl = (csrc / "paged_tc.cuh").read_text()
+    assert (f"constexpr int kMaxSplitKShards = {pa._SPLITK_MAX_SHARDS};"
+            in src)
+    assert "kv_format, stream, kMaxSplitKShards);" in src
+    held = int(re.search(r"constexpr int kMaxLaunchShards = (\d+);",
+                         tmpl).group(1))
+    assert pa._SPLITK_MAX_SHARDS <= held
