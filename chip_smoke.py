@@ -76,7 +76,26 @@ non-zero as soon as one fails:
    a torch.profiler breakdown of one step;
 9. train kernels vs plain: a 2-layer full-width model's loss, gradient
    norm and every gradient leaf with the kernels and with
-   ``PADDLE_TPU_TORCH_DISABLE_KERNELS=all``.
+   ``PADDLE_TPU_TORCH_DISABLE_KERNELS=all``;
+10. prefix cache (run after phase 6): Llama-3-8B at full width and depth
+    serves 16 requests, four 1024-token system prompts each shared by
+    four requests with tails of their own, two of them repeating a
+    block-aligned prompt (copy-on-write), bucketed and chunked, on bf16
+    and int8 pools, with the cache on and off, and on a 64-page pool where
+    LRU eviction fires: launch counts prove the path (rms_norm, the fused
+    decode step, the fused MLP, chunked the prefill walk), the on and off
+    runs' logit rows agree within ``SERVE_LOGIT_TOL`` (int8 chunked: the
+    on run and its kernels-off run, since the cache changes which chunk
+    requantizes a shared page; the on / off reading printed), and the cache's
+    statistics repeat exactly with every kernel off; the prefill tokens
+    saved, the mean TTFT on and off, and tokens over the whole wall;
+11. chaos: 4 full-width layers serve 12 requests under a fault plan with
+    one clause of each kind (``CHAOS_PLAN``): only the ``nan_logits`` and
+    ``slot_error`` victims fail, one dispatch fault is retried, untouched
+    requests emit the fault-free run's tokens exactly and preempted ones
+    pass the logit check; a JSON snapshot taken mid-serve restores on a
+    fresh engine whose streams pass the logit check; one decode step timed
+    with and without the NaN/inf guard.
 
 The line before the last lists every kernel with its numbers; the last line
 is ``{"ok": true, "device": {...}}``.  ``--serve-sweep FIRST-LAST`` runs
@@ -939,14 +958,16 @@ def serve_sweep(torch, np, smi: str, seeds: list[int]) -> None:
 SERVE_LOGIT_TOL = {None: 0.4375, "int8": 0.8125}
 
 
-def _serve_stepwise(torch, eng, reqs) -> dict:
+def _serve_stepwise(torch, eng, reqs, steps=None, add=True) -> dict:
     """Serve ``reqs`` step by step; returns rid -> [tokens, V] logits, for
     each greedy request the logit row that chose each of its tokens.  The
     serving module's ``lm_head_logits`` is wrapped to keep every row the
     engine scores: a decode step's [B, V], a mixed step's emit rows [B, V],
     a verify step's [B, Q, V] (row t chose the token t after the pending
     one; rows past the accepted run scored rejected drafts and are not
-    kept).  The engine itself runs unchanged."""
+    kept).  The engine itself runs unchanged.  ``steps``: stop after that
+    many steps; ``add=False``: the requests are queued already (a
+    restore)."""
     from paddle_tpu_torch.inference import serving
 
     head = serving.lm_head_logits
@@ -957,12 +978,14 @@ def _serve_stepwise(torch, eng, reqs) -> dict:
         calls.append(z)
         return z
 
-    for r in reqs:
+    for r in reqs if add else ():
         eng.add_request(r)
     rows = {r.rid: [] for r in reqs if r.temperature == 0}
     serving.lm_head_logits = capture
     try:
-        while True:
+        n = 0
+        while steps is None or n < steps:
+            n += 1
             before = {r.rid: len(r.output_ids) for r in reqs}
             # a request retired by this step held its slot before it, one
             # admitted by it holds its slot after it
@@ -1165,6 +1188,413 @@ def _serve_chunked_spec(torch, np, cfg, params, kv_quant, smi, seed=3,
     del eng
     torch.cuda.empty_cache()
     return launches, logits
+
+
+def make_prefix_requests(Request, np, vocab: int, seed: int = 5):
+    """The shared-prefix stream: 4 distinct 1024-token system prompts, each
+    shared by 4 requests with a 64-448-token tail of their own; rids 14 and
+    15 repeat rid 2's and rid 3's whole prompt, block-aligned (tails of 128
+    and 192 tokens), so that their every block is cached when they arrive
+    (the copy-on-write path).  64 new tokens a request; rids 9 and 12
+    sample (top-p 0.9), the other 14 are greedy."""
+    rng = np.random.default_rng(seed)
+    # the lengths first: they, not the vocabulary, set the schedule
+    tails = [int(n) for n in rng.integers(64, 449, size=14)]
+    tails[2], tails[3] = 128, 192
+    systems = [rng.integers(0, vocab, size=1024).astype(np.int32)
+               for _ in range(4)]
+    prompts = [np.concatenate([systems[i % 4],
+                               rng.integers(0, vocab, size=tails[i])
+                               .astype(np.int32)]) for i in range(14)]
+    prompts += [prompts[2].copy(), prompts[3].copy()]
+    return [Request(rid=i, prompt_ids=p, max_new_tokens=64,
+                    temperature=0.8 if i in (9, 12) else 0.0, top_p=0.9,
+                    seed=200 + i) for i, p in enumerate(prompts)]
+
+
+#: the statistics a prefix-cache serve must repeat exactly with every kernel
+#: off (the host's scheduling reads no arithmetic)
+PREFIX_STATS = ("prefix_hits", "prefix_blocks_reused", "cow_copies",
+                "prefix_evictions", "prefill_tokens_computed",
+                "prefill_tokens_cached", "preemptions", "prefills",
+                "decode_steps", "mixed_steps")
+
+
+def _prefix_serve(torch, np, cfg, params, kv_quant, chunked, cache,
+                  disable=None, num_blocks=256, stepwise=True) -> tuple:
+    """One serve of the shared-prefix stream at Llama-3-8B width (batch 8,
+    max_seq 2048, block 64; by default a pool of 256 pages, every slot's
+    whole context, so the cache evicts nothing); returns (engine,
+    requests, logit rows or None, launches, wall seconds)."""
+    from paddle_tpu_torch.inference.serving import (ContinuousBatchingEngine,
+                                                    Request)
+    from paddle_tpu_torch.ops import kernels
+
+    kw = dict(max_batch=8, max_seq=2048, block_size=64, kv_quant=kv_quant,
+              enable_prefix_caching=cache, num_blocks=num_blocks,
+              device="cuda")
+    if chunked:
+        kw.update(enable_chunked_prefill=True, prefill_chunk=128)
+    env = "PADDLE_TPU_TORCH_DISABLE_KERNELS"
+    if disable:
+        os.environ[env] = disable
+    try:
+        eng = ContinuousBatchingEngine(cfg, params, **kw)
+        reqs = make_prefix_requests(Request, np, cfg.vocab_size)
+        kernels.reset_counters()
+        t0 = time.perf_counter()
+        if stepwise:
+            rows = _serve_stepwise(torch, eng, reqs)
+        else:
+            rows = None
+            eng.serve(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        os.environ.pop(env, None)
+    for r in reqs:
+        check(r.status == "FINISHED" and len(r.output_ids) == 64
+              and all(0 <= t < cfg.vocab_size for t in r.output_ids),
+              f"prefix serve rid {r.rid}: 64 tokens in the vocabulary")
+    return eng, reqs, rows, dict(kernels.LAUNCHES), wall
+
+
+def _prefix_launch_check(eng, launches, kv_quant, L) -> None:
+    """The path went through its kernels: the input and final norms (B1),
+    the pool kind's fused decode step (B7 / B11) on its tensor-core route
+    and the fused MLP (B8) in every layer of every decode step, the ragged
+    prefill walk (B9) in every layer of every mixed step, and the bucketed
+    prefills' and tail prefills' norms in every layer."""
+    st = eng.stats
+    mixed, prefills = st["mixed_steps"], st["prefills"]
+    plain = st["decode_steps"] - mixed
+    decode = FUSED_DECODE[kv_quant]
+    want = {decode: L * plain, f"{decode}_tc": L * plain,
+            "fused_layer_mlp": L * plain, "paged_prefill": L * mixed,
+            "paged_prefill_tc": L * mixed,
+            "rms_norm": (L + 1) * plain + (2 * L + 1) * (prefills + mixed)}
+    for name, n in want.items():
+        check(launches[name] == n,
+              f"prefix serve {kv_quant}: {name} launches {launches[name]} "
+              f"== {n}")
+    others = {k: launches[k] for k in DECODE_KERNELS if k != decode}
+    check(not any(others.values()), f"no other decode kernel ran: {others}")
+    check(launches["gumbel_noise"] > 0, "the sampled lanes drew noise")
+
+
+def phase_prefix_cache(torch, np, smi: str) -> dict:
+    """Llama-3-8B at full width and depth (random bf16 weights from a
+    seed) serves the shared-prefix stream bucketed and chunked (chunk 128)
+    on bf16 and int8 pools, with the prefix cache on and off, and once on a
+    64-page pool where LRU eviction fires.  Gates: every request finishes;
+    the cache-on run's launch counts prove its path (B1, B7 / B11, B8,
+    chunked B9); every logit row the on and the off run scored from the
+    same context agrees within ``SERVE_LOGIT_TOL`` (int8 chunked: the on
+    run against its own kernels-off run, since there the cache changes
+    the requantizing write events; the on / off reading is reported); the
+    bucketed runs take two copy-on-write pages; and three runs repeat with
+    every kernel off (``PADDLE_TPU_TORCH_DISABLE_KERNELS=all``) with
+    exactly the same hits, reused blocks, copies, evictions and prefill
+    tokens computed.  Prints
+    the prefill tokens saved, the mean TTFT on and off and the tokens over
+    the whole wall.  Returns the cache-on runs' launches, summed."""
+    from paddle_tpu_torch.models import llama
+
+    cfg = llama.LlamaConfig.llama3_8b()
+    params = llama.init_params(cfg, seed=0, device="cuda")
+    L = cfg.num_hidden_layers
+    total: dict = {}
+    exact = {(None, False), ("int8", True)}
+    for kvq in (None, "int8"):
+        for chunked in (False, True):
+            on = _prefix_serve(torch, np, cfg, params, kvq, chunked, True)
+            off = _prefix_serve(torch, np, cfg, params, kvq, chunked, False)
+            eng, reqs, rows, launches, wall = on
+            oeng, oreqs, orows, _, owall = off
+            _prefix_launch_check(eng, launches, kvq, L)
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+            st, ost = eng.stats, oeng.stats
+            check(st["prefix_hits"] > 0 and ost["prefix_hits"] == 0,
+                  "the cache-on run hit, the cache-off run did not")
+            if not chunked:
+                check(st["cow_copies"] == 2,
+                      f"the two block-aligned repeats copied their last "
+                      f"block ({st['cow_copies']})")
+            logits = _logit_check(torch, reqs, rows, oreqs, orows)
+            tol = SERVE_LOGIT_TOL[kvq]
+            plain = None
+            against = "cache_off"
+            if (kvq, chunked) in exact:
+                # int8 chunked: the cache changes which chunk wrote each
+                # shared page, and a page written by two events is
+                # requantized twice, so on vs off moves codes by design;
+                # the gate is then the same configuration with every
+                # kernel off (the reference's guarantee is between the
+                # arms of one configuration), the on / off reading kept
+                plain_run = _prefix_serve(torch, np, cfg, params, kvq,
+                                          chunked, True, disable="all",
+                                          stepwise=kvq is not None)
+                peng, preqs, prows = plain_run[:3]
+                plain = {k: peng.stats[k] for k in PREFIX_STATS}
+                if kvq is not None:
+                    against = "kernels_off"
+                    logits = {**_logit_check(torch, reqs, rows, preqs,
+                                             prows),
+                              "vs_cache_off": logits}
+                del peng, preqs, prows, plain_run
+            del rows, orows
+            emit({"phase": "prefix_cache", "model": "llama3_8b",
+                  "layers": L, "kv_quant": kvq, "chunked": chunked,
+                  "nvidia_smi": smi, "requests": len(reqs),
+                  "num_blocks": eng.num_blocks,
+                  "stats_on": {k: st[k] for k in PREFIX_STATS},
+                  "stats_off": {k: ost[k] for k in PREFIX_STATS},
+                  "stats_kernels_off": plain,
+                  "prefill_tokens_saved": ost["prefill_tokens_computed"]
+                  - st["prefill_tokens_computed"],
+                  "mean_ttft_s_on": statistics.mean(r.ttft_s for r in reqs),
+                  "mean_ttft_s_off": statistics.mean(r.ttft_s
+                                                     for r in oreqs),
+                  "tokens_per_wall_s_on": 64 * len(reqs) / wall,
+                  "tokens_per_wall_s_off": 64 * len(oreqs) / owall,
+                  "wall_s_on": wall, "wall_s_off": owall,
+                  "prefill_time_s_on": st["prefill_time_s"],
+                  "prefill_time_s_off": ost["prefill_time_s"],
+                  "logit_tolerance": tol, "logits_against": against,
+                  **logits,
+                  "launches": {k: v for k, v in launches.items() if v}})
+            check(logits["max_abs_logit_diff"] <= tol,
+                  f"prefix cache {kvq} chunked={chunked}: every logit row "
+                  f"scored from the {against} run's context within {tol} "
+                  f"(max {logits['max_abs_logit_diff']})")
+            if plain is not None:
+                mine = {k: st[k] for k in PREFIX_STATS}
+                check(plain == mine, f"kernels-off statistics {plain} == "
+                                     f"kernels-on {mine}")
+            del eng, oeng, reqs, oreqs
+            torch.cuda.empty_cache()
+    # a 64-page pool: four 16-page prefixes and eight slots outgrow it,
+    # so zero-ref blocks are evicted (LRU, leaf first) and slots preempted
+    eng, reqs, _, launches, wall = _prefix_serve(
+        torch, np, cfg, params, None, False, True, num_blocks=64,
+        stepwise=False)
+    _prefix_launch_check(eng, launches, None, L)
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+    peng = _prefix_serve(torch, np, cfg, params, None, False, True,
+                         disable="all", num_blocks=64, stepwise=False)[0]
+    mine = {k: eng.stats[k] for k in PREFIX_STATS}
+    plain = {k: peng.stats[k] for k in PREFIX_STATS}
+    emit({"phase": "prefix_cache_evict", "model": "llama3_8b", "layers": L,
+          "nvidia_smi": smi, "num_blocks": 64, "stats_on": mine,
+          "stats_kernels_off": plain, "wall_s": wall,
+          "tokens_per_wall_s": 64 * len(reqs) / wall,
+          "mean_ttft_s": statistics.mean(r.ttft_s for r in reqs)})
+    check(mine["prefix_evictions"] > 0, "the 64-page pool evicted")
+    check(plain == mine, f"kernels-off statistics {plain} == kernels-on "
+                         f"{mine}")
+    del eng, peng, params
+    torch.cuda.empty_cache()
+    return total
+
+
+#: the chaos serve's fault plan: one clause of each kind the engine polls.
+#: Step 1's first cache registration is rid 0's (a prompt no one shares);
+#: step 2's first page grab is rid 4's (its 320-token prompt fills its
+#: pages, so its second decode write opens a page), and the refusal
+#: preempts the youngest slot; step 3's launch is retried; the lane in
+#: slot 2 is poisoned at step 5; rid 3's token banking fails at step 6.
+CHAOS_PLAN = ("cache_error@step=1;alloc_fail@step=2;kernel_error@step=3;"
+              "nan_logits@slot=2,step=5;slot_error@rid=3,step=6")
+
+
+def make_chaos_requests(Request, np, vocab: int, seed: int = 9):
+    """12 requests, 32 new tokens each: rid 0 a 200-token prompt of its
+    own, rid 4 a 320-token one (five full pages), the rest a shared
+    256-token system prompt and a 40-300-token tail; rids 5 and 10
+    sample (top-p 0.9)."""
+    rng = np.random.default_rng(seed)
+    lens = [int(n) for n in rng.integers(40, 301, size=12)]
+    system = rng.integers(0, vocab, size=256).astype(np.int32)
+    reqs = []
+    for i in range(12):
+        if i in (0, 4):
+            ids = rng.integers(0, vocab, size=200 if i == 0 else 320)
+        else:
+            ids = np.concatenate([system,
+                                  rng.integers(0, vocab, size=lens[i])])
+        reqs.append(Request(rid=i, prompt_ids=ids.astype(np.int32),
+                            max_new_tokens=32,
+                            temperature=0.8 if i in (5, 10) else 0.0,
+                            top_p=0.9, seed=300 + i))
+    return reqs
+
+
+def phase_chaos(torch, np, smi: str) -> dict:
+    """4 full-width layers, bf16, the fused arm, the prefix cache on:
+    the chaos stream with and without ``CHAOS_PLAN``.  Gates: the
+    ``nan_logits`` and ``slot_error`` victims end FAILED with an error,
+    one injected dispatch fault is retried, no other request fails; every
+    request no fault touched (as victim or by preemption) emits exactly
+    the fault-free run's tokens (a decode row is computed from its own row
+    at the fixed batch shape), and the preempted ones pass the logit
+    check.  Then a snapshot taken mid-serve goes through ``json.dumps``
+    into a fresh engine, whose streams pass the logit check against the
+    uninterrupted run.  Last, one decode step timed with the guard (the
+    graceful step) and without it (device ms and wall).  Returns the
+    chaos serve's launches."""
+    from paddle_tpu_torch.inference.serving import (ContinuousBatchingEngine,
+                                                    Request)
+    from paddle_tpu_torch.models import llama
+    from paddle_tpu_torch.ops import kernels
+
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(),
+                              num_hidden_layers=4)
+    params = llama.init_params(cfg, seed=2, device="cuda")
+    kw = dict(max_batch=8, max_seq=2048, block_size=64, num_blocks=256,
+              enable_prefix_caching=True, device="cuda")
+    env = "PADDLE_TPU_FAULT_INJECT"
+    tol = SERVE_LOGIT_TOL[None]
+
+    def build():
+        return make_chaos_requests(Request, np, cfg.vocab_size)
+
+    def serve(plan=None):
+        if plan:
+            os.environ[env] = plan
+        try:
+            eng = ContinuousBatchingEngine(cfg, params, **kw)
+        finally:
+            os.environ.pop(env, None)
+        check(eng._graceful and eng._fused and bool(eng._faults) == bool(plan),
+              "the graceful fused engine, with the plan when one is given")
+        reqs = build()
+        preempted = []
+        preempt = eng._preempt
+
+        def spy(slot):
+            preempted.append(eng._slot_req[slot].rid)
+            preempt(slot)
+
+        eng._preempt = spy
+        kernels.reset_counters()
+        rows = _serve_stepwise(torch, eng, reqs)
+        return eng, reqs, rows, preempted, dict(kernels.LAUNCHES)
+
+    ref_eng, ref_reqs, ref_rows, ref_pre, _ = serve()
+    check(not ref_pre and all(r.status == "FINISHED" for r in ref_reqs),
+          "the fault-free run finishes every request without preempting")
+    eng, reqs, rows, preempted, launches = serve(CHAOS_PLAN)
+    st = eng.stats
+    victims = {2, 3}
+    failed = {r.rid: r.error for r in reqs if r.status == "FAILED"}
+    check(set(failed) == victims and all(failed.values()),
+          f"only the nan_logits and slot_error victims failed, with an "
+          f"error: {failed}")
+    check(st["nan_guard_trips"] == 1 and st["kernel_error_retries"] == 1,
+          f"one guard trip and one retried dispatch fault "
+          f"({st['nan_guard_trips']}, {st['kernel_error_retries']})")
+    check(st["requests_failed"] == 2 and len(preempted) >= 1,
+          f"two requests failed, the refused page grab preempted "
+          f"({preempted})")
+    check(st["prefix_hits"] > 0, "the shared system prompt hit")
+    touched = victims | set(preempted)
+    exact = [r.rid for r in reqs if r.rid not in touched]
+    for r, ref in zip(reqs, ref_reqs):
+        if r.rid not in victims:
+            check(r.status == "FINISHED" and len(r.output_ids) == 32,
+                  f"chaos rid {r.rid} finished")
+        if r.rid in exact:
+            check(r.output_ids == ref.output_ids,
+                  f"chaos rid {r.rid}, untouched, emits the fault-free "
+                  f"run's tokens")
+    pick = [i for i, r in enumerate(reqs)
+            if r.rid in touched - victims]
+    chaos_logits = _logit_check(torch, [reqs[i] for i in pick], rows,
+                                [ref_reqs[i] for i in pick], ref_rows)
+    check(chaos_logits["max_abs_logit_diff"] <= tol,
+          f"the preempted streams' logits within {tol} of the fault-free "
+          f"run's ({chaos_logits['max_abs_logit_diff']})")
+    del eng, rows
+    # snapshot mid-serve -> JSON -> a fresh engine
+    eng1 = ContinuousBatchingEngine(cfg, params, **kw)
+    reqs1 = build()
+    rows1 = _serve_stepwise(torch, eng1, reqs1, steps=12)
+    snap = json.dumps(eng1.snapshot())
+    del eng1
+    eng2 = ContinuousBatchingEngine(cfg, params, **kw)
+    restored = eng2.restore(json.loads(snap))
+    check(restored and any(r.output_ids for r in restored),
+          "the snapshot holds requests mid-stream")
+    rows2 = _serve_stepwise(torch, eng2, restored, add=False)
+    by_rid = {r.rid: r for r in reqs1}
+    by_rid.update({r.rid: r for r in restored})
+    final = [by_rid[r.rid] for r in ref_reqs]
+    joined = {}
+    for r in final:
+        if r.temperature == 0:
+            parts = [x for x in (rows1.get(r.rid), rows2.get(r.rid))
+                     if x is not None]
+            joined[r.rid] = torch.cat(parts) if parts else None
+    for r in final:
+        check(r.status == "FINISHED" and len(r.output_ids) == 32,
+              f"restored rid {r.rid} finished")
+    restore_logits = _logit_check(torch, final, joined, ref_reqs, ref_rows)
+    check(restore_logits["max_abs_logit_diff"] <= tol,
+          f"the restored streams' logits within {tol} of the uninterrupted "
+          f"run's ({restore_logits['max_abs_logit_diff']})")
+    del eng2, rows1, rows2, joined, ref_rows
+    # the guard's cost: one decode step of 8 seated lanes, graceful (the
+    # poison operand and the guard) and graceful off (neither)
+    eng = ContinuousBatchingEngine(cfg, params, **kw)
+    for r in build()[:8]:
+        eng.add_request(r)
+    eng.step()
+    dev = eng.device
+    active = np.asarray([r is not None for r in eng._slot_req])
+    check(active.all(), "eight lanes seated for the timing")
+    args = (torch.as_tensor(eng._last_tok, device=dev).long(),
+            torch.as_tensor(eng._pos, device=dev).long(),
+            torch.as_tensor(active, device=dev),
+            torch.as_tensor(eng._temp, device=dev),
+            torch.as_tensor(eng._topp, device=dev),
+            torch.as_tensor(eng._table, device=dev),
+            torch.as_tensor(eng._seed, device=dev), None)
+    poison = torch.zeros(8, dtype=torch.bool, device=dev)
+    guard = {}
+    for label, p in (("graceful", poison), ("graceful_off", None)):
+        def one(p=p):
+            eng._chunk_scan(*args, poison=p)
+
+        walls = []
+        for _ in range(21):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            one()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        guard[label] = {"device_ms": time_ms(torch, one),
+                        "wall_ms": statistics.median(walls)}
+    logits_bytes = 8 * cfg.vocab_size * 2
+    emit({"phase": "chaos", "model": "llama3_8b",
+          "layers": cfg.num_hidden_layers,
+          "nvidia_smi": smi, "plan": CHAOS_PLAN, "requests": len(reqs),
+          "failed": failed, "preempted": preempted,
+          "untouched_exact": exact,
+          "stats": {k: st[k] for k in (
+              "requests_failed", "nan_guard_trips", "kernel_error_retries",
+              "preemptions", "degrade_preempt", "prefix_hits",
+              "decode_steps")},
+          "chaos_logits": chaos_logits, "restore_logits": restore_logits,
+          "snapshot_bytes": len(snap), "logit_tolerance": tol,
+          "guard": guard,
+          "guard_device_ms": guard["graceful"]["device_ms"]
+          - guard["graceful_off"]["device_ms"],
+          "guard_bound_ms": 3 * logits_bytes / HBM_BYTES_PER_S * 1e3})
+    del eng, params
+    torch.cuda.empty_cache()
+    return launches
 
 
 #: device-kernel name fragments -> the layer they belong to (the split-K
@@ -1890,14 +2320,19 @@ def main(argv: list[str]) -> int:
                           else "int8"]
                      for k, v in phase_paged_kernels(torch).items()})
     launches, q8_launches, cs_launches = phase_serve(torch, np, smi)
+    # this slice's paths: the prefix-cache serves and the chaos serve
+    slice_launches = phase_prefix_cache(torch, np, smi)
+    for k, v in phase_chaos(torch, np, smi).items():
+        slice_launches[k] += v
     arm_launches = phase_arms(torch, np)
     train_launches = phase_train(torch, np)
     phase_train_end_to_end(torch, np)
     # each kernel's launches on the main paths that run it: the fp and the
-    # int8 serve, the decode arms (the unfused walks), the train step
+    # int8 serve, the prefix-cache and chaos serves, the decode arms (the
+    # unfused walks), the train step
     for k in ("rms_norm", "fused_layer_mlp", "gumbel_noise",
               "fused_quant_decode_step_tc", "fused_decode_step_tc"):
-        launches[k] += q8_launches[k] + cs_launches[k]
+        launches[k] += q8_launches[k] + cs_launches[k] + slice_launches[k]
     # the unfused walks' entries are the tensor-core kernel, the route
     # every launch of the sequential and the split-K arms took
     launches.update({k: arm_launches[f"{k}_tc"] for k in ("paged_decode",
@@ -1908,8 +2343,8 @@ def main(argv: list[str]) -> int:
     launches.update({k: train_launches[f"{k}_tc"] for k in FLASH_KERNELS})
     launches.update({k: launches[f"{k}_tc"] for k in (
         "fused_decode_step", "fused_quant_decode_step")})
-    launches.update({k: cs_launches[f"{k}_tc"] for k in ("paged_prefill",
-                                                         "paged_verify")})
+    launches.update({k: cs_launches[f"{k}_tc"] + slice_launches[f"{k}_tc"]
+                     for k in ("paged_prefill", "paged_verify")})
     launches["rms_norm"] += train_launches["rms_norm"]
     pa = "paddle_tpu/ops/pallas/paged_attention.py"
     fa = "paddle_tpu/ops/pallas/flash_attention.py"

@@ -14,13 +14,22 @@ engine on (an append, then the paged decode attention); chunked prefill
 chunks through one mixed prefill/decode step a round, ``_mixed_step``)
 and n-gram speculative decoding (``enable_speculation``: prompt-lookup
 drafts checked by one multi-token verify step, ``_spec_step``), each
-token-identical to the bucketed, speculation-off engine.  Not ported yet
-(ROADMAP.md): the dense-cache mode, prefix cache, weight-only quant,
-tensor parallelism, the graceful fault ladder, metrics, the journal and
-async host runtime, snapshot/restore and the fleet.  Invalid requests
-therefore raise (the reference's ``PADDLE_TPU_GRACEFUL=0`` contract), and
-a chunked admission maps its whole prompt's pages at once, as the
-reference does in that mode.
+token-identical to the bucketed, speculation-off engine; the automatic
+prefix cache (``enable_prefix_caching``, ``prefix_cache.py``: shared
+prompt blocks mapped read-only, a copy-on-write page for a block-aligned
+full hit, the uncached tail prefilled from ``start``, LRU eviction under
+pool pressure, blocks donated on retirement and preemption, each streamed
+chunk's full blocks registered as it lands); and fault tolerance
+(``PADDLE_TPU_GRACEFUL``, on by default): the request status lifecycle,
+the fault plan of ``faults.py``, the NaN/inf logit guard, retry of an
+injected dispatch fault, the overload ladder (evict cache leaves, suspend
+speculation, shrink the mixed step's prefill rows, preempt the youngest,
+fail only the unsatisfiable request), chunk-by-chunk page mapping of a
+streaming prompt, deadlines, ``cancel``, ``max_queue`` backpressure and
+``snapshot`` / ``restore``.  Not ported yet (ROADMAP.md): the dense-cache
+mode, weight-only quant, tensor parallelism, metrics and the flight
+recorder, the host KV tier (so the ``tier_drop`` fault has no seam), the
+incremental journal and async host runtime, and the fleet.
 
 How the JAX engine's mechanisms map to PyTorch:
 
@@ -52,9 +61,7 @@ How the JAX engine's mechanisms map to PyTorch:
 from __future__ import annotations
 
 import math
-import os
 import time
-import warnings
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -66,24 +73,33 @@ from ..ops.kernels import kernel_disabled
 from ..ops.kernels import paged_attention as _pa
 from ..ops.kernels import rope as rope_mod
 from ..ops.kernels import sampling
+from ..utils.envflags import env_bool
 from . import lm_head_logits, transformer_apply
+from .faults import FaultInjected, FaultPlan
+from .prefix_cache import PrefixCache
 from .speculative import NGramDrafter
 
-_warned_env: set[tuple[str, str]] = set()
+__all__ = ["Request", "ContinuousBatchingEngine", "TERMINAL_STATUSES",
+           "REQUEST_EDGES", "journal_entry"]
 
+#: terminal request statuses: a request in one of these owns no page and no
+#: cache reference
+TERMINAL_STATUSES = frozenset({"FINISHED", "FAILED", "REJECTED", "CANCELLED",
+                               "EXPIRED"})
 
-def _env_bool(name: str, default: bool) -> bool:
-    """A boolean kill switch: '' -> default, '0' -> False, '1' -> True; any
-    other value warns once and keeps the default (the reference's
-    ``utils/envflags.env_bool``: a typo must not flip a switch)."""
-    raw = os.environ.get(name, "")
-    if raw in ("", "0", "1"):
-        return default if raw == "" else raw == "1"
-    if (name, raw) not in _warned_env:
-        _warned_env.add((name, raw))
-        warnings.warn(f"{name}={raw!r} is not '0' or '1'; using the default "
-                      f"({'1' if default else '0'})")
-    return default
+#: the request lifecycle's transitions: admission and preemption move
+#: between PENDING and RUNNING, either live state may fall to any terminal
+#: status, and a terminal status has no way out
+REQUEST_EDGES = frozenset(
+    {("PENDING", "RUNNING"), ("RUNNING", "PENDING")}
+    | {(live, term) for live in ("PENDING", "RUNNING")
+       for term in TERMINAL_STATUSES})
+
+#: terminal status -> its counter in ``stats`` (FINISHED counts through the
+#: decode counters)
+_STATUS_STAT = {"FAILED": "requests_failed", "REJECTED": "requests_rejected",
+                "CANCELLED": "requests_cancelled",
+                "EXPIRED": "requests_expired"}
 
 
 @dataclass
@@ -96,13 +112,20 @@ class Request:
     temperature: float = 0.0
     top_p: float = 1.0
     seed: int | None = None
+    # wall-clock budget from submission: an overdue request ends EXPIRED
+    # with the output it has (graceful mode)
+    deadline_s: float | None = None
     # filled by the engine
     output_ids: list = field(default_factory=list)
     finished: bool = False
     ttft_s: float | None = None  # submit -> first generated token (wall s)
-    # PENDING (queued) -> RUNNING (seated) -> FINISHED; preemption moves a
-    # RUNNING request back to PENDING
+    # PENDING (queued) -> RUNNING (seated) -> one of TERMINAL_STATUSES;
+    # preemption moves a RUNNING request back to PENDING.  ``error`` says
+    # why, for every terminal status but FINISHED
     status: str = "PENDING"
+    error: str | None = None
+    # set at submission when None; a restored request keeps its id
+    trace_id: str | None = None
 
 
 def _bucket(n: int, lo: int = 16) -> int:
@@ -110,6 +133,40 @@ def _bucket(n: int, lo: int = 16) -> int:
     while b < n:
         b *= 2
     return b
+
+
+def journal_entry(req: Request, prefilled: int = 0,
+                  now: float | None = None) -> dict:
+    """One request's entry in a snapshot: the schema :meth:`~Continuous
+    BatchingEngine.snapshot` writes and :meth:`~ContinuousBatchingEngine.
+    adopt` reads, the reference's field for field.
+    ``deadline_remaining_s`` is the budget left at ``now``: a restore
+    re-arms the deadline with it, so a restored request expires at its
+    original deadline (``deadline_s`` stays as provenance)."""
+    if now is None:
+        now = time.perf_counter()
+    if req.deadline_s is None:
+        remaining = None
+    else:
+        remaining = max(0.0, float(req.deadline_s)
+                        - (now - getattr(req, "_submit_s", now)))
+    return {
+        "rid": int(req.rid),
+        "prompt_ids": np.asarray(req.prompt_ids, np.int32).ravel().tolist(),
+        "output_ids": [int(t) for t in req.output_ids],
+        "max_new_tokens": int(req.max_new_tokens),
+        "eos_token_id": (None if req.eos_token_id is None
+                         else int(req.eos_token_id)),
+        "temperature": float(req.temperature or 0.0),
+        "top_p": float(1.0 if req.top_p is None else req.top_p),
+        "seed": None if req.seed is None else int(req.seed),
+        "deadline_s": (None if req.deadline_s is None
+                       else float(req.deadline_s)),
+        "deadline_remaining_s": remaining,
+        # the chunk cursor, as provenance: a restore recomputes from the
+        # first uncached token
+        "prefilled": int(prefilled),
+    }
 
 
 class ContinuousBatchingEngine:
@@ -133,15 +190,27 @@ class ContinuousBatchingEngine:
     pack first, prefill chunks fill ``token_budget``, default
     ``prefill_chunk + max_batch``, with a one-row floor), so decode never
     stalls behind a prompt.  Kill switch ``PADDLE_TPU_CHUNKED_PREFILL=0``.
+    ``enable_prefix_caching``: content-addressed reuse of full KV blocks
+    across requests (``prefix_cache.py``); the engine never writes a shared
+    page.  Kill switch ``PADDLE_TPU_PREFIX_CACHE=0``.
+    ``max_queue``: admission backpressure; with that many requests waiting,
+    ``add_request`` ends a newcomer REJECTED (graceful mode) or raises.
+    Preemption re-inserts and restored requests are exempt.
+    ``PADDLE_TPU_GRACEFUL`` (default on): a fault ends the one request it
+    touches (FAILED, EXPIRED, CANCELLED, REJECTED, with ``error``) and the
+    overload ladder degrades before anyone fails; ``0`` gives the engine
+    that raises out of ``step``.  ``PADDLE_TPU_FAULT_INJECT`` is the fault
+    plan (``faults.py``).
     """
 
     def __init__(self, cfg, params, max_batch: int = 8, max_seq: int = 512,
                  chunk: int = 1, block_size: int = 64,
                  num_blocks: int | None = None, kv_quant: str | None = None,
+                 enable_prefix_caching: bool = False,
                  enable_speculation: bool = False, num_draft_tokens: int = 4,
                  spec_ngram: int = 3, enable_chunked_prefill: bool = False,
                  prefill_chunk: int = 128, token_budget: int | None = None,
-                 device=None):
+                 max_queue: int | None = None, device=None):
         self.device = resolve_device(device)
         for leaf in [params["embed"], *params["layers"].values()]:
             if leaf.device != self.device:
@@ -206,6 +275,9 @@ class ContinuousBatchingEngine:
         # resolves to the spill page, whose reads are always masked)
         self._free: list[int] = list(range(self.num_blocks))
         self._slot_blocks: list[list[int]] = [[] for _ in range(max_batch)]
+        # shared (refcounted, read-only) cached blocks at the FRONT of each
+        # slot's row, its private pages after them: [shared..., private...]
+        self._slot_shared: list[list[str]] = [[] for _ in range(max_batch)]
         self._table = np.full((max_batch, self.max_blocks), self.num_blocks,
                               np.int32)
         self._admit_seq = 0
@@ -218,18 +290,40 @@ class ContinuousBatchingEngine:
         self._topp = np.ones(max_batch, np.float32)
         self._seed = np.zeros(max_batch, np.int32)
         self._queue: list[Request] = []
-        # speculation and chunked prefill: every behaviour of each hangs
-        # off self._spec / self._chunked, and the kill switch is read FIRST,
-        # so =0 turns the feature off whatever the arguments say
+        # prefix cache, speculation and chunked prefill: every behaviour of
+        # each hangs off self._pcache / self._spec / self._chunked, and the
+        # kill switch is read FIRST, so =0 turns the feature off whatever
+        # the arguments say
+        self._pcache = None
+        if enable_prefix_caching and env_bool("PADDLE_TPU_PREFIX_CACHE",
+                                              True):
+            self._pcache = PrefixCache(block_size)
+        # fault tolerance: graceful is decided here; off, the steps carry no
+        # poison operand and no guard, and faults raise out of step()
+        self._graceful = env_bool("PADDLE_TPU_GRACEFUL", True)
+        self._faults = FaultPlan.from_env()
+        self._step_no = 0              # engine step counter (fault-plan key)
+        self.max_queue = max_queue
+        # rid -> every live accepted request (cancel's lookup)
+        self._reqs: dict[int, Request] = {}
+        # per-slot poison bits of the nan_logits fault: the graceful step
+        # turns a set bit into a non-finite logits row on the device
+        self._poison = np.zeros(max_batch, bool)
+        self._kernel_err_streak = 0
+        # consecutive injected dispatch faults retried before re-raising
+        self._kernel_err_limit = 3
+        # consecutive steps in which admission seated nothing with nothing
+        # resident (ladder rung 5 at admission after this many)
+        self._admit_stalls = 0
         self._spec = None
         self._spec_qmax = 0            # the verify step's rows a slot, K+1
-        if enable_speculation and _env_bool("PADDLE_TPU_SPECULATE", True):
+        if enable_speculation and env_bool("PADDLE_TPU_SPECULATE", True):
             self._spec = NGramDrafter(num_draft_tokens=num_draft_tokens,
                                       max_ngram=spec_ngram)
             self._spec_qmax = int(num_draft_tokens) + 1
         self._chunked = False
-        if enable_chunked_prefill and _env_bool("PADDLE_TPU_CHUNKED_PREFILL",
-                                                True):
+        if enable_chunked_prefill and env_bool("PADDLE_TPU_CHUNKED_PREFILL",
+                                               True):
             if prefill_chunk < 1:
                 raise ValueError(
                     f"prefill_chunk must be >= 1, got {prefill_chunk}")
@@ -249,7 +343,15 @@ class ContinuousBatchingEngine:
                       "decode_stall_steps": 0, "mixed_steps": 0,
                       "prefill_chunks": 0, "spec_steps": 0,
                       "spec_drafted_tokens": 0, "spec_accepted_tokens": 0,
-                      "spec_rejected_tokens": 0}
+                      "spec_rejected_tokens": 0, "prefix_hits": 0,
+                      "prefix_blocks_reused": 0, "prefix_evictions": 0,
+                      "cow_copies": 0, "prefill_tokens_computed": 0,
+                      "prefill_tokens_cached": 0, "requests_failed": 0,
+                      "requests_rejected": 0, "requests_cancelled": 0,
+                      "requests_expired": 0, "degrade_evict": 0,
+                      "degrade_spec_off": 0, "degrade_budget_shrink": 0,
+                      "degrade_preempt": 0, "nan_guard_trips": 0,
+                      "kernel_error_retries": 0}
         #: logits [B, V] of the last step run (inspection only): a decode
         #: step's, a mixed step's emit rows, a verify step's row 0
         self.last_logits: torch.Tensor | None = None
@@ -372,21 +474,44 @@ class ContinuousBatchingEngine:
         noise = sampling.gumbel_noise(seeds[rows], pos[rows], scaled.shape[1])
         return greedy.index_put((rows,), (noise + masked).argmax(dim=-1))
 
+    @staticmethod
+    def _guard_logits(logits, active, poison, live=None):
+        """The NaN/inf logit guard of the graceful steps, on the device:
+        the ``nan_logits`` poison bit goes in FIRST, as a genuinely NaN row,
+        so injection meets the same finiteness check a real blow-up does;
+        then every ACTIVE slot whose logits are not finite is flagged and
+        its rows zeroed, so the sampler stays finite (the host discards the
+        flagged slot's tokens and fails its request).  Inactive lanes are
+        left out: their garbage rows may be non-finite.  logits [B, V], or
+        [B, Q, V] with ``live`` [B, Q] the rows that count; active and
+        poison [B] -> (logits, bad [B])."""
+        shape = (-1,) + (1,) * (logits.dim() - 1)
+        row = torch.where(poison, float("nan"), 0.0).to(logits.dtype)
+        logits = logits + row.view(shape)
+        fin = torch.isfinite(logits).all(dim=-1)
+        if live is not None:
+            fin = (fin | ~live).all(dim=-1)
+        bad = active & ~fin
+        return torch.where(bad.view(shape), 0.0, logits), bad
+
     def _chunk_scan(self, tokens, pos, active, temp, topp, table, seeds,
-                    rows):
+                    rows, poison=None):
         """``chunk`` decode steps; the chosen token feeds back on the
-        device.  Returns (tokens [chunk, B], bad [chunk, B]): ``bad`` flags
-        active lanes whose logits were not finite."""
+        device.  Returns (tokens [chunk, B], bad [chunk, B]): with a
+        ``poison`` operand (graceful mode) ``bad`` holds the guard's flags
+        of each step, without one it is None and no guard runs."""
         toks, bads = [], []
         tok = tokens
         for i in range(self.chunk):
             logits = self._decode_one(tok, pos + i, active, table)
-            bads.append(active & ~torch.isfinite(logits).all(dim=-1))
+            if poison is not None:
+                logits, bad = self._guard_logits(logits, active, poison)
+                bads.append(bad)
             tok = self._sample_tokens(logits, pos + i, temp, topp, seeds,
                                       rows)
             toks.append(tok)
         self.last_logits = logits
-        return torch.stack(toks), torch.stack(bads)
+        return torch.stack(toks), (torch.stack(bads) if bads else None)
 
     # ---------------- multi-row steps: mixed prefill/decode, verify --------
 
@@ -458,28 +583,30 @@ class ContinuousBatchingEngine:
         return x
 
     def _mixed_impl(self, tokens, pos, active, q_lens, temp, topp, seeds,
-                    table, rows):
+                    table, rows, poison=None):
         """One mixed prefill/decode step: decode-ready slots ride as
         ``q_lens == 1`` lanes, prefilling slots carry a chunk of their
         prompt.  ONLY each slot's last live row goes through the lm_head;
         its token is drawn with the (seed, pos + q_lens - 1) key the plain
         decode step uses at that position, so a decode lane's token and a
         completing prefill's first token are the bucketed engine's.
-        Returns (next token [B], bad [B]: active lanes whose emit logits
-        were not finite)."""
+        Returns (next token [B], bad [B]: the guard's flags of the emit
+        rows with a ``poison`` operand, else None)."""
         B = self.max_batch
         x = self._rows_forward(tokens, pos, active, q_lens, table,
                                verify=False)
         last = x[torch.arange(B, device=self.device), q_lens - 1]
         logits = lm_head_logits(self.cfg, self.params, last)      # [B, V]
+        bad = None
+        if poison is not None:
+            logits, bad = self._guard_logits(logits, active, poison)
         self.last_logits = logits
-        bad = active & ~torch.isfinite(logits).all(dim=-1)
         nxt = self._sample_tokens(logits, pos + q_lens - 1, temp, topp,
                                   seeds, rows)
         return nxt, bad
 
     def _verify_impl(self, tokens, pos, active, q_lens, temp, topp, seeds,
-                     table, rows):
+                     table, rows, poison=None):
         """Verify + accept in one step.  tokens [B, Q]: row 0 the pending
         token, rows 1.. the drafts.  Row t's token is drawn with the key
         (seed, pos + t) the plain decode step would use there, so row 0's
@@ -488,17 +615,21 @@ class ContinuousBatchingEngine:
         stream is token-identical to the speculation-off engine.  ``rows``
         are the sampled lanes.  Returns (out [B, Q] chosen tokens,
         n_emitted [B] in 1..q_lens: the leading run of accepted drafts + the
-        correction token, bad [B]: active lanes with a non-finite live
-        row)."""
+        correction token, bad [B]: with a ``poison`` operand the guard's
+        flags, a slot flagged when a live row is not finite; else None)."""
         B, Q = tokens.shape
         dev = self.device
         x = self._rows_forward(tokens, pos, active, q_lens, table,
                                verify=True)
         logits = lm_head_logits(self.cfg, self.params, x)         # [B, Q, V]
-        self.last_logits = logits[:, 0]
         t = torch.arange(Q, device=dev)
-        live = t[None, :] < q_lens[:, None]
-        bad = active & (~torch.isfinite(logits).all(dim=-1) & live).any(-1)
+        bad = None
+        if poison is not None:
+            # only the live rows count: rows past q_lens read garbage
+            # positions and may be non-finite
+            logits, bad = self._guard_logits(
+                logits, active, poison, live=t[None, :] < q_lens[:, None])
+        self.last_logits = logits[:, 0]
         flat_rows = None
         if rows is not None:     # every row of a sampled lane draws
             flat_rows = (rows[:, None] * Q + t[None, :]).reshape(-1)
@@ -512,17 +643,26 @@ class ContinuousBatchingEngine:
 
     # ---------------- prefill ----------------
 
-    def _prefill_body(self, ids, length, bucket, write):
+    def _prefill_body(self, ids, length, bucket, write, start=None):
         """Embed/rope/mask once, the paged write path injected.  Tokens at
         or beyond ``length`` are padding, masked out of attention.  No
-        logits: the last prompt token is fed to the first decode step."""
+        logits: the last prompt token is fed to the first decode step.
+        ``start`` (a prefix-cache hit): ``ids`` holds the tokens at absolute
+        positions start .. start + bucket - 1, so rope and the causal mask
+        shift by ``start``; ``length`` stays the absolute total."""
         cfg = self.cfg
         S = self.max_seq
         x = self.params["embed"][ids].to(cfg.dtype)
-        cos = self._cos[:, :bucket]
-        sin = self._sin[:, :bucket]
-        q_pos = torch.arange(bucket, device=self.device)[None, None, None, :,
-                                                         None]
+        if start is None:
+            cos = self._cos[:, :bucket]
+            sin = self._sin[:, :bucket]
+            q_pos = torch.arange(bucket, device=self.device)
+        else:
+            q_pos = start + torch.arange(bucket, device=self.device)
+            safe = q_pos.clamp(max=S - 1)        # the bucket may overrun S
+            cos = self._cos[:, safe]
+            sin = self._sin[:, safe]
+        q_pos = q_pos[None, None, None, :, None]
         kv_pos = torch.arange(S, device=self.device)[None, None, None, None, :]
         mask = (kv_pos <= q_pos) & (kv_pos < length)
         transformer_apply(cfg, self.params, x, self.cache_k, self.cache_v,
@@ -558,6 +698,46 @@ class ContinuousBatchingEngine:
 
         self._prefill_body(ids, length, bucket, write)
 
+    def _prefill_impl_paged_prefix(self, ids, table_row, start, length,
+                                   bucket):
+        """The prefill of a prefix-cache hit's uncached tail: ``ids`` [1,
+        bucket] holds the tokens at absolute positions start .. start +
+        bucket - 1, padded.  Attention reads the slot's whole row, whose
+        leading pages are the shared prefix; writes land only at positions
+        in [start, length), so a shared page is never written (the
+        admission's copy-on-write makes the first decode position's page
+        private too).  Padding and positions past max_seq go to the spill
+        page (fp pools) or drop out of the requantize."""
+        cfg = self.cfg
+        S, bs = self.max_seq, self.block_size
+        nkv, hd = cfg.num_key_value_heads, cfg.head_dim
+        pos_j = start + torch.arange(bucket, device=self.device)
+        keep = (pos_j < length) & (pos_j < S)
+        row = table_row.long()
+
+        if self.kv_quant is not None:
+            write = self._quant_rows_write(table_row[None], pos_j[None],
+                                           keep[None])
+        else:
+            safe_j = pos_j.clamp(max=S - 1)
+            blk_j = torch.where(keep, row[safe_j // bs],
+                                torch.full_like(pos_j, self.num_blocks))
+            off_j = safe_j % bs
+
+            def write(ck, k):
+                ck[blk_j, :, off_j] = k[0]
+                view = ck[row].transpose(0, 1).reshape(1, nkv, S, hd)
+                return ck, view
+
+        self._prefill_body(ids, length, bucket, write, start=start)
+
+    def _copy_page(self, dst: int, src: int):
+        """Copy-on-write: pool page ``src`` into page ``dst`` across every
+        layer, in place (a quantized pool's codes and scales together)."""
+        for pool in (self.cache_k, self.cache_v):
+            for a in (pool.values() if isinstance(pool, dict) else (pool,)):
+                a[:, dst].copy_(a[:, src])
+
     def _quant_rows_write(self, table, row_pos, valid, view=True):
         """write_fn for a multi-row event into quantized pools: the
         page-batched requantize (``quant_append_rows``: only dirty pages
@@ -591,32 +771,126 @@ class ContinuousBatchingEngine:
         return min(last_pos, self.max_seq - 1) // self.block_size + 1
 
     def _alloc_to(self, slot: int, n_blocks: int) -> bool:
-        """Grow slot to n_blocks pages; False if the pool runs dry."""
+        """Grow slot to n_blocks pages (its shared cached prefix counts);
+        False if the pool runs dry.  Under prefix caching a dry free list
+        first LRU-evicts a zero-ref cached block: eviction happens only
+        here (and in ladder rung 1), so hot prefixes go last."""
         owned = self._slot_blocks[slot]
-        while len(owned) < n_blocks:
-            if not self._free:
+        base = len(self._slot_shared[slot])
+        if (base + len(owned) < n_blocks and self._faults
+                and self._faults.fire("alloc_fail", step=self._step_no,
+                                      slot=slot)):
+            # the allocator seam: report the pool dry, polled only where a
+            # real grab would happen
+            return False
+        while base + len(owned) < n_blocks:
+            if not self._free and not self._reclaim(1):
                 return False
             b = self._free.pop()
-            self._table[slot, len(owned)] = b
+            self._table[slot, base + len(owned)] = b
             owned.append(b)
         return True
+
+    def _reclaim(self, n: int) -> int:
+        """Evict up to n zero-ref cached blocks into the free list."""
+        if self._pcache is None:
+            return 0
+        pairs = self._pcache.evict(n)
+        self._free.extend(page for _, page in pairs)
+        self.stats["prefix_evictions"] += len(pairs)
+        return len(pairs)
+
+    def _evictable(self) -> int:
+        return (self._pcache.evictable_count() if self._pcache is not None
+                else 0)
 
     def _release(self, slot: int):
         self._free.extend(self._slot_blocks[slot])
         self._slot_blocks[slot] = []
+        # shared pages are refcounted, not freed: at zero refs they stay
+        # resident until eviction needs them
+        for h in self._slot_shared[slot]:
+            self._pcache.release(h)
+        self._slot_shared[slot] = []
         self._table[slot, :] = self.num_blocks
+
+    def _register_prefix_blocks(self, slot: int, ids: np.ndarray,
+                                valid_len: int):
+        """After a prefill (or a streamed chunk): move the freshly computed
+        full blocks below ``valid_len`` beyond the shared prefix into the
+        cache, this slot holding a reference, so an admission later in the
+        same step already hits.  They leave the FRONT of the private list,
+        which keeps the row [shared..., private...]."""
+        bs = self.block_size
+        n_shared = len(self._slot_shared[slot])
+        limit = valid_len // bs            # blocks fully written
+        if limit <= n_shared:
+            return
+        if self._faults and self._faults.fire("cache_error",
+                                              step=self._step_no, slot=slot):
+            # the cache seam: the blocks stay private (a later request
+            # misses where it could have hit) and no request fails
+            if not self._graceful:
+                raise FaultInjected(f"injected cache_error (step "
+                                    f"{self._step_no}, slot {slot})")
+            return
+        parent = self._slot_shared[slot][-1] if n_shared else None
+        for b in range(n_shared, limit):
+            e = self._pcache.register(parent, ids[b * bs:(b + 1) * bs],
+                                      self._slot_blocks[slot][0], refcount=1)
+            if e is None:
+                break        # already cached or orphaned: stays private
+            parent = e.hash
+            self._slot_blocks[slot].pop(0)
+            self._slot_shared[slot].append(e.hash)
+
+    def _register_retired_blocks(self, slot: int):
+        """Before a finishing, preempted, cancelled or expired slot is
+        released: donate its full private blocks to the cache as zero-ref
+        residents, so the prefix (prompt AND generated tokens, the stream a
+        preempted request resumes with) survives.  Positions are trusted
+        only below min(pos, len(prompt + output), max_seq): writes past the
+        delivered tokens hold garbage and are never content-addressed."""
+        if self._pcache is None:
+            return
+        req = self._slot_req[slot]
+        seq = np.concatenate([np.asarray(req.prompt_ids, np.int32).ravel(),
+                              np.asarray(req.output_ids, np.int32)])
+        trusted = min(int(self._pos[slot]), seq.size, self.max_seq)
+        bs = self.block_size
+        n_shared = len(self._slot_shared[slot])
+        limit = trusted // bs
+        if limit <= n_shared:
+            return
+        parent = self._slot_shared[slot][-1] if n_shared else None
+        keep: list[int] = []
+        for i, page in enumerate(self._slot_blocks[slot]):
+            b = n_shared + i
+            if b < limit:
+                tokens = seq[b * bs:(b + 1) * bs]
+                e = self._pcache.register(parent, tokens, page, refcount=0)
+                if e is not None:
+                    parent = e.hash
+                    continue               # the cache owns the page now
+                # duplicate content: the page stays private, later blocks
+                # chain through the existing entry's id
+                parent = self._pcache.chain_hash(parent, tokens)
+            keep.append(page)
+        self._slot_blocks[slot] = keep
 
     def _preempt(self, slot: int):
         """Recompute preemption: free the slot, requeue the request with
         prompt + generated-so-far at the head of the queue, keeping its
-        seniority.  Resume teacher-forces the stored tokens, and sampled
-        draws are keyed by (seed, position), so the stream continues
-        exactly."""
+        seniority.  Its full blocks go to the prefix cache first, so the
+        resume recomputes from the first uncached token.  Resume
+        teacher-forces the stored tokens, and sampled draws are keyed by
+        (seed, position), so the stream continues exactly."""
         req = self._slot_req[slot]
         req._resume_ids = np.concatenate(
             [np.asarray(req.prompt_ids, np.int32).ravel(),
              np.asarray(req.output_ids, np.int32)])
         req._resume_age = int(self._slot_age[slot])
+        self._register_retired_blocks(slot)
         self._release(slot)
         self._slot_req[slot] = None
         self._temp[slot] = 0.0  # re-set on readmission
@@ -627,13 +901,17 @@ class ContinuousBatchingEngine:
         req.status = "PENDING"
         self._queue.insert(0, req)
         self.stats["preemptions"] += 1
+        if self._graceful:
+            # under pressure, a preemption is ladder rung 4
+            self.stats["degrade_preempt"] += 1
 
     def _ensure_growth(self, k):
         """Before a step: every active slot needs pages covering positions
         up to pos+k-1 (``k`` may be a per-slot vector: the verify step
         appends q_lens rows to each slot and the mixed step a chunk or one
         token).  Oldest slots win; when the pool is dry the youngest other
-        active slot is preempted."""
+        active slot is preempted.  With no victim left, graceful mode fails
+        only this request (rung 5); graceful off raises."""
         karr = np.broadcast_to(np.asarray(k, np.int64), (self.max_batch,))
         order = sorted((s for s in range(self.max_batch)
                         if self._slot_req[s] is not None),
@@ -641,19 +919,28 @@ class ContinuousBatchingEngine:
         for slot in order:
             if self._slot_req[slot] is None:
                 continue  # preempted by an older slot this pass
-            need = self._blocks_needed(int(self._pos[slot])
-                                       + int(karr[slot]) - 1)
+            last = int(self._pos[slot]) + int(karr[slot]) - 1
+            need = self._blocks_needed(last)
             while not self._alloc_to(slot, need):
                 victims = [s for s in range(self.max_batch)
                            if s != slot and self._slot_req[s] is not None]
                 if not victims:
                     req = self._slot_req[slot]
-                    raise RuntimeError(
-                        f"KV block pool exhausted by a single request: "
-                        f"rid={req.rid} needs {need} block(s) "
-                        f"({len(self._slot_blocks[slot])} mapped, "
-                        f"{len(self._free)} free, {self.num_blocks} total); "
-                        f"increase num_blocks")
+                    have = (len(self._slot_shared[slot])
+                            + len(self._slot_blocks[slot]))
+                    pinned = (self._pcache.resident_blocks()
+                              - self._pcache.evictable_count()
+                              if self._pcache is not None else 0)
+                    msg = (f"KV block pool exhausted by a single request: "
+                           f"rid={req.rid} needs {need} block(s) to cover "
+                           f"position {last} ({have} mapped, "
+                           f"{len(self._free)} free, {self._evictable()} "
+                           f"evictable cached, {pinned} pinned cached, "
+                           f"{self.num_blocks} total); increase num_blocks")
+                    if self._graceful:
+                        self._fail_slot(slot, "FAILED", msg, donate=True)
+                        break
+                    raise RuntimeError(msg)
                 self._preempt(max(victims, key=lambda s: self._slot_age[s]))
 
     # ---------------- scheduler ----------------
@@ -673,20 +960,40 @@ class ContinuousBatchingEngine:
         if not (math.isfinite(topp) and 0 < topp <= 1):
             raise ValueError(f"request {req.rid}: top_p must be finite and "
                              f"in (0, 1], got {topp!r}")
+        if (req.deadline_s is not None
+                and not (math.isfinite(req.deadline_s)
+                         and req.deadline_s >= 0)):
+            raise ValueError(f"request {req.rid}: deadline_s must be finite "
+                             f"and >= 0, got {req.deadline_s!r}")
 
     def add_request(self, req: Request):
         self._validate(req)
         req.prompt_ids = np.asarray(req.prompt_ids, np.int32).ravel()
-        req._submit_s = time.perf_counter()  # TTFT epoch
+        req._submit_s = time.perf_counter()  # TTFT and deadline epoch
+        if req.trace_id is None:
+            req.trace_id = f"req-{req.rid:x}"
+        self._reqs[req.rid] = req
+        if self.max_queue is not None and len(self._queue) >= self.max_queue:
+            msg = (f"queue full ({len(self._queue)} waiting, "
+                   f"max_queue={self.max_queue})")
+            if not self._graceful:
+                raise RuntimeError(f"request {req.rid}: {msg}")
+            self._terminal(req, "REJECTED", msg)
+            return
         self._queue.append(req)
 
     def _admit(self):
         """Fill free slots from the queue: a request enters only when its
         prompt's pages, plus the resident slots' imminent growth (the next
-        decode chunk, or a verify step's K+1 rows), fit in the free pool.
-        A bucketed admission prefills its whole prompt now (stalling the
-        resident slots' decode for it); a chunked one only enqueues the
-        prompt for the mixed steps to stream."""
+        decode chunk, or a verify step's K+1 rows), fit in the free pool and
+        the evictable cache.  The longest cached chain of its full blocks is
+        mapped read-only; a block-aligned full hit copies its last block
+        into a private page (copy-on-write: decode writes there).  A
+        bucketed admission prefills the uncached tail now (stalling the
+        resident slots' decode for it); a chunked one only enqueues it for
+        the mixed steps to stream, mapping its pages chunk by chunk in
+        graceful mode."""
+        bs = self.block_size
         for slot in range(self.max_batch):
             if self._slot_req[slot] is not None or not self._queue:
                 continue
@@ -700,15 +1007,47 @@ class ContinuousBatchingEngine:
             # prompt's pages while pos (its cursor) trails them
             headroom = sum(
                 max(0, self._blocks_needed(int(self._pos[s]) + horizon - 1)
-                    - len(self._slot_blocks[s]))
+                    - len(self._slot_shared[s]) - len(self._slot_blocks[s]))
                 for s in range(self.max_batch)
                 if self._slot_req[s] is not None)
             need = self._blocks_needed(s0 - 1)
             gate = self._blocks_needed(s0 - 2 + horizon)
-            if (len(self._free) < gate + headroom
-                    or not self._alloc_to(slot, need)):
+            # pin the match BEFORE any allocation: a referenced block
+            # cannot be evicted from under it
+            matched = self._pcache.match(ids) if self._pcache else []
+            m = len(matched)
+            # a block-aligned full hit would put the first decode write
+            # (position s0-1) inside the last matched block: copy it
+            cow = m > 0 and m * bs > s0 - 1
+            n_map = m - 1 if cow else m
+            for e in matched:
+                self._pcache.acquire(e)
+            for i, e in enumerate(matched[:n_map]):
+                self._table[slot, i] = e.page
+                self._slot_shared[slot].append(e.hash)
+            if self._chunked and self._graceful:
+                # chunk-granular mapping: the mixed steps' _ensure_growth
+                # maps each chunk's pages, so rung 3 can shrink a chunk
+                # instead of preempting; only the COW page exists now
+                need = m if cow else n_map
+            avail = len(self._free) + self._evictable()
+            if avail < gate - n_map + headroom or not self._alloc_to(slot,
+                                                                     need):
+                if cow:
+                    self._pcache.release(matched[-1].hash)
                 self._release(slot)
                 break  # pool dry: keep queue order, retry next step
+            if cow:
+                src = matched[-1]
+                self._copy_page(self._slot_blocks[slot][0], src.page)
+                self._pcache.release(src.hash)   # content copied: unpin
+                self.stats["cow_copies"] += 1
+            if m:
+                self.stats["prefix_hits"] += 1
+                self.stats["prefix_blocks_reused"] += m
+            # prefill starts at the first uncached token, never past s0-1
+            # (decode's first position)
+            start = min(m * bs, s0 - 1)
             age = getattr(req, "_resume_age", None)
             self._slot_age[slot] = self._admit_seq if age is None else age
             self._admit_seq += 1
@@ -716,31 +1055,23 @@ class ContinuousBatchingEngine:
             for attr in ("_resume_ids", "_resume_age"):
                 if hasattr(req, attr):
                     delattr(req, attr)
+            plen = (s0 - 1) - start
+            self.stats["prefill_tokens_cached"] += start
+            self.stats["prefill_tokens_computed"] += max(plen, 0)
             if self._chunked:
                 # enqueue without prefill: the mixed steps stream positions
-                # [0, s0), and the last one (the last prompt token) emits
-                # the first generated token
+                # [start, s0), and the last one (the last prompt token)
+                # emits the first generated token
                 self._prefill_ids[slot] = ids
-                self._prefilled[slot] = 0
-                self._pos[slot] = 0
+                self._prefilled[slot] = start
+                self._pos[slot] = start
             else:
-                # a whole-prompt prefill while other slots are seated
-                # stalls their decode for the prompt's length
-                stalls = any(r is not None for r in self._slot_req)
-                bucket = min(_bucket(s0), self.max_seq)
-                padded = np.zeros((1, bucket), np.int32)
-                padded[0, :s0] = ids
-                t_pf = time.perf_counter()
-                # the last real token is fed to decode, not prefill
-                self._prefill_impl_paged(
-                    torch.as_tensor(padded, device=self.device).long(),
-                    torch.as_tensor(self._table[slot], device=self.device),
-                    s0 - 1, bucket)
-                self._sync()
-                self.stats["prefill_time_s"] += time.perf_counter() - t_pf
-                self.stats["prefills"] += 1
-                self.stats["decode_stall_steps"] += int(stalls)
+                if start == 0 or plen > 0:
+                    self._prefill_tail(slot, ids, start, s0)
+                # else: a full hit, nothing to compute
                 self._pos[slot] = s0 - 1
+                if self._pcache is not None:
+                    self._register_prefix_blocks(slot, ids, s0 - 1)
             self._slot_req[slot] = req
             req.status = "RUNNING"
             self._last_tok[slot] = ids[-1]
@@ -752,10 +1083,34 @@ class ContinuousBatchingEngine:
             self._seed[slot] = np.int32(
                 req.seed if req.seed is not None else req.rid)
 
+    def _prefill_tail(self, slot: int, ids: np.ndarray, start: int, s0: int):
+        """The bucketed admission's prefill of positions [start, s0-1): the
+        whole prompt but its last token when ``start`` is 0, else the
+        uncached tail after a prefix-cache hit."""
+        # a whole-prompt prefill while other slots are seated stalls their
+        # decode for the prompt's length
+        stalls = any(r is not None for r in self._slot_req)
+        n = s0 - 1 - start if start else s0
+        bucket = min(_bucket(n), self.max_seq)
+        padded = np.zeros((1, bucket), np.int32)
+        padded[0, :n] = ids[start:start + n]
+        dev = self.device
+        t_pf = time.perf_counter()
+        args = (torch.as_tensor(padded, device=dev).long(),
+                torch.as_tensor(self._table[slot], device=dev))
+        if start == 0:
+            # the last real token is fed to decode, not prefill
+            self._prefill_impl_paged(*args, s0 - 1, bucket)
+        else:
+            self._prefill_impl_paged_prefix(*args, start, s0 - 1, bucket)
+        self._sync()
+        self.stats["prefill_time_s"] += time.perf_counter() - t_pf
+        self.stats["prefills"] += 1
+        self.stats["decode_stall_steps"] += int(stalls)
+
     def _retire(self, slot):
-        req = self._slot_req[slot]
-        req.status = "FINISHED"
-        req.finished = True
+        self._terminal(self._slot_req[slot], "FINISHED")
+        self._register_retired_blocks(slot)  # needs the request's tokens
         self._slot_req[slot] = None
         self._temp[slot] = 0.0
         if self._chunked:
@@ -763,25 +1118,326 @@ class ContinuousBatchingEngine:
             self._prefilled[slot] = 0
         self._release(slot)
 
+    # ---------------- fault tolerance ----------------
+
+    def _terminal(self, req: Request, status: str, error: str | None = None):
+        """Move a request to its terminal status (once).  ``finished`` is
+        the caller's "no more tokens" flag for every terminal status;
+        ``status`` says why."""
+        req.status = status
+        req.finished = True
+        if error is not None:
+            req.error = error
+        stat = _STATUS_STAT.get(status)
+        if stat is not None:
+            self.stats[stat] += 1
+        self._reqs.pop(req.rid, None)
+
+    def _fail_slot(self, slot: int, status: str, error: str,
+                   donate: bool = False):
+        """End the request seated on ``slot`` with a terminal status other
+        than FINISHED, releasing every page and cache reference it holds.
+        ``donate=True`` (cancel, expiry, overload: the slot's K/V is
+        trusted) gives its full blocks to the prefix cache first, as
+        retirement does; ``donate=False`` (the NaN guard and other faults)
+        drops them, since a faulty step's K/V must never serve a later
+        request.  Output already banked stays on the request."""
+        req = self._slot_req[slot]
+        if donate:
+            self._register_retired_blocks(slot)
+        self._slot_req[slot] = None
+        self._temp[slot] = 0.0
+        self._poison[slot] = False
+        if self._chunked:
+            self._prefill_ids[slot] = None
+            self._prefilled[slot] = 0
+        self._release(slot)
+        self._terminal(req, status, error)
+
+    def _host_fault(self, kind: str, slot: int | None = None,
+                    rid: int | None = None):
+        """Poll one host-side seam; raises :class:`FaultInjected` when a plan
+        clause fires."""
+        if self._faults and self._faults.fire(kind, step=self._step_no,
+                                              slot=slot, rid=rid):
+            where = "".join((f", slot {slot}" if slot is not None else "",
+                             f", rid {rid}" if rid is not None else ""))
+            raise FaultInjected(
+                f"injected {kind} (step {self._step_no}{where})")
+
+    def _arm_poison(self):
+        """The sampler seam: set the poison bit of each slot a
+        ``nan_logits`` clause fires on this step (graceful mode only)."""
+        if not (self._graceful and self._faults):
+            return
+        for s in range(self.max_batch):
+            req = self._slot_req[s]
+            if req is not None and self._faults.fire(
+                    "nan_logits", step=self._step_no, slot=s, rid=req.rid):
+                self._poison[s] = True
+
+    def _dispatch_fault(self) -> bool:
+        """The dispatch seam, polled before a step's first launch: True when
+        an injected ``kernel_error`` fired and graceful mode retries the
+        step (host and device state are untouched: nothing launched).
+        Graceful off, or past the retry limit, it raises.  Only the
+        injected fault is retried: an error a kernel wrapper raises comes
+        from the launch itself, outside this seam, and propagates."""
+        try:
+            self._host_fault("kernel_error")
+        except FaultInjected:
+            if not self._graceful:
+                raise
+            self._kernel_err_streak += 1
+            self.stats["kernel_error_retries"] += 1
+            if self._kernel_err_streak > self._kernel_err_limit:
+                raise
+            return True
+        self._kernel_err_streak = 0
+        return False
+
+    def _poison_arg(self):
+        """The graceful step's poison operand (None graceful off: no guard)."""
+        if not self._graceful:
+            return None
+        return torch.as_tensor(self._poison, device=self.device)
+
+    def _growth_need(self, growth) -> int:
+        """Pages the active slots' imminent growth needs beyond what they
+        own (``growth`` may be a per-slot vector)."""
+        karr = np.broadcast_to(np.asarray(growth, np.int64),
+                               (self.max_batch,))
+        need = 0
+        for s in range(self.max_batch):
+            if self._slot_req[s] is None or karr[s] <= 0:
+                continue
+            need += max(0, self._blocks_needed(int(self._pos[s])
+                                               + int(karr[s]) - 1)
+                        - len(self._slot_shared[s])
+                        - len(self._slot_blocks[s]))
+        return need
+
+    def _degrade_reclaim(self, growth) -> int:
+        """Ladder rung 1: under pool pressure evict prefix-cache leaves
+        (oldest zero-ref first) ahead of the allocator.  Returns the deficit
+        left; <= 0 means the step fits."""
+        need = self._growth_need(growth)
+        short = need - len(self._free)
+        if short > 0 and self._evictable() > 0:
+            if self._reclaim(short) > 0:
+                self.stats["degrade_evict"] += 1
+        return need - len(self._free)
+
+    def _expire_overdue(self):
+        """Deadlines (graceful mode): a request past its ``deadline_s`` ends
+        EXPIRED with the output it has, queued or running, freeing its
+        pages for requests that can still make theirs."""
+        now = time.perf_counter()
+
+        def overdue(req):
+            return (req.deadline_s is not None
+                    and now - getattr(req, "_submit_s", now) > req.deadline_s)
+
+        for s in range(self.max_batch):
+            req = self._slot_req[s]
+            if req is not None and overdue(req):
+                self._fail_slot(s, "EXPIRED",
+                                f"deadline_s={req.deadline_s} exceeded "
+                                f"({len(req.output_ids)} token(s) delivered)",
+                                donate=True)
+        if any(overdue(r) for r in self._queue):
+            keep = []
+            for req in self._queue:
+                if overdue(req):
+                    self._terminal(req, "EXPIRED",
+                                   f"deadline_s={req.deadline_s} exceeded "
+                                   f"while queued")
+                else:
+                    keep.append(req)
+            self._queue = keep
+
+    def cancel(self, rid: int) -> bool:
+        """Cancel a request: a queued one leaves the queue, a running one
+        frees its slot (mid-prefill too; its full blocks go to the prefix
+        cache).  Output already banked stays on the request.  True when the
+        request was live; False for an unknown or terminal rid.  Graceful
+        mode only."""
+        if not self._graceful:
+            raise RuntimeError("cancel() requires PADDLE_TPU_GRACEFUL=1")
+        req = self._reqs.get(rid)
+        if req is None or req.status in TERMINAL_STATUSES:
+            return False
+        for s in range(self.max_batch):
+            if self._slot_req[s] is req:
+                self._fail_slot(s, "CANCELLED", "cancelled by caller",
+                                donate=True)
+                return True
+        # by identity: the dataclass __eq__ compares numpy prompts
+        self._queue = [q for q in self._queue if q is not req]
+        self._terminal(req, "CANCELLED", "cancelled by caller")
+        return True
+
+    # ---------------- snapshot / restore ----------------
+
+    def _topology(self) -> dict:
+        """What a restore target must agree on for a snapshot to replay:
+        the model and the serving geometry, formatted as the reference
+        formats them (dtype names ``float32`` / ``bfloat16``), so a
+        snapshot of either package restores on the other.  ``tp`` is
+        recorded, never enforced (the pool is not captured)."""
+        cfg = self.cfg
+        dt = str(cfg.dtype).replace("torch.", "")
+        return {
+            "model": (f"llama:v{cfg.vocab_size}:h{cfg.hidden_size}"
+                      f":L{cfg.num_hidden_layers}"
+                      f":nh{cfg.num_attention_heads}"
+                      f":nkv{cfg.num_key_value_heads}"
+                      f":i{cfg.intermediate_size}"
+                      f":tie{int(bool(cfg.tie_word_embeddings))}"
+                      f":dt{dt}:rope{cfg.rope_theta:g}"
+                      f":eps{cfg.rms_norm_eps:g}"),
+            "quant": None,           # weight-only quant is not ported yet
+            "kv_quant": self.kv_quant,
+            "paged": True,
+            "block_size": self.block_size,
+            "max_seq": int(self.max_seq),
+            "tp": 1,
+        }
+
+    def snapshot(self) -> dict:
+        """The accepted, unfinished work as JSON-ready data: the running
+        requests in seniority order, then the queue, each as a
+        :func:`journal_entry` (prompt, emitted tokens, sampling, the
+        remaining deadline, the chunk cursor), under the engine's
+        topology.  The KV pool is not captured: :meth:`restore` resumes by
+        teacher-forced recompute, exact for greedy and seeded sampling."""
+        now = time.perf_counter()
+        running = sorted((s for s in range(self.max_batch)
+                          if self._slot_req[s] is not None),
+                         key=lambda s: int(self._slot_age[s]))
+        return {
+            "version": 2,
+            "engine": self._topology(),
+            "running": [journal_entry(self._slot_req[s],
+                                      self._prefilled[s]
+                                      if self._chunked else 0, now)
+                        for s in running],
+            "queued": [journal_entry(r, 0, now) for r in self._queue],
+        }
+
+    def adopt(self, j: dict) -> Request:
+        """Queue ONE journaled request (an entry of a snapshot): it enters
+        through the preemption-resume path, its emitted tokens
+        teacher-forced, and its deadline re-armed with the journaled
+        remaining budget (the full ``deadline_s`` for an entry without
+        one).  Exempt from ``max_queue``: the work was accepted once."""
+        req = Request(
+            rid=j["rid"],
+            prompt_ids=np.asarray(j["prompt_ids"], np.int32),
+            max_new_tokens=j["max_new_tokens"],
+            eos_token_id=j["eos_token_id"],
+            temperature=j["temperature"], top_p=j["top_p"],
+            seed=j["seed"],
+            deadline_s=j.get("deadline_remaining_s", j["deadline_s"]))
+        req.output_ids = list(j["output_ids"])
+        if req.output_ids:
+            req._resume_ids = np.concatenate(
+                [np.asarray(req.prompt_ids, np.int32).ravel(),
+                 np.asarray(req.output_ids, np.int32)])
+        req._submit_s = time.perf_counter()
+        req.trace_id = f"req-{req.rid:x}"
+        self._reqs[req.rid] = req
+        self._queue.append(req)
+        return req
+
+    def restore(self, snap: dict) -> list[Request]:
+        """Resume a :meth:`snapshot` on this engine: every journaled request
+        re-enters the queue (running ones first) through :meth:`adopt`, so
+        the completed serve emits the uninterrupted serve's tokens.  A
+        version other than 1 or 2, or a topology that differs in anything
+        but ``tp``, raises ``ValueError`` naming each differing field.
+        Returns the resumed requests."""
+        if snap.get("version") not in (1, 2):
+            raise ValueError(f"unknown snapshot version "
+                             f"{snap.get('version')!r} (expected 1 or 2)")
+        src = snap.get("engine")
+        if snap.get("version") == 2 and src is not None:
+            mine = self._topology()
+            mismatch = {k: (src.get(k), mine[k]) for k in mine
+                        if k != "tp" and src.get(k) != mine[k]}
+            if mismatch:
+                diff = "; ".join(f"{k}: snapshot={a!r} vs engine={b!r}"
+                                 for k, (a, b) in sorted(mismatch.items()))
+                raise ValueError(
+                    f"snapshot topology does not match this engine "
+                    f"({diff}); restoring across topologies would resume "
+                    f"silently wrong - only the tensor-parallel degree "
+                    f"may differ (snapshot tp={src.get('tp')!r}, engine "
+                    f"tp=1)")
+        return [self.adopt(j) for j in snap["running"] + snap["queued"]]
+
+    # ---------------- the step ----------------
+
     def step(self) -> bool:
         """One admit + device iteration with one host fetch: while any
         prompt streams in (chunked prefill), ONE mixed prefill/decode step;
         else, with speculation on and at least one slot drafting, ONE
         multi-token verify step; else ``chunk`` decode steps.  Returns False
-        when idle."""
+        when idle.  Graceful mode: no per-request fault leaves this method;
+        the request it touches ends, and every other stream is what a run
+        without that request emits."""
+        self._step_no += 1          # the fault plan's step key (1-based)
+        if self._graceful:
+            self._expire_overdue()
         self._admit()
+        if (self._graceful and self._queue
+                and all(r is None for r in self._slot_req)):
+            # nothing resident and nothing admitted: no later step frees a
+            # page, so after a few stuck steps (a transient injected fault
+            # clears) fail the head request (rung 5 at admission)
+            self._admit_stalls += 1
+            if self._admit_stalls > self._kernel_err_limit:
+                req = self._queue.pop(0)
+                ids = getattr(req, "_resume_ids", None)
+                s0 = (np.asarray(req.prompt_ids).size if ids is None
+                      else ids.size)
+                self._terminal(
+                    req, "FAILED",
+                    f"pool exhausted at admission: rid={req.rid} needs "
+                    f"{self._blocks_needed(s0 - 1)} block(s) for its "
+                    f"{s0}-token stream, {len(self._free)} free + "
+                    f"{self._evictable()} evictable of {self.num_blocks} "
+                    f"total")
+                self._admit_stalls = 0
+        else:
+            self._admit_stalls = 0
         if self._chunked and any(i is not None for i in self._prefill_ids):
             return self._mixed_step()
         if self._spec is not None:
             drafts = self._draft_proposals()
+            if drafts is not None and self._graceful:
+                qlens = np.ones(self.max_batch, np.int64)
+                for s, d in drafts.items():
+                    qlens[s] = 1 + d.size
+                if self._degrade_reclaim(qlens) > 0:
+                    # rung 2: the drafts' appends do not fit even after
+                    # rung 1: decode one token a slot this step (the
+                    # stream does not change, only tokens a round-trip)
+                    self.stats["degrade_spec_off"] += 1
+                    drafts = None
             if drafts is not None:
                 return self._spec_step(drafts)
             # no slot drafted: the ordinary decode path, at no extra cost
         k = self.chunk
+        if self._graceful:
+            self._degrade_reclaim(k)    # rung 1 before rung 4
         self._ensure_growth(k)  # may preempt the youngest slot
         active_np = np.asarray([r is not None for r in self._slot_req])
         if not active_np.any():
             return False
+        self._arm_poison()
+        if self._dispatch_fault():
+            return True         # retried next step, state untouched
         t0 = time.perf_counter()
         dev = self.device
         sampled_lanes = [s for s in range(self.max_batch)
@@ -795,9 +1451,12 @@ class ContinuousBatchingEngine:
             torch.as_tensor(self._table, device=dev),
             torch.as_tensor(self._seed, device=dev),
             torch.as_tensor(sampled_lanes, dtype=torch.long, device=dev)
-            if sampled_lanes else None)
+            if sampled_lanes else None, poison=self._poison_arg())
+        self._poison[:] = False
         # ONE host round-trip per chunk: tokens and guard flags together
-        fetched = torch.cat([toks, bad.long()]).cpu().numpy()
+        if bad is not None:
+            toks = torch.cat([toks, bad.long()])
+        fetched = toks.cpu().numpy()
         toks_np, bad_np = fetched[:k], fetched[k:]
         self.stats["decode_time_s"] += time.perf_counter() - t0
         self.stats["decode_steps"] += k
@@ -808,12 +1467,22 @@ class ContinuousBatchingEngine:
             # tokens produced from positions >= max_seq are garbage (their
             # K/V writes were dropped)
             valid = min(k, self.max_seq - old_pos)
-            if bad_np[:valid, slot].any():
-                raise FloatingPointError(
-                    f"non-finite logits for rid={req.rid} at positions "
-                    f"{old_pos}..{old_pos + valid - 1}")
             done = False
-            for j in range(valid):
+            fail_err = None
+            try:
+                self._host_fault("slot_error", slot=slot, rid=req.rid)
+            except FaultInjected as e:
+                if not self._graceful:
+                    raise
+                fail_err = str(e)
+            for j in range(valid if fail_err is None else 0):
+                if bad is not None and bad_np[j, slot]:
+                    # quarantine: tokens from the poisoned step on were
+                    # drawn from a zeroed row and are never banked
+                    self.stats["nan_guard_trips"] += 1
+                    fail_err = (f"non-finite logits at position "
+                                f"{old_pos + j} (in-graph guard)")
+                    break
                 tok = int(toks_np[j, slot])
                 req.output_ids.append(tok)
                 if req.ttft_s is None:
@@ -824,6 +1493,10 @@ class ContinuousBatchingEngine:
                             and tok == req.eos_token_id)):
                     done = True
                     break
+            if fail_err is not None:
+                # fail THIS slot; the other lanes' tokens bank normally
+                self._fail_slot(slot, "FAILED", fail_err, donate=False)
+                continue
             self._pos[slot] = old_pos + k  # device advanced k regardless
             self._last_tok[slot] = int(toks_np[-1, slot])
             if done or old_pos + k >= self.max_seq:
@@ -851,9 +1524,13 @@ class ContinuousBatchingEngine:
         rows pack FIRST (every decode-ready slot advances a token, so decode
         never waits on a prompt), then prefill chunks fill the remaining
         budget oldest slot first, at most ``prefill_chunk`` rows a slot,
-        with a one-row floor.  A lane whose chunk reaches its last prompt
-        token consumes the emitted token (its first generated token);
-        mid-prompt lanes ignore theirs.  One host fetch."""
+        with a one-row floor.  Graceful mode: when the step's growth does
+        not fit even after evicting cache leaves (rung 1), the prefill rows
+        shrink to one a slot (rung 3) before anyone is preempted.  A lane
+        whose chunk reaches its last prompt token consumes the emitted
+        token (its first generated token); mid-prompt lanes ignore theirs.
+        Each chunk's full blocks go to the prefix cache as it lands.  One
+        host fetch."""
         B = self.max_batch
         T = self._prefill_chunk
         decode_slots = [s for s in range(B)
@@ -886,6 +1563,13 @@ class ContinuousBatchingEngine:
             active[s] = True
             growth[s] = n
             chunk_rows[s] = n
+        if self._graceful and self._degrade_reclaim(growth) > 0:
+            shrinkable = [s for s, n in chunk_rows.items() if n > 1]
+            if shrinkable:
+                self.stats["degrade_budget_shrink"] += 1
+                for s in shrinkable:
+                    tokens[s, 1:] = 0
+                    q_lens[s] = growth[s] = chunk_rows[s] = 1
         self._ensure_growth(growth)  # may preempt the youngest slot
         for s in range(B):
             if self._slot_req[s] is None:       # preempted after packing
@@ -893,6 +1577,9 @@ class ContinuousBatchingEngine:
                 chunk_rows.pop(s, None)
         if not active.any():
             return bool(self._queue)
+        self._arm_poison()
+        if self._dispatch_fault():
+            return True         # retried next step, state untouched
         t0 = time.perf_counter()
         dev = self.device
         nxt, bad = self._mixed_impl(
@@ -900,22 +1587,33 @@ class ContinuousBatchingEngine:
             torch.as_tensor(pos, device=dev).long(),
             torch.as_tensor(active, device=dev),
             torch.as_tensor(q_lens, device=dev).long(),
-            *self._device_args(active))
+            *self._device_args(active), poison=self._poison_arg())
+        self._poison[:] = False
         # ONE host round-trip: the tokens and the guard flags together
-        nxt_np, bad_np = torch.stack([nxt, bad.long()]).cpu().numpy()
+        fetched = (nxt if bad is None
+                   else torch.stack([nxt, bad.long()])).cpu().numpy()
+        nxt_np, bad_np = (fetched, None) if bad is None else fetched
         self.stats["decode_time_s"] += time.perf_counter() - t0
         self.stats["decode_steps"] += 1
         self.stats["mixed_steps"] += 1
         self.stats["prefill_chunks"] += len(chunk_rows)
-        if bad_np.any():
-            s = int(np.flatnonzero(bad_np)[0])
-            raise FloatingPointError(
-                f"non-finite logits for rid={self._slot_req[s].rid} in a "
-                f"mixed step (row-0 position {int(pos[s])})")
         for s in decode_slots:
             req = self._slot_req[s]
             if req is None:
                 continue            # preempted by _ensure_growth
+            if bad_np is not None and bad_np[s]:
+                self.stats["nan_guard_trips"] += 1
+                self._fail_slot(s, "FAILED",
+                                f"non-finite logits at position "
+                                f"{int(self._pos[s])} (in-graph guard)")
+                continue
+            try:
+                self._host_fault("slot_error", slot=s, rid=req.rid)
+            except FaultInjected as e:
+                if not self._graceful:
+                    raise
+                self._fail_slot(s, "FAILED", str(e))
+                continue
             old_pos = int(self._pos[s])
             self._pos[s] = old_pos + 1
             self._consume_token(s, req, int(nxt_np[s]))
@@ -923,10 +1621,24 @@ class ContinuousBatchingEngine:
                 self._retire(s)
         for s, n in chunk_rows.items():
             req = self._slot_req[s]
+            if req is None:
+                continue
+            if bad_np is not None and bad_np[s]:
+                # the forward that computed this chunk's K/V is not
+                # trusted: fail the request before any of it is banked
+                self.stats["nan_guard_trips"] += 1
+                self._fail_slot(s, "FAILED",
+                                f"non-finite logits while prefilling "
+                                f"(cursor {int(self._prefilled[s])}; "
+                                f"in-graph guard)")
+                continue
             ids = self._prefill_ids[s]
             new_cur = int(self._prefilled[s]) + n
             self._prefilled[s] = new_cur
             self._pos[s] = new_cur
+            if self._pcache is not None:
+                # every position below new_cur holds a prompt token's K/V
+                self._register_prefix_blocks(s, ids, new_cur)
             if new_cur >= ids.size:
                 # final chunk: its emit row sat at the last prompt token
                 self._prefill_ids[s] = None
@@ -982,7 +1694,8 @@ class ContinuousBatchingEngine:
         tokens a slot), bank the accepted run + the correction token, and
         roll ``pos`` back past rejected drafts.  Their K/V stay in the pool
         above ``pos`` until overwritten (on quantized pools they take part
-        in their page's requantize, as in the reference)."""
+        in their page's requantize, as in the reference); no cache
+        registration trusts a position at or above ``pos``."""
         B = self.max_batch
         Q = self._spec_qmax
         qlens = np.ones(B, np.int64)
@@ -1000,6 +1713,9 @@ class ContinuousBatchingEngine:
                 continue  # preempted after drafting, or no proposal
             tokens[s, 1:1 + d.size] = d
             q_lens[s] = 1 + d.size
+        self._arm_poison()
+        if self._dispatch_fault():
+            return True         # retried next step, state untouched
         t0 = time.perf_counter()
         dev = self.device
         out, n_acc, bad = self._verify_impl(
@@ -1007,24 +1723,35 @@ class ContinuousBatchingEngine:
             torch.as_tensor(self._pos, device=dev).long(),
             torch.as_tensor(active_np, device=dev),
             torch.as_tensor(q_lens, device=dev).long(),
-            *self._device_args(active_np))
+            *self._device_args(active_np), poison=self._poison_arg())
+        self._poison[:] = False
         # ONE host round-trip: tokens, accepted counts and guard flags
-        fetched = torch.cat([out, n_acc[:, None], bad.long()[:, None]],
-                            dim=1).cpu().numpy()
-        out_np, n_np, bad_np = fetched[:, :Q], fetched[:, Q], fetched[:, Q + 1]
+        cols = [out, n_acc[:, None]]
+        if bad is not None:
+            cols.append(bad.long()[:, None])
+        fetched = torch.cat(cols, dim=1).cpu().numpy()
+        out_np, n_np = fetched[:, :Q], fetched[:, Q]
         self.stats["decode_time_s"] += time.perf_counter() - t0
         self.stats["decode_steps"] += 1
         self.stats["spec_steps"] += 1
-        if bad_np.any():
-            s = int(np.flatnonzero(bad_np)[0])
-            raise FloatingPointError(
-                f"non-finite logits for rid={self._slot_req[s].rid} in a "
-                f"verify step at positions {int(self._pos[s])}.."
-                f"{int(self._pos[s]) + int(q_lens[s]) - 1}")
         for slot, req in enumerate(self._slot_req):
             if req is None:
                 continue
             old_pos = int(self._pos[slot])
+            if bad is not None and fetched[slot, Q + 1]:
+                # the slot's whole verify output is discarded
+                self.stats["nan_guard_trips"] += 1
+                self._fail_slot(slot, "FAILED",
+                                f"non-finite logits at position {old_pos} "
+                                f"(verify step; in-graph guard)")
+                continue
+            try:
+                self._host_fault("slot_error", slot=slot, rid=req.rid)
+            except FaultInjected as e:
+                if not self._graceful:
+                    raise
+                self._fail_slot(slot, "FAILED", str(e))
+                continue
             n = int(n_np[slot])        # 1..q_lens: accepted run + correction
             drafted = int(q_lens[slot]) - 1
             self.stats["spec_drafted_tokens"] += drafted
@@ -1049,12 +1776,21 @@ class ContinuousBatchingEngine:
 
     def serve(self, requests: list[Request]) -> dict[int, list[int]]:
         """Run all requests to completion; returns {rid: generated tokens}.
-        Validation is all-or-nothing: any bad request raises before
-        anything is enqueued."""
-        for r in requests:
-            self._validate(r)
-        for r in requests:
-            self.add_request(r)
+        Graceful mode: an invalid request ends REJECTED (with ``error``)
+        and the rest are served.  Graceful off, validation is
+        all-or-nothing: any bad request raises before anything is
+        enqueued."""
+        if self._graceful:
+            for r in requests:
+                try:
+                    self.add_request(r)
+                except ValueError as e:
+                    self._terminal(r, "REJECTED", str(e))
+        else:
+            for r in requests:
+                self._validate(r)
+            for r in requests:
+                self.add_request(r)
         while self.step() or self._queue:
             pass
         return {r.rid: r.output_ids for r in requests}

@@ -6,9 +6,11 @@ interpret mode).  Its engines run through its plain references
 (``PADDLE_TPU_DISABLE_PALLAS=paged_attention``: the gather oracles of the
 decode, prefill and verify walks, each arm's pool bytes the fused arm's by
 the reference's own guarantee), which keeps four engine runs inside the
-test budget, and with ``PADDLE_TPU_GRACEFUL=0``, the contract the port
-keeps (ROADMAP C4): faults raise, and a chunked admission maps its whole
-prompt's pages at once.  The port's side runs its plain PyTorch versions (CPU
+test budget, and with ``PADDLE_TPU_GRACEFUL=0``: faults raise, and a
+chunked admission maps its whole prompt's pages at once.  The port's engine
+runs in the same mode for the comparisons, and once more in its default
+graceful mode (chunk-by-chunk page mapping), whose tokens must be the same.
+The port's side runs its plain PyTorch versions (CPU
 tensors always take them; ``chip_smoke.py`` and ``test_torch_cuda.py``
 hold the CUDA kernels against them on the card).  Inputs are f32, made with
 numpy from a seed, handed to both.
@@ -209,11 +211,16 @@ def jax_runs(models):
     return runs
 
 
-def _serve_port(models, kv_quant=None, **feats):
+def _serve_port(models, kv_quant=None, graceful=False, **feats):
+    """The port's engine on the request stream, graceful off as the JAX
+    runs (``graceful=True``: its default mode)."""
     _, _, tcfg, tparams = models
-    eng = tserving.ContinuousBatchingEngine(tcfg, tparams, device="cpu",
-                                            kv_quant=kv_quant, **ENGINE,
-                                            **feats)
+    with pytest.MonkeyPatch.context() as mp:
+        if not graceful:
+            mp.setenv("PADDLE_TPU_GRACEFUL", "0")
+        eng = tserving.ContinuousBatchingEngine(tcfg, tparams, device="cpu",
+                                                kv_quant=kv_quant, **ENGINE,
+                                                **feats)
     streaming_victims = []
     preempt = eng._preempt
 
@@ -263,6 +270,26 @@ def test_engine_modes_match_jax(models, jax_runs, label, monkeypatch):
                 == st["spec_drafted_tokens"])
         assert eng.spec_acceptance_rate == (st["spec_accepted_tokens"]
                                             / st["spec_drafted_tokens"])
+    assert sorted(eng._free) == list(range(eng.num_blocks))
+
+
+@pytest.mark.parametrize("label,kv_quant", [("chunked", None),
+                                            ("spec", None),
+                                            ("both", None),
+                                            ("both", "int8")])
+def test_graceful_engine_tokens_match(models, jax_runs, label, kv_quant):
+    """The port's default engine (graceful: the NaN/inf guard on every
+    step, a streaming prompt's pages mapped chunk by chunk) emits the
+    tokens of the graceful-off JAX run on the same stream, and fails
+    nothing."""
+    feats = {"chunked": CHUNKED, "spec": SPEC,
+             "both": {**CHUNKED, **SPEC}}[label]
+    got, eng, _, _ = _serve_port(models, kv_quant=kv_quant, graceful=True,
+                                 **feats)
+    assert eng._graceful
+    want = jax_runs["both_int8" if label == "both" else label][0]
+    assert got == want
+    assert eng.stats["requests_failed"] == eng.stats["nan_guard_trips"] == 0
     assert sorted(eng._free) == list(range(eng.num_blocks))
 
 

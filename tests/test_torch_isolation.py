@@ -80,3 +80,21 @@ def test_engine_rejects_params_on_another_device():
     with pytest.raises(ValueError, match="params live on"):
         ContinuousBatchingEngine(cfg, params, max_seq=64, block_size=16,
                                  device="cpu")
+
+
+@pytest.mark.parametrize("module", ["paddle_tpu_torch.inference.prefix_cache",
+                                    "paddle_tpu_torch.inference.faults",
+                                    "paddle_tpu_torch.utils.envflags"])
+def test_serving_helpers_import_alone(module):
+    """The prefix cache, the fault plan and the switch parsers are the
+    port's own copies: importing one pulls in neither JAX nor the JAX
+    package (the reference's modules of the same names import no JAX
+    either, and the port still does not reach for them)."""
+    code = (f"import sys, {module}\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'paddle_tpu'))\n"
+            "print(bad)\nsys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
