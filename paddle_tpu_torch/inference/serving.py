@@ -298,16 +298,17 @@ class ContinuousBatchingEngine:
         if enable_prefix_caching and env_bool("PADDLE_TPU_PREFIX_CACHE",
                                               True):
             self._pcache = PrefixCache(block_size)
-        # fault tolerance: graceful is decided here; off, the steps carry no
-        # poison operand and no guard, and faults raise out of step()
+        # fault tolerance: graceful is decided here; off, the steps run no
+        # guard, and faults raise out of step()
         self._graceful = env_bool("PADDLE_TPU_GRACEFUL", True)
         self._faults = FaultPlan.from_env()
         self._step_no = 0              # engine step counter (fault-plan key)
         self.max_queue = max_queue
         # rid -> every live accepted request (cancel's lookup)
         self._reqs: dict[int, Request] = {}
-        # per-slot poison bits of the nan_logits fault: the graceful step
-        # turns a set bit into a non-finite logits row on the device
+        # per-slot poison bits of the nan_logits fault: a graceful step on
+        # which one is set turns it into a non-finite logits row on the
+        # device
         self._poison = np.zeros(max_batch, bool)
         self._kernel_err_streak = 0
         # consecutive injected dispatch faults retried before re-raising
@@ -475,19 +476,20 @@ class ContinuousBatchingEngine:
         return greedy.index_put((rows,), (noise + masked).argmax(dim=-1))
 
     @staticmethod
-    def _guard_logits(logits, active, poison, live=None):
+    def _guard_logits(logits, active, poison=None, live=None):
         """The NaN/inf logit guard of the graceful steps, on the device:
-        the ``nan_logits`` poison bit goes in FIRST, as a genuinely NaN row,
-        so injection meets the same finiteness check a real blow-up does;
-        then every ACTIVE slot whose logits are not finite is flagged and
-        its rows zeroed, so the sampler stays finite (the host discards the
-        flagged slot's tokens and fails its request).  Inactive lanes are
-        left out: their garbage rows may be non-finite.  logits [B, V], or
-        [B, Q, V] with ``live`` [B, Q] the rows that count; active and
-        poison [B] -> (logits, bad [B])."""
+        the ``nan_logits`` poison bits (given only on a step a clause armed)
+        go in FIRST, as a genuinely NaN row, so injection meets the same
+        finiteness check a real blow-up does; then every ACTIVE slot whose
+        logits are not finite is flagged and its rows zeroed, so the sampler
+        stays finite (the host discards the flagged slot's tokens and fails
+        its request).  Inactive lanes are left out: their garbage rows may
+        be non-finite.  logits [B, V], or [B, Q, V] with ``live`` [B, Q] the
+        rows that count; active and poison [B] -> (logits, bad [B])."""
         shape = (-1,) + (1,) * (logits.dim() - 1)
-        row = torch.where(poison, float("nan"), 0.0).to(logits.dtype)
-        logits = logits + row.view(shape)
+        if poison is not None:
+            row = torch.where(poison, float("nan"), 0.0).to(logits.dtype)
+            logits = logits + row.view(shape)
         fin = torch.isfinite(logits).all(dim=-1)
         if live is not None:
             fin = (fin | ~live).all(dim=-1)
@@ -495,16 +497,17 @@ class ContinuousBatchingEngine:
         return torch.where(bad.view(shape), 0.0, logits), bad
 
     def _chunk_scan(self, tokens, pos, active, temp, topp, table, seeds,
-                    rows, poison=None):
+                    rows, guard=False, poison=None):
         """``chunk`` decode steps; the chosen token feeds back on the
-        device.  Returns (tokens [chunk, B], bad [chunk, B]): with a
-        ``poison`` operand (graceful mode) ``bad`` holds the guard's flags
-        of each step, without one it is None and no guard runs."""
+        device.  Returns (tokens [chunk, B], bad [chunk, B]): with ``guard``
+        (graceful mode) ``bad`` holds the guard's flags of each step, else
+        it is None and no guard runs; ``poison`` [B] as in
+        ``_guard_logits``."""
         toks, bads = [], []
         tok = tokens
         for i in range(self.chunk):
             logits = self._decode_one(tok, pos + i, active, table)
-            if poison is not None:
+            if guard:
                 logits, bad = self._guard_logits(logits, active, poison)
                 bads.append(bad)
             tok = self._sample_tokens(logits, pos + i, temp, topp, seeds,
@@ -583,22 +586,22 @@ class ContinuousBatchingEngine:
         return x
 
     def _mixed_impl(self, tokens, pos, active, q_lens, temp, topp, seeds,
-                    table, rows, poison=None):
+                    table, rows, guard=False, poison=None):
         """One mixed prefill/decode step: decode-ready slots ride as
         ``q_lens == 1`` lanes, prefilling slots carry a chunk of their
         prompt.  ONLY each slot's last live row goes through the lm_head;
         its token is drawn with the (seed, pos + q_lens - 1) key the plain
         decode step uses at that position, so a decode lane's token and a
         completing prefill's first token are the bucketed engine's.
-        Returns (next token [B], bad [B]: the guard's flags of the emit
-        rows with a ``poison`` operand, else None)."""
+        Returns (next token [B], bad [B]: with ``guard`` the guard's flags
+        of the emit rows, else None)."""
         B = self.max_batch
         x = self._rows_forward(tokens, pos, active, q_lens, table,
                                verify=False)
         last = x[torch.arange(B, device=self.device), q_lens - 1]
         logits = lm_head_logits(self.cfg, self.params, last)      # [B, V]
         bad = None
-        if poison is not None:
+        if guard:
             logits, bad = self._guard_logits(logits, active, poison)
         self.last_logits = logits
         nxt = self._sample_tokens(logits, pos + q_lens - 1, temp, topp,
@@ -606,7 +609,7 @@ class ContinuousBatchingEngine:
         return nxt, bad
 
     def _verify_impl(self, tokens, pos, active, q_lens, temp, topp, seeds,
-                     table, rows, poison=None):
+                     table, rows, guard=False, poison=None):
         """Verify + accept in one step.  tokens [B, Q]: row 0 the pending
         token, rows 1.. the drafts.  Row t's token is drawn with the key
         (seed, pos + t) the plain decode step would use there, so row 0's
@@ -615,8 +618,8 @@ class ContinuousBatchingEngine:
         stream is token-identical to the speculation-off engine.  ``rows``
         are the sampled lanes.  Returns (out [B, Q] chosen tokens,
         n_emitted [B] in 1..q_lens: the leading run of accepted drafts + the
-        correction token, bad [B]: with a ``poison`` operand the guard's
-        flags, a slot flagged when a live row is not finite; else None)."""
+        correction token, bad [B]: with ``guard`` the guard's flags, a slot
+        flagged when a live row is not finite; else None)."""
         B, Q = tokens.shape
         dev = self.device
         x = self._rows_forward(tokens, pos, active, q_lens, table,
@@ -624,7 +627,7 @@ class ContinuousBatchingEngine:
         logits = lm_head_logits(self.cfg, self.params, x)         # [B, Q, V]
         t = torch.arange(Q, device=dev)
         bad = None
-        if poison is not None:
+        if guard:
             # only the live rows count: rows past q_lens read garbage
             # positions and may be non-finite
             logits, bad = self._guard_logits(
@@ -643,71 +646,38 @@ class ContinuousBatchingEngine:
 
     # ---------------- prefill ----------------
 
-    def _prefill_body(self, ids, length, bucket, write, start=None):
-        """Embed/rope/mask once, the paged write path injected.  Tokens at
-        or beyond ``length`` are padding, masked out of attention.  No
-        logits: the last prompt token is fed to the first decode step.
-        ``start`` (a prefix-cache hit): ``ids`` holds the tokens at absolute
-        positions start .. start + bucket - 1, so rope and the causal mask
-        shift by ``start``; ``length`` stays the absolute total."""
+    def _prefill_body(self, ids, length, bucket, write, start=0):
+        """Embed/rope/mask once, the paged write path injected.  ``ids``
+        holds the tokens at absolute positions start .. start + bucket - 1
+        (``start`` > 0: a prefix-cache hit's tail), so rope and the causal
+        mask shift by ``start``; positions at or beyond ``length`` (the
+        absolute total) are padding, masked out of attention.  No logits:
+        the last prompt token is fed to the first decode step."""
         cfg = self.cfg
         S = self.max_seq
         x = self.params["embed"][ids].to(cfg.dtype)
-        if start is None:
-            cos = self._cos[:, :bucket]
-            sin = self._sin[:, :bucket]
-            q_pos = torch.arange(bucket, device=self.device)
-        else:
-            q_pos = start + torch.arange(bucket, device=self.device)
-            safe = q_pos.clamp(max=S - 1)        # the bucket may overrun S
-            cos = self._cos[:, safe]
-            sin = self._sin[:, safe]
+        q_pos = start + torch.arange(bucket, device=self.device)
+        safe = q_pos.clamp(max=S - 1)            # the bucket may overrun S
+        cos = self._cos[:, safe]
+        sin = self._sin[:, safe]
         q_pos = q_pos[None, None, None, :, None]
         kv_pos = torch.arange(S, device=self.device)[None, None, None, None, :]
         mask = (kv_pos <= q_pos) & (kv_pos < length)
         transformer_apply(cfg, self.params, x, self.cache_k, self.cache_v,
                           write, mask, cos, sin)
 
-    def _prefill_impl_paged(self, ids, table_row, length, bucket):
-        """Prefill into the slot's pages: prompt position j writes page
-        table_row[j // bs] offset j % bs.  fp pools: padding positions on
-        unallocated (sentinel) pages land on the spill page, masked from
-        attention.  Quantized pools requantize each dirty page once, PAD
-        rows (j >= length) masked out: a garbage pad row in the prompt's
-        tail page would inflate that page's scale and coarsen its real
-        rows' codes for good."""
-        cfg = self.cfg
-        S, bs = self.max_seq, self.block_size
-        nkv, hd = cfg.num_key_value_heads, cfg.head_dim
-        j = torch.arange(bucket, device=self.device)
-        row = table_row.long()
-
-        if self.kv_quant is not None:
-            write = self._quant_rows_write(table_row[None], j[None],
-                                           ((j < length) & (j < S))[None])
-        else:
-            blk_j = row[j // bs]
-            off_j = j % bs
-
-            def write(ck, k):
-                # k [1, bucket, nkv, hd] -> each position into its page (in
-                # place); view = this slot's gathered pages, batch 1
-                ck[blk_j, :, off_j] = k[0]
-                view = ck[row].transpose(0, 1).reshape(1, nkv, S, hd)
-                return ck, view
-
-        self._prefill_body(ids, length, bucket, write)
-
-    def _prefill_impl_paged_prefix(self, ids, table_row, start, length,
-                                   bucket):
-        """The prefill of a prefix-cache hit's uncached tail: ``ids`` [1,
-        bucket] holds the tokens at absolute positions start .. start +
-        bucket - 1, padded.  Attention reads the slot's whole row, whose
-        leading pages are the shared prefix; writes land only at positions
-        in [start, length), so a shared page is never written (the
-        admission's copy-on-write makes the first decode position's page
-        private too).  Padding and positions past max_seq go to the spill
-        page (fp pools) or drop out of the requantize."""
+    def _prefill_impl_paged(self, ids, table_row, start, length, bucket):
+        """Prefill positions [start, length) into the slot's pages: ``ids``
+        [1, bucket] holds the tokens at absolute positions start .. start +
+        bucket - 1, padded; position j writes page table_row[j // bs] offset
+        j % bs.  Attention reads the slot's whole row, whose leading pages
+        are a prefix-cache hit's shared prefix; writes land only in [start,
+        length), so a shared page is never written (the admission's
+        copy-on-write makes the first decode position's page private too).
+        Padding and positions past max_seq go to the spill page (fp pools)
+        or drop out of the requantize, which requantizes each dirty page
+        once: a garbage pad row in the prompt's tail page would inflate
+        that page's scale and coarsen its real rows' codes for good."""
         cfg = self.cfg
         S, bs = self.max_seq, self.block_size
         nkv, hd = cfg.num_key_value_heads, cfg.head_dim
@@ -725,11 +695,13 @@ class ContinuousBatchingEngine:
             off_j = safe_j % bs
 
             def write(ck, k):
+                # k [1, bucket, nkv, hd] -> each position into its page (in
+                # place); view = this slot's gathered pages, batch 1
                 ck[blk_j, :, off_j] = k[0]
                 view = ck[row].transpose(0, 1).reshape(1, nkv, S, hd)
                 return ck, view
 
-        self._prefill_body(ids, length, bucket, write, start=start)
+        self._prefill_body(ids, length, bucket, write, start)
 
     def _copy_page(self, dst: int, src: int):
         """Copy-on-write: pool page ``src`` into page ``dst`` across every
@@ -1085,24 +1057,21 @@ class ContinuousBatchingEngine:
 
     def _prefill_tail(self, slot: int, ids: np.ndarray, start: int, s0: int):
         """The bucketed admission's prefill of positions [start, s0-1): the
-        whole prompt but its last token when ``start`` is 0, else the
-        uncached tail after a prefix-cache hit."""
+        whole prompt but its last token (fed to decode) when ``start`` is
+        0, else the uncached tail after a prefix-cache hit."""
         # a whole-prompt prefill while other slots are seated stalls their
         # decode for the prompt's length
         stalls = any(r is not None for r in self._slot_req)
-        n = s0 - 1 - start if start else s0
+        n = s0 - 1 - start
         bucket = min(_bucket(n), self.max_seq)
         padded = np.zeros((1, bucket), np.int32)
-        padded[0, :n] = ids[start:start + n]
+        padded[0, :n] = ids[start:s0 - 1]
         dev = self.device
         t_pf = time.perf_counter()
-        args = (torch.as_tensor(padded, device=dev).long(),
-                torch.as_tensor(self._table[slot], device=dev))
-        if start == 0:
-            # the last real token is fed to decode, not prefill
-            self._prefill_impl_paged(*args, s0 - 1, bucket)
-        else:
-            self._prefill_impl_paged_prefix(*args, start, s0 - 1, bucket)
+        self._prefill_impl_paged(
+            torch.as_tensor(padded, device=dev).long(),
+            torch.as_tensor(self._table[slot], device=dev), start, s0 - 1,
+            bucket)
         self._sync()
         self.stats["prefill_time_s"] += time.perf_counter() - t_pf
         self.stats["prefills"] += 1
@@ -1110,13 +1079,7 @@ class ContinuousBatchingEngine:
 
     def _retire(self, slot):
         self._terminal(self._slot_req[slot], "FINISHED")
-        self._register_retired_blocks(slot)  # needs the request's tokens
-        self._slot_req[slot] = None
-        self._temp[slot] = 0.0
-        if self._chunked:
-            self._prefill_ids[slot] = None
-            self._prefilled[slot] = 0
-        self._release(slot)
+        self._vacate(slot, donate=True)
 
     # ---------------- fault tolerance ----------------
 
@@ -1143,6 +1106,13 @@ class ContinuousBatchingEngine:
         drops them, since a faulty step's K/V must never serve a later
         request.  Output already banked stays on the request."""
         req = self._slot_req[slot]
+        self._vacate(slot, donate)
+        self._terminal(req, status, error)
+
+    def _vacate(self, slot: int, donate: bool):
+        """Empty a slot whose request has ended: with ``donate`` its full
+        blocks go to the prefix cache first (they need the request's
+        tokens), then every page and cache reference is released."""
         if donate:
             self._register_retired_blocks(slot)
         self._slot_req[slot] = None
@@ -1152,7 +1122,6 @@ class ContinuousBatchingEngine:
             self._prefill_ids[slot] = None
             self._prefilled[slot] = 0
         self._release(slot)
-        self._terminal(req, status, error)
 
     def _host_fault(self, kind: str, slot: int | None = None,
                     rid: int | None = None):
@@ -1196,11 +1165,14 @@ class ContinuousBatchingEngine:
         self._kernel_err_streak = 0
         return False
 
-    def _poison_arg(self):
-        """The graceful step's poison operand (None graceful off: no guard)."""
-        if not self._graceful:
-            return None
-        return torch.as_tensor(self._poison, device=self.device)
+    def _guard_kw(self) -> dict:
+        """A step's guard operands: ``guard`` in graceful mode (graceful off
+        the step runs no guard), and the poison bits on the device only on
+        a step where a ``nan_logits`` clause armed one (else no NaN row is
+        added)."""
+        poison = (torch.as_tensor(self._poison, device=self.device)
+                  if self._poison.any() else None)
+        return {"guard": self._graceful, "poison": poison}
 
     def _growth_need(self, growth) -> int:
         """Pages the active slots' imminent growth needs beyond what they
@@ -1451,7 +1423,7 @@ class ContinuousBatchingEngine:
             torch.as_tensor(self._table, device=dev),
             torch.as_tensor(self._seed, device=dev),
             torch.as_tensor(sampled_lanes, dtype=torch.long, device=dev)
-            if sampled_lanes else None, poison=self._poison_arg())
+            if sampled_lanes else None, **self._guard_kw())
         self._poison[:] = False
         # ONE host round-trip per chunk: tokens and guard flags together
         if bad is not None:
@@ -1587,7 +1559,7 @@ class ContinuousBatchingEngine:
             torch.as_tensor(pos, device=dev).long(),
             torch.as_tensor(active, device=dev),
             torch.as_tensor(q_lens, device=dev).long(),
-            *self._device_args(active), poison=self._poison_arg())
+            *self._device_args(active), **self._guard_kw())
         self._poison[:] = False
         # ONE host round-trip: the tokens and the guard flags together
         fetched = (nxt if bad is None
@@ -1723,7 +1695,7 @@ class ContinuousBatchingEngine:
             torch.as_tensor(self._pos, device=dev).long(),
             torch.as_tensor(active_np, device=dev),
             torch.as_tensor(q_lens, device=dev).long(),
-            *self._device_args(active_np), poison=self._poison_arg())
+            *self._device_args(active_np), **self._guard_kw())
         self._poison[:] = False
         # ONE host round-trip: tokens, accepted counts and guard flags
         cols = [out, n_acc[:, None]]

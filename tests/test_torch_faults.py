@@ -245,6 +245,33 @@ def test_kernel_exception_is_never_retried(models, monkeypatch):
     assert eng.stats["decode_steps"] == 0
 
 
+def test_guard_poison_row_only_when_armed(models):
+    """Graceful mode guards every step, but adds the NaN poison row only on
+    a step where a ``nan_logits`` clause armed a slot; the guard flags a
+    non-finite active row and zeroes it, and leaves finite rows alone."""
+    with _Env("nan_logits@slot=1,step=1"):
+        eng = _engine(models, "port")
+    assert eng._guard_kw() == {"guard": True, "poison": None}
+    eng.add_request(TRequest(rid=0, prompt_ids=np.arange(1, 10,
+                                                         dtype=np.int32),
+                             max_new_tokens=4))
+    eng.add_request(TRequest(rid=1, prompt_ids=np.arange(2, 12,
+                                                         dtype=np.int32),
+                             max_new_tokens=4))
+    eng._admit()
+    eng._step_no = 1
+    eng._arm_poison()
+    kw = eng._guard_kw()
+    assert kw["guard"] and kw["poison"].tolist() == [False, True]
+    logits = torch.arange(6, dtype=torch.float32).reshape(2, 3)
+    active = torch.tensor([True, True])
+    out, bad = eng._guard_logits(logits, active, kw["poison"])
+    assert bad.tolist() == [False, True]
+    assert torch.equal(out, torch.tensor([[0.0, 1.0, 2.0], [0.0, 0.0, 0.0]]))
+    out, bad = eng._guard_logits(logits, active)
+    assert not bad.any() and torch.equal(out, logits)
+
+
 @pytest.mark.parametrize("kind", ["alloc_fail", "kernel_error", "slot_error",
                                   "cache_error", "nan_logits"])
 def test_graceful_off(models, kind):
@@ -275,7 +302,7 @@ def test_graceful_off(models, kind):
     kw = {"enable_prefix_caching": True} if kind == "cache_error" else {}
     with _Env(spec, graceful=False):
         eng = _engine(models, "port", **kw)
-        assert not eng._graceful and eng._poison_arg() is None
+        assert eng._guard_kw() == {"guard": False, "poison": None}
         reqs = _mixed_batch(TRequest, 9, n=4 if kind == "nan_logits" else 2,
                             prompt_len=17 if kind == "cache_error" else 11)
         if kind != "nan_logits":

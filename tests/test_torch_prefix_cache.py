@@ -13,8 +13,8 @@ one module fixture.  Following ``tests/test_prefix_cache.py``:
   cached, so each takes a copy-on-write page), bucketed and chunked, on fp
   and int8 pools: tokens, the cache statistics, the chain ids and the
   resident pages equal the JAX engine's, the cache-on tokens equal the
-  port's cache-off tokens (fp), and no page is written while the cache
-  holds it;
+  port's cache-off tokens (fp and int8), and no page is written while the
+  cache holds it;
 - a pool far smaller than the working set: LRU eviction, leaf first, and
   preempt-then-resume through the donated prefix, equal to the JAX engine;
 - a full hit skips prefill; the hash chain separates near-miss prefixes
@@ -219,6 +219,20 @@ def test_cache_on_off_token_identical(models, jax_runs, chunked):
         assert eng.stats["prefill_tokens_cached"] == 0
         assert (eng.stats["prefill_tokens_computed"]
                 > jstats["prefill_tokens_computed"])
+
+
+@pytest.mark.parametrize("chunked", [False, True])
+def test_quant_cache_on_off_token_identical(models, jax_runs, chunked):
+    """On int8 pools too the cache changes what is computed, not what is
+    emitted here, although a chunked hit streams its tail in other chunks
+    than the cache-off run (so other write events requantize its pages):
+    the cache-off port engine emits the cache-on JAX engine's tokens."""
+    off, eng, _ = _serve_port(models, "shared", chunked, "int8", cache=False)
+    assert eng._pcache is None
+    want, jstats, _, _ = jax_runs[("shared", chunked, "int8")]
+    assert off == want
+    assert (eng.stats["prefill_tokens_computed"]
+            > jstats["prefill_tokens_computed"])
 
 
 def test_full_hit_skips_prefill(models):
