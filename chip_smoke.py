@@ -95,7 +95,29 @@ non-zero as soon as one fails:
     requests emit the fault-free run's tokens exactly and preempted ones
     pass the logit check; a JSON snapshot taken mid-serve restores on a
     fresh engine whose streams pass the logit check; one decode step timed
-    with and without the NaN/inf guard.
+    with and without the NaN/inf guard; each FAILED victim left a flight
+    dump holding its fault record;
+12. weight-only quant: Llama-3-8B widths, random bf16 weights (phase 6's
+    seed): layer 0's codes, scales and dequantized matrices made on the
+    card equal the CPU's bit for bit; the resident layer-weight bytes
+    bf16 / int8 / int4; phase 6's 12 requests through a 32-layer
+    ``quant='int8'`` bucketed serve over bf16 pools and a 32-layer
+    ``quant='int4'`` chunked (128) serve over int8 pools, launch counts
+    proving every layer of every decode step ran B7 / B11 on the tensor
+    cores, every mixed step's the prefill walk, ``rms_norm`` every layer,
+    the fused MLP never; decode tokens/s, a profile of four decode steps
+    and the dequantize of a step's weights timed alone, against the bound
+    (weight bytes over 3.35 TB/s); the first decode step's logits int8
+    against bf16 weights (reported); both configurations on the first
+    ``CHUNKED_SPEC_LAYERS`` layers with the kernels and with every kernel
+    off, every logit row within ``SERVE_LOGIT_TOL``;
+13. observability: 4 full-width layers serve phase 6's 12 requests with
+    observability on, ``PADDLE_TPU_METRICS=0``, and both switches off:
+    identical tokens and equal synchronizing-call counts
+    (``torch.cuda.set_sync_debug_mode("warn")``), every schema counter in
+    the exposition with its value, queued / prefill / decode spans for
+    every request in the exported chrome trace, one step-histogram
+    observation a step; the wall per step of each run.
 
 The line before the last lists every kernel with its numbers; the last line
 is ``{"ok": true, "device": {...}}``.  ``--serve-sweep FIRST-LAST`` runs
@@ -881,7 +903,7 @@ def _serve_llama(torch, np, cfg, params, kv_quant, t_init) -> dict:
           "decode_tokens": st["decode_tokens"],
           "decode_tokens_per_s": eng.decode_tokens_per_s,
           "decode_time_s": st["decode_time_s"],
-          "prefill_time_s": st["prefill_time_s"],
+          "prefill_time_s": eng.prefill_time_s,
           "mean_ttft_s": statistics.mean(r.ttft_s for r in reqs),
           "wall_s": wall, "init_params_s": t_init,
           "kv_pool_gb": sum(t.numel() * t.element_size() for pool in
@@ -1210,7 +1232,7 @@ def _serve_chunked_spec(torch, np, cfg, params, kv_quant, smi, seed=3,
           "bucketed": {"decode_tokens_per_s": ref_eng.decode_tokens_per_s,
                        "mean_ttft_s": statistics.mean(r.ttft_s
                                                       for r in ref_reqs),
-                       "prefill_time_s": ref_eng.stats["prefill_time_s"],
+                       "prefill_time_s": ref_eng.prefill_time_s,
                        "decode_stall_steps":
                            ref_eng.stats["decode_stall_steps"],
                        "decode_steps": ref_eng.stats["decode_steps"],
@@ -1423,8 +1445,8 @@ def phase_prefix_cache(torch, np, smi: str) -> dict:
                   "tokens_per_wall_s_on": 64 * len(reqs) / wall,
                   "tokens_per_wall_s_off": 64 * len(oreqs) / owall,
                   "wall_s_on": wall, "wall_s_off": owall,
-                  "prefill_time_s_on": st["prefill_time_s"],
-                  "prefill_time_s_off": ost["prefill_time_s"],
+                  "prefill_time_s_on": eng.prefill_time_s,
+                  "prefill_time_s_off": oeng.prefill_time_s,
                   "logit_tolerance": tol, **logits,
                   "launches": {k: v for k, v in launches.items() if v}})
             check(logits["max_abs_logit_diff"] <= tol,
@@ -1597,6 +1619,15 @@ def phase_chaos(torch, np, smi: str) -> dict:
           f"two requests failed, the refused page grab preempted "
           f"({preempted})")
     check(st["prefix_hits"] > 0, "the shared system prompt hit")
+    for rid in sorted(victims):
+        dump = next((d for d in eng._flight.dumps
+                     if d["reason"] == f"request_failed rid={rid}"), None)
+        check(dump is not None and any(
+            e["kind"] == "fault" and e.get("rid") == rid
+            for e in dump["events"]),
+              f"FAILED rid {rid} left a flight dump holding its fault record")
+    flight = {d["reason"]: [e for e in d["events"] if e["kind"] == "fault"]
+              for d in eng._flight.dumps}
     touched = victims | set(preempted)
     exact = [r.rid for r in reqs if r.rid not in touched]
     for r, ref in zip(reqs, ref_reqs):
@@ -1688,12 +1719,391 @@ def phase_chaos(torch, np, smi: str) -> dict:
               "preemptions", "degrade_preempt", "prefix_hits",
               "decode_steps")},
           "chaos_logits": chaos_logits, "restore_logits": restore_logits,
+          "flight_dump_faults": flight,
           "snapshot_bytes": len(snap), "logit_tolerance": tol,
           "guard": guard,
           "guard_device_ms": guard["graceful"]["device_ms"]
           - guard["graceful_off"]["device_ms"],
           "guard_bound_ms": 3 * logits_bytes / HBM_BYTES_PER_S * 1e3})
     del eng, params
+    torch.cuda.empty_cache()
+    return launches
+
+
+#: phase 12's weight-only quantized serves at full depth: (quant, KV pool
+#: kind, chunked prefill)
+QUANT_SERVES = (("int8", None, False), ("int4", "int8", True))
+#: kernel-name fragments of the eager elementwise and copy passes, the
+#: weight-only dequantize's (``.to(bf16)``, the scale multiply, int4's
+#: unpack) and a few small ones of the step's own, for phase 12's profiles
+DEQUANT_GROUPS = (("elementwise", "elementwise (dequant)"),
+                  ("copy_kernel", "elementwise (dequant)"),
+                  ("catarray", "elementwise (dequant)"))
+
+
+def _quant_layer_check(torch, params) -> dict:
+    """Layer 0's seven matmul weights quantized on the card and on the
+    CPU from the same bf16 tensors, int8 and int4: codes and scales bit for
+    bit, and the dequantized bf16 matrices (``wmat``) too."""
+    from paddle_tpu_torch.inference import _MATMUL_LEAVES, _QUANT_ALGOS, wmat
+    from paddle_tpu_torch.nn.quant import _quantize_2d
+
+    checked = {}
+    for quant, algo in _QUANT_ALGOS.items():
+        for name in _MATMUL_LEAVES:
+            w = params["layers"][name][0]
+            qg, sg = _quantize_2d(w, algo)
+            qc, sc = _quantize_2d(w.cpu(), algo)
+            check(torch.equal(qg.cpu(), qc)
+                  and torch.equal(sg.cpu().view(torch.int32),
+                                  sc.view(torch.int32)),
+                  f"{quant} {name}: codes and scales on the card equal the "
+                  f"CPU's bit for bit")
+            dg = wmat({"qweight": qg, "scale": sg}, torch.bfloat16, quant)
+            dc = wmat({"qweight": qc, "scale": sc}, torch.bfloat16, quant)
+            check(torch.equal(dg.cpu().contiguous().view(torch.int16),
+                              dc.contiguous().view(torch.int16)),
+                  f"{quant} {name}: the dequantized matrix on the card "
+                  f"equals the CPU's bit for bit")
+            checked[f"{quant}:{name}"] = list(qg.shape)
+    return checked
+
+
+def _quant_launch_check(eng, launches, L) -> None:
+    """Every layer of every decode step through the pool kind's fused
+    decode kernel on its tensor-core route, chunked every layer of every
+    mixed step through the prefill walk (tensor cores), ``rms_norm`` every
+    layer twice and once more a step (no fused MLP: its post norm is the
+    kernel too), and the fused MLP never."""
+    st = eng.stats
+    mixed, steps = st["mixed_steps"], st["decode_steps"]
+    decode = FUSED_DECODE[eng.kv_quant]
+    want = {decode: L * (steps - mixed), f"{decode}_tc": L * (steps - mixed),
+            "paged_prefill": L * mixed, "paged_prefill_tc": L * mixed,
+            "fused_layer_mlp": 0,
+            "rms_norm": (2 * L + 1) * (steps + st["prefills"])}
+    for name, n in want.items():
+        check(launches[name] == n,
+              f"quant {eng.quant} kv {eng.kv_quant}: {name} launches "
+              f"{launches[name]} == {n}")
+    others = {k: launches[k] for k in DECODE_KERNELS if k != decode}
+    check(not any(others.values()), f"no other decode kernel ran: {others}")
+    check(launches["gumbel_noise"] > 0, "the sampled lanes drew noise")
+
+
+def _quant_engine(cfg, params, quant, kv_quant, chunked):
+    from paddle_tpu_torch.inference.serving import ContinuousBatchingEngine
+
+    feats = (dict(enable_chunked_prefill=True, prefill_chunk=128)
+             if chunked else {})
+    return ContinuousBatchingEngine(cfg, params, max_batch=8, max_seq=2048,
+                                    block_size=64, kv_quant=kv_quant,
+                                    quant=quant, device="cuda", **feats)
+
+
+def phase_quant(torch, np, smi: str) -> dict:
+    """Weight-only quantized serving at Llama-3-8B widths (random bf16
+    weights, phase 6's seed): layer 0 quantized on the card against the
+    CPU; the resident layer-weight bytes bf16 / int8 / int4; phase 6's 12
+    requests through a 32-layer int8 bucketed serve over bf16 pools and a
+    32-layer int4 chunked (128) serve over int8 pools, launch counts
+    proving the path (B7 / B11 every layer of every decode step, B9 of
+    every mixed step, rms_norm, no fused MLP); decode tokens/s; a profile
+    of four decode steps each and the dequantize of one step's weights
+    timed alone; the first decode step's logits of int8 against bf16
+    weights (reported, no gate); then both configurations on the first
+    ``CHUNKED_SPEC_LAYERS`` layers with the kernels and with
+    ``PADDLE_TPU_TORCH_DISABLE_KERNELS=all``, every logit row both scored
+    from the same context within ``SERVE_LOGIT_TOL`` of the pool kind.
+    Returns the two 32-layer serves' launches."""
+    from paddle_tpu_torch.inference import (_MATMUL_LEAVES,
+                                            quantize_layer_params, wmat)
+    from paddle_tpu_torch.inference.serving import Request
+    from paddle_tpu_torch.models import llama
+    from paddle_tpu_torch.ops import kernels
+
+    cfg = llama.LlamaConfig.llama3_8b()
+    params = llama.init_params(cfg, seed=0, device="cuda")
+    L = cfg.num_hidden_layers
+    layer_check = _quant_layer_check(torch, params)
+    weight_bytes = {}
+    m0 = torch.cuda.memory_allocated()
+    probe = [torch.empty_like(params["layers"][n]) for n in _MATMUL_LEAVES]
+    weight_bytes["bf16"] = torch.cuda.memory_allocated() - m0
+    del probe
+    for quant in ("int8", "int4"):
+        m0 = torch.cuda.memory_allocated()
+        qp = quantize_layer_params(params, quant)
+        weight_bytes[quant] = torch.cuda.memory_allocated() - m0
+        del qp
+    torch.cuda.empty_cache()
+    reqs_of = lambda: make_requests(Request, np, 12, cfg.vocab_size,
+                                    sampled=2, seed=0)
+    # the first decode step's logits with bf16 weights (bucketed, bf16
+    # pools): the reference for the int8 serve's first step
+    eng = _quant_engine(cfg, params, None, None, False)
+    for r in reqs_of():
+        eng.add_request(r)
+    eng.step()
+    first_bf16 = eng.last_logits.float().clone()
+    del eng
+    torch.cuda.empty_cache()
+    total, serves = {}, {}
+    for quant, kvq, chunked in QUANT_SERVES:
+        eng = _quant_engine(cfg, params, quant, kvq, chunked)
+        check(eng._fused and not eng._fused_mlp,
+              f"{quant}: the fused decode arm, no fused MLP")
+        reqs = reqs_of()
+        kernels.reset_counters()
+        t0 = time.perf_counter()
+        for r in reqs:
+            eng.add_request(r)
+        eng.step()
+        first = eng.last_logits.float().clone()
+        while eng.step() or eng._queue:
+            pass
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        for r in reqs:
+            check(r.status == "FINISHED"
+                  and len(r.output_ids) == r.max_new_tokens
+                  and all(0 <= t < cfg.vocab_size for t in r.output_ids),
+                  f"{quant} request {r.rid}: {r.max_new_tokens} tokens in "
+                  f"the vocabulary")
+        check(bool(torch.isfinite(eng.last_logits).all()),
+              "last logits finite")
+        _quant_launch_check(eng, launches, L)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        st = eng.stats
+        layers = eng.params["layers"]
+
+        def dequant_step(layers=layers, quant=quant):
+            for name in _MATMUL_LEAVES:
+                leaf = layers[name]
+                for li in range(L):
+                    wmat({k: t[li] for k, t in leaf.items()},
+                         torch.bfloat16, quant)
+
+        # one decode step's dequantize alone, replayed as a CUDA graph so
+        # the host's 2 x 224 launches do not bound the device time
+        dequant_step()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            dequant_step()
+        dq_ms = time_ms(torch, graph.replay, reps=5)
+        del graph
+        res = {"quant": quant, "kv_quant": kvq, "chunked": chunked,
+               "decode_steps": st["decode_steps"],
+               "mixed_steps": st["mixed_steps"],
+               "prefills": st["prefills"],
+               "decode_tokens": st["decode_tokens"],
+               "decode_tokens_per_s": eng.decode_tokens_per_s,
+               "mean_ttft_s": statistics.mean(r.ttft_s for r in reqs),
+               "wall_s": wall, "launches": {k: v for k, v in
+                                            launches.items() if v},
+               "dequant_device_ms_per_step": dq_ms,
+               "dequant_bound_ms": (weight_bytes[quant]
+                                    + weight_bytes["bf16"])
+               / HBM_BYTES_PER_S * 1e3}
+        if not chunked:
+            res["first_step_max_abs_logit_diff_vs_bf16"] = (
+                first - first_bf16).abs().max().item()
+        serves[quant] = res
+        emit({"phase": "quant_serve", "model": "llama3_8b", "layers": L,
+              "nvidia_smi": smi, "requests": len(reqs), **res})
+        phase_profile(torch, np, eng, Request, FUSED_DECODE[kvq],
+                      extra_groups=DEQUANT_GROUPS, settle=chunked)
+        del eng, layers
+        torch.cuda.empty_cache()
+    # the same two configurations at CHUNKED_SPEC_LAYERS depth, kernels on
+    # against every kernel off
+    cfg8, params8 = _first_layers(cfg, params, CHUNKED_SPEC_LAYERS)
+    env = "PADDLE_TPU_TORCH_DISABLE_KERNELS"
+    checks = {}
+    for quant, kvq, chunked in QUANT_SERVES:
+        runs = {}
+        for label in ("kernels", "plain"):
+            if label == "plain":
+                os.environ[env] = "all"
+            try:
+                eng = _quant_engine(cfg8, params8, quant, kvq, chunked)
+                reqs = reqs_of()
+                kernels.reset_counters()
+                rows = _serve_stepwise(torch, eng, reqs)
+            finally:
+                os.environ.pop(env, None)
+            runs[label] = (reqs, rows, dict(kernels.LAUNCHES))
+            del eng
+        check(not any(runs["plain"][2].values()),
+              f"{quant}: the plain run launched no kernel")
+        logits = _logit_check(torch, runs["kernels"][0], runs["kernels"][1],
+                              runs["plain"][0], runs["plain"][1])
+        tol = SERVE_LOGIT_TOL[kvq]
+        checks[quant] = {"kv_quant": kvq, "chunked": chunked,
+                         "logit_tolerance": tol, **logits}
+        check(logits["max_abs_logit_diff"] <= tol,
+              f"{quant} kv {kvq}: every logit row both runs scored from "
+              f"the same context within {tol} of the plain run's "
+              f"(max {logits['max_abs_logit_diff']})")
+        del runs
+        torch.cuda.empty_cache()
+    emit({"phase": "quant", "model": "llama3_8b", "nvidia_smi": smi,
+          "layer_check": layer_check,
+          "layer_weight_bytes": weight_bytes,
+          "weight_bound_ms_per_decode_step": {
+              k: v / HBM_BYTES_PER_S * 1e3 for k, v in weight_bytes.items()},
+          "serves": serves, "logit_checks_layers": CHUNKED_SPEC_LAYERS,
+          "logit_checks": checks})
+    del params, params8
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_observability(torch, np, smi: str) -> dict:
+    """4 full-width layers, bf16, phase 6's 12 requests, served three
+    ways: observability on (the default), ``PADDLE_TPU_METRICS=0``, and
+    ``PADDLE_TPU_METRICS=0 PADDLE_TPU_FLIGHT_RECORDER=0``, each under
+    ``torch.cuda.set_sync_debug_mode("warn")`` with the warnings counted,
+    in two rounds in turns (after a warm-up serve).  Gates: identical
+    token streams and equal synchronizing-call counts across the three
+    (and across the rounds); the default run's ``metrics.expose()`` holds every
+    schema counter with its ``stats`` value, its exported chrome trace
+    parses and has ``queued``, ``prefill`` and ``decode`` spans for every
+    request, and its step histogram counted every step.  Reports the wall
+    per step of each run.  Returns the default run's launches."""
+    import collections
+    import tempfile
+    import warnings
+
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.inference.observability import ENGINE_STAT_SCHEMA
+    from paddle_tpu_torch.inference.serving import (ContinuousBatchingEngine,
+                                                    Request)
+    from paddle_tpu_torch.models import llama
+    from paddle_tpu_torch.ops import kernels
+
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(),
+                              num_hidden_layers=4)
+    params = llama.init_params(cfg, seed=0, device="cuda")
+    # a warm-up serve, so no first use lands in one run (the process's
+    # first switch to the "warn" mode warns once by itself)
+    warm = ContinuousBatchingEngine(cfg, params, max_batch=8, max_seq=2048,
+                                    block_size=64, device="cuda")
+    with warnings.catch_warnings(record=True):
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            warm.serve(make_requests(Request, np, 12, cfg.vocab_size,
+                                     sampled=2, seed=0)[:3])
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    del warm
+    modes = (("default", {}), ("metrics_off", {"PADDLE_TPU_METRICS": "0"}),
+             ("all_off", {"PADDLE_TPU_METRICS": "0",
+                          "PADDLE_TPU_FLIGHT_RECORDER": "0"}))
+    runs, out, sites, walls = {}, {}, {}, {}
+    # two rounds in turns (ABC, CBA): the wall a step is reported per run
+    for label, env in modes + modes[::-1]:
+        os.environ.update(env)
+        try:
+            eng = ContinuousBatchingEngine(cfg, params, max_batch=8,
+                                           max_seq=2048, block_size=64,
+                                           device="cuda")
+        finally:
+            for k in env:
+                os.environ.pop(k)
+        check((eng.metrics is not None) == (label == "default")
+              and (eng._flight is not None) == (label != "all_off"),
+              f"{label}: the registry and the recorder as switched")
+        reqs = make_requests(Request, np, 12, cfg.vocab_size, sampled=2,
+                             seed=0)
+        profiler.clear_host_events()
+        kernels.reset_counters()
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                t0 = time.perf_counter()
+                eng.serve(reqs)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        synced = [f"{os.path.basename(w.filename)}:{w.lineno}"
+                  for w in caught if "synchroniz" in str(w.message)]
+        st = eng.stats
+        walls.setdefault(label, []).append(
+            {"decode_ms_per_step": st["decode_time_s"] / st["decode_steps"]
+             * 1e3, "serve_wall_ms_per_step": wall / st["decode_steps"]
+             * 1e3})
+        if label in runs:
+            check(collections.Counter(synced) == sites[label]
+                  and [r.output_ids for r in reqs]
+                  == [r.output_ids for r in runs[label][1]],
+                  f"{label}: the second round repeats the first's tokens "
+                  f"and synchronizing calls")
+            continue
+        sites[label] = collections.Counter(synced)
+        runs[label] = (eng, reqs)
+        out[label] = {"sync_warnings": len(synced),
+                      "decode_steps": st["decode_steps"]}
+        if label == "default":
+            launches = dict(kernels.LAUNCHES)
+            text = eng.metrics.expose()
+            missing = [k for k, (kind, _) in ENGINE_STAT_SCHEMA.items()
+                       if kind == "counter" and
+                       f"paddle_tpu_serving_{k} {int(st[k])}\n" not in text]
+            check(not missing, f"the exposition holds every schema "
+                               f"counter with its stats value: {missing}")
+            check(eng._h_step.count == st["decode_steps"],
+                  f"the step histogram counted {eng._h_step.count} of "
+                  f"{st['decode_steps']} steps")
+            with tempfile.TemporaryDirectory() as tmp:
+                path = os.path.join(tmp, "trace.json")
+                profiler.Profiler().export(path)
+                with open(path) as f:
+                    events = json.load(f)["traceEvents"]
+            spans = {}
+            for e in events:
+                if e.get("ph") == "X":
+                    spans.setdefault(e["tid"], set()).add(e["name"])
+            lacking = [r.rid for r in reqs
+                       if not {"queued", "prefill", "decode"}
+                       <= spans.get(r.rid, set())]
+            check(not lacking, f"queued, prefill and decode spans for "
+                               f"every request (lacking: {lacking})")
+            out[label].update({
+                "trace_events": len(events),
+                "exposition_bytes": len(text),
+                "step_histogram_count": eng._h_step.count,
+                "host_gap_histogram_count": eng._h_hostgap.count,
+                "slo_goodput_at_60s": eng.slo.goodput_at(60.0, 60.0)[
+                    "tokens"],
+                "flight_events": len(eng._flight)})
+    base = [r.output_ids for r in runs["default"][1]]
+    for label in out:
+        out[label]["walls"] = walls[label]
+        out[label]["decode_ms_per_step_mean"] = statistics.mean(
+            w["decode_ms_per_step"] for w in walls[label])
+    emit({"phase": "observability", "model": "llama3_8b",
+          "layers": cfg.num_hidden_layers, "nvidia_smi": smi,
+          "requests": len(base), "runs": out,
+          "sync_sites": dict(sites["default"]),
+          "sync_sites_differing": {
+              label: dict((sites[label] - sites["default"])
+                          + (sites["default"] - sites[label]))
+              for label in ("metrics_off", "all_off")}})
+    for label in ("metrics_off", "all_off"):
+        check([r.output_ids for r in runs[label][1]] == base,
+              f"{label}: the token streams equal the default run's")
+        check(out[label]["sync_warnings"] == out["default"]["sync_warnings"],
+              f"{label}: as many synchronizing calls as with observability "
+              f"on ({out[label]['sync_warnings']} vs "
+              f"{out['default']['sync_warnings']})")
+    del runs, params
     torch.cuda.empty_cache()
     return launches
 
@@ -1718,21 +2128,26 @@ _KERNEL_GROUPS = (("fused_quant_decode", "fused_quant_decode_step"),
                   ("nvjet", "matmul"))
 
 
-def phase_profile(torch, np, eng, Request, decode) -> None:
+def phase_profile(torch, np, eng, Request, decode, extra_groups=(),
+                  settle=False) -> None:
     """Where a full-depth step's time goes: torch.profiler over four steps
     of eight 512-token requests (the engine of phase 6, after its serve:
     decode steps, or on a chunked engine mixed steps streaming the
-    prompts), device time summed by layer (the split-K combine kernel with
-    ``decode``, the fused decode kernel it follows), and the device's busy
-    share of the steps' wall time."""
+    prompts; ``settle``: decode steps after the prompts streamed in),
+    device time summed by layer (the split-K combine kernel with
+    ``decode``, the fused decode kernel it follows; ``extra_groups``,
+    name fragments -> layer, are tried first), and the device's busy share
+    of the steps' wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     rng = np.random.default_rng(7)
     for i in range(eng.max_batch):
         eng.add_request(Request(rid=1000 + i, prompt_ids=rng.integers(
             0, eng.cfg.vocab_size, size=512).astype(np.int32),
-            max_new_tokens=8))
+            max_new_tokens=40 if settle else 8))
     eng.step()                      # admission + prefills + 1 decode step
+    while settle and any(i is not None for i in eng._prefill_ids):
+        eng.step()
     torch.cuda.synchronize()
     steps = 4
     with profile(activities=[ProfilerActivity.CPU,
@@ -1757,14 +2172,17 @@ def phase_profile(torch, np, eng, Request, decode) -> None:
         name = evt.key.lower()
         group = decode if ("combine_kernel" in name
                            or "decode_tc_kernel<true" in name) else next(
-            (g for frag, g in _KERNEL_GROUPS if frag in name), "other")
+            (g for frag, g in (*extra_groups, *_KERNEL_GROUPS)
+             if frag in name),
+            "other")
         groups[group] = groups.get(group, 0.0) + dev_us
         if group == "other":
             other[evt.key[:60]] = dev_us / steps / 1e3
     while eng.step() or eng._queue:  # finish the profiled requests
         pass
-    emit({"phase": "profile", "kv_quant": eng.kv_quant,
-          "step_kind": "mixed" if eng._chunked else "decode",
+    emit({"phase": "profile", "kv_quant": eng.kv_quant, "quant": eng.quant,
+          "step_kind": ("mixed" if eng._chunked and not settle
+                        else "decode"),
           "decode_steps": steps, "batch": eng.max_batch,
           "context": 512, "wall_ms_per_step": wall / steps * 1e3,
           "device_ms_per_step": ({g: v / steps / 1e3
@@ -2440,6 +2858,11 @@ def main(argv: list[str]) -> int:
                            smi)
     for k, v in timed("chaos", phase_chaos, torch, np, smi).items():
         slice_launches[k] += v
+    # this slice's: the weight-only quantized serves and observability
+    for phase, fn in (("quant", phase_quant),
+                      ("observability", phase_observability)):
+        for k, v in timed(phase, fn, torch, np, smi).items():
+            slice_launches[k] += v
     arm_launches = timed("arms", phase_arms, torch, np)
     train_launches = timed("train", phase_train, torch, np)
     timed("train_end_to_end", phase_train_end_to_end, torch, np)

@@ -4,7 +4,9 @@ This slice ports the cache-threading transformer body shared by the
 serving engine, :func:`transformer_apply`, over fp or quantized KV pools,
 and :func:`lm_head_logits`.
 The reference's layer ``lax.scan`` is a Python loop over the stacked layer
-weights here; fp weights only (weight-only quantization comes later).
+weights here.  The layer matmul weights are fp, or weight-only quantized
+by :func:`quantize_layer_params` (``quant`` 'int8' / 'int4'), each then
+dequantized by :func:`wmat` where a matmul reads it.
 """
 
 from __future__ import annotations
@@ -15,7 +17,8 @@ import torch
 
 
 def transformer_apply(cfg, params, x, cache_k, cache_v, write_fn, mask, cos,
-                      sin, attend_fn=None, fused_fn=None, mlp_fused_fn=None):
+                      sin, attend_fn=None, fused_fn=None, mlp_fused_fn=None,
+                      quant=None):
     """Transformer body over per-layer KV caches.
 
     ``cache_k``/``cache_v`` are the stacked pools ``[L, ...]``, or for
@@ -40,6 +43,10 @@ def transformer_apply(cfg, params, x, cache_k, cache_v, write_fn, mask, cos,
     stays the ``rms_norm`` dispatch in this mode too: XLA fused the
     reference's inline norm into the QKV matmuls, eager PyTorch has no such
     fusion, so the kernel (same f32 math) is the cheaper path on the card.
+
+    ``quant`` (None, 'int8', 'int4') says how the layer matmul leaves are
+    stored (:func:`quantize_layer_params`); each matmul reads its weight
+    through :func:`wmat`.
 
     Returns (final-normed hidden [b, s, h], cache_k, cache_v)."""
     from ..models.llama import decoder_layer_tail
@@ -67,15 +74,19 @@ def transformer_apply(cfg, params, x, cache_k, cache_v, write_fn, mask, cos,
             return {key: t[li] for key, t in cache.items()}
         return cache[li]
 
+    def w(entry, dt):
+        return wmat(entry, dt, quant)
+
     attend = attend_fn or attend
     layers = params["layers"]
     for li in range(cfg.num_hidden_layers):
-        lp = {name: w[li] for name, w in layers.items()}
+        lp = {name: layer_view(t, li) for name, t in layers.items()}
         ck, cv = layer_view(cache_k, li), layer_view(cache_v, li)
+        dt = x.dtype
         xn = rms.rms_norm(x, lp["input_norm"], cfg.rms_norm_eps)
-        q = (xn @ lp["wq"]).reshape(b, s, nh, hd)
-        k = (xn @ lp["wk"]).reshape(b, s, nkv, hd)
-        v = (xn @ lp["wv"]).reshape(b, s, nkv, hd)
+        q = (xn @ w(lp["wq"], dt)).reshape(b, s, nh, hd)
+        k = (xn @ w(lp["wk"], dt)).reshape(b, s, nkv, hd)
+        v = (xn @ w(lp["wv"], dt)).reshape(b, s, nkv, hd)
         if fused_fn is not None:
             attn, _, _ = fused_fn(q, k, v, ck, cv)
         else:
@@ -83,9 +94,53 @@ def transformer_apply(cfg, params, x, cache_k, cache_v, write_fn, mask, cos,
             _, k_att = write_fn(ck, k)
             _, v_att = write_fn(cv, v)
             attn = attend(q, k_att, v_att)
-        x = decoder_layer_tail(cfg, x, attn, lp, mlp_fn=mlp_fused_fn)
+        x = decoder_layer_tail(cfg, x, attn, lp, wmat=w, mlp_fn=mlp_fused_fn)
     return rms.rms_norm(x, params["final_norm"], cfg.rms_norm_eps), cache_k, \
         cache_v
+
+
+def wmat(entry, dt, quant=None):
+    """Dense ``[in, out]`` matrix of a layer matmul leaf: fp as stored, or
+    a weight-only quantized ``{'qweight': [out, in], 'scale': [out]}``
+    dict (``quant='int4'``: packed codes ``[out, in // 2]``) dequantized
+    into ``dt`` (``nn/quant._dequant_2d``)."""
+    if isinstance(entry, dict):
+        from ..nn.quant import _dequant_2d
+
+        return _dequant_2d(entry["qweight"], entry["scale"], dt,
+                           int4=quant == "int4")
+    return entry
+
+
+_QUANT_ALGOS = {"int8": "weight_only_int8", "int4": "weight_only_int4"}
+_MATMUL_LEAVES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+
+
+@torch.no_grad()
+def quantize_layer_params(params, quant: str):
+    """Weight-only-quantize the stacked per-layer matmul weights of a llama
+    param tree (embed, lm_head and the norms stay fp).  Each ``[L, K, N]``
+    leaf becomes ``{'qweight': [L, N, K] int8 (int4: packed [L, N, K //
+    2]), 'scale': [L, N] f32}``, the reference's layout.  One layer at a
+    time: the f32 working copy is one layer's, never the whole leaf's.
+    An unknown ``quant`` raises ``KeyError``, as the reference's does."""
+    from ..nn.quant import _quantize_2d
+
+    algo = _QUANT_ALGOS[quant]
+    out = dict(params)
+    layers = dict(params["layers"])
+    for name in _MATMUL_LEAVES:
+        w = layers[name]
+        qs, ss = None, None
+        for li in range(w.shape[0]):
+            q, s = _quantize_2d(w[li], algo)
+            if qs is None:
+                qs = q.new_empty((w.shape[0], *q.shape))
+                ss = s.new_empty((w.shape[0], *s.shape))
+            qs[li], ss[li] = q, s
+        layers[name] = {"qweight": qs, "scale": ss}
+    out["layers"] = layers
+    return out
 
 
 def lm_head_logits(cfg, params, x_last):

@@ -26,10 +26,16 @@ injected dispatch fault, the overload ladder (evict cache leaves, suspend
 speculation, shrink the mixed step's prefill rows, preempt the youngest,
 fail only the unsatisfiable request), chunk-by-chunk page mapping of a
 streaming prompt, deadlines, ``cancel``, ``max_queue`` backpressure and
-``snapshot`` / ``restore``.  Not ported yet (ROADMAP.md): the dense-cache
-mode, weight-only quant, tensor parallelism, metrics and the flight
-recorder, the host KV tier (so the ``tier_drop`` fault has no seam), the
-incremental journal and async host runtime, and the fleet.
+``snapshot`` / ``restore``; weight-only quantized matmul weights
+(``quant``: ``quantize_layer_params`` at construction, each matmul reading
+its weight dequantized, the fused MLP half off as in the reference); and
+observability (``observability.py``): ``stats`` as a view over a metrics
+registry, request spans, SLO accounting, the step and host-gap histograms
+and the flight recorder.  Not ported yet (ROADMAP.md): the dense-cache
+mode, tensor parallelism, the host KV tier (so the ``tier_drop`` fault has
+no seam and the ``tier_*`` statistics stay 0), the incremental journal and
+async host runtime (``journal_*``, ``host_overlap_steps`` stay 0), and the
+fleet.
 
 How the JAX engine's mechanisms map to PyTorch:
 
@@ -74,8 +80,12 @@ from ..ops.kernels import paged_attention as _pa
 from ..ops.kernels import rope as rope_mod
 from ..ops.kernels import sampling
 from ..utils.envflags import env_bool
-from . import lm_head_logits, transformer_apply
+from . import lm_head_logits, quantize_layer_params, transformer_apply
 from .faults import FaultInjected, FaultPlan
+from .observability import (ENGINE_STAT_SCHEMA, FlightRecorder,
+                            MetricsRegistry, RequestTracer, SLOTracker,
+                            StatsView, flight_recorder_enabled,
+                            metrics_enabled)
 from .prefix_cache import PrefixCache
 from .speculative import NGramDrafter
 
@@ -201,6 +211,17 @@ class ContinuousBatchingEngine:
     overload ladder degrades before anyone fails; ``0`` gives the engine
     that raises out of ``step``.  ``PADDLE_TPU_FAULT_INJECT`` is the fault
     plan (``faults.py``).
+    ``quant``: None | 'int8' | 'int4' -- weight-only quantized layer matmul
+    weights (``quantize_layer_params``, at construction; embed, lm_head and
+    the norms stay fp), each dequantized into the model dtype where a
+    matmul reads it.  The fused MLP half is off under ``quant``, as in the
+    reference (it would stream dense weights); the fused decode step stays.
+    ``metrics`` / ``metrics_labels``: a shared
+    :class:`~.observability.MetricsRegistry` and a constant label set
+    (e.g. ``{"replica": k}``); by default the engine makes its own
+    registry.  ``PADDLE_TPU_METRICS=0`` restores the plain ``stats`` dict,
+    with no registry, spans or SLO tracking; ``PADDLE_TPU_FLIGHT_RECORDER
+    =0`` turns the flight recorder off.
     """
 
     def __init__(self, cfg, params, max_batch: int = 8, max_seq: int = 512,
@@ -210,12 +231,17 @@ class ContinuousBatchingEngine:
                  enable_speculation: bool = False, num_draft_tokens: int = 4,
                  spec_ngram: int = 3, enable_chunked_prefill: bool = False,
                  prefill_chunk: int = 128, token_budget: int | None = None,
-                 max_queue: int | None = None, device=None):
+                 max_queue: int | None = None, quant: str | None = None,
+                 metrics=None, metrics_labels: dict | None = None,
+                 device=None):
         self.device = resolve_device(device)
         for leaf in [params["embed"], *params["layers"].values()]:
             if leaf.device != self.device:
                 raise ValueError(f"params live on {leaf.device}, engine "
                                  f"device is {self.device}")
+        if quant is not None:
+            params = quantize_layer_params(params, quant)
+        self.quant = quant
         if max_seq % block_size:
             raise ValueError(f"max_seq {max_seq} is not a multiple of "
                              f"block_size {block_size}")
@@ -247,12 +273,15 @@ class ContinuousBatchingEngine:
         # the decode arm, decided here as the reference decides it: the
         # fused step unless a switch rebuilds the engine on the unfused arm
         # (an append, then the paged decode attention, which still runs its
-        # kernels).  The fused MLP half rides the fused arm only.
+        # kernels).  The fused MLP half rides the fused arm only, and only
+        # over fp matmul leaves: under ``quant`` the MLP reads its weights
+        # through the dequantize, as in the reference
         self._fused = not (kernel_disabled("paged_attention")
                            or kernel_disabled("fused_decode_step")
                            or (kv_quant is not None
                                and kernel_disabled("fused_quant_append")))
-        self._fused_mlp = self._fused and not kernel_disabled("fused_layer_mlp")
+        self._fused_mlp = (self._fused and quant is None
+                           and not kernel_disabled("fused_layer_mlp"))
         nbp = self.num_blocks + 1                   # + the spill page
         if kv_quant is None:
             shape = (L, nbp, nkv, block_size, hd)
@@ -338,24 +367,70 @@ class ContinuousBatchingEngine:
             # and the cursor, the next position whose K/V is computed
             self._prefill_ids: list[np.ndarray | None] = [None] * max_batch
             self._prefilled = np.zeros(max_batch, np.int32)
-        self.stats = {"decode_steps": 0, "decode_tokens": 0,
-                      "decode_time_s": 0.0, "prefills": 0,
-                      "prefill_time_s": 0.0, "preemptions": 0,
-                      "decode_stall_steps": 0, "mixed_steps": 0,
-                      "prefill_chunks": 0, "spec_steps": 0,
-                      "spec_drafted_tokens": 0, "spec_accepted_tokens": 0,
-                      "spec_rejected_tokens": 0, "prefix_hits": 0,
-                      "prefix_blocks_reused": 0, "prefix_evictions": 0,
-                      "cow_copies": 0, "prefill_tokens_computed": 0,
-                      "prefill_tokens_cached": 0, "requests_failed": 0,
-                      "requests_rejected": 0, "requests_cancelled": 0,
-                      "requests_expired": 0, "degrade_evict": 0,
-                      "degrade_spec_off": 0, "degrade_budget_shrink": 0,
-                      "degrade_preempt": 0, "nan_guard_trips": 0,
-                      "kernel_error_retries": 0}
+        # wall seconds of the bucketed prefills (synchronized): the port's
+        # own figure, kept beside ``stats`` (whose keys are the schema's)
+        self.prefill_time_s = 0.0
+        self._setup_observability(metrics, metrics_labels)
         #: logits [B, V] of the last step run (inspection only): a decode
         #: step's, a mixed step's emit rows, a verify step's row 0
         self.last_logits: torch.Tensor | None = None
+
+    def _setup_observability(self, metrics, labels):
+        """``stats`` over a metrics registry (keys and help strings:
+        ``ENGINE_STAT_SCHEMA``), the SLO tracker, the request tracer, the
+        step and host-gap histograms and the flight recorder, as the
+        reference sets them up.  Everything records on the host, before a
+        step's launches or after its fetch."""
+        self._obs_labels = dict(labels or {})
+        replica = self._obs_labels.get("replica")
+        obs_name = f"replica-{replica}" if replica is not None else "engine"
+        if metrics_enabled():
+            self.metrics = (metrics if metrics is not None
+                            else MetricsRegistry())
+            self.stats = StatsView(self.metrics, ENGINE_STAT_SCHEMA,
+                                   self._obs_labels)
+            self.slo = SLOTracker(self.metrics, self._obs_labels)
+            self._h_hostgap = self.metrics.histogram(
+                "paddle_tpu_serving_host_gap_seconds",
+                "Host-side gap between the end of one compiled serving "
+                "step and the next launch (scheduler/drafter/router time "
+                "the device sits idle — ROADMAP item 5's target)"
+            ).labels(**self._obs_labels)
+            self._h_step = self.metrics.histogram(
+                "paddle_tpu_serving_step_seconds",
+                "Wall seconds per compiled serving step (launch to host "
+                "fetch)").labels(**self._obs_labels)
+            self._tracer = RequestTracer(
+                enabled=True, pid=int(replica) if replica is not None else 0,
+                process_name=obs_name)
+        else:
+            self.metrics = None
+            self.slo = None
+            self._h_hostgap = self._h_step = None
+            self._tracer = RequestTracer(enabled=False)
+            self.stats = {k: (0.0 if kind == "gauge" else 0)
+                          for k, (kind, _) in ENGINE_STAT_SCHEMA.items()}
+        self._last_step_end = None      # the host-gap histogram's anchor
+        self._flight = (FlightRecorder(registry=self.metrics, name=obs_name)
+                        if flight_recorder_enabled() else None)
+
+    def _note_launch(self, t0: float):
+        """At a step's launch: the gap since the previous step's fetch is
+        host work the device sat idle through."""
+        if self._h_hostgap is not None and self._last_step_end is not None:
+            self._h_hostgap.observe(t0 - self._last_step_end)
+
+    def _note_step_done(self, t0: float):
+        """After a step's one host fetch: its wall, launch to fetch."""
+        end = time.perf_counter()
+        if self._h_step is not None:
+            self._h_step.observe(end - t0)
+        self._last_step_end = end
+
+    def _record(self, kind: str, **detail):
+        """One flight-recorder event (nothing when the recorder is off)."""
+        if self._flight is not None:
+            self._flight.record(kind, **detail)
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -446,7 +521,8 @@ class ContinuousBatchingEngine:
                                     self.cache_v, write, None, cos[:, None],
                                     sin[:, None], attend_fn=attend_fn,
                                     fused_fn=fused_fn,
-                                    mlp_fused_fn=mlp_fused_fn)
+                                    mlp_fused_fn=mlp_fused_fn,
+                                    quant=self.quant)
         return lm_head_logits(cfg, self.params, x[:, -1])
 
     def _sample_tokens(self, logits, pos, temp, topp, seeds, rows):
@@ -582,7 +658,7 @@ class ContinuousBatchingEngine:
 
         x, _, _ = transformer_apply(cfg, self.params, x, self.cache_k,
                                     self.cache_v, write, None, cos, sin,
-                                    attend_fn=attend_fn)
+                                    attend_fn=attend_fn, quant=self.quant)
         return x
 
     def _mixed_impl(self, tokens, pos, active, q_lens, temp, topp, seeds,
@@ -664,7 +740,7 @@ class ContinuousBatchingEngine:
         kv_pos = torch.arange(S, device=self.device)[None, None, None, None, :]
         mask = (kv_pos <= q_pos) & (kv_pos < length)
         transformer_apply(cfg, self.params, x, self.cache_k, self.cache_v,
-                          write, mask, cos, sin)
+                          write, mask, cos, sin, quant=self.quant)
 
     def _prefill_impl_paged(self, ids, table_row, start, length, bucket):
         """Prefill positions [start, length) into the slot's pages: ``ids``
@@ -754,6 +830,8 @@ class ContinuousBatchingEngine:
                                       slot=slot)):
             # the allocator seam: report the pool dry, polled only where a
             # real grab would happen
+            self._record("fault", fault="alloc_fail", slot=slot,
+                         step=self._step_no)
             return False
         while base + len(owned) < n_blocks:
             if not self._free and not self._reclaim(1):
@@ -768,8 +846,10 @@ class ContinuousBatchingEngine:
         if self._pcache is None:
             return 0
         pairs = self._pcache.evict(n)
-        self._free.extend(page for _, page in pairs)
-        self.stats["prefix_evictions"] += len(pairs)
+        if pairs:
+            self._free.extend(page for _, page in pairs)
+            self.stats["prefix_evictions"] += len(pairs)
+            self._record("evict", pages=len(pairs))
         return len(pairs)
 
     def _evictable(self) -> int:
@@ -873,6 +953,8 @@ class ContinuousBatchingEngine:
         req.status = "PENDING"
         self._queue.insert(0, req)
         self.stats["preemptions"] += 1
+        self._record("degrade", rung=4, what="preempt", rid=req.rid,
+                     slot=slot)
         if self._graceful:
             # under pressure, a preemption is ladder rung 4
             self.stats["degrade_preempt"] += 1
@@ -944,6 +1026,8 @@ class ContinuousBatchingEngine:
         req._submit_s = time.perf_counter()  # TTFT and deadline epoch
         if req.trace_id is None:
             req.trace_id = f"req-{req.rid:x}"
+        if self.slo is not None:
+            self.slo.begin(req.rid, req._submit_s)
         self._reqs[req.rid] = req
         if self.max_queue is not None and len(self._queue) >= self.max_queue:
             msg = (f"queue full ({len(self._queue)} waiting, "
@@ -1039,13 +1123,24 @@ class ContinuousBatchingEngine:
                 self._pos[slot] = start
             else:
                 if start == 0 or plen > 0:
-                    self._prefill_tail(slot, ids, start, s0)
+                    self._prefill_tail(req, slot, ids, start, s0)
                 # else: a full hit, nothing to compute
                 self._pos[slot] = s0 - 1
                 if self._pcache is not None:
                     self._register_prefix_blocks(slot, ids, s0 - 1)
             self._slot_req[slot] = req
             req.status = "RUNNING"
+            # the queue-wait span closes at seating; the decode span opens
+            now = time.perf_counter()
+            req._admit_s = now
+            if self.slo is not None:
+                self.slo.admitted(req.rid, now)
+            self._tracer.span(req.rid, "queued",
+                              getattr(req, "_submit_s", now), now,
+                              args={"rid": req.rid, "slot": slot,
+                                    "cached_tokens": int(start)})
+            self._record("admit", rid=req.rid, slot=slot, prompt=int(s0),
+                         cached_tokens=int(start))
             self._last_tok[slot] = ids[-1]
             self._temp[slot] = max(float(req.temperature or 0.0), 0.0)
             self._topp[slot] = float(req.top_p if req.top_p is not None
@@ -1055,7 +1150,8 @@ class ContinuousBatchingEngine:
             self._seed[slot] = np.int32(
                 req.seed if req.seed is not None else req.rid)
 
-    def _prefill_tail(self, slot: int, ids: np.ndarray, start: int, s0: int):
+    def _prefill_tail(self, req: Request, slot: int, ids: np.ndarray,
+                      start: int, s0: int):
         """The bucketed admission's prefill of positions [start, s0-1): the
         whole prompt but its last token (fed to decode) when ``start`` is
         0, else the uncached tail after a prefix-cache hit."""
@@ -1073,9 +1169,13 @@ class ContinuousBatchingEngine:
             torch.as_tensor(self._table[slot], device=dev), start, s0 - 1,
             bucket)
         self._sync()
-        self.stats["prefill_time_s"] += time.perf_counter() - t_pf
+        t_end = time.perf_counter()
+        self.prefill_time_s += t_end - t_pf
         self.stats["prefills"] += 1
         self.stats["decode_stall_steps"] += int(stalls)
+        self._tracer.span(req.rid, "prefill", t_pf, t_end,
+                          args={"bucket": bucket, "tokens": n,
+                                **({"cached": start} if start else {})})
 
     def _retire(self, slot):
         self._terminal(self._slot_req[slot], "FINISHED")
@@ -1095,6 +1195,25 @@ class ContinuousBatchingEngine:
         if stat is not None:
             self.stats[stat] += 1
         self._reqs.pop(req.rid, None)
+        # close the SLO record, emit the decode span (admission to now) and
+        # the terminal marker; a FAILED request dumps the flight recorder
+        now = time.perf_counter()
+        if self.slo is not None:
+            self.slo.finish(req.rid, status, now)
+        if self._tracer.enabled:
+            t_admit = getattr(req, "_admit_s", None)
+            if t_admit is not None:
+                self._tracer.span(req.rid, "decode", t_admit, now,
+                                  args={"tokens": len(req.output_ids),
+                                        "status": status})
+            self._tracer.instant(req.rid, f"terminal:{status}", now,
+                                 args={"rid": req.rid,
+                                       **({"error": error} if error else {})})
+        self._record("terminal", rid=req.rid, status=status,
+                     tokens=len(req.output_ids),
+                     **({"error": error} if error else {}))
+        if status == "FAILED" and self._flight is not None:
+            self._flight.dump(f"request_failed rid={req.rid}")
 
     def _fail_slot(self, slot: int, status: str, error: str,
                    donate: bool = False):
@@ -1131,6 +1250,9 @@ class ContinuousBatchingEngine:
                                               slot=slot, rid=rid):
             where = "".join((f", slot {slot}" if slot is not None else "",
                              f", rid {rid}" if rid is not None else ""))
+            self._record("fault", fault=kind, step=self._step_no,
+                         **({"slot": slot} if slot is not None else {}),
+                         **({"rid": rid} if rid is not None else {}))
             raise FaultInjected(
                 f"injected {kind} (step {self._step_no}{where})")
 
@@ -1144,6 +1266,11 @@ class ContinuousBatchingEngine:
             if req is not None and self._faults.fire(
                     "nan_logits", step=self._step_no, slot=s, rid=req.rid):
                 self._poison[s] = True
+                # the port records the armed fault too (the reference's
+                # recorder sees only the guard's terminal record), so the
+                # victim's dump holds its fault
+                self._record("fault", fault="nan_logits", slot=s,
+                             rid=req.rid, step=self._step_no)
 
     def _dispatch_fault(self) -> bool:
         """The dispatch seam, polled before a step's first launch: True when
@@ -1159,6 +1286,8 @@ class ContinuousBatchingEngine:
                 raise
             self._kernel_err_streak += 1
             self.stats["kernel_error_retries"] += 1
+            self._record("fault", fault="kernel_error",
+                         streak=self._kernel_err_streak, step=self._step_no)
             if self._kernel_err_streak > self._kernel_err_limit:
                 raise
             return True
@@ -1198,6 +1327,8 @@ class ContinuousBatchingEngine:
         if short > 0 and self._evictable() > 0:
             if self._reclaim(short) > 0:
                 self.stats["degrade_evict"] += 1
+                self._record("degrade", rung=1, what="evict",
+                             short=int(short))
         return need - len(self._free)
 
     def _expire_overdue(self):
@@ -1268,7 +1399,7 @@ class ContinuousBatchingEngine:
                       f":tie{int(bool(cfg.tie_word_embeddings))}"
                       f":dt{dt}:rope{cfg.rope_theta:g}"
                       f":eps{cfg.rms_norm_eps:g}"),
-            "quant": None,           # weight-only quant is not ported yet
+            "quant": self.quant,
             "kv_quant": self.kv_quant,
             "paged": True,
             "block_size": self.block_size,
@@ -1318,6 +1449,13 @@ class ContinuousBatchingEngine:
                  np.asarray(req.output_ids, np.int32)])
         req._submit_s = time.perf_counter()
         req.trace_id = f"req-{req.rid:x}"
+        if self.slo is not None:
+            self.slo.begin(req.rid, req._submit_s)
+        self._tracer.instant(req.rid, "adopt", req._submit_s,
+                             args={"rid": req.rid,
+                                   "replayed_tokens": len(req.output_ids)})
+        self._record("adopt", rid=req.rid,
+                     replayed_tokens=len(req.output_ids))
         self._reqs[req.rid] = req
         self._queue.append(req)
         return req
@@ -1396,6 +1534,8 @@ class ContinuousBatchingEngine:
                     # rung 1: decode one token a slot this step (the
                     # stream does not change, only tokens a round-trip)
                     self.stats["degrade_spec_off"] += 1
+                    self._record("degrade", rung=2, what="spec_off",
+                                 step=self._step_no)
                     drafts = None
             if drafts is not None:
                 return self._spec_step(drafts)
@@ -1407,10 +1547,11 @@ class ContinuousBatchingEngine:
         active_np = np.asarray([r is not None for r in self._slot_req])
         if not active_np.any():
             return False
+        t0 = time.perf_counter()
+        self._note_launch(t0)
         self._arm_poison()
         if self._dispatch_fault():
             return True         # retried next step, state untouched
-        t0 = time.perf_counter()
         dev = self.device
         sampled_lanes = [s for s in range(self.max_batch)
                          if active_np[s] and self._temp[s] > 0]
@@ -1431,6 +1572,8 @@ class ContinuousBatchingEngine:
         fetched = toks.cpu().numpy()
         toks_np, bad_np = fetched[:k], fetched[k:]
         self.stats["decode_time_s"] += time.perf_counter() - t0
+        self._note_step_done(t0)
+        now = self._last_step_end   # the SLO tracker's banking time
         self.stats["decode_steps"] += k
         for slot, req in enumerate(self._slot_req):
             if req is None:
@@ -1440,6 +1583,7 @@ class ContinuousBatchingEngine:
             # K/V writes were dropped)
             valid = min(k, self.max_seq - old_pos)
             done = False
+            banked = 0
             fail_err = None
             try:
                 self._host_fault("slot_error", slot=slot, rid=req.rid)
@@ -1457,6 +1601,7 @@ class ContinuousBatchingEngine:
                     break
                 tok = int(toks_np[j, slot])
                 req.output_ids.append(tok)
+                banked += 1
                 if req.ttft_s is None:
                     req.ttft_s = time.perf_counter() - req._submit_s
                 self.stats["decode_tokens"] += 1
@@ -1469,6 +1614,9 @@ class ContinuousBatchingEngine:
                 # fail THIS slot; the other lanes' tokens bank normally
                 self._fail_slot(slot, "FAILED", fail_err, donate=False)
                 continue
+            if self.slo is not None and banked:
+                # one banking event: the chunk's tokens arrive in one fetch
+                self.slo.tokens(req.rid, banked, now)
             self._pos[slot] = old_pos + k  # device advanced k regardless
             self._last_tok[slot] = int(toks_np[-1, slot])
             if done or old_pos + k >= self.max_seq:
@@ -1539,6 +1687,8 @@ class ContinuousBatchingEngine:
             shrinkable = [s for s, n in chunk_rows.items() if n > 1]
             if shrinkable:
                 self.stats["degrade_budget_shrink"] += 1
+                self._record("degrade", rung=3, what="budget_shrink",
+                             slots=len(shrinkable))
                 for s in shrinkable:
                     tokens[s, 1:] = 0
                     q_lens[s] = growth[s] = chunk_rows[s] = 1
@@ -1549,10 +1699,15 @@ class ContinuousBatchingEngine:
                 chunk_rows.pop(s, None)
         if not active.any():
             return bool(self._queue)
+        t0 = time.perf_counter()
+        self._note_launch(t0)
+        # the step's packing: what the scheduler chose, for triage
+        self._record("pack", step=self._step_no, decode=len(decode_slots),
+                     prefill=len(chunk_rows),
+                     prefill_rows=int(sum(chunk_rows.values())))
         self._arm_poison()
         if self._dispatch_fault():
             return True         # retried next step, state untouched
-        t0 = time.perf_counter()
         dev = self.device
         nxt, bad = self._mixed_impl(
             torch.as_tensor(tokens, device=dev).long(),
@@ -1566,6 +1721,7 @@ class ContinuousBatchingEngine:
                    else torch.stack([nxt, bad.long()])).cpu().numpy()
         nxt_np, bad_np = (fetched, None) if bad is None else fetched
         self.stats["decode_time_s"] += time.perf_counter() - t0
+        self._note_step_done(t0)
         self.stats["decode_steps"] += 1
         self.stats["mixed_steps"] += 1
         self.stats["prefill_chunks"] += len(chunk_rows)
@@ -1607,6 +1763,10 @@ class ContinuousBatchingEngine:
             ids = self._prefill_ids[s]
             new_cur = int(self._prefilled[s]) + n
             self._prefilled[s] = new_cur
+            self._tracer.span(req.rid, "prefill_chunk", t0,
+                              self._last_step_end,
+                              args={"rows": n, "cursor": new_cur,
+                                    "prompt": int(ids.size)})
             self._pos[s] = new_cur
             if self._pcache is not None:
                 # every position below new_cur holds a prompt token's K/V
@@ -1621,12 +1781,14 @@ class ContinuousBatchingEngine:
         return True
 
     def _consume_token(self, slot: int, req: Request, tok: int):
-        """Bank one generated token (a mixed-step emit, or one of a verify
-        step's accepted run): append, stamp TTFT, count it, feed it back,
-        retire on EOS or the token budget."""
+        """Bank one generated token of a mixed step (one banking event):
+        append, stamp TTFT, count it, feed it back, retire on EOS or the
+        token budget."""
         req.output_ids.append(tok)
         if req.ttft_s is None:
             req.ttft_s = time.perf_counter() - req._submit_s
+        if self.slo is not None:
+            self.slo.tokens(req.rid, 1, self._last_step_end)
         self.stats["decode_tokens"] += 1
         self._last_tok[slot] = tok
         if (len(req.output_ids) >= req.max_new_tokens
@@ -1685,10 +1847,11 @@ class ContinuousBatchingEngine:
                 continue  # preempted after drafting, or no proposal
             tokens[s, 1:1 + d.size] = d
             q_lens[s] = 1 + d.size
+        t0 = time.perf_counter()
+        self._note_launch(t0)
         self._arm_poison()
         if self._dispatch_fault():
             return True         # retried next step, state untouched
-        t0 = time.perf_counter()
         dev = self.device
         out, n_acc, bad = self._verify_impl(
             torch.as_tensor(tokens, device=dev).long(),
@@ -1704,6 +1867,8 @@ class ContinuousBatchingEngine:
         fetched = torch.cat(cols, dim=1).cpu().numpy()
         out_np, n_np = fetched[:, :Q], fetched[:, Q]
         self.stats["decode_time_s"] += time.perf_counter() - t0
+        self._note_step_done(t0)
+        now = self._last_step_end   # the SLO tracker's banking time
         self.stats["decode_steps"] += 1
         self.stats["spec_steps"] += 1
         for slot, req in enumerate(self._slot_req):
@@ -1729,14 +1894,27 @@ class ContinuousBatchingEngine:
             self.stats["spec_drafted_tokens"] += drafted
             self.stats["spec_accepted_tokens"] += n - 1
             self.stats["spec_rejected_tokens"] += drafted - (n - 1)
+            done = False
+            banked = 0
             for j in range(n):
-                self._consume_token(slot, req, int(out_np[slot, j]))
-                if self._slot_req[slot] is None:
-                    break           # EOS or the token budget: retired
-            else:
-                self._pos[slot] = old_pos + n
-                if old_pos + n >= self.max_seq:
-                    self._retire(slot)
+                tok = int(out_np[slot, j])
+                req.output_ids.append(tok)
+                banked += 1
+                if req.ttft_s is None:
+                    req.ttft_s = time.perf_counter() - req._submit_s
+                self.stats["decode_tokens"] += 1
+                if (len(req.output_ids) >= req.max_new_tokens
+                        or (req.eos_token_id is not None
+                            and tok == req.eos_token_id)):
+                    done = True     # EOS or the token budget
+                    break
+            if self.slo is not None:
+                # one banking event: the accepted run arrives in one fetch
+                self.slo.tokens(req.rid, banked, now)
+            self._pos[slot] = old_pos + n
+            self._last_tok[slot] = int(out_np[slot, n - 1])
+            if done or old_pos + n >= self.max_seq:
+                self._retire(slot)
         return True
 
     @property

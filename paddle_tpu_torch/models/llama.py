@@ -18,9 +18,9 @@ How the reference's JAX mechanisms map here:
 - ``jax.value_and_grad`` is ``torch.autograd.grad``; the jitted, donated
   train step updates the parameter and optimizer tensors in place.
 
-Not ported yet: meshes and their specs, pipeline schedules, context
-parallel attention (ROADMAP A6), tensor parallelism and the eager Layer
-surface (A7).
+Not ported yet: meshes and their specs, pipeline schedules and context
+parallel attention (ROADMAP A11), tensor-parallel serving (A7) and the
+eager Layer surface (A12).
 """
 
 from __future__ import annotations
@@ -122,19 +122,25 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator | None = None,
     return params
 
 
-def decoder_attn_residual(x, attn, lp):
-    """Attention output projection + residual (``tp_axis=None``)."""
-    return x + attn @ lp["wo"]
+def decoder_attn_residual(x, attn, lp, wmat=None):
+    """Attention output projection + residual (``tp_axis=None``).
+    ``wmat(leaf, dtype)`` resolves weight-only-quantized leaves (serving);
+    None reads the leaf raw."""
+    wo = lp["wo"] if wmat is None else wmat(lp["wo"], x.dtype)
+    return x + attn @ wo
 
 
-def decoder_mlp_residual(cfg, x, lp):
-    """post-norm + swiglu MLP + residual."""
+def decoder_mlp_residual(cfg, x, lp, wmat=None):
+    """post-norm + swiglu MLP + residual (``wmat`` as above)."""
+    def w(n):
+        return lp[n] if wmat is None else wmat(lp[n], x.dtype)
+
     xn = rms.rms_norm(x, lp["post_norm"], cfg.rms_norm_eps)
-    y = swiglu_mod.swiglu(xn @ lp["w_gate"], xn @ lp["w_up"]) @ lp["w_down"]
+    y = swiglu_mod.swiglu(xn @ w("w_gate"), xn @ w("w_up")) @ w("w_down")
     return x + y
 
 
-def decoder_layer_tail(cfg, x, attn, lp, mlp_fn=None):
+def decoder_layer_tail(cfg, x, attn, lp, wmat=None, mlp_fn=None):
     """The post-attention half of a decoder layer in one seam.
 
     ``mlp_fn=None`` composes :func:`decoder_attn_residual` and
@@ -142,12 +148,13 @@ def decoder_layer_tail(cfg, x, attn, lp, mlp_fn=None):
     (h1, y)`` the residual add + post RMSNorm + SwiGLU MLP run through the
     caller's fused implementation (the serving decode path passes
     ``ops/kernels/paged_attention.fused_layer_mlp``) and the layer closes
-    with ``h1 + y``."""
+    with ``h1 + y``.  ``wmat(leaf, dtype)`` resolves weight-only-quantized
+    leaves (serving); the training path passes none and reads fp leaves."""
     if mlp_fn is None:
-        x = decoder_attn_residual(x, attn, lp)
-        return decoder_mlp_residual(cfg, x, lp)
-    attn_y = attn @ lp["wo"]
-    h1, y = mlp_fn(x, attn_y, lp)
+        x = decoder_attn_residual(x, attn, lp, wmat=wmat)
+        return decoder_mlp_residual(cfg, x, lp, wmat=wmat)
+    wo = lp["wo"] if wmat is None else wmat(lp["wo"], x.dtype)
+    h1, y = mlp_fn(x, attn @ wo, lp)
     return h1 + y
 
 

@@ -101,14 +101,15 @@ def quantize_kv_cache(cache, mode: str):
     return _quant_encode_page(cache.float(), mode)
 
 
-def _unpack_int4(packed):
-    """``[..., hd // 2]`` nibble pairs (any integer dtype) -> f32
-    ``[..., hd]`` in [-7, 7]; arithmetic shifts sign-extend each nibble."""
-    p = packed.to(torch.int32)
-    lo = (p << 28) >> 28
-    hi = (p << 24) >> 28
+def _unpack_int4(packed, dtype=torch.float32):
+    """``[..., hd // 2]`` nibble pairs (int8) -> ``[..., hd]`` codes in [-7,
+    7] as ``dtype`` (f32 by default; int8 keeps them one byte each);
+    arithmetic shifts within the byte sign-extend each nibble."""
+    p = packed.to(torch.int8)
+    lo = (p << 4) >> 4
+    hi = p >> 4
     both = torch.stack([lo, hi], dim=-1)
-    return both.reshape(*p.shape[:-1], p.shape[-1] * 2).float()
+    return both.reshape(*p.shape[:-1], p.shape[-1] * 2).to(dtype)
 
 
 def _dequant_page(raw, scale, kv_quant):
@@ -143,9 +144,17 @@ def _quant_encode_page(x, kv_quant: str):
         .clamp(-bound, bound)
     if kv_quant == "int8":
         return q.to(torch.int8), scale
+    return _pack_int4(q), scale
+
+
+def _pack_int4(q):
+    """Integer-valued codes ``[..., n]`` in [-7, 7] (any dtype, n even) ->
+    int8 ``[..., n // 2]``, element 2i in the low nibble and 2i+1 in the
+    high one: the int4 layout of the KV pools and of weight-only int4
+    weights alike.  :func:`_unpack_int4` inverts it."""
     pairs = q.to(torch.int32).reshape(*q.shape[:-1], q.shape[-1] // 2, 2)
     packed = (pairs[..., 0] & 0xF) | ((pairs[..., 1] & 0xF) << 4)
-    return packed.to(torch.int8), scale
+    return packed.to(torch.int8)
 
 
 def _dequant_page_content(codes, scale, kv_quant: str):

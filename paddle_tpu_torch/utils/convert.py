@@ -8,6 +8,13 @@ bf16 arrives from JAX as an ``ml_dtypes`` bfloat16 array.  Its bits are
 viewed as uint16 and reinterpreted as ``torch.bfloat16`` without any
 arithmetic, so the round trip is exact.  The port itself never imports
 JAX or ml_dtypes: a bf16 array is recognised by its dtype's name.
+
+A weight-only int4 tree (``quantize_layer_params(params, 'int4')`` in
+either package) stores ``jnp.int4`` codes ``[..., K]`` in JAX and packed
+int8 ``[..., K // 2]`` in the port (two nibbles a byte, the KV pools'
+layout).  An ``int4`` array (``ml_dtypes``) is widened to int8 and packed
+on the way in; :func:`params_to_numpy` with ``quant='int4'`` unpacks the
+``qweight`` leaves to int8 codes ``[..., K]``.  Both directions are exact.
 """
 
 from __future__ import annotations
@@ -33,6 +40,13 @@ def tensor_from_numpy(arr, device=None) -> torch.Tensor:
     # a C-ordered copy that keeps 0-d scalars 0-d (ascontiguousarray would
     # make them [1])
     arr = np.array(arr, order="C", copy=True)
+    if arr.dtype.name == "int4":
+        from ..ops.kernels.paged_attention import _pack_int4
+
+        if arr.shape[-1] % 2:
+            raise ValueError(f"an int4 array packs two codes a byte along "
+                             f"its last dim, got shape {arr.shape}")
+        return _pack_int4(torch.from_numpy(arr.astype(np.int8))).to(device)
     if arr.dtype.name == "bfloat16":
         bits = arr.view(np.uint16).view(np.int16)
         return torch.from_numpy(bits).view(torch.bfloat16).to(device)
@@ -64,12 +78,20 @@ def params_from_numpy(tree, device=None):
     return tensor_from_numpy(tree, device)
 
 
-def params_to_numpy(tree):
-    """Inverse of :func:`params_from_numpy` (bf16 leaves as uint16 bits)."""
+def params_to_numpy(tree, quant=None):
+    """Inverse of :func:`params_from_numpy` (bf16 leaves as uint16 bits).
+    ``quant='int4'``: the packed ``qweight`` leaves of a weight-only int4
+    tree come back unpacked, int8 codes ``[..., K]``."""
     if isinstance(tree, dict):
-        return {k: params_to_numpy(v) for k, v in tree.items()}
+        if quant == "int4" and "qweight" in tree:
+            from ..ops.kernels.paged_attention import _unpack_int4
+
+            return {k: (numpy_from_tensor(_unpack_int4(v, torch.int8))
+                        if k == "qweight" else params_to_numpy(v, quant))
+                    for k, v in tree.items()}
+        return {k: params_to_numpy(v, quant) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(params_to_numpy(v) for v in tree)
+        return type(tree)(params_to_numpy(v, quant) for v in tree)
     return numpy_from_tensor(tree)
 
 

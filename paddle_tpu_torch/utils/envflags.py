@@ -16,7 +16,12 @@ The boolean switches the engine reads, each '0' or '1':
 * ``PADDLE_TPU_GRACEFUL`` (default on): the fault-tolerance ladder
   (per-request failure isolation, the overload ladder, the NaN/inf logit
   guard, REJECTED instead of a raise in ``serve``); ``0`` gives the engine
-  that raises.
+  that raises;
+* ``PADDLE_TPU_METRICS`` (default on): the metrics registry, request
+  tracing and SLO accounting (``inference/observability.py``); ``0``
+  restores the plain stats dict;
+* ``PADDLE_TPU_FLIGHT_RECORDER`` (default on): the flight recorder's ring
+  and its dumps.
 
 ``PADDLE_TPU_FAULT_INJECT`` is the fault plan (``inference/faults.py``).
 """

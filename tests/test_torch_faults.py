@@ -531,27 +531,47 @@ SNAPS = {"decode": (_snap_reqs, {}, 5),
                                                prefill_chunk=4), 3)}
 
 
+@pytest.fixture(scope="module")
+def snap_sources(models):
+    """where -> (the uninterrupted JAX serve's tokens, side -> the JSON
+    snapshot after the first steps, side -> those requests), made once for
+    every (src, dst) case of ``where``."""
+    cache = {}
+
+    def get(where):
+        if where not in cache:
+            build, kw, steps = SNAPS[where]
+            with _Env():
+                want = _engine(models, "jax", **kw).serve(build(JRequest))
+                snaps, reqs1 = {}, {}
+                for side, cls in (("jax", JRequest), ("port", TRequest)):
+                    eng = _engine(models, side, **kw)
+                    reqs1[side] = build(cls)
+                    for r in reqs1[side]:
+                        eng.add_request(r)
+                    for _ in range(steps):
+                        eng.step()
+                    snaps[side] = json.dumps(eng.snapshot())
+            cache[where] = (want, snaps, reqs1)
+        return cache[where]
+
+    return get
+
+
 @pytest.mark.parametrize("where", list(SNAPS))
 @pytest.mark.parametrize("src,dst", [("port", "port"), ("jax", "port"),
                                      ("port", "jax")])
-def test_snapshot_restore(models, where, src, dst):
+def test_snapshot_restore(models, snap_sources, where, src, dst):
     """Serve a few steps on ``src``, snapshot through ``json.dumps``,
     restore on a fresh ``dst`` engine and finish: every request's stream
     is the uninterrupted JAX serve's (greedy and seeded).  Taken at the
-    same step, the two packages' snapshots are the same JSON."""
-    build, kw, steps = SNAPS[where]
+    same step, the two packages' snapshots are the same JSON.  The
+    uninterrupted serve and the snapshots are each ``where``'s, shared by
+    its three cases."""
+    _, kw, _ = SNAPS[where]
+    want, snaps, reqs1 = snap_sources(where)
+    assert snaps["port"] == snaps["jax"]
     with _Env():
-        want = _engine(models, "jax", **kw).serve(build(JRequest))
-        snaps, reqs1 = {}, {}
-        for side, cls in (("jax", JRequest), ("port", TRequest)):
-            eng = _engine(models, side, **kw)
-            reqs1[side] = build(cls)
-            for r in reqs1[side]:
-                eng.add_request(r)
-            for _ in range(steps):
-                eng.step()
-            snaps[side] = json.dumps(eng.snapshot())
-        assert snaps["port"] == snaps["jax"]
         snap = json.loads(snaps[src])
         if where == "chunked_prefill":
             assert snap["running"][0]["prefilled"] > 0

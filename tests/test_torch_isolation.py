@@ -4,6 +4,7 @@ imports them, and entry points asked for a CUDA device with no card raise
 instead of running on the CPU."""
 
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -82,19 +83,45 @@ def test_engine_rejects_params_on_another_device():
                                  device="cpu")
 
 
-@pytest.mark.parametrize("module", ["paddle_tpu_torch.inference.prefix_cache",
-                                    "paddle_tpu_torch.inference.faults",
-                                    "paddle_tpu_torch.utils.envflags"])
-def test_serving_helpers_import_alone(module):
-    """The prefix cache, the fault plan and the switch parsers are the
-    port's own copies: importing one pulls in neither JAX nor the JAX
-    package (the reference's modules of the same names import no JAX
-    either, and the port still does not reach for them)."""
-    code = (f"import sys, {module}\n"
-            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'paddle_tpu'))\n"
-            "print(bad)\nsys.exit(1 if bad else 0)\n")
+#: the serving helpers that are the port's own copies of reference modules
+#: which import no JAX themselves
+ALONE = ["paddle_tpu_torch.inference.prefix_cache",
+         "paddle_tpu_torch.inference.faults",
+         "paddle_tpu_torch.utils.envflags",
+         "paddle_tpu_torch.nn.quant",
+         "paddle_tpu_torch.profiler",
+         "paddle_tpu_torch.inference.observability"]
+
+
+@pytest.fixture(scope="module")
+def alone_imports():
+    """One fresh interpreter imports each of ``ALONE`` in turn and reports,
+    for each, the forbidden modules that import brought in (none was
+    loaded before it, or an earlier module's report names it): module ->
+    list."""
+    code = ("import importlib, json, sys\n"
+            f"mods = {ALONE!r}\n"
+            "out = {}\n"
+            "def bad():\n"
+            "    return {m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'paddle_tpu')}\n"
+            "for m in mods:\n"
+            "    before = bad()\n"
+            "    importlib.import_module(m)\n"
+            "    out[m] = sorted(bad() - before)\n"
+            "print(json.dumps(out))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("module", ALONE)
+def test_serving_helpers_import_alone(module, alone_imports):
+    """The prefix cache, the fault plan, the switch parsers, the
+    weight-only quantization, the host trace buffer and the observability
+    module are the port's own copies: importing one pulls in neither JAX
+    nor the JAX package (the reference's modules of the same names that
+    import no JAX are not reached for either)."""
+    assert alone_imports[module] == [], alone_imports[module]
