@@ -83,7 +83,8 @@ non-zero as soon as one fails:
     four requests with tails of their own, two of them repeating a
     block-aligned prompt (copy-on-write), bucketed and chunked, on bf16
     and int8 pools, with the cache on and off, and on a 64-page pool where
-    LRU eviction fires: launch counts prove the path (rms_norm, the fused
+    LRU eviction fires (its first ``CHUNKED_SPEC_LAYERS`` layers): launch
+    counts prove the path (rms_norm, the fused
     decode step, the fused MLP, chunked the prefill walk), the on and off
     runs' logit rows agree within ``SERVE_LOGIT_TOL`` (int8 chunked:
     ``PREFIX_INT8_CHUNKED_TOL``), and the evicting pool's cache statistics
@@ -117,7 +118,23 @@ non-zero as soon as one fails:
     (``torch.cuda.set_sync_debug_mode("warn")``), every schema counter in
     the exposition with its value, queued / prefill / decode spans for
     every request in the exported chrome trace, one step-histogram
-    observation a step; the wall per step of each run.
+    observation a step; the wall per step of each run;
+14. host KV tier: Llama-3-8B at full width and depth serves phase 10's
+    shared-prefix stream on its 64-page pool with the tier on
+    (``PADDLE_TPU_HOST_TIER_MIB`` 1024) and off, bucketed on bf16 and
+    chunked on int8 pools, and the bf16 tier-on serve again with every
+    kernel off: the tier-on runs demote, hit and restore, compute fewer
+    prefill tokens, launch the path's kernels; the on and off runs' logit
+    rows agree within ``SERVE_LOGIT_TOL`` (int8 chunked
+    ``PREFIX_INT8_CHUNKED_TOL``); the kernels-off run repeats the prefix
+    and tier statistics exactly; one page of each pool kind goes out and
+    back into a recycled, overwritten page byte for byte; the revisiting
+    requests' mean TTFT on and off and one bf16 page's D2H / H2D GB/s;
+15. async host runtime: 4 full-width layers, every feature on, stepped
+    with ``PADDLE_TPU_ASYNC_HOST`` 1 and 0 in two rounds in turns: the
+    same tokens and synchronizing calls, ``journal()`` equal to
+    ``snapshot()`` mid-serve, one journal flush a launched step (none
+    off); the host-gap histogram's mean and the wall a step on and off.
 
 The line before the last lists every kernel with its numbers; the last line
 is ``{"ok": true, "device": {...}}``.  ``--serve-sweep FIRST-LAST`` runs
@@ -126,7 +143,10 @@ request seed in the range (the script's own run uses seed 3), reporting
 each serve's largest logit difference against ``SERVE_LOGIT_TOL`` without
 failing on it; ``--prefix-sweep FIRST-LAST`` likewise runs phase 10's
 int8 chunked serve with the cache on and off at each request seed (the
-script's own run uses seed 5).  A line ``{"phase": "seconds", ...}``
+script's own run uses seed 5); ``--tier-probe FIRST-LAST`` serves phase
+14's bucketed bf16 stream at each request seed four times in turns (tier
+off, on, on, off) and reports each serve's
+wall, prefill, decode and demotion seconds and TTFT.  A line ``{"phase": "seconds", ...}``
 before the kernels line gives each phase's time.  Without a CUDA card, or
 without the
 package beside it, the script exits non-zero and prints no result.
@@ -1036,21 +1056,32 @@ def _serve_stepwise(torch, eng, reqs, steps=None, add=True) -> dict:
     for r in reqs if add else ():
         eng.add_request(r)
     rows = {r.rid: [] for r in reqs if r.temperature == 0}
+    slot_of = {}
+    admit = eng._admit
+
+    def seat():
+        slot_of.update({r.rid: s for s, r in enumerate(eng._slot_req)
+                        if r is not None})
+
+    def admit_spy():
+        admit()
+        seat()
+
     serving.lm_head_logits = capture
+    eng._admit = admit_spy
     try:
         n = 0
         while steps is None or n < steps:
             n += 1
             before = {r.rid: len(r.output_ids) for r in reqs}
             # a request retired by this step held its slot before it, one
-            # admitted by it holds its slot after it
-            slot_of = {r.rid: s for s, r in enumerate(eng._slot_req)
-                       if r is not None}
+            # admitted by it held its slot from the admission on (a resumed
+            # request may bank its last token and retire in that step)
+            slot_of.clear()
+            seat()
             calls.clear()
             if not eng.step() and not eng._queue:
                 break
-            slot_of.update({r.rid: s for s, r in enumerate(eng._slot_req)
-                            if r is not None})
             for r in reqs:
                 new = len(r.output_ids) - before[r.rid]
                 if new and r.rid in rows:
@@ -1060,6 +1091,7 @@ def _serve_stepwise(torch, eng, reqs, steps=None, add=True) -> dict:
                     rows[r.rid].append(seq[:new].clone())
     finally:
         serving.lm_head_logits = head
+        del eng._admit
     return {rid: torch.cat(v) if v else None for rid, v in rows.items()}
 
 
@@ -1282,32 +1314,51 @@ PREFIX_STATS = ("prefix_hits", "prefix_blocks_reused", "cow_copies",
 
 def _prefix_serve(torch, np, cfg, params, kv_quant, chunked, cache,
                   disable=None, num_blocks=256, stepwise=True,
-                  seed=5) -> tuple:
+                  seed=5, tier=False) -> tuple:
     """One serve of the shared-prefix stream at Llama-3-8B width (batch 8,
     max_seq 2048, block 64; by default a pool of 256 pages, every slot's
     whole context, so the cache evicts nothing); returns (engine,
     requests, logit rows or None, launches, wall seconds, schedule): the
     schedule holds ``cow_rids``, the requests that took a copy-on-write
     page, ``chunks``, rid -> the [first position, rows] of each prompt
-    chunk the mixed steps streamed for it, and ``mixed_decode_rows``, rid
-    -> the tokens a mixed step decoded for it (the others came from fused
-    decode steps)."""
+    chunk the mixed steps streamed for it, ``mixed_decode_rows``, rid ->
+    the tokens a mixed step decoded for it (the others came from fused
+    decode steps), ``restored_rids``, the requests for which the host KV
+    tier restored a page, and ``demote_s``, the host seconds of the tier's
+    demotions, whose copies to the host block until done (``tier``: the
+    tier on, with a budget of ``TIER_MIB``)."""
     from paddle_tpu_torch.inference.serving import (ContinuousBatchingEngine,
                                                     Request)
     from paddle_tpu_torch.ops import kernels
 
     kw = dict(max_batch=8, max_seq=2048, block_size=64, kv_quant=kv_quant,
               enable_prefix_caching=cache, num_blocks=num_blocks,
-              device="cuda")
+              enable_host_kv_tier=tier, device="cuda")
     if chunked:
         kw.update(enable_chunked_prefill=True, prefill_chunk=128)
-    env = "PADDLE_TPU_TORCH_DISABLE_KERNELS"
-    if disable:
-        os.environ[env] = disable
-    sched = {"cow_rids": [], "chunks": {}, "mixed_decode_rows": {}}
+    env = {"PADDLE_TPU_TORCH_DISABLE_KERNELS": disable,
+           "PADDLE_TPU_HOST_TIER_MIB": TIER_MIB if tier else None}
+    os.environ.update({k: v for k, v in env.items() if v})
+    sched = {"cow_rids": [], "chunks": {}, "mixed_decode_rows": {},
+             "restored_rids": set(), "demote_s": 0.0}
     try:
         eng = ContinuousBatchingEngine(cfg, params, **kw)
         copy, mixed = eng._copy_page, eng._mixed_impl
+        restore, demote = eng._restore_tier_block, eng._demote
+
+        def restore_spy(slot, req, *args):
+            n = eng.stats["tier_readmits"]
+            ok = restore(slot, req, *args)
+            if eng.stats["tier_readmits"] > n:
+                sched["restored_rids"].add(req.rid)
+            return ok
+
+        def demote_spy(pairs):
+            t = time.perf_counter()
+            demote(pairs)
+            sched["demote_s"] += time.perf_counter() - t
+
+        eng._restore_tier_block, eng._demote = restore_spy, demote_spy
 
         def copy_spy(dst, src):
             # called by the admission of the queue's head
@@ -1339,7 +1390,8 @@ def _prefix_serve(torch, np, cfg, params, kv_quant, chunked, cache,
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
-        os.environ.pop(env, None)
+        for k in env:
+            os.environ.pop(k, None)
     for r in reqs:
         check(r.status == "FINISHED" and len(r.output_ids) == 64
               and all(0 <= t < cfg.vocab_size for t in r.output_ids),
@@ -1389,7 +1441,8 @@ def phase_prefix_cache(torch, np, smi: str) -> dict:
     """Llama-3-8B at full width and depth (random bf16 weights from a
     seed) serves the shared-prefix stream bucketed and chunked (chunk 128)
     on bf16 and int8 pools, with the prefix cache on and off, and once on a
-    64-page pool where LRU eviction fires.  Gates: every request finishes;
+    64-page pool where LRU eviction fires (its first
+    ``CHUNKED_SPEC_LAYERS`` layers).  Gates: every request finishes;
     the cache-on run's launch counts prove its path (B1, B7 / B11, B8,
     chunked B9); each run takes two copy-on-write pages; every logit row
     the on and the off run scored from the same context agrees within
@@ -1457,19 +1510,24 @@ def phase_prefix_cache(torch, np, smi: str) -> dict:
             del eng, oeng, reqs, oreqs
             torch.cuda.empty_cache()
     # a 64-page pool: four 16-page prefixes and eight slots outgrow it,
-    # so zero-ref blocks are evicted (LRU, leaf first) and slots preempted
+    # so zero-ref blocks are evicted (LRU, leaf first) and slots preempted.
+    # On the first CHUNKED_SPEC_LAYERS layers: the statistics it holds
+    # exact are the host's schedule, which reads no arithmetic, and phase
+    # 14 serves the same pool at full depth
+    cfg8, params8 = _first_layers(cfg, params, CHUNKED_SPEC_LAYERS)
     eng, reqs, _, launches, wall, _ = _prefix_serve(
-        torch, np, cfg, params, None, False, True, num_blocks=64,
+        torch, np, cfg8, params8, None, False, True, num_blocks=64,
         stepwise=False)
-    _prefix_launch_check(eng, launches, None, L)
+    _prefix_launch_check(eng, launches, None, CHUNKED_SPEC_LAYERS)
     for k, v in launches.items():
         total[k] = total.get(k, 0) + v
     peng, _, _, _, pwall, _ = _prefix_serve(
-        torch, np, cfg, params, None, False, True, disable="all",
+        torch, np, cfg8, params8, None, False, True, disable="all",
         num_blocks=64, stepwise=False)
     mine = {k: eng.stats[k] for k in PREFIX_STATS}
     plain = {k: peng.stats[k] for k in PREFIX_STATS}
-    emit({"phase": "prefix_cache_evict", "model": "llama3_8b", "layers": L,
+    emit({"phase": "prefix_cache_evict", "model": "llama3_8b",
+          "layers": CHUNKED_SPEC_LAYERS,
           "nvidia_smi": smi, "num_blocks": 64, "stats_on": mine,
           "stats_kernels_off": plain, "wall_s": wall,
           "wall_s_kernels_off": pwall,
@@ -1517,6 +1575,43 @@ def prefix_sweep(torch, np, smi: str, seeds: list[int]) -> None:
     emit({"phase": "prefix_sweep_summary", "seeds": seeds,
           "max_abs_logit_diff": worst,
           "logit_tolerance": PREFIX_INT8_CHUNKED_TOL})
+
+
+def tier_probe(torch, np, smi: str, seeds: list[int]) -> None:
+    """``--tier-probe``: phase 14's bucketed bf16 serve at each request
+    seed, four times in turns in one process (tier off, on, on, off),
+    each line reporting the wall, the
+    prefill, decode and demotion seconds, the mean TTFT and the mean TTFT
+    of the requests the tier restored a page for: the spread of the serve
+    beside the tier's own costs."""
+    from paddle_tpu_torch.models import llama
+
+    cfg = llama.LlamaConfig.llama3_8b()
+    params = llama.init_params(cfg, seed=0, device="cuda")
+    for seed in seeds:
+        runs, revisit = [], None
+        for tier in (False, True, True, False):
+            eng, reqs, _, _, wall, sched = _prefix_serve(
+                torch, np, cfg, params, None, False, True, num_blocks=64,
+                stepwise=False, seed=seed, tier=tier)
+            if tier:
+                revisit = sorted(sched["restored_rids"])
+            runs.append(({r.rid: r.ttft_s for r in reqs}, {
+                "phase": "tier_probe", "seed": seed, "nvidia_smi": smi,
+                "tier": tier, "wall_s": wall,
+                "prefill_time_s": eng.prefill_time_s,
+                "decode_time_s": eng.stats["decode_time_s"],
+                "demote_s": sched["demote_s"],
+                "tier_readmits": eng.stats["tier_readmits"],
+                "prefill_tokens_computed":
+                    eng.stats["prefill_tokens_computed"]}))
+            del eng, reqs
+            torch.cuda.empty_cache()
+        for ttft, line in runs:
+            emit({**line, "mean_ttft_s": statistics.mean(ttft.values()),
+                  "revisit_rids": revisit,
+                  "revisit_mean_ttft_s": statistics.mean(
+                      ttft[r] for r in revisit) if revisit else None})
 
 
 #: the chaos serve's fault plan: one clause of each kind the engine polls.
@@ -2104,6 +2199,337 @@ def phase_observability(torch, np, smi: str) -> dict:
               f"on ({out[label]['sync_warnings']} vs "
               f"{out['default']['sync_warnings']})")
     del runs, params
+    torch.cuda.empty_cache()
+    return launches
+
+
+#: phase 14's host tier budget (MiB): the four 1024-token system prompts are
+#: 64 bf16 pages, 512 MiB, so the budget never bounds them
+TIER_MIB = "1024"
+#: the host tier's statistics, repeated exactly with every kernel off
+TIER_STATS = ("tier_demotions", "tier_hits", "tier_readmits",
+              "tier_evictions", "tier_bytes")
+
+
+def _tier_transport(torch, cfg, params) -> dict:
+    """One page of each pool kind (bf16, int8, packed int4, 32 layers)
+    through the engine's tier transport: two pages demoted with one
+    gathered read, the first recycled and overwritten at once, then
+    restored into that same page, its page-locked buffer freed and new
+    page-locked buffers written before the copy is waited for.  Gates: the
+    page's codes and scales ``torch.equal`` to the originals, and the
+    entry's bytes (K and V, and the scales) as the pool's layout gives
+    them.  Times one bf16 page's D2H and H2D (K and V, contiguous,
+    page-locked host memory; CUDA events), its D2H into pageable memory,
+    and the engine's restore (``_tier_write``, into the pool's strided
+    page)."""
+    from paddle_tpu_torch.inference.serving import ContinuousBatchingEngine
+
+    L, nkv, hd = (cfg.num_hidden_layers, cfg.num_key_value_heads,
+                  cfg.head_dim)
+    out = {}
+    g = torch.Generator(device="cuda").manual_seed(14)
+    for kvq in (None, "int8", "int4"):
+        eng = ContinuousBatchingEngine(
+            cfg, params, max_batch=1, max_seq=2048, block_size=64,
+            num_blocks=32, kv_quant=kvq, enable_prefix_caching=True,
+            enable_host_kv_tier=True, device="cuda")
+        leaves = [t for pair in eng._pool_leaves() for t in pair
+                  if t is not None]
+        for t in leaves:
+            if t.dtype == torch.int8:
+                t.copy_(torch.randint(-128, 128, t.shape, generator=g,
+                                      device="cuda", dtype=torch.int8))
+            else:
+                t.copy_(torch.rand(t.shape, generator=g, device="cuda")
+                        + 0.5)
+        orig = [t[:, 3].clone() for t in leaves]
+        eng._demote([("p3", 3), ("p5", 5)])
+        for t in leaves:
+            t[:, 3].fill_(-7)
+        entry = eng._tier.ship_in("p3")
+        check(entry.k.is_pinned(), "the tier's host copies are page-locked")
+        codes = L * nkv * 64 * (hd // 2 if kvq == "int4" else hd) * (
+            2 if kvq is None else 1)
+        want = 2 * codes + (0 if kvq is None else 2 * L * nkv * 4)
+        check(entry.nbytes == want,
+              f"{kvq}: a page is {entry.nbytes} bytes, {want} expected")
+        eng._tier_write(3, entry)
+        del entry
+        junk = [torch.empty(t[:, 3].shape, dtype=t.dtype,
+                            pin_memory=True).fill_(9) for t in leaves]
+        torch.cuda.synchronize()
+        equal = all(torch.equal(t[:, 3], w) for t, w in zip(leaves, orig))
+        check(equal and all(bool(j.eq(9).all()) for j in junk),
+              f"{kvq}: the restored page equals the original")
+        out[kvq or "bf16"] = {"page_bytes": want, "codes_bytes": 2 * codes,
+                              "scale_bytes": want - 2 * codes,
+                              "equal": equal}
+        if kvq is None:
+            page = [t[:, 1].contiguous() for t in leaves]
+            host = [torch.empty(p.shape, dtype=p.dtype, pin_memory=True)
+                    for p in page]
+
+            def d2h():
+                for h, p in zip(host, page):
+                    h.copy_(p, non_blocking=True)
+
+            def h2d():
+                for h, p in zip(host, page):
+                    p.copy_(h, non_blocking=True)
+
+            pageable = [torch.empty(p.shape, dtype=p.dtype) for p in page]
+
+            def d2h_pageable():
+                for h, p in zip(pageable, page):
+                    h.copy_(p)
+
+            entry = eng._tier.ship_in("p5")
+            nbytes = sum(p.numel() * p.element_size() for p in page)
+            ms = {"d2h": time_ms(torch, d2h), "h2d": time_ms(torch, h2d),
+                  "restore": time_ms(torch,
+                                     lambda: eng._tier_write(6, entry)),
+                  "d2h_pageable": time_ms(torch, d2h_pageable)}
+            out["bf16"].update({f"{k}_ms": v for k, v in ms.items()})
+            out["bf16"].update({f"{k}_gb_per_s": nbytes / v / 1e6
+                                for k, v in ms.items()})
+        del eng, leaves, orig
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_kv_tier(torch, np, smi: str) -> dict:
+    """Llama-3-8B at full width and depth (random bf16 weights from a
+    seed) serves phase 10's shared-prefix stream on its 64-page pool,
+    where eviction fires, with the host KV tier on and off: bucketed on
+    bf16 pools, chunked (128) on int8 pools; then the bf16 tier-on serve
+    again with every kernel off; then the tier's transport for each pool
+    kind (``_tier_transport``).  Gates: every request finishes; each
+    tier-on run demotes, hits and restores, each tier-off run does none
+    of it; the tier-on run computes fewer prefill tokens than the
+    tier-off run; its launch counts prove the path (B1, B7 / B11, B8,
+    chunked B9); every logit row the on and off runs scored from the same
+    context agrees within ``SERVE_LOGIT_TOL`` (int8 chunked:
+    ``PREFIX_INT8_CHUNKED_TOL``); the kernels-off serve repeats the
+    prefix and tier statistics exactly.  Prints the prefill tokens saved
+    beside 64 x ``tier_readmits``, the mean TTFT on and off of the
+    requests the tier restored a page for, ``tier_bytes``, and the page
+    transport's GB/s.  Returns the tier-on runs' launches, summed."""
+    from paddle_tpu_torch.models import llama
+
+    cfg = llama.LlamaConfig.llama3_8b()
+    params = llama.init_params(cfg, seed=0, device="cuda")
+    L = cfg.num_hidden_layers
+    total: dict = {}
+    stats = PREFIX_STATS + TIER_STATS
+    bf16_on = None
+    for kvq, chunked in ((None, False), ("int8", True)):
+        eng, reqs, rows, launches, wall, sched = _prefix_serve(
+            torch, np, cfg, params, kvq, chunked, True, num_blocks=64,
+            tier=True)
+        oeng, oreqs, orows, _, owall, _ = _prefix_serve(
+            torch, np, cfg, params, kvq, chunked, True, num_blocks=64)
+        _prefix_launch_check(eng, launches, kvq, L)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        st, ost = eng.stats, oeng.stats
+        check(all(st[k] > 0 for k in ("tier_demotions", "tier_hits",
+                                      "tier_readmits"))
+              and not any(ost[k] for k in TIER_STATS),
+              f"{kvq}: the tier-on run demoted, hit and restored, the "
+              f"tier-off run did none of it")
+        saved = ost["prefill_tokens_computed"] - st["prefill_tokens_computed"]
+        check(saved > 0, f"{kvq}: fewer prefill tokens computed with the "
+                         f"tier ({saved} saved)")
+        logits = _logit_check(torch, reqs, rows, oreqs, orows)
+        tol = PREFIX_INT8_CHUNKED_TOL if chunked else SERVE_LOGIT_TOL[kvq]
+        del rows, orows
+        revisit = sorted(sched["restored_rids"])
+        ttft = {r.rid: r.ttft_s for r in reqs}
+        ottft = {r.rid: r.ttft_s for r in oreqs}
+        emit({"phase": "kv_tier", "model": "llama3_8b", "layers": L,
+              "kv_quant": kvq, "chunked": chunked, "nvidia_smi": smi,
+              "num_blocks": eng.num_blocks, "tier_mib": int(TIER_MIB),
+              "requests": len(reqs),
+              "stats_on": {k: st[k] for k in stats},
+              "stats_off": {k: ost[k] for k in stats},
+              "tier": eng._tier.stats(),
+              "prefill_tokens_saved": saved,
+              "block_x_readmits": 64 * st["tier_readmits"],
+              "revisit_rids": revisit,
+              "revisit_mean_ttft_s_on": statistics.mean(
+                  ttft[r] for r in revisit),
+              "revisit_mean_ttft_s_off": statistics.mean(
+                  ottft[r] for r in revisit),
+              "mean_ttft_s_on": statistics.mean(ttft.values()),
+              "mean_ttft_s_off": statistics.mean(ottft.values()),
+              "h2d_dispatch_s_mean": eng._h_h2d.sum / eng._h_h2d.count,
+              "demote_s_on": sched["demote_s"],
+              "prefill_time_s_on": eng.prefill_time_s,
+              "prefill_time_s_off": oeng.prefill_time_s,
+              "wall_s_on": wall, "wall_s_off": owall,
+              "logit_tolerance": tol, **logits,
+              "launches": {k: v for k, v in launches.items() if v}})
+        check(logits["max_abs_logit_diff"] <= tol,
+              f"tier {kvq} chunked={chunked}: every logit row the tier-on "
+              f"and -off runs scored from the same context within {tol} "
+              f"(max {logits['max_abs_logit_diff']} at {logits['worst']})")
+        if kvq is None:
+            bf16_on = {k: st[k] for k in stats}
+        del eng, oeng, reqs, oreqs
+        torch.cuda.empty_cache()
+    peng, _, _, _, pwall, _ = _prefix_serve(
+        torch, np, cfg, params, None, False, True, disable="all",
+        num_blocks=64, stepwise=False, tier=True)
+    plain = {k: peng.stats[k] for k in stats}
+    del peng
+    torch.cuda.empty_cache()
+    transport = _tier_transport(torch, cfg, params)
+    emit({"phase": "kv_tier_plain", "nvidia_smi": smi,
+          "stats_kernels_off": plain, "wall_s_kernels_off": pwall,
+          "transport": transport})
+    check(plain == bf16_on, f"kernels-off statistics {plain} == kernels-on "
+                            f"{bf16_on}")
+    del params
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_async_host(torch, np, smi: str) -> dict:
+    """4 full-width layers, bf16, phase 6's 12 requests (every other
+    prompt repeating a span) with every feature on (prefix cache, chunked
+    prefill 128, speculation, the host tier, graceful mode), stepped to
+    the end with ``PADDLE_TPU_ASYNC_HOST`` at 1 and at 0, in two rounds in
+    turns after a warm-up serve, each under
+    ``torch.cuda.set_sync_debug_mode("warn")`` with the warnings counted.
+    Gates: identical tokens in every run; ``journal()`` equals
+    ``snapshot()`` at step 20 (``deadline_remaining_s`` aside); on, one
+    journal flush a launched step (``host_overlap_steps`` ==
+    ``decode_steps`` at chunk 1), off, none; the same synchronizing calls
+    on and off.  Prints the host-gap histogram's mean and the wall a step,
+    on and off.  Returns the first run's launches."""
+    import collections
+    import warnings
+
+    from paddle_tpu_torch.inference.serving import (ContinuousBatchingEngine,
+                                                    Request)
+    from paddle_tpu_torch.models import llama
+    from paddle_tpu_torch.ops import kernels
+
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(),
+                              num_hidden_layers=4)
+    params = llama.init_params(cfg, seed=0, device="cuda")
+    kw = dict(max_batch=8, max_seq=2048, block_size=64,
+              enable_prefix_caching=True, enable_chunked_prefill=True,
+              prefill_chunk=128, enable_speculation=True,
+              enable_host_kv_tier=True, device="cuda")
+
+    def reqs_():
+        return make_requests(Request, np, 12, cfg.vocab_size, sampled=2,
+                             seed=0, repeat=True)
+
+    warm = ContinuousBatchingEngine(cfg, params, **kw)
+    with warnings.catch_warnings(record=True):
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            warm.serve(reqs_()[:3])
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    del warm
+    runs, sites, launches = {}, {}, None
+    for label in ("on", "off", "off", "on"):
+        os.environ["PADDLE_TPU_ASYNC_HOST"] = "1" if label == "on" else "0"
+        try:
+            eng = ContinuousBatchingEngine(cfg, params, **kw)
+        finally:
+            os.environ.pop("PADDLE_TPU_ASYNC_HOST")
+        check(eng._async_host == (label == "on"), f"{label}: as switched")
+        reqs = reqs_()
+        for r in reqs:
+            eng.add_request(r)
+        kernels.reset_counters()
+        torch.cuda.synchronize()
+        n, same = 0, None
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                t0 = time.perf_counter()
+                while eng.step() or eng._queue:
+                    n += 1
+                    if n == 20:
+                        j, snap = eng.journal(), eng.snapshot()
+                        same = all(
+                            [dict(e, deadline_remaining_s=None)
+                             for e in j[k]]
+                            == [dict(e, deadline_remaining_s=None)
+                                for e in snap[k]]
+                            for k in ("running", "queued"))
+                        same = same and j["engine"] == snap["engine"]
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(same is True, f"{label}: journal() == snapshot() at step 20")
+        check(all(r.status == "FINISHED" for r in reqs),
+              f"{label}: every request finished")
+        st = eng.stats
+        want = st["decode_steps"] if label == "on" else 0
+        check(st["host_overlap_steps"] == want,
+              f"{label}: host_overlap_steps {st['host_overlap_steps']} == "
+              f"{want}")
+        synced = collections.Counter(
+            f"{os.path.basename(w.filename)}:{w.lineno}" for w in caught
+            if "synchroniz" in str(w.message))
+        h = eng._h_hostgap
+        run = {"tokens": [r.output_ids for r in reqs],
+               "sync_warnings": sum(synced.values()),
+               "steps": st["decode_steps"],
+               "mixed_steps": st["mixed_steps"],
+               "spec_steps": st["spec_steps"],
+               "host_overlap_steps": st["host_overlap_steps"],
+               "journal_incremental_updates":
+                   st["journal_incremental_updates"],
+               "journal_flush_s_mean": (eng._h_jupdate.sum
+                                        / eng._h_jupdate.count
+                                        if eng._h_jupdate.count else None),
+               "host_gap_s_mean": h.sum / h.count,
+               "step_ms_mean": st["decode_time_s"] / st["decode_steps"]
+               * 1e3, "serve_wall_s": wall}
+        if launches is None:
+            launches = dict(kernels.LAUNCHES)
+            L, mixed, spec = (cfg.num_hidden_layers, st["mixed_steps"],
+                              st["spec_steps"])
+            want = {"paged_prefill_tc": L * mixed,
+                    "paged_verify_tc": L * spec,
+                    "fused_decode_step_tc": L * (st["decode_steps"] - mixed
+                                                 - spec)}
+            check(all(launches[k] == n for k, n in want.items())
+                  and launches["fused_layer_mlp"] > 0
+                  and launches["rms_norm"] > 0,
+                  f"the path's kernels: {want} vs "
+                  f"{ {k: launches[k] for k in want} }")
+        if label in sites:
+            check(synced == sites[label], f"{label}: the second round's "
+                                          f"synchronizing calls")
+        sites[label] = synced
+        runs.setdefault(label, []).append(run)
+        del eng
+    base = runs["on"][0]["tokens"]
+    check(all(r["tokens"] == base for rs in runs.values() for r in rs),
+          "the same tokens with the async host runtime on and off")
+    check(sites["on"] == sites["off"], f"the same synchronizing calls on "
+                                       f"and off: {dict(sites['on'])} vs "
+                                       f"{dict(sites['off'])}")
+    for rs in runs.values():
+        for r in rs:
+            del r["tokens"]
+    emit({"phase": "async_host", "model": "llama3_8b",
+          "layers": cfg.num_hidden_layers, "nvidia_smi": smi,
+          "requests": len(base), "runs": runs,
+          "sync_sites": dict(sites["on"])})
+    del params
     torch.cuda.empty_cache()
     return launches
 
@@ -2799,12 +3225,14 @@ def phase_train_end_to_end(torch, np) -> None:
 
 
 def main(argv: list[str]) -> int:
-    sweeps = {"--serve-sweep": serve_sweep, "--prefix-sweep": prefix_sweep}
+    sweeps = {"--serve-sweep": serve_sweep, "--prefix-sweep": prefix_sweep,
+              "--tier-probe": tier_probe}
     sweep = seeds = None
     if argv:
         if len(argv) != 2 or argv[0] not in sweeps:
             print("usage: chip_smoke.py [--serve-sweep FIRST-LAST | "
-                  "--prefix-sweep FIRST-LAST]", file=sys.stderr)
+                  "--prefix-sweep FIRST-LAST | --tier-probe FIRST-LAST]",
+                  file=sys.stderr)
             return 2
         sweep = sweeps[argv[0]]
         first, last = (int(x) for x in argv[1].split("-"))
@@ -2858,9 +3286,12 @@ def main(argv: list[str]) -> int:
                            smi)
     for k, v in timed("chaos", phase_chaos, torch, np, smi).items():
         slice_launches[k] += v
-    # this slice's: the weight-only quantized serves and observability
+    # the weight-only quantized serves, observability, the host KV tier
+    # and the async host runtime
     for phase, fn in (("quant", phase_quant),
-                      ("observability", phase_observability)):
+                      ("observability", phase_observability),
+                      ("kv_tier", phase_kv_tier),
+                      ("async_host", phase_async_host)):
         for k, v in timed(phase, fn, torch, np, smi).items():
             slice_launches[k] += v
     arm_launches = timed("arms", phase_arms, torch, np)

@@ -20,8 +20,9 @@ production:
   so a host fault in one request must not take down the batch;
 * ``cache_error`` (prefix-cache registration): the graceful engine keeps
   the blocks private and fails no request;
-* ``tier_drop``: accepted by the grammar, but it has no seam in this port
-  until the host KV tier is ported; a clause of this kind never fires.
+* ``tier_drop`` (the host KV tier's restore, ``_restore_tier_block``):
+  the matched tier entry vanishes between match and restore, and the
+  engine falls back to prefill for the block with the same tokens.
 
 The replica-scoped kinds (``replica_crash``, ``replica_stall``,
 ``replica_slow``) and the ``replica`` key belong to a fleet router, which

@@ -28,14 +28,19 @@ fail only the unsatisfiable request), chunk-by-chunk page mapping of a
 streaming prompt, deadlines, ``cancel``, ``max_queue`` backpressure and
 ``snapshot`` / ``restore``; weight-only quantized matmul weights
 (``quant``: ``quantize_layer_params`` at construction, each matmul reading
-its weight dequantized, the fused MLP half off as in the reference); and
+its weight dequantized, the fused MLP half off as in the reference);
 observability (``observability.py``): ``stats`` as a view over a metrics
-registry, request spans, SLO accounting, the step and host-gap histograms
-and the flight recorder.  Not ported yet (ROADMAP.md): the dense-cache
-mode, tensor parallelism, the host KV tier (so the ``tier_drop`` fault has
-no seam and the ``tier_*`` statistics stay 0), the incremental journal and
-async host runtime (``journal_*``, ``host_overlap_steps`` stay 0), and the
-fleet.
+registry, request spans, SLO accounting, the step, host-gap, restore and
+journal histograms and the flight recorder; the host KV tier
+(``enable_host_kv_tier``, ``kv_tier.py``: prefix-cache eviction demotes
+zero-ref pages to a byte-budgeted host store instead of freeing them, and
+admission's prefix match extends through it, restoring pages by a host to
+device copy at admission or at the chunked cursor's pace, with the
+``tier_drop`` fault's seam); and the async host runtime
+(``PADDLE_TPU_ASYNC_HOST``, on by default): the incremental journal
+(``journal()``, equal to ``snapshot()``) flushed between a step's last
+launch and its one host fetch.  Not ported yet (ROADMAP.md): the
+dense-cache mode, tensor parallelism and the fleet.
 
 How the JAX engine's mechanisms map to PyTorch:
 
@@ -61,7 +66,14 @@ How the JAX engine's mechanisms map to PyTorch:
   draws them (``utils/threefry.py``; on the card one kernel,
   ``ops/kernels/sampling.py``), so seeded streams are the JAX
   engine's tokens and a preempted request resumes its stream exactly.
-  Greedy streams are the JAX engine's tokens.
+  Greedy streams are the JAX engine's tokens;
+- JAX's asynchronous dispatch becomes CUDA's: a launch returns at once, so
+  the journal's flush (``_host_overlap``), placed between a step's last
+  launch and its one host fetch, runs while the card executes the queued
+  kernels; the tier's donated page write becomes an in-place ``copy_``
+  from page-locked host memory, ordered on the current stream before any
+  later kernel reads the page, and its demotion's read blocks until the
+  bytes are on the host, before the page returns to the free list.
 """
 
 from __future__ import annotations
@@ -82,6 +94,7 @@ from ..ops.kernels import sampling
 from ..utils.envflags import env_bool
 from . import lm_head_logits, quantize_layer_params, transformer_apply
 from .faults import FaultInjected, FaultPlan
+from .kv_tier import HostKVTier
 from .observability import (ENGINE_STAT_SCHEMA, FlightRecorder,
                             MetricsRegistry, RequestTracer, SLOTracker,
                             StatsView, flight_recorder_enabled,
@@ -222,6 +235,18 @@ class ContinuousBatchingEngine:
     registry.  ``PADDLE_TPU_METRICS=0`` restores the plain ``stats`` dict,
     with no registry, spans or SLO tracking; ``PADDLE_TPU_FLIGHT_RECORDER
     =0`` turns the flight recorder off.
+    ``enable_host_kv_tier`` (needs ``enable_prefix_caching``): the host KV
+    tier (``kv_tier.py``): eviction demotes zero-ref cached pages to a
+    byte-budgeted host store (``PADDLE_TPU_HOST_TIER_MIB``) instead of
+    freeing them, and admission's prefix match extends through it, a tier
+    hit restoring pages by a host to device copy where prefill would
+    compute them (tokens identical).  ``host_tier``: a
+    :class:`~.kv_tier.HostKVTier` built by the caller (a shared one).
+    Kill switch ``PADDLE_TPU_HOST_KV_TIER=0``; ``PADDLE_TPU_PREFIX_CACHE=0``
+    turns the tier off too.
+    ``PADDLE_TPU_ASYNC_HOST`` (default on): the journal (:meth:`journal`)
+    is kept incrementally and flushed while the card runs each step; ``0``
+    leaves every flush to :meth:`journal` itself.
     """
 
     def __init__(self, cfg, params, max_batch: int = 8, max_seq: int = 512,
@@ -233,6 +258,7 @@ class ContinuousBatchingEngine:
                  prefill_chunk: int = 128, token_budget: int | None = None,
                  max_queue: int | None = None, quant: str | None = None,
                  metrics=None, metrics_labels: dict | None = None,
+                 enable_host_kv_tier: bool = False, host_tier=None,
                  device=None):
         self.device = resolve_device(device)
         for leaf in [params["embed"], *params["layers"].values()]:
@@ -367,10 +393,41 @@ class ContinuousBatchingEngine:
             # and the cursor, the next position whose K/V is computed
             self._prefill_ids: list[np.ndarray | None] = [None] * max_batch
             self._prefilled = np.zeros(max_batch, np.int32)
+        # the host KV tier behind the prefix cache: every behaviour hangs
+        # off self._tier, and the kill switch is read FIRST, so =0 leaves
+        # the pre-tier engine (eviction frees, admission stops at the
+        # device match)
+        self._tier = None
+        if ((enable_host_kv_tier or host_tier is not None)
+                and env_bool("PADDLE_TPU_HOST_KV_TIER", True)):
+            if not enable_prefix_caching:
+                raise ValueError(
+                    "enable_host_kv_tier requires enable_prefix_caching="
+                    "True (the tier is keyed by the prefix cache's chain "
+                    "hashes and holds its evicted pages)")
+            if self._pcache is not None:
+                # PADDLE_TPU_PREFIX_CACHE=0 turns the tier off too: with no
+                # content address there is nothing to demote or match
+                self._tier = (host_tier if host_tier is not None
+                              else HostKVTier())
+                # per-slot restore plans [(block, hash, parent), ...],
+                # consumed front first by the chunked cursor at the token
+                # budget's pace and dropped whole on preempt, cancel,
+                # terminal or a tier miss
+                self._tier_plan: list[list] = [[] for _ in range(max_batch)]
         # wall seconds of the bucketed prefills (synchronized): the port's
         # own figure, kept beside ``stats`` (whose keys are the schema's)
         self.prefill_time_s = 0.0
         self._setup_observability(metrics, metrics_labels)
+        # the async host runtime: the journal mirrors what snapshot() would
+        # write for each live rid, rebuilt only for the rids marked dirty
+        # (admission, a token banked, a cursor advance, adopt, preempt).
+        # The marks are unconditional; the switch only decides whether the
+        # flush rides each step's launch window, so =0 leaves the serial
+        # loop as it was
+        self._async_host = env_bool("PADDLE_TPU_ASYNC_HOST", True)
+        self._jentries: dict[int, dict] = {}
+        self._jdirty: set[int] = set()
         #: logits [B, V] of the last step run (inspection only): a decode
         #: step's, a mixed step's emit rows, a verify step's row 0
         self.last_logits: torch.Tensor | None = None
@@ -400,13 +457,26 @@ class ContinuousBatchingEngine:
                 "paddle_tpu_serving_step_seconds",
                 "Wall seconds per compiled serving step (launch to host "
                 "fetch)").labels(**self._obs_labels)
+            self._h_h2d = (self.metrics.histogram(
+                "paddle_tpu_serving_h2d_restore_seconds",
+                "Host->device dispatch seconds per tier page restore "
+                "(kv_tier ship_in: two donated pool writes, overlapped "
+                "with the next compiled step by async dispatch)")
+                .labels(**self._obs_labels) if self._tier is not None
+                else None)
+            self._h_jupdate = self.metrics.histogram(
+                "paddle_tpu_serving_journal_update_seconds",
+                "Host seconds per incremental journal flush (dirty-rid "
+                "entry rebuilds overlapped with the in-flight device "
+                "step, docs/async_runtime.md)").labels(**self._obs_labels)
             self._tracer = RequestTracer(
                 enabled=True, pid=int(replica) if replica is not None else 0,
                 process_name=obs_name)
         else:
             self.metrics = None
             self.slo = None
-            self._h_hostgap = self._h_step = None
+            self._h_hostgap = self._h_step = self._h_h2d = None
+            self._h_jupdate = None
             self._tracer = RequestTracer(enabled=False)
             self.stats = {k: (0.0 if kind == "gauge" else 0)
                           for k, (kind, _) in ENGINE_STAT_SCHEMA.items()}
@@ -834,7 +904,12 @@ class ContinuousBatchingEngine:
                          step=self._step_no)
             return False
         while base + len(owned) < n_blocks:
-            if not self._free and not self._reclaim(1):
+            # with the tier, reclaim the whole deficit in one call (one
+            # gathered read demotes the batch); without it, one page at a
+            # time, so the page order stays the pre-tier engine's
+            want = (n_blocks - base - len(owned) if self._tier is not None
+                    else 1)
+            if not self._free and not self._reclaim(want):
                 return False
             b = self._free.pop()
             self._table[slot, base + len(owned)] = b
@@ -842,21 +917,181 @@ class ContinuousBatchingEngine:
         return True
 
     def _reclaim(self, n: int) -> int:
-        """Evict up to n zero-ref cached blocks into the free list."""
+        """Evict up to n zero-ref cached blocks into the free list; with the
+        host tier, each victim's page is demoted to the host first, so its
+        chain stays re-admittable."""
         if self._pcache is None:
             return 0
         pairs = self._pcache.evict(n)
         if pairs:
+            if self._tier is not None:
+                self._demote(pairs)
             self._free.extend(page for _, page in pairs)
             self.stats["prefix_evictions"] += len(pairs)
             self._record("evict", pages=len(pairs))
         return len(pairs)
+
+    # ---------------- the host KV tier: demote / restore ----------------
+
+    def _pool_leaves(self):
+        """((K pages, K scales), (V pages, V scales)): each pool's fp pages
+        or codes, and its per-(page, kv head) scales (None on fp pools)."""
+        if self.kv_quant is None:
+            return ((self.cache_k, None), (self.cache_v, None))
+        return ((self.cache_k["q"], self.cache_k["scale"]),
+                (self.cache_v["q"], self.cache_v["scale"]))
+
+    def _demote(self, pairs):
+        """ship_out the evicted pages: ONE gathered device read of the
+        batch, then each page's slice into the tier, whose copy blocks
+        until the bytes are on the host, so the pages return to the free
+        list only once no later kernel can overwrite them first.  A page
+        the tier cannot fit goes dead (the tier counts it in ``drops``)."""
+        idx = torch.as_tensor([page for _, page in pairs], device=self.device)
+        (k, ks), (v, vs) = ((a[:, idx], None if sc is None else sc[:, idx])
+                            for a, sc in self._pool_leaves())
+        owner = self._obs_labels.get("replica")
+        for i, (h, _page) in enumerate(pairs):
+            if self._tier.ship_out(h, k[:, i], v[:, i],
+                                   k_scale=None if ks is None else ks[:, i],
+                                   v_scale=None if vs is None else vs[:, i],
+                                   owner=owner) is not None:
+                self.stats["tier_demotions"] += 1
+        self.stats["tier_bytes"] = self._tier.used_bytes
+        self.stats["tier_evictions"] = self._tier.evictions
+        self._record("tier_demote", pages=len(pairs),
+                     tier_bytes=int(self._tier.used_bytes))
+
+    def _tier_write(self, dst: int, entry):
+        """ship_in's device half: the entry's host page into pool page
+        ``dst`` across every layer, in place, a quantized pool's codes and
+        scales together (as ``_copy_page`` copies).  From page-locked
+        memory the copies are asynchronous on the current stream, ordered
+        before every later kernel that reads the page."""
+        for (a, sc), page, scale in zip(self._pool_leaves(),
+                                        (entry.k, entry.v),
+                                        (entry.k_scale, entry.v_scale)):
+            a[:, dst].copy_(page, non_blocking=True)
+            if sc is not None:
+                sc[:, dst].copy_(scale, non_blocking=True)
+
+    def _restore_tier_block(self, slot: int, req, ids, b: int, h: str,
+                            parent: str | None) -> bool:
+        """Re-admit ONE demoted block: take a free page, copy the host page
+        into it and register the block in the prefix cache with this slot
+        holding a reference, as a freshly prefilled block.  False when it
+        cannot (pool dry, a tier miss or an injected ``tier_drop``, private
+        pages ahead of the shared front, an entry of another pool format):
+        the caller prefills the block instead, with the same tokens."""
+        bs = self.block_size
+        if self._faults and self._faults.fire("tier_drop",
+                                              step=self._step_no,
+                                              slot=slot, rid=req.rid):
+            # the tier seam: the entry vanishes between match and restore
+            self._tier.discard(h)
+            self._record("fault", fault="tier_drop", slot=slot,
+                         step=self._step_no)
+        if h in self._pcache._by_hash:
+            # another slot restored or computed the block since the plan
+            # was made: map the resident copy
+            e = self._pcache._by_hash[h]
+            self._pcache.acquire(e)
+            self._table[slot, len(self._slot_shared[slot])] = e.page
+            self._slot_shared[slot].append(h)
+            return True
+        if not self._free or self._slot_blocks[slot]:
+            # pool pressure, or private pages ahead of the shared front (a
+            # cache_error left them there): compute instead
+            return False
+        entry = self._tier.ship_in(h, owner=self._obs_labels.get("replica"))
+        if entry is None:
+            return False
+        # a shared tier may hold pages of another pool format: a miss
+        pool = self._pool_leaves()[0][0]
+        if ((entry.k_scale is not None) != (self.kv_quant is not None)
+                or tuple(entry.k.shape) != (pool.shape[0],) + pool.shape[2:]
+                or entry.k.dtype != pool.dtype):
+            return False
+        dst = self._free.pop()
+        t0 = time.perf_counter()
+        self._tier_write(dst, entry)
+        e = self._pcache.register(parent, ids[b * bs:(b + 1) * bs], dst,
+                                  refcount=1)
+        if e is None:
+            # the parent left the index since the plan: the page would be
+            # unreachable; hand it back and compute the block instead
+            self._free.append(dst)
+            return False
+        self._table[slot, len(self._slot_shared[slot])] = dst
+        self._slot_shared[slot].append(h)
+        self.stats["tier_readmits"] += 1
+        self.stats["tier_bytes"] = self._tier.used_bytes
+        if self._h_h2d is not None:
+            self._h_h2d.observe(time.perf_counter() - t0)
+        self._record("tier_readmit", rid=req.rid, slot=slot, block=b,
+                     page=dst)
+        return True
+
+    def _tier_restore_step(self, s: int, ids,
+                           budget: int) -> tuple[int, int, bool]:
+        """The chunked cursor's restore loop for slot ``s``: plan blocks
+        the cursor already passed (computed by a fallback chunk) drop;
+        while the cursor sits at a planned block's start, restore it and
+        advance the cursor a block.  Each restored block bills
+        ``block_size`` tokens of the step's budget, one block at least a
+        step, so a long chain cannot burst into one step.  Returns
+        (cursor, budget left, pending): ``pending``, a planned block still
+        at the cursor (deferred by the budget), idles the lane this step
+        rather than compute a block the next step restores."""
+        bs = self.block_size
+        req = self._slot_req[s]
+        plan = self._tier_plan[s]
+        cur = int(self._prefilled[s])
+        restored = 0
+        while plan:
+            b, h, parent = plan[0]
+            if b * bs < cur:
+                plan.pop(0)                 # computed by a fallback chunk
+                self._tier.unpin(h)
+                continue
+            if b * bs != cur:
+                break                       # mid-block cursor: compute on
+            if restored > 0 and budget < bs:
+                return cur, budget, True    # the next step goes on
+            if not self._restore_tier_block(s, req, ids, b, h, parent):
+                # pool dry, or the entry vanished: drop the WHOLE plan and
+                # prefill the rest
+                self._drop_tier_plan(s)
+                break
+            plan.pop(0)
+            self._tier.unpin(h)
+            restored += 1
+            budget = max(budget - bs, 0)
+            cur += bs
+            self._prefilled[s] = cur
+            self._pos[s] = cur
+            # admission counted the whole uncached tail as computed; this
+            # block's tokens were restored
+            self.stats["prefill_tokens_computed"] -= bs
+            self.stats["prefill_tokens_cached"] += bs
+        return cur, budget, False
+
+    def _drop_tier_plan(self, slot: int):
+        """Drop a slot's pending restore plan (preempt, cancel, terminal, a
+        failed restore), unpinning what is left of it; blocks already
+        restored stay ordinary cached blocks."""
+        if self._tier is None:
+            return
+        for _b, h, _p in self._tier_plan[slot]:
+            self._tier.unpin(h)
+        self._tier_plan[slot] = []
 
     def _evictable(self) -> int:
         return (self._pcache.evictable_count() if self._pcache is not None
                 else 0)
 
     def _release(self, slot: int):
+        self._drop_tier_plan(slot)
         self._free.extend(self._slot_blocks[slot])
         self._slot_blocks[slot] = []
         # shared pages are refcounted, not freed: at zero refs they stay
@@ -892,6 +1127,10 @@ class ContinuousBatchingEngine:
                                       self._slot_blocks[slot][0], refcount=1)
             if e is None:
                 break        # already cached or orphaned: stays private
+            if self._tier is not None and not self._tier.shared:
+                # the block was computed afresh: a private tier's copy of
+                # it goes (a block lives in the pool or in the tier)
+                self._tier.discard(e.hash)
             parent = e.hash
             self._slot_blocks[slot].pop(0)
             self._slot_shared[slot].append(e.hash)
@@ -922,6 +1161,8 @@ class ContinuousBatchingEngine:
                 tokens = seq[b * bs:(b + 1) * bs]
                 e = self._pcache.register(parent, tokens, page, refcount=0)
                 if e is not None:
+                    if self._tier is not None and not self._tier.shared:
+                        self._tier.discard(e.hash)   # as registration does
                     parent = e.hash
                     continue               # the cache owns the page now
                 # duplicate content: the page stays private, later blocks
@@ -952,6 +1193,7 @@ class ContinuousBatchingEngine:
             self._prefilled[slot] = 0
         req.status = "PENDING"
         self._queue.insert(0, req)
+        self._jmark(req.rid)
         self.stats["preemptions"] += 1
         self._record("degrade", rung=4, what="preempt", rid=req.rid,
                      slot=slot)
@@ -1037,6 +1279,7 @@ class ContinuousBatchingEngine:
             self._terminal(req, "REJECTED", msg)
             return
         self._queue.append(req)
+        self._jmark(req.rid)
 
     def _admit(self):
         """Fill free slots from the queue: a request enters only when its
@@ -1081,16 +1324,58 @@ class ContinuousBatchingEngine:
             for i, e in enumerate(matched[:n_map]):
                 self._table[slot, i] = e.page
                 self._slot_shared[slot].append(e.hash)
+            # the host tier: extend the match through it, strictly below
+            # the first decode write (s0-1), so a restored block is never
+            # written; a full device hit (COW) has no tail to extend
+            tier_plan: list[tuple[int, str, str | None]] = []
+            if self._tier is not None and not cow:
+                parent = matched[-1].hash if m else None
+                b = m
+                while (b + 1) * bs <= s0 - 1:
+                    h = self._pcache.chain_hash(parent,
+                                                ids[b * bs:(b + 1) * bs])
+                    if h not in self._tier:
+                        break
+                    tier_plan.append((b, h, parent))
+                    parent = h
+                    b += 1
+                if tier_plan:
+                    self.stats["tier_hits"] += 1
+                    for _b, h, _p in tier_plan:
+                        # pinned until restored or dropped: the plan may
+                        # span steps
+                        self._tier.pin(h)
+                    self._record("tier_match", rid=req.rid,
+                                 blocks=len(tier_plan))
+            n_restored = 0
+            if tier_plan and not (self._chunked and self._graceful):
+                # the bucketed engine, and the chunked one with graceful
+                # off (it maps the whole prompt's private pages now, so the
+                # cursor has no block boundary to restore at), restore at
+                # admission; a failure (pool dry, tier_drop) prefills the
+                # rest
+                for b, h, parent in tier_plan:
+                    if not self._restore_tier_block(slot, req, ids, b, h,
+                                                    parent):
+                        break
+                    n_restored += 1
+                for _b, h, _p in tier_plan:
+                    self._tier.unpin(h)
+                tier_plan = []
             if self._chunked and self._graceful:
                 # chunk-granular mapping: the mixed steps' _ensure_growth
                 # maps each chunk's pages, so rung 3 can shrink a chunk
                 # instead of preempting; only the COW page exists now
                 need = m if cow else n_map
             avail = len(self._free) + self._evictable()
-            if avail < gate - n_map + headroom or not self._alloc_to(slot,
-                                                                     need):
+            if (avail < gate - (n_map + n_restored) + headroom
+                    or not self._alloc_to(slot, need)):
+                # restored blocks stay cached at zero refs (a retry hits
+                # them); a chunked plan's pins go
                 if cow:
                     self._pcache.release(matched[-1].hash)
+                for _b, h, _p in tier_plan:
+                    self._tier.unpin(h)
                 self._release(slot)
                 break  # pool dry: keep queue order, retry next step
             if cow:
@@ -1101,9 +1386,10 @@ class ContinuousBatchingEngine:
             if m:
                 self.stats["prefix_hits"] += 1
                 self.stats["prefix_blocks_reused"] += m
-            # prefill starts at the first uncached token, never past s0-1
+            # prefill starts at the first uncached token (a shared, COW or
+            # restored block's K/V is in the pool), never past s0-1
             # (decode's first position)
-            start = min(m * bs, s0 - 1)
+            start = min((m + n_restored) * bs, s0 - 1)
             age = getattr(req, "_resume_age", None)
             self._slot_age[slot] = self._admit_seq if age is None else age
             self._admit_seq += 1
@@ -1121,6 +1407,10 @@ class ContinuousBatchingEngine:
                 self._prefill_ids[slot] = ids
                 self._prefilled[slot] = start
                 self._pos[slot] = start
+                if self._tier is not None:
+                    # the cursor restores the plan's blocks as it reaches
+                    # them (_tier_restore_step)
+                    self._tier_plan[slot] = tier_plan
             else:
                 if start == 0 or plen > 0:
                     self._prefill_tail(req, slot, ids, start, s0)
@@ -1149,6 +1439,7 @@ class ContinuousBatchingEngine:
             # requests never share a stream
             self._seed[slot] = np.int32(
                 req.seed if req.seed is not None else req.rid)
+            self._jmark(req.rid)   # seating sets the journal's cursor
 
     def _prefill_tail(self, req: Request, slot: int, ids: np.ndarray,
                       start: int, s0: int):
@@ -1195,6 +1486,7 @@ class ContinuousBatchingEngine:
         if stat is not None:
             self.stats[stat] += 1
         self._reqs.pop(req.rid, None)
+        self._jdrop(req.rid)     # the journal holds live requests only
         # close the SLO record, emit the decode span (admission to now) and
         # the terminal marker; a FAILED request dumps the flight recorder
         now = time.perf_counter()
@@ -1415,18 +1707,103 @@ class ContinuousBatchingEngine:
         topology.  The KV pool is not captured: :meth:`restore` resumes by
         teacher-forced recompute, exact for greedy and seeded sampling."""
         now = time.perf_counter()
-        running = sorted((s for s in range(self.max_batch)
-                          if self._slot_req[s] is not None),
-                         key=lambda s: int(self._slot_age[s]))
+        self.stats["journal_full_rebuilds"] += 1
         return {
             "version": 2,
             "engine": self._topology(),
-            "running": [journal_entry(self._slot_req[s],
-                                      self._prefilled[s]
-                                      if self._chunked else 0, now)
-                        for s in running],
+            "running": [journal_entry(self._slot_req[s], self._cursor(s),
+                                      now)
+                        for s in self._running_slots()],
             "queued": [journal_entry(r, 0, now) for r in self._queue],
         }
+
+    def _running_slots(self) -> list[int]:
+        """The seated slots in seniority order."""
+        return sorted((s for s in range(self.max_batch)
+                       if self._slot_req[s] is not None),
+                      key=lambda s: int(self._slot_age[s]))
+
+    def _cursor(self, slot: int) -> int:
+        """A seated slot's chunk cursor, as a journal entry records it."""
+        return int(self._prefilled[slot]) if self._chunked else 0
+
+    # ---------------- the incremental journal ----------------
+
+    def _jmark(self, rid: int):
+        """Mark one rid's journal entry stale (admission, a token banked,
+        a cursor advance, adopt, preempt); :meth:`_jflush` rebuilds it."""
+        self._jdirty.add(rid)
+
+    def _jdrop(self, rid: int):
+        """Retire one rid's journal entry (a terminal status)."""
+        self._jentries.pop(rid, None)
+        self._jdirty.discard(rid)
+
+    def _jflush(self, now: float | None = None):
+        """Rebuild the entries of every dirty rid: O(changed requests), in
+        place of :meth:`snapshot`'s full scan.  An entry freezes
+        ``deadline_remaining_s`` at the flush; :meth:`journal` recomputes
+        it when read."""
+        if not self._jdirty:
+            return
+        t0 = time.perf_counter()
+        if now is None:
+            now = t0
+        slot_of = {r.rid: s for s, r in enumerate(self._slot_req)
+                   if r is not None}
+        n = 0
+        for rid in self._jdirty:
+            req = self._reqs.get(rid)
+            if req is None:
+                self._jentries.pop(rid, None)
+                continue
+            s = slot_of.get(rid)
+            self._jentries[rid] = journal_entry(
+                req, 0 if s is None else self._cursor(s), now)
+            n += 1
+        self._jdirty.clear()
+        if n:
+            self.stats["journal_incremental_updates"] += n
+            if self._h_jupdate is not None:
+                self._h_jupdate.observe(time.perf_counter() - t0)
+            self._record("journal_flush", entries=n)
+
+    def journal(self) -> dict:
+        """:meth:`snapshot`'s document assembled from the incremental
+        journal (flushed first), with each deadline's remaining budget as
+        of now."""
+        now = time.perf_counter()
+        self._jflush(now)
+
+        def entry(req, cursor: int) -> dict:
+            e = self._jentries.get(req.rid)
+            if e is None:
+                # a rid never marked (every mutation site marks) journals
+                # all the same
+                e = self._jentries[req.rid] = journal_entry(req, cursor, now)
+            if e["deadline_s"] is not None:
+                e = dict(e, deadline_remaining_s=max(
+                    0.0, e["deadline_s"]
+                    - (now - getattr(req, "_submit_s", now))))
+            return e
+
+        return {
+            "version": 2,
+            "engine": self._topology(),
+            "running": [entry(self._slot_req[s], self._cursor(s))
+                        for s in self._running_slots()],
+            "queued": [entry(r, 0) for r in self._queue],
+        }
+
+    def _host_overlap(self):
+        """The host work that needs no token, run between a step's last
+        launch and its one host fetch, while the card executes the queued
+        kernels: the journal's flush.  Nothing with
+        ``PADDLE_TPU_ASYNC_HOST=0``."""
+        if not self._async_host:
+            return
+        self.stats["host_overlap_steps"] += 1
+        self._jflush()
 
     def adopt(self, j: dict) -> Request:
         """Queue ONE journaled request (an entry of a snapshot): it enters
@@ -1458,6 +1835,7 @@ class ContinuousBatchingEngine:
                      replayed_tokens=len(req.output_ids))
         self._reqs[req.rid] = req
         self._queue.append(req)
+        self._jmark(req.rid)
         return req
 
     def restore(self, snap: dict) -> list[Request]:
@@ -1569,6 +1947,7 @@ class ContinuousBatchingEngine:
         # ONE host round-trip per chunk: tokens and guard flags together
         if bad is not None:
             toks = torch.cat([toks, bad.long()])
+        self._host_overlap()    # while the card runs the launches above
         fetched = toks.cpu().numpy()
         toks_np, bad_np = fetched[:k], fetched[k:]
         self.stats["decode_time_s"] += time.perf_counter() - t0
@@ -1619,6 +1998,7 @@ class ContinuousBatchingEngine:
                 self.slo.tokens(req.rid, banked, now)
             self._pos[slot] = old_pos + k  # device advanced k regardless
             self._last_tok[slot] = int(toks_np[-1, slot])
+            self._jmark(req.rid)   # the bank advanced the journal entry
             if done or old_pos + k >= self.max_seq:
                 self._retire(slot)
         return True
@@ -1670,9 +2050,25 @@ class ContinuousBatchingEngine:
         prefilling = sorted((s for s in range(B)
                              if self._prefill_ids[s] is not None),
                             key=lambda s: self._slot_age[s])
+        tier_progress = False
+        t_r0 = None        # the first restore's dispatch (host-gap anchor)
         for s in prefilling:
             ids = self._prefill_ids[s]
             cur = int(self._prefilled[s])
+            if self._tier is not None and self._tier_plan[s]:
+                # the host tier: the cursor restores its plan's blocks
+                # first, billed to the same token budget as prefill rows;
+                # a plan the budget defers idles the lane
+                cur0 = cur
+                if t_r0 is None:
+                    t_r0 = time.perf_counter()
+                cur, budget, pending = self._tier_restore_step(s, ids,
+                                                               budget)
+                tier_progress = tier_progress or cur != cur0 or pending
+                if cur != cur0:
+                    self._jmark(self._slot_req[s].rid)  # cursor advanced
+                if pending:
+                    continue
             n = min(T, ids.size - cur, budget)
             if n <= 0:
                 continue    # budget drained: the lane idles this step
@@ -1698,7 +2094,14 @@ class ContinuousBatchingEngine:
                 active[s] = False
                 chunk_rows.pop(s, None)
         if not active.any():
-            return bool(self._queue)
+            if tier_progress and t_r0 is not None:
+                # a restore-only step: its host-to-device copies are the
+                # step's device work, observed as a step
+                self._note_launch(t_r0)
+                self._note_step_done(t_r0)
+            # restores are progress: the serve loop spins on until the
+            # plan drains
+            return bool(self._queue) or tier_progress
         t0 = time.perf_counter()
         self._note_launch(t0)
         # the step's packing: what the scheduler chose, for triage
@@ -1717,8 +2120,9 @@ class ContinuousBatchingEngine:
             *self._device_args(active), **self._guard_kw())
         self._poison[:] = False
         # ONE host round-trip: the tokens and the guard flags together
-        fetched = (nxt if bad is None
-                   else torch.stack([nxt, bad.long()])).cpu().numpy()
+        fetched = nxt if bad is None else torch.stack([nxt, bad.long()])
+        self._host_overlap()    # while the card runs the launches above
+        fetched = fetched.cpu().numpy()
         nxt_np, bad_np = (fetched, None) if bad is None else fetched
         self.stats["decode_time_s"] += time.perf_counter() - t0
         self._note_step_done(t0)
@@ -1763,6 +2167,7 @@ class ContinuousBatchingEngine:
             ids = self._prefill_ids[s]
             new_cur = int(self._prefilled[s]) + n
             self._prefilled[s] = new_cur
+            self._jmark(req.rid)   # the chunk cursor advanced
             self._tracer.span(req.rid, "prefill_chunk", t0,
                               self._last_step_end,
                               args={"rows": n, "cursor": new_cur,
@@ -1791,6 +2196,7 @@ class ContinuousBatchingEngine:
             self.slo.tokens(req.rid, 1, self._last_step_end)
         self.stats["decode_tokens"] += 1
         self._last_tok[slot] = tok
+        self._jmark(req.rid)   # the bank advanced the journal entry
         if (len(req.output_ids) >= req.max_new_tokens
                 or (req.eos_token_id is not None
                     and tok == req.eos_token_id)):
@@ -1864,7 +2270,9 @@ class ContinuousBatchingEngine:
         cols = [out, n_acc[:, None]]
         if bad is not None:
             cols.append(bad.long()[:, None])
-        fetched = torch.cat(cols, dim=1).cpu().numpy()
+        fetched = torch.cat(cols, dim=1)
+        self._host_overlap()    # while the card runs the launches above
+        fetched = fetched.cpu().numpy()
         out_np, n_np = fetched[:, :Q], fetched[:, Q]
         self.stats["decode_time_s"] += time.perf_counter() - t0
         self._note_step_done(t0)
@@ -1913,6 +2321,7 @@ class ContinuousBatchingEngine:
                 self.slo.tokens(req.rid, banked, now)
             self._pos[slot] = old_pos + n
             self._last_tok[slot] = int(out_np[slot, n - 1])
+            self._jmark(req.rid)   # the accepted run advanced the entry
             if done or old_pos + n >= self.max_seq:
                 self._retire(slot)
         return True

@@ -21,7 +21,25 @@ The boolean switches the engine reads, each '0' or '1':
   tracing and SLO accounting (``inference/observability.py``); ``0``
   restores the plain stats dict;
 * ``PADDLE_TPU_FLIGHT_RECORDER`` (default on): the flight recorder's ring
-  and its dumps.
+  and its dumps;
+* ``PADDLE_TPU_HOST_KV_TIER`` (default on): the host-RAM spill tier
+  behind the prefix cache (``inference/kv_tier.py``); ``0`` forces it off
+  even when the engine was built with ``enable_host_kv_tier=True``,
+  restoring the pre-tier engine exactly: eviction frees pages again and
+  admission stops at the device match.  ``PADDLE_TPU_PREFIX_CACHE=0``
+  neutralizes the tier too (with no content address there is nothing to
+  demote or match through);
+* ``PADDLE_TPU_ASYNC_HOST`` (default on): the async host runtime: the
+  engine keeps its journal incrementally (O(changed requests) a step
+  instead of a full ``snapshot()``) and flushes it between a step's last
+  launch and its one host fetch, while the card runs the queued kernels.
+  Token streams are identical either way; ``0`` restores the serial
+  fetch-then-bookkeep loop exactly.
+
+The integer knob ``PADDLE_TPU_HOST_TIER_MIB`` is the host tier's byte
+budget in MiB (default 256, minimum 1), the ceiling its own LRU evicts
+against; a non-integer or sub-minimum value warns once and keeps the
+default, so a typo can neither zero nor unbound the tier.
 
 ``PADDLE_TPU_FAULT_INJECT`` is the fault plan (``inference/faults.py``).
 """
@@ -32,7 +50,20 @@ import difflib
 import os
 import warnings
 
-__all__ = ["env_bool", "env_fault_spec"]
+__all__ = ["env_bool", "env_int", "env_fault_spec", "BOOL_FLAGS"]
+
+#: the '0'/'1' switches the engine reads -> their defaults (each read
+#: site passes its default explicitly; a test holds the two together)
+BOOL_FLAGS = {
+    "PADDLE_TPU_PREFIX_CACHE": True,
+    "PADDLE_TPU_SPECULATE": True,
+    "PADDLE_TPU_CHUNKED_PREFILL": True,
+    "PADDLE_TPU_GRACEFUL": True,
+    "PADDLE_TPU_METRICS": True,
+    "PADDLE_TPU_FLIGHT_RECORDER": True,
+    "PADDLE_TPU_HOST_KV_TIER": True,
+    "PADDLE_TPU_ASYNC_HOST": True,
+}
 
 _warned: set[tuple[str, str]] = set()
 
@@ -52,6 +83,25 @@ def env_bool(name: str, default: bool) -> bool:
     _warn_once(name, raw, f"{name}={raw!r} is not '0' or '1'; using the "
                           f"default ({'1' if default else '0'})")
     return default
+
+
+def env_int(name: str, default: int, minimum: int | None = None) -> int:
+    """Integer knob: '' -> default; a non-integer value, or one below
+    ``minimum``, warns once and keeps the default."""
+    raw = os.environ.get(name, "")
+    if raw == "":
+        return default
+    try:
+        value = int(raw)
+    except ValueError:
+        _warn_once(name, raw, f"{name}={raw!r} is not an integer; using the "
+                              f"default ({default})")
+        return default
+    if minimum is not None and value < minimum:
+        _warn_once(name, raw, f"{name}={raw!r} is below the minimum "
+                              f"({minimum}); using the default ({default})")
+        return default
+    return value
 
 
 def env_fault_spec(name: str, known_kinds, known_keys,

@@ -56,6 +56,7 @@ from paddle_tpu_torch.models import llama as tllama
 from paddle_tpu_torch.ops import decode_attention as tda
 from paddle_tpu_torch.ops import kernels as tk
 from paddle_tpu_torch.utils.convert import params_from_numpy
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 f32 = np.float32

@@ -11,6 +11,7 @@ import jax.numpy as jnp
 import torch
 
 from paddle_tpu_torch.utils import convert
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("dtype,tdtype", [(jnp.bfloat16, torch.bfloat16),

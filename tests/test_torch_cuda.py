@@ -19,6 +19,7 @@ import torch
 from paddle_tpu_torch.ops import kernels as tk
 from paddle_tpu_torch.ops.kernels import paged_attention as tpa
 from paddle_tpu_torch.ops.kernels import rms_norm as trms
+from torch_threads import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.cuda
 
@@ -917,3 +918,50 @@ def test_chunked_spec_engine_launches_on_the_card(dev, kv_quant,
     assert got == plain
     if kv_quant is None:
         assert got == base
+
+
+@pytest.mark.parametrize("kv_quant", [None, "int8", "int4"])
+def test_tier_round_trip_on_the_card(dev, kv_quant):
+    """The host KV tier's transport on the card: two pages demoted with one
+    gathered read into page-locked host copies, the first page recycled and
+    overwritten at once, then restored into that same page; its bytes
+    (codes and scales) are the originals', also when the page-locked
+    buffers are freed and new ones written before the copy is waited
+    for."""
+    import dataclasses
+
+    from paddle_tpu_torch.inference import serving
+    from paddle_tpu_torch.models import llama
+
+    cfg = dataclasses.replace(
+        llama.LlamaConfig.tiny(vocab=256, hidden=256, layers=2, heads=2,
+                               kv_heads=1, inter=512), dtype=torch.bfloat16)
+    params = llama.init_params(cfg, seed=0, device=dev)
+    eng = serving.ContinuousBatchingEngine(
+        cfg, params, max_batch=1, max_seq=256, block_size=64, num_blocks=8,
+        kv_quant=kv_quant, enable_prefix_caching=True,
+        enable_host_kv_tier=True, device=dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    leaves = [t for pair in eng._pool_leaves() for t in pair if t is not None]
+    for t in leaves:
+        if t.dtype == torch.int8:
+            t.copy_(torch.randint(-128, 128, t.shape, generator=g,
+                                  device=dev, dtype=torch.int8))
+        else:
+            t.copy_(torch.rand(t.shape, generator=g, device=dev) + 0.5)
+    orig = [t[:, 3].clone() for t in leaves]
+    eng._demote([("h3", 3), ("h5", 5)])
+    assert eng.stats["tier_demotions"] == 2 and len(eng._tier) == 2
+    for t in leaves:           # the recycled page is overwritten at once
+        t[:, 3].fill_(-7)
+    entry = eng._tier.ship_in("h3")
+    assert entry.k.is_pinned() and "h3" not in eng._tier
+    assert (entry.k_scale is not None) == (kv_quant is not None)
+    eng._tier_write(3, entry)
+    del entry
+    junk = [torch.empty(t[:, 3].shape, dtype=t.dtype,
+                        pin_memory=True).fill_(9) for t in leaves]
+    torch.cuda.synchronize()
+    for t, want in zip(leaves, orig):
+        assert torch.equal(t[:, 3], want)
+    assert all(j.eq(9).all() for j in junk)

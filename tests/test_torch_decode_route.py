@@ -23,6 +23,7 @@ import torch
 
 from paddle_tpu_torch.ops import kernels as tk
 from paddle_tpu_torch.ops.kernels import paged_attention as pa
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROUTES = ([((dt, d), "tc") for dt in (torch.bfloat16, torch.float16)
            for d in (64, 128)]

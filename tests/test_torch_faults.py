@@ -44,6 +44,7 @@ from paddle_tpu_torch.inference.faults import FaultInjected, FaultPlan
 from paddle_tpu_torch.models import llama as tllama
 from paddle_tpu_torch.utils import envflags
 from paddle_tpu_torch.utils.convert import params_from_numpy
+from torch_threads import one_torch_thread  # noqa: F401
 
 TRequest = tserving.Request
 TERMINAL = tserving.TERMINAL_STATUSES

@@ -18,6 +18,7 @@ import torch
 from paddle_tpu.ops.pallas import flash_attention as jfa
 from paddle_tpu_torch.ops import kernels as tk
 from paddle_tpu_torch.ops.kernels import flash_attention as tfa
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 

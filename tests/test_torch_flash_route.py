@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from paddle_tpu_torch.ops.kernels import flash_attention as tfa
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROUTES = ([((dt, d), "tc") for dt in (torch.bfloat16, torch.float16)
            for d in (64, 128)]

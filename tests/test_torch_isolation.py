@@ -12,6 +12,7 @@ from pathlib import Path
 
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "paddle_tpu_torch"
@@ -90,7 +91,8 @@ ALONE = ["paddle_tpu_torch.inference.prefix_cache",
          "paddle_tpu_torch.utils.envflags",
          "paddle_tpu_torch.nn.quant",
          "paddle_tpu_torch.profiler",
-         "paddle_tpu_torch.inference.observability"]
+         "paddle_tpu_torch.inference.observability",
+         "paddle_tpu_torch.inference.kv_tier"]
 
 
 @pytest.fixture(scope="module")
@@ -120,8 +122,8 @@ def alone_imports():
 @pytest.mark.parametrize("module", ALONE)
 def test_serving_helpers_import_alone(module, alone_imports):
     """The prefix cache, the fault plan, the switch parsers, the
-    weight-only quantization, the host trace buffer and the observability
-    module are the port's own copies: importing one pulls in neither JAX
+    weight-only quantization, the host trace buffer, the observability
+    module and the host KV tier are the port's own copies: importing one pulls in neither JAX
     nor the JAX package (the reference's modules of the same names that
     import no JAX are not reached for either)."""
     assert alone_imports[module] == [], alone_imports[module]

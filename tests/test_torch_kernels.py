@@ -26,6 +26,7 @@ from paddle_tpu_torch.ops.kernels import paged_attention as tpa
 from paddle_tpu_torch.ops.kernels import rms_norm as trms
 from paddle_tpu_torch.ops.kernels import rope as trope
 from paddle_tpu_torch.ops.kernels import swiglu as tswiglu
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 

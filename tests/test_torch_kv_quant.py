@@ -45,6 +45,7 @@ from paddle_tpu_torch.ops import decode_attention as tda
 from paddle_tpu_torch.ops import kernels as tk
 from paddle_tpu_torch.ops.kernels import paged_attention as tpa
 from paddle_tpu_torch.utils.convert import params_from_numpy
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 JAX_ENV, TORCH_ENV = "PADDLE_TPU_DISABLE_PALLAS", "PADDLE_TPU_TORCH_DISABLE_KERNELS"

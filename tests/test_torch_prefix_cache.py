@@ -38,6 +38,7 @@ from paddle_tpu_torch.inference import serving as tserving
 from paddle_tpu_torch.inference.prefix_cache import PrefixCache as TCache
 from paddle_tpu_torch.models import llama as tllama
 from paddle_tpu_torch.utils.convert import params_from_numpy
+from torch_threads import one_torch_thread  # noqa: F401
 
 # two slots, 8-token pages, room for every request (SHARED) or a pool that
 # evicts and preempts (PRESSURE)

@@ -47,6 +47,7 @@ from paddle_tpu_torch.inference import serving as tserving
 from paddle_tpu_torch.models import llama as tllama
 from paddle_tpu_torch.ops import kernels as tk
 from paddle_tpu_torch.utils.convert import params_from_numpy, params_to_numpy
+from torch_threads import one_torch_thread  # noqa: F401
 
 TRequest = tserving.Request
 QUANTS = ("int8", "int4")

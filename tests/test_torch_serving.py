@@ -33,6 +33,7 @@ from paddle_tpu_torch.ops.kernels import paged_attention as tpa
 from paddle_tpu_torch.ops.kernels import sampling as tsampling
 from paddle_tpu_torch.utils import threefry
 from paddle_tpu_torch.utils.convert import params_from_numpy
+from torch_threads import one_torch_thread  # noqa: F401
 
 # max_batch 2, max_seq 64, block 16, 5 pages: two 31-token prompts fit at
 # admission (2 pages each) and must grow to 3 pages each while decoding

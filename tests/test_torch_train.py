@@ -32,6 +32,7 @@ from paddle_tpu.models import llama as jllama
 from paddle_tpu_torch.models import llama as tllama
 from paddle_tpu_torch.ops import kernels as tk
 from paddle_tpu_torch.utils import convert
+from torch_threads import one_torch_thread  # noqa: F401
 
 B, S, LR, BETA1 = 2, 16, 3e-4, 0.9
 
