@@ -134,7 +134,20 @@ non-zero as soon as one fails:
     with ``PADDLE_TPU_ASYNC_HOST`` 1 and 0 in two rounds in turns: the
     same tokens and synchronizing calls, ``journal()`` equal to
     ``snapshot()`` mid-serve, one journal flush a launched step (none
-    off); the host-gap histogram's mean and the wall a step on and off.
+    off); the host-gap histogram's mean and the wall a step on and off;
+16. fleet: two Llama-3-8B replicas (32 layers, random bf16 weights)
+    behind one ``FleetRouter``, sharing one weight set (the bytes the
+    fleet adds are its two KV pools: printed and gated); phase 10's
+    stream routed by prefix affinity (every later request of a system
+    prompt on its chain's replica), then again with replica 1 crashed
+    mid-decode (one failover, the replayed streams' logit rows within
+    ``SERVE_LOGIT_TOL`` of the uninterrupted fleet's); launch counts
+    summed over the replicas prove B1, B7, B8 and the Gumbel kernel on
+    every step; the shared host tier re-admits on replica 1 a chain
+    replica 0 demoted; then at 4 layers a permanent stall (hedged, then
+    DEAD at ``stall_dead_steps``), a drain, and a chunked chaos serve with
+    ``PADDLE_TPU_ENGINE_AUDIT=1`` (no invariant breaks; B9 too; the
+    audit's host ms a fleet step).
 
 The line before the last lists every kernel with its numbers; the last line
 is ``{"ok": true, "device": {...}}``.  ``--serve-sweep FIRST-LAST`` runs
@@ -154,6 +167,7 @@ package beside it, the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -1033,65 +1047,88 @@ SERVE_LOGIT_TOL = {None: 0.4375, "int8": 0.8125}
 PREFIX_INT8_CHUNKED_TOL = 1.25
 
 
-def _serve_stepwise(torch, eng, reqs, steps=None, add=True) -> dict:
-    """Serve ``reqs`` step by step; returns rid -> [tokens, V] logits, for
-    each greedy request the logit row that chose each of its tokens.  The
-    serving module's ``lm_head_logits`` is wrapped to keep every row the
-    engine scores: a decode step's [B, V], a mixed step's emit rows [B, V],
-    a verify step's [B, Q, V] (row t chose the token t after the pending
-    one; rows past the accepted run scored rejected drafts and are not
-    kept).  The engine itself runs unchanged.  ``steps``: stop after that
-    many steps; ``add=False``: the requests are queued already (a
-    restore)."""
+@contextlib.contextmanager
+def _spied(torch, engines, rows=None):
+    """Wrap each engine's ``step``, ``_admit`` and ``_sample_tokens`` and
+    the serving module's ``lm_head_logits`` (the engines themselves run
+    unchanged).  The head keeps every row an engine scores: a decode
+    step's [B, V], a mixed step's emit rows [B, V], a verify step's
+    [B, Q, V] (row t chose the token t after the pending one; rows past
+    the accepted run scored rejected drafts and are not kept).  After each
+    step, each request of ``rows`` (rid -> list; greedy requests only) that
+    the step extended gets the rows that chose its new tokens, at the slot
+    it held: a request retired by the step held its slot before it, one
+    admitted by it from the admission on (a resumed request may bank its
+    last token and retire in that step).  Yields, an engine each, the
+    steps whose sampler was called with sampled lanes (one Gumbel launch
+    each)."""
     from paddle_tpu_torch.inference import serving
 
     head = serving.lm_head_logits
     calls = []
+    sampled = [0] * len(engines)
 
-    def capture(cfg, params, x):
+    def cap(cfg, params, x):
         z = head(cfg, params, x)
         calls.append(z)
         return z
 
-    for r in reqs if add else ():
-        eng.add_request(r)
-    rows = {r.rid: [] for r in reqs if r.temperature == 0}
-    slot_of = {}
-    admit = eng._admit
+    for i, eng in enumerate(engines):
+        step, admit, sample = eng.step, eng._admit, eng._sample_tokens
+        slot_of: dict = {}
 
-    def seat():
-        slot_of.update({r.rid: s for s, r in enumerate(eng._slot_req)
-                        if r is not None})
+        def seat(eng=eng, slot_of=slot_of):
+            slot_of.update({q.rid: s for s, q in enumerate(eng._slot_req)
+                            if q is not None})
 
-    def admit_spy():
-        admit()
-        seat()
+        def admit_spy(admit=admit, seat=seat):
+            admit()
+            seat()
 
-    serving.lm_head_logits = capture
-    eng._admit = admit_spy
-    try:
-        n = 0
-        while steps is None or n < steps:
-            n += 1
-            before = {r.rid: len(r.output_ids) for r in reqs}
-            # a request retired by this step held its slot before it, one
-            # admitted by it held its slot from the admission on (a resumed
-            # request may bank its last token and retire in that step)
+        def sample_spy(*args, sample=sample, i=i):
+            sampled[i] += args[5] is not None
+            return sample(*args)
+
+        def step_spy(eng=eng, step=step, seat=seat, slot_of=slot_of):
+            held = dict(eng._reqs)
+            before = {rid: len(q.output_ids) for rid, q in held.items()}
             slot_of.clear()
             seat()
             calls.clear()
-            if not eng.step() and not eng._queue:
-                break
-            for r in reqs:
-                new = len(r.output_ids) - before[r.rid]
-                if new and r.rid in rows:
-                    s = slot_of[r.rid]
-                    seq = torch.cat([z[s].reshape(-1, z.shape[-1])
-                                     for z in calls])
-                    rows[r.rid].append(seq[:new].clone())
+            out = step()
+            for rid, q in held.items():
+                new = len(q.output_ids) - before[rid]
+                if new and rows is not None and rid in rows:
+                    z = torch.cat([y[slot_of[rid]].reshape(-1, y.shape[-1])
+                                   for y in calls])
+                    rows[rid].append(z[:new].clone())
+            return out
+
+        eng.step, eng._admit, eng._sample_tokens = (step_spy, admit_spy,
+                                                    sample_spy)
+    serving.lm_head_logits = cap
+    try:
+        yield sampled
     finally:
         serving.lm_head_logits = head
-        del eng._admit
+        for eng in engines:
+            del eng.step, eng._admit, eng._sample_tokens
+
+
+def _serve_stepwise(torch, eng, reqs, steps=None, add=True) -> dict:
+    """Serve ``reqs`` step by step; returns rid -> [tokens, V] logits, for
+    each greedy request the logit row that chose each of its tokens
+    (``_spied``).  ``steps``: stop after that many steps; ``add=False``:
+    the requests are queued already (a restore)."""
+    for r in reqs if add else ():
+        eng.add_request(r)
+    rows = {r.rid: [] for r in reqs if r.temperature == 0}
+    with _spied(torch, [eng], rows):
+        n = 0
+        while steps is None or n < steps:
+            n += 1
+            if not eng.step() and not eng._queue:
+                break
     return {rid: torch.cat(v) if v else None for rid, v in rows.items()}
 
 
@@ -2534,6 +2571,486 @@ def phase_async_host(torch, np, smi: str) -> dict:
     return launches
 
 
+#: phase 16's replicas: phase 10's serving geometry (batch 8, max_seq 2048,
+#: block 64, 256 pages: every slot's whole context), the prefix cache on
+FLEET_KW = dict(max_batch=8, max_seq=2048, block_size=64, num_blocks=256,
+                enable_prefix_caching=True, device="cuda")
+#: the fleet step of phase 16's injected crash of replica 1: mid-decode
+#: (both replicas seat eight requests from step 2 on, and the first of
+#: them retires near step 65)
+FLEET_CRASH_STEP = 30
+#: phase 16's stall and drain runs (4 layers): the fleet step the stall
+#: of replica 0 starts at (mid-decode), and the router's stall thresholds
+FLEET_STALL_FROM, FLEET_STALL_STEPS, FLEET_STALL_DEAD = 8, 3, 12
+#: phase 16's audited chaos serve: ``CHAOS_PLAN``'s kinds on both replicas,
+#: the two that fail a request aimed at decode lanes (a poison bit set on a
+#: lane the chunked step leaves idle clears unused): slot 0 at engine step
+#: 40 and rid 3's first decode bank
+FLEET_CHAOS_PLAN = ("cache_error@step=1;alloc_fail@step=2;"
+                    "kernel_error@step=3;nan_logits@slot=0,step=40;"
+                    "slot_error@rid=3")
+
+
+def _fleet_stepwise(torch, fleet, reqs, first=4, capture=True) -> dict:
+    """Serve ``reqs`` on ``fleet``: the first ``first`` routed and one
+    fleet step run (their prompts prefilled and their chains cached), then
+    the rest.  Every replica is spied on (``_spied``): for each greedy
+    request the logit row that chose each of its tokens, whichever replica
+    chose it (``capture``).  Returns {"rows", "owner": rid -> the replica
+    it was routed to, "steps": fleet steps, "engines": every replica (a
+    dead one too), "sampled": each replica's steps that drew noise}."""
+    rows = {r.rid: [] for r in reqs if r.temperature == 0} if capture \
+        else None
+    engines = list(fleet.replicas)
+    owner = {}
+    with _spied(torch, engines, rows) as sampled:
+        for q in reqs[:first]:
+            fleet.add_request(q)
+            owner[q.rid] = fleet._owner.get(q.rid)
+        fleet.step()
+        steps = 1
+        for q in reqs[first:]:
+            fleet.add_request(q)
+            owner[q.rid] = fleet._owner.get(q.rid)
+        while fleet.step():
+            steps += 1
+        torch.cuda.synchronize()
+    return {"rows": {rid: torch.cat(v) if v else None
+                     for rid, v in (rows or {}).items()},
+            "owner": owner, "steps": steps, "engines": engines,
+            "sampled": sampled}
+
+
+def _fleet_launch_check(run, launches, L, label, sampling=True) -> dict:
+    """Every replica's decode steps ran the fused decode step (B7) on its
+    tensor-core route and the fused MLP (B8) in every layer, its prefills
+    and decode steps the norms (B1: 2L + 1 a prefill, L + 1 a decode step,
+    the post-attention norm being inside B8), its mixed steps the prefill
+    walk (B9) in every layer, and each step that sampled one Gumbel launch;
+    summed over the replicas, a dead one included.  ``sampling``: the
+    stream holds sampled requests, so some step must have drawn."""
+    engines, sampled = run["engines"], run["sampled"]
+    st = {k: sum(e.stats[k] for e in engines)
+          for k in ("decode_steps", "mixed_steps", "prefills")}
+    plain = st["decode_steps"] - st["mixed_steps"]
+    want = {"fused_decode_step": L * plain, "fused_decode_step_tc": L * plain,
+            "fused_layer_mlp": L * plain,
+            "paged_prefill": L * st["mixed_steps"],
+            "paged_prefill_tc": L * st["mixed_steps"],
+            "rms_norm": (L + 1) * plain
+            + (2 * L + 1) * (st["prefills"] + st["mixed_steps"]),
+            "gumbel_noise": sum(sampled)}
+    for name, n in want.items():
+        check(launches[name] == n, f"fleet {label}: {name} launches "
+                                   f"{launches[name]} == {n}")
+    others = {k: launches[k] for k in DECODE_KERNELS
+              if k != "fused_decode_step"}
+    check(not any(others.values()), f"fleet {label}: no other decode "
+                                    f"kernel ran: {others}")
+    check(launches["fused_decode_step_tc"] > 0
+          and (sum(sampled) > 0) == sampling,
+          f"fleet {label}: decode steps ran, sampled lanes "
+          f"{'ran' if sampling else 'none'}")
+    return {**st, "sampled_steps": sampled,
+            "per_replica_decode_steps": [e.stats["decode_steps"]
+                                         for e in engines]}
+
+
+def _make_fleet(cfg, params, env=None, **kw):
+    """A two-replica FleetRouter with ``env`` set while it is built (a
+    fault plan, the auditor, the tier's budget)."""
+    from paddle_tpu_torch.inference.fleet import FleetRouter
+
+    env = env or {}
+    os.environ.update(env)
+    try:
+        return FleetRouter(cfg, params, n_replicas=2, **kw)
+    finally:
+        for k in env:
+            os.environ.pop(k, None)
+
+
+def _fleet_tier(torch, np, cfg, params, vocab) -> dict:
+    """The shared host tier: one request of system prompt A served on
+    replica 0, three of other system prompts after it on the same replica
+    (a 32-page pool: their pages evict A's chain, which demotes to the
+    tier), then replica 0 drained and A revisited with a new tail on
+    replica 1, which re-admits A's blocks from the tier replica 0 filled."""
+    from paddle_tpu_torch.inference.serving import Request
+    from paddle_tpu_torch.ops import kernels
+
+    fleet = _make_fleet(cfg, params, {"PADDLE_TPU_HOST_TIER_MIB": TIER_MIB},
+                        **dict(FLEET_KW, num_blocks=32,
+                               enable_host_kv_tier=True))
+    check(fleet.host_tier is not None and fleet.host_tier.shared
+          and all(e._tier is fleet.host_tier for e in fleet.replicas),
+          "the replicas share one host tier")
+    rng = np.random.default_rng(16)
+    systems = [rng.integers(0, vocab, size=1024).astype(np.int32)
+               for _ in range(4)]
+
+    def req(rid, system, tail):
+        return Request(rid=rid, prompt_ids=np.concatenate(
+            [systems[system], rng.integers(0, vocab, size=tail)
+             .astype(np.int32)]), max_new_tokens=16)
+
+    reqs = [req(0, 0, 64)] + [req(100 + i, 1 + i, 448) for i in range(3)]
+    engines = list(fleet.replicas)
+    kernels.reset_counters()
+    t0 = time.perf_counter()
+    with _spied(torch, engines) as sampled:
+        for q in reqs:
+            fleet.serve([q])
+            check(fleet._reqs == {} and q.status == "FINISHED",
+                  f"tier serve rid {q.rid} finished")
+        owners_before = [e.stats["tier_demotions"] for e in engines]
+        fleet.drain(0)
+        revisit = req(1, 0, 96)
+        fleet.serve([revisit])
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    counted = _fleet_launch_check({"engines": engines, "sampled": sampled},
+                                  launches, cfg.num_hidden_layers, "tier",
+                                  sampling=False)
+    tier = fleet.host_tier.stats()
+    r1 = fleet.replicas[1].stats
+    out = {"demotions_by_replica": owners_before, "tier": tier,
+           "replica1_tier_readmits": r1["tier_readmits"],
+           "replica1_prefill_tokens_cached": r1["prefill_tokens_cached"],
+           "revisit_status": revisit.status, "wall_s": wall,
+           "health": list(fleet.health), "failovers":
+           fleet.stats["failovers"], "counted": counted,
+           "launches": launches}
+    check(fleet.stats["failovers"] == 0
+          and fleet.health == ["DRAINING", "HEALTHY"],
+          f"the tier serve lost no replica: {out}")
+    check(revisit.status == "FINISHED" and len(revisit.output_ids) == 16,
+          "the revisit finished on replica 1")
+    check(owners_before[0] > 0 and tier["cross_readmits"] > 0
+          and r1["tier_readmits"] > 0,
+          f"replica 1 re-admitted replica 0's demoted chain: {out}")
+    del fleet
+    torch.cuda.empty_cache()
+    return out
+
+
+def _fleet_stall(torch, np, cfg, params, vocab) -> dict:
+    """4 layers, batch 4 a replica, eight requests: from fleet step
+    ``FLEET_STALL_FROM`` on (mid-decode) replica 0 stalls for good
+    (``replica_stall@replica=0,count=-1`` armed then: the grammar's
+    ``step`` key pins a clause to one step).  After ``FLEET_STALL_STEPS``
+    its four requests hedge onto replica 1, whose slots are busy, so no
+    hedge wins before replica 0 is declared DEAD at ``FLEET_STALL_DEAD``
+    steps without progress; the twins inherit the requests."""
+    from paddle_tpu_torch.inference.serving import Request
+    from paddle_tpu_torch.ops import kernels
+
+    fleet = _make_fleet(cfg, params, stall_steps=FLEET_STALL_STEPS,
+                        stall_dead_steps=FLEET_STALL_DEAD,
+                        **dict(FLEET_KW, max_batch=4, num_blocks=128,
+                               enable_prefix_caching=False))
+    reqs = make_requests(Request, np, 8, vocab, sampled=2, seed=0)
+    engines = list(fleet.replicas)
+    kernels.reset_counters()
+    with _spied(torch, engines) as sampled:
+        for q in reqs:
+            fleet.add_request(q)
+        steps, dead_at, hedged = 0, None, set()
+        while True:
+            steps += 1
+            if steps == FLEET_STALL_FROM:
+                os.environ["PADDLE_TPU_FAULT_INJECT"] = \
+                    "replica_stall@replica=0,count=-1"
+                try:
+                    fleet._arm_faults_from_env()
+                finally:
+                    os.environ.pop("PADDLE_TPU_FAULT_INJECT")
+            busy = fleet.step()
+            hedged |= set(fleet._hedge)
+            if dead_at is None and fleet.health[0] == "DEAD":
+                dead_at = steps
+            if not busy:
+                break
+        torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    counted = _fleet_launch_check({"engines": engines, "sampled": sampled},
+                                  launches, cfg.num_hidden_layers, "stall")
+    st = dict(fleet.stats)
+    out = {"steps": steps, "stalled_from": FLEET_STALL_FROM,
+           "last_progress_0": fleet._last_progress[0], "dead_at": dead_at,
+           "hedged_rids": sorted(hedged), "stats": st,
+           "health": list(fleet.health), "counted": counted,
+           "statuses": [q.status for q in reqs], "launches": launches}
+    check(st["hedges"] >= 1 and st["failovers"] == 1
+          and fleet.health == ["DEAD", "HEALTHY"],
+          f"the stall hedged and then killed replica 0: {out}")
+    check(dead_at is not None
+          and dead_at - fleet._last_progress[0] == FLEET_STALL_DEAD,
+          f"replica 0 declared DEAD at stall_dead_steps: {out}")
+    check(all(q.status == "FINISHED" and len(q.output_ids) == 64
+              for q in reqs) and fleet._copies == {},
+          f"every request finished once, none banked twice: {out}")
+    del fleet
+    torch.cuda.empty_cache()
+    return out
+
+
+def _fleet_drain(torch, np, cfg, params, vocab) -> dict:
+    """4 layers, batch 4 a replica: eight requests, replica 1 drained
+    after four fleet steps, four more requests after that."""
+    from paddle_tpu_torch.inference.serving import Request
+    from paddle_tpu_torch.ops import kernels
+
+    fleet = _make_fleet(cfg, params, **dict(FLEET_KW, max_batch=4,
+                                            num_blocks=128,
+                                            enable_prefix_caching=False))
+    reqs = make_requests(Request, np, 12, vocab, sampled=2, seed=1, new=32)
+    engines = list(fleet.replicas)
+    kernels.reset_counters()
+    with _spied(torch, engines) as sampled:
+        for q in reqs[:8]:
+            fleet.add_request(q)
+        for _ in range(4):
+            fleet.step()
+        inflight = {rid: c[1] for rid, c in fleet._copies.items() if 1 in c}
+        fleet.drain(1)
+        for q in reqs[8:]:
+            fleet.add_request(q)
+        late_owner = {q.rid: fleet._owner.get(q.rid) for q in reqs[8:]}
+        while fleet.step():
+            pass
+        torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    counted = _fleet_launch_check({"engines": engines, "sampled": sampled},
+                                  launches, cfg.num_hidden_layers, "drain")
+    out = {"inflight_on_drained": sorted(inflight),
+           "late_owner": late_owner, "health": list(fleet.health),
+           "failovers": fleet.stats["failovers"], "counted": counted,
+           "launches": launches}
+    check(fleet.stats["failovers"] == 0
+          and fleet.health == ["HEALTHY", "DRAINING"],
+          f"the drain lost no replica: {out}")
+    check(inflight and all(c.status == "FINISHED" and len(c.output_ids) == 32
+                           for c in inflight.values()),
+          f"the drained replica finished its in-flight requests: {out}")
+    check(all(o == 0 for o in late_owner.values())
+          and not fleet.replicas[1]._reqs
+          and all(q.status == "FINISHED" for q in reqs),
+          f"the drained replica took no new work: {out}")
+    del fleet
+    torch.cuda.empty_cache()
+    return out
+
+
+def _fleet_audited_chaos(torch, np, cfg, params, vocab) -> dict:
+    """4 layers, phase 10's stream, chunked (128) with the prefix cache,
+    ``PADDLE_TPU_ENGINE_AUDIT=1``, ``FLEET_CHAOS_PLAN`` on both replicas
+    and replica 1 crashed at ``FLEET_CRASH_STEP``: no invariant
+    breaks in any replica or the router (the audits are wrapped, so one
+    that raised inside a replica's step, which the router would count as
+    that replica's death, is seen), and the audits' host seconds a fleet
+    step."""
+    from paddle_tpu_torch.inference import fleet as fleet_mod
+    from paddle_tpu_torch.inference import serving
+    from paddle_tpu_torch.inference.serving import Request
+    from paddle_tpu_torch.ops import kernels
+
+    spent, raised, calls = [0.0], [], [0]
+
+    def timed_audit(fn):
+        def run(*args):
+            t = time.perf_counter()
+            try:
+                return fn(*args)
+            except Exception as e:
+                raised.append(repr(e))
+                raise
+            finally:
+                spent[0] += time.perf_counter() - t
+                calls[0] += 1
+        return run
+
+    kw = dict(FLEET_KW, enable_chunked_prefill=True, prefill_chunk=128)
+    saved = (serving.audit_engine, fleet_mod.audit_fleet)
+    serving.audit_engine = timed_audit(saved[0])
+    fleet_mod.audit_fleet = timed_audit(saved[1])
+    try:
+        fleet = _make_fleet(cfg, params, {
+            "PADDLE_TPU_ENGINE_AUDIT": "1",
+            "PADDLE_TPU_FAULT_INJECT": f"replica_crash@step="
+                                       f"{FLEET_CRASH_STEP},replica=1;"
+                                       + FLEET_CHAOS_PLAN}, **kw)
+        check(fleet._audit_every_step
+              and all(e._audit_every_step for e in fleet.replicas),
+              "every replica and the router audit")
+        fleet._audit_journal_equiv = timed_audit(fleet._audit_journal_equiv)
+        reqs = make_prefix_requests(Request, np, vocab)
+        kernels.reset_counters()
+        run = _fleet_stepwise(torch, fleet, reqs, capture=False)
+    finally:
+        serving.audit_engine, fleet_mod.audit_fleet = saved
+    L = cfg.num_hidden_layers
+    launches = dict(kernels.LAUNCHES)
+    counted = _fleet_launch_check(run, launches, L, "audited chaos")
+    st = dict(fleet.stats)
+    statuses = [q.status for q in reqs]
+    out = {"steps": run["steps"], "stats": st, "statuses": statuses,
+           "audit_calls": calls[0], "audit_s": spent[0],
+           "audit_ms_per_fleet_step": spent[0] / run["steps"] * 1e3,
+           "audit_raised": raised, "counted": counted}
+    check(not raised and st["failovers"] == 1
+          and fleet.health == ["HEALTHY", "DEAD"],
+          f"no EngineAuditError from a replica or the router, replica 1's "
+          f"crash the one death: {out}")
+    check(all(s in ("FINISHED", "FAILED") for s in statuses)
+          and statuses.count("FAILED") >= 1
+          and counted["mixed_steps"] > 0,
+          f"the chaos serve ended, its victims FAILED: {out}")
+    del fleet, run
+    torch.cuda.empty_cache()
+    return {**out, "launches": launches}
+
+
+def phase_fleet(torch, np, smi: str) -> dict:
+    """Two Llama-3-8B replicas (32 layers, random bf16 weights from a
+    seed) behind one ``FleetRouter``, sharing one weight set.  Gates:
+    building the fleet adds no second weight set (the allocated bytes rise
+    by no more than the two KV pools and a 64 MiB margin, and both
+    engines hold the caller's tensors); phase 10's stream (the first
+    request of each system prompt routed and stepped once, then the rest)
+    routes by affinity (``routed_affinity`` > 0, every later request of a
+    system prompt on the replica holding its chain), loses no replica (no
+    failover, both HEALTHY: a fault escaping a replica's step would be a
+    silent failover) and finishes at 64 tokens each; the same stream with
+    replica 1 crashed at ``FLEET_CRASH_STEP`` (mid-decode) fails over
+    once, replays its tokens, finishes every request, and every logit row
+    scored from the same context as the uninterrupted fleet's is within
+    ``SERVE_LOGIT_TOL``; the shared host tier re-admits on replica 1 a
+    chain replica 0 demoted (``_fleet_tier``).  Then at 4 layers: the
+    stall (``_fleet_stall``), the drain (``_fleet_drain``) and the audited
+    chaos serve (``_fleet_audited_chaos``, chunked: B9 too).  Every run
+    holds its failovers and health to the deaths it planned, and its
+    launch counts prove every replica step ran B1, B7 (tensor cores), B8
+    and, where it sampled, the sampler's kernel.  Returns the launches of
+    every serve, summed."""
+    from paddle_tpu_torch.inference.serving import Request
+    from paddle_tpu_torch.models import llama
+    from paddle_tpu_torch.ops import kernels
+
+    cfg = llama.LlamaConfig.llama3_8b()
+    params = llama.init_params(cfg, seed=0, device="cuda")
+    L, V = cfg.num_hidden_layers, cfg.vocab_size
+    total: dict = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    fleet = _make_fleet(cfg, params, **FLEET_KW)
+    torch.cuda.synchronize()
+    rise = torch.cuda.memory_allocated() - before
+    pools = sum(t.numel() * t.element_size() for e in fleet.replicas
+                for t in (e.cache_k, e.cache_v))
+    weights = sum(t.numel() * t.element_size()
+                  for t in [params["embed"], *params["layers"].values(),
+                            *(params[k] for k in ("final_norm", "lm_head")
+                              if k in params)])
+    shared = all(e.params["layers"][k].data_ptr()
+                 == params["layers"][k].data_ptr()
+                 for e in fleet.replicas for k in params["layers"])
+    memory = {"weight_bytes": weights, "fleet_alloc_bytes": rise,
+              "two_pool_bytes": pools, "margin_bytes": 64 << 20,
+              "weights_shared": shared}
+    emit({"phase": "fleet_memory", "nvidia_smi": smi, **memory})
+    check(shared and rise <= pools + (64 << 20),
+          f"the fleet added no second weight set: {memory}")
+
+    def serve(fl):
+        reqs = make_prefix_requests(Request, np, V)
+        kernels.reset_counters()
+        t0 = time.perf_counter()
+        run = _fleet_stepwise(torch, fl, reqs)
+        run["wall_s"] = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        run["counted"] = _fleet_launch_check(run, launches, L, "serve")
+        add(launches)
+        for q in reqs:
+            check(q.status == "FINISHED" and len(q.output_ids) == 64
+                  and all(0 <= t < V for t in q.output_ids),
+                  f"fleet rid {q.rid}: FINISHED at 64 tokens")
+        return reqs, run
+
+    reqs, run = serve(fleet)
+    st = dict(fleet.stats)
+    holder = {q.rid: run["owner"][q.rid] for q in reqs[:4]}
+    astray = [q.rid for q in reqs[4:]
+              if run["owner"][q.rid] != holder[q.rid % 4]]
+    routing = {"stats": st, "owner": run["owner"], "steps": run["steps"],
+               "wall_s": run["wall_s"], **run["counted"],
+               "prefix_hits": [e.stats["prefix_hits"]
+                               for e in run["engines"]]}
+    emit({"phase": "fleet_routing", "model": "llama3_8b", "layers": L,
+          "nvidia_smi": smi, **routing})
+    check(st["failovers"] == 0 and fleet.health == ["HEALTHY", "HEALTHY"],
+          f"the uninterrupted serve lost no replica (a fault escaping a "
+          f"replica's step is a failover): {routing}")
+    check(st["routed_affinity"] > 0 and not astray,
+          f"every later request of a system prompt joined its chain's "
+          f"replica (astray: {astray})")
+    del fleet
+    torch.cuda.empty_cache()
+
+    crash = _make_fleet(cfg, params, {
+        "PADDLE_TPU_FAULT_INJECT":
+            f"replica_crash@step={FLEET_CRASH_STEP},replica=1"}, **FLEET_KW)
+    creqs, crun = serve(crash)
+    cst = dict(crash.stats)
+    replayed = sorted(rid for rid, o in run["owner"].items() if o == 1)
+    logits = _logit_check(torch, creqs, crun["rows"], reqs, run["rows"])
+    tol = SERVE_LOGIT_TOL[None]
+    failover = {"stats": cst, "steps": crun["steps"],
+                "wall_s": crun["wall_s"], "replayed_rids": replayed,
+                "health": list(crash.health), **crun["counted"],
+                "replayed_max_abs_logit_diff": max(
+                    (logits["per_rid"][r] for r in replayed
+                     if r in logits["per_rid"]), default=None),
+                "logit_tolerance": tol, **logits}
+    emit({"phase": "fleet_failover", "model": "llama3_8b", "layers": L,
+          "nvidia_smi": smi, "plan": f"replica_crash@step="
+                                     f"{FLEET_CRASH_STEP},replica=1",
+          **failover})
+    check(cst["failovers"] == 1 and cst["replayed_tokens"] > 0
+          and crash.health == ["HEALTHY", "DEAD"],
+          f"one failover replayed replica 1's tokens: {cst}")
+    check(logits["max_abs_logit_diff"] <= tol,
+          f"fleet failover: every logit row scored from the uninterrupted "
+          f"fleet's context within {tol} (max "
+          f"{logits['max_abs_logit_diff']} at {logits['worst']})")
+    del crash, crun, run, reqs, creqs
+    torch.cuda.empty_cache()
+
+    tier = _fleet_tier(torch, np, cfg, params, V)
+    add(tier.pop("launches"))
+    emit({"phase": "fleet_tier", "model": "llama3_8b", "layers": L,
+          "nvidia_smi": smi, **tier})
+
+    cfg4, params4 = _first_layers(cfg, params, 4)
+    stall = _fleet_stall(torch, np, cfg4, params4, V)
+    drain = _fleet_drain(torch, np, cfg4, params4, V)
+    audited = _fleet_audited_chaos(torch, np, cfg4, params4, V)
+    for run in (stall, drain, audited):
+        add(run.pop("launches"))
+    emit({"phase": "fleet_small", "model": "llama3_8b", "layers": 4,
+          "nvidia_smi": smi, "stall": stall, "drain": drain,
+          "audited_chaos": audited})
+    del params, params4
+    torch.cuda.empty_cache()
+    return total
+
+
 #: device-kernel name fragments -> the layer they belong to (the split-K
 #: combine kernel and the tensor-core fused decode kernel,
 #: ``decode_tc_kernel<true, ...>`` for both pool kinds, go with the decode
@@ -3286,12 +3803,13 @@ def main(argv: list[str]) -> int:
                            smi)
     for k, v in timed("chaos", phase_chaos, torch, np, smi).items():
         slice_launches[k] += v
-    # the weight-only quantized serves, observability, the host KV tier
-    # and the async host runtime
+    # the weight-only quantized serves, observability, the host KV tier,
+    # the async host runtime and the fleet
     for phase, fn in (("quant", phase_quant),
                       ("observability", phase_observability),
                       ("kv_tier", phase_kv_tier),
-                      ("async_host", phase_async_host)):
+                      ("async_host", phase_async_host),
+                      ("fleet", phase_fleet)):
         for k, v in timed(phase, fn, torch, np, smi).items():
             slice_launches[k] += v
     arm_launches = timed("arms", phase_arms, torch, np)

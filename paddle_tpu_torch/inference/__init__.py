@@ -1,8 +1,10 @@
 """LLM inference (counterpart of ``paddle_tpu/inference/__init__.py``).
 
-This slice ports the cache-threading transformer body shared by the
+This module holds the cache-threading transformer body shared by the
 serving engine, :func:`transformer_apply`, over fp or quantized KV pools,
-and :func:`lm_head_logits`.
+and :func:`lm_head_logits`; ``FleetRouter`` (``fleet.py``) is exported
+lazily, as the reference exports it, so importing the package does not
+pull in the serving stack.
 The reference's layer ``lax.scan`` is a Python loop over the stacked layer
 weights here.  The layer matmul weights are fp, or weight-only quantized
 by :func:`quantize_layer_params` (``quant`` 'int8' / 'int4'), each then
@@ -149,3 +151,13 @@ def lm_head_logits(cfg, params, x_last):
     if head is None:
         head = params["embed"].T.to(cfg.dtype)
     return x_last @ head
+
+
+def __getattr__(name):
+    # the fleet router pulls in the whole serving stack (serving.py,
+    # fleet.py): loaded at its first use
+    if name == "FleetRouter":
+        from .fleet import FleetRouter
+
+        return FleetRouter
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -24,22 +24,36 @@ production:
   the matched tier entry vanishes between match and restore, and the
   engine falls back to prefill for the block with the same tokens.
 
-The replica-scoped kinds (``replica_crash``, ``replica_stall``,
-``replica_slow``) and the ``replica`` key belong to a fleet router, which
-this port does not have yet: the parse refuses them (a warning, and
+Three replica-scoped kinds belong to the fleet router
+(``inference/fleet.py``), which polls them once a replica a fleet step,
+never the engine:
+
+* ``replica_crash``: the replica dies; the router marks it DEAD and
+  replays its journal onto the survivors;
+* ``replica_stall``: the replica makes no progress on the fired step;
+  enough stalled steps in a row hedge its work onto a survivor;
+* ``replica_slow``: the replica's step completes with an elevated latency
+  heartbeat; a streak of them degrades its health.
+
+The engine's parse (``FaultPlan.from_env()``) refuses the replica-scoped
+kinds and the ``replica`` key (a warning naming the fleet router, and
 injection off), since a clause that nobody polls would make a chaos run's
-evidence incomplete.
+evidence incomplete; the router's parse (``from_env(fleet=True)``) takes
+them.
 
 Grammar (``utils/envflags.env_fault_spec``; a typo warns with a
 did-you-mean and disables injection)::
 
     PADDLE_TPU_FAULT_INJECT="alloc_fail@step=7;nan_logits@slot=2,step=11"
+    PADDLE_TPU_FAULT_INJECT="replica_crash@step=9,replica=1"   # fleet only
 
-Clause keys: ``step`` (the engine step, 1-based; omitted = any step),
-``slot`` / ``rid`` (omitted = the first match polled), ``count`` (firings
-before the clause is spent; default 1, ``-1`` = unlimited), and ``p`` with
-``seed``: each matching poll fires with probability ``p``, drawn from a
-stream seeded by ``seed``, so a random chaos run replays exactly.
+Clause keys: ``step`` (the engine step, 1-based, for a replica-scoped
+clause the fleet step; omitted = any step), ``slot`` / ``rid`` /
+``replica`` (omitted = the first match polled; ``replica`` is fleet-only),
+``count`` (firings before the clause is spent; default 1, ``-1`` =
+unlimited), and ``p`` with ``seed``: each matching poll fires with
+probability ``p``, drawn from a stream seeded by ``seed``, so a random
+chaos run replays exactly.
 """
 
 from __future__ import annotations
@@ -64,10 +78,10 @@ class FaultInjected(RuntimeError):
 KNOWN_KINDS = frozenset({"alloc_fail", "kernel_error", "nan_logits",
                          "slot_error", "cache_error", "tier_drop"})
 
-#: fleet-scoped kinds, refused by the parse
+#: fleet-scoped kinds the router polls; the engine's parse refuses them
 REPLICA_KINDS = frozenset({"replica_crash", "replica_stall", "replica_slow"})
 
-#: clause keys the grammar accepts
+#: clause keys the grammar accepts (``replica`` is the router's only)
 KNOWN_KEYS = frozenset({"step", "slot", "rid", "count", "p", "seed"})
 
 
@@ -80,6 +94,7 @@ class FaultClause:
     step: int | None = None
     slot: int | None = None
     rid: int | None = None
+    replica: int | None = None
     count: int = 1
     p: float = 1.0
     seed: int = 0
@@ -89,7 +104,7 @@ class FaultClause:
         # other clauses draw
         self._rng = np.random.RandomState(self.seed)
 
-    def matches(self, kind: str, step, slot, rid) -> bool:
+    def matches(self, kind: str, step, slot, rid, replica=None) -> bool:
         if self.kind != kind or self.count == 0:
             return False
         if self.step is not None and step != self.step:
@@ -97,6 +112,8 @@ class FaultClause:
         if self.slot is not None and slot != self.slot:
             return False
         if self.rid is not None and rid != self.rid:
+            return False
+        if self.replica is not None and replica != self.replica:
             return False
         return True
 
@@ -111,11 +128,17 @@ class FaultPlan:
                          for c in clauses]
 
     @classmethod
-    def from_env(cls) -> "FaultPlan":
-        """Parse ``PADDLE_TPU_FAULT_INJECT`` (a malformed plan, or one that
-        names a fleet's vocabulary, warns once and disables injection)."""
+    def from_env(cls, fleet: bool = False) -> "FaultPlan":
+        """Parse ``PADDLE_TPU_FAULT_INJECT`` (a malformed plan warns once
+        and disables injection).  ``fleet=True``, the router's parse, takes
+        the replica-scoped kinds and the ``replica`` key; the engine's
+        parse refuses them the same way, naming the fleet router."""
         from ..utils.envflags import env_fault_spec
 
+        if fleet:
+            return cls(env_fault_spec("PADDLE_TPU_FAULT_INJECT",
+                                      KNOWN_KINDS | REPLICA_KINDS,
+                                      KNOWN_KEYS | {"replica"}))
         return cls(env_fault_spec("PADDLE_TPU_FAULT_INJECT", KNOWN_KINDS,
                                   KNOWN_KEYS,
                                   fleet_only_kinds=REPLICA_KINDS,
@@ -125,12 +148,14 @@ class FaultPlan:
         return bool(self._clauses)
 
     def fire(self, kind: str, *, step: int | None = None,
-             slot: int | None = None, rid: int | None = None) -> bool:
+             slot: int | None = None, rid: int | None = None,
+             replica: int | None = None) -> bool:
         """Poll one seam: True exactly when a clause matches and fires.  The
-        engine polls in a fixed order, so a clause with no ``slot`` fires
-        on the first matching poll and the plan replays."""
+        engine polls in a fixed order (the router in replica order), so a
+        clause with no ``slot`` or ``replica`` fires on the first matching
+        poll and the plan replays."""
         for c in self._clauses:
-            if not c.matches(kind, step, slot, rid):
+            if not c.matches(kind, step, slot, rid, replica):
                 continue
             if c.p < 1.0 and float(c._rng.random_sample()) >= c.p:
                 continue

@@ -39,8 +39,13 @@ device copy at admission or at the chunked cursor's pace, with the
 ``tier_drop`` fault's seam); and the async host runtime
 (``PADDLE_TPU_ASYNC_HOST``, on by default): the incremental journal
 (``journal()``, equal to ``snapshot()``) flushed between a step's last
-launch and its one host fetch.  Not ported yet (ROADMAP.md): the
-dense-cache mode, tensor parallelism and the fleet.
+launch and its one host fetch; the opt-in invariant auditor
+(``PADDLE_TPU_ENGINE_AUDIT=1``, ``analysis/engine_audit.py``) after
+admission and after every step, with the KV-write high-water mark
+``_written`` it checks.  The engine is also a replica of the fleet router
+(``fleet.py``), which reads its ``_reqs``, ``_queue``, ``_pcache``,
+``journal()``, ``adopt()`` and ``cancel()``.  Not ported yet (ROADMAP.md):
+the dense-cache mode and tensor parallelism.
 
 How the JAX engine's mechanisms map to PyTorch:
 
@@ -86,6 +91,8 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..analysis.engine_audit import (EngineAuditError, audit_enabled,
+                                     audit_engine)
 from ..ops import decode_attention as _da
 from ..ops.kernels import kernel_disabled
 from ..ops.kernels import paged_attention as _pa
@@ -340,6 +347,12 @@ class ContinuousBatchingEngine:
         # slot state (host side)
         self._slot_req: list[Request | None] = [None] * max_batch
         self._pos = np.zeros(max_batch, np.int32)      # next write position
+        # KV-write high-water mark a slot: positions [0, _written) hold K/V
+        # the device wrote (or the cache mapped).  Equal to pos but after a
+        # verify step with rejections, whose rolled-back drafts' writes stay
+        # above pos until overwritten; the auditor's I6 checks pos <=
+        # written <= the mapped pages' coverage
+        self._written = np.zeros(max_batch, np.int32)
         self._last_tok = np.zeros(max_batch, np.int32)
         self._temp = np.zeros(max_batch, np.float32)
         self._topp = np.ones(max_batch, np.float32)
@@ -393,6 +406,10 @@ class ContinuousBatchingEngine:
             # and the cursor, the next position whose K/V is computed
             self._prefill_ids: list[np.ndarray | None] = [None] * max_batch
             self._prefilled = np.zeros(max_batch, np.int32)
+            # the last mixed step's (decode slots, prefill slots): the
+            # auditor's I7 checks the two stayed disjoint
+            self._last_pack: tuple[tuple[int, ...], tuple[int, ...]] = \
+                ((), ())
         # the host KV tier behind the prefix cache: every behaviour hangs
         # off self._tier, and the kill switch is read FIRST, so =0 leaves
         # the pre-tier engine (eviction frees, admission stops at the
@@ -419,6 +436,12 @@ class ContinuousBatchingEngine:
         # own figure, kept beside ``stats`` (whose keys are the schema's)
         self.prefill_time_s = 0.0
         self._setup_observability(metrics, metrics_labels)
+        # the opt-in invariant auditor (PADDLE_TPU_ENGINE_AUDIT=1): the
+        # allocator, block tables, prefix cache and tier checked against
+        # each other after admission and after every step, raising
+        # EngineAuditError on corruption (analysis/engine_audit.py); off,
+        # the step reads this one flag
+        self._audit_every_step = audit_enabled()
         # the async host runtime: the journal mirrors what snapshot() would
         # write for each live rid, rebuilt only for the rids marked dirty
         # (admission, a token banked, a cursor advance, adopt, preempt).
@@ -501,6 +524,19 @@ class ContinuousBatchingEngine:
         """One flight-recorder event (nothing when the recorder is off)."""
         if self._flight is not None:
             self._flight.record(kind, **detail)
+
+    def _maybe_audit(self):
+        """With the auditor on, check the engine's invariants; a violation
+        dumps the flight recorder (its recent events and a metrics
+        snapshot) and raises."""
+        if not self._audit_every_step:
+            return
+        try:
+            audit_engine(self)
+        except EngineAuditError:
+            if self._flight is not None:
+                self._flight.dump("engine_audit_error")
+            raise
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -1070,6 +1106,7 @@ class ContinuousBatchingEngine:
             cur += bs
             self._prefilled[s] = cur
             self._pos[s] = cur
+            self._written[s] = max(int(self._written[s]), cur)
             # admission counted the whole uncached tail as computed; this
             # block's tokens were restored
             self.stats["prefill_tokens_computed"] -= bs
@@ -1186,6 +1223,7 @@ class ContinuousBatchingEngine:
         self._register_retired_blocks(slot)
         self._release(slot)
         self._slot_req[slot] = None
+        self._written[slot] = 0
         self._temp[slot] = 0.0  # re-set on readmission
         if self._chunked:
             # a mid-prefill victim resumes as a fresh admission
@@ -1406,7 +1444,11 @@ class ContinuousBatchingEngine:
                 # emits the first generated token
                 self._prefill_ids[slot] = ids
                 self._prefilled[slot] = start
+                # the cursor is the position state: pos and _written move
+                # with each chunk (cached positions below start count as
+                # written: the pool holds their K/V)
                 self._pos[slot] = start
+                self._written[slot] = start
                 if self._tier is not None:
                     # the cursor restores the plan's blocks as it reaches
                     # them (_tier_restore_step)
@@ -1416,6 +1458,9 @@ class ContinuousBatchingEngine:
                     self._prefill_tail(req, slot, ids, start, s0)
                 # else: a full hit, nothing to compute
                 self._pos[slot] = s0 - 1
+                # K/V is in the pool below s0-1; s0-1 is decode's first
+                # write
+                self._written[slot] = s0 - 1
                 if self._pcache is not None:
                     self._register_prefix_blocks(slot, ids, s0 - 1)
             self._slot_req[slot] = req
@@ -1527,6 +1572,7 @@ class ContinuousBatchingEngine:
         if donate:
             self._register_retired_blocks(slot)
         self._slot_req[slot] = None
+        self._written[slot] = 0
         self._temp[slot] = 0.0
         self._poison[slot] = False
         if self._chunked:
@@ -1899,6 +1945,7 @@ class ContinuousBatchingEngine:
                 self._admit_stalls = 0
         else:
             self._admit_stalls = 0
+        self._maybe_audit()
         if self._chunked and any(i is not None for i in self._prefill_ids):
             return self._mixed_step()
         if self._spec is not None:
@@ -1997,10 +2044,15 @@ class ContinuousBatchingEngine:
                 # one banking event: the chunk's tokens arrive in one fetch
                 self.slo.tokens(req.rid, banked, now)
             self._pos[slot] = old_pos + k  # device advanced k regardless
+            # a maximum: an earlier verify step's rejected drafts may sit
+            # past old_pos + k, and the mark covers them until overwritten
+            self._written[slot] = max(int(self._written[slot]),
+                                      min(old_pos + k, self.max_seq))
             self._last_tok[slot] = int(toks_np[-1, slot])
             self._jmark(req.rid)   # the bank advanced the journal entry
             if done or old_pos + k >= self.max_seq:
                 self._retire(slot)
+        self._maybe_audit()
         return True
 
     # ---------------- chunked prefill: the mixed step (host side) ----------
@@ -2088,6 +2140,7 @@ class ContinuousBatchingEngine:
                 for s in shrinkable:
                     tokens[s, 1:] = 0
                     q_lens[s] = growth[s] = chunk_rows[s] = 1
+        self._last_pack = (tuple(decode_slots), tuple(sorted(chunk_rows)))
         self._ensure_growth(growth)  # may preempt the youngest slot
         for s in range(B):
             if self._slot_req[s] is None:       # preempted after packing
@@ -2148,6 +2201,8 @@ class ContinuousBatchingEngine:
                 continue
             old_pos = int(self._pos[s])
             self._pos[s] = old_pos + 1
+            self._written[s] = max(int(self._written[s]),
+                                   min(old_pos + 1, self.max_seq))
             self._consume_token(s, req, int(nxt_np[s]))
             if self._slot_req[s] is not None and old_pos + 1 >= self.max_seq:
                 self._retire(s)
@@ -2173,6 +2228,8 @@ class ContinuousBatchingEngine:
                               args={"rows": n, "cursor": new_cur,
                                     "prompt": int(ids.size)})
             self._pos[s] = new_cur
+            self._written[s] = max(int(self._written[s]),
+                                   min(new_cur, self.max_seq))
             if self._pcache is not None:
                 # every position below new_cur holds a prompt token's K/V
                 self._register_prefix_blocks(s, ids, new_cur)
@@ -2183,6 +2240,7 @@ class ContinuousBatchingEngine:
                 self._consume_token(s, req, int(nxt_np[s]))
                 if self._slot_req[s] is not None and new_cur >= self.max_seq:
                     self._retire(s)
+        self._maybe_audit()
         return True
 
     def _consume_token(self, slot: int, req: Request, tok: int):
@@ -2319,11 +2377,18 @@ class ContinuousBatchingEngine:
             if self.slo is not None:
                 # one banking event: the accepted run arrives in one fetch
                 self.slo.tokens(req.rid, banked, now)
+            # the rollback: pos passes the accepted run only, the mark
+            # keeps how far the device wrote (a shorter draft after a long
+            # rejected one must not shrink it)
+            self._written[slot] = max(int(self._written[slot]),
+                                      min(old_pos + int(q_lens[slot]),
+                                          self.max_seq))
             self._pos[slot] = old_pos + n
             self._last_tok[slot] = int(out_np[slot, n - 1])
             self._jmark(req.rid)   # the accepted run advanced the entry
             if done or old_pos + n >= self.max_seq:
                 self._retire(slot)
+        self._maybe_audit()
         return True
 
     @property

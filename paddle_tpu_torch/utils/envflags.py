@@ -11,6 +11,9 @@ The boolean switches the engine reads, each '0' or '1':
 
 * ``PADDLE_TPU_PREFIX_CACHE`` (default on): ``0`` turns the prefix cache
   off even when the engine was built with ``enable_prefix_caching=True``;
+* ``PADDLE_TPU_ENGINE_AUDIT`` (default off): the per-step invariant
+  auditor of the engine and the fleet router
+  (``analysis/engine_audit.py``);
 * ``PADDLE_TPU_SPECULATE`` (default on): n-gram speculation;
 * ``PADDLE_TPU_CHUNKED_PREFILL`` (default on): chunked prefill;
 * ``PADDLE_TPU_GRACEFUL`` (default on): the fault-tolerance ladder
@@ -56,6 +59,7 @@ __all__ = ["env_bool", "env_int", "env_fault_spec", "BOOL_FLAGS"]
 #: site passes its default explicitly; a test holds the two together)
 BOOL_FLAGS = {
     "PADDLE_TPU_PREFIX_CACHE": True,
+    "PADDLE_TPU_ENGINE_AUDIT": False,
     "PADDLE_TPU_SPECULATE": True,
     "PADDLE_TPU_CHUNKED_PREFILL": True,
     "PADDLE_TPU_GRACEFUL": True,
@@ -139,9 +143,9 @@ def env_fault_spec(name: str, known_kinds, known_keys,
         kind = kind.strip()
         if kind in fleet_only_kinds:
             return reject(f"fault kind {kind!r} is replica-scoped and "
-                          f"needs a running fleet router to poll it; no "
-                          f"fleet is running, so the clause could never "
-                          f"fire")
+                          f"needs a running FleetRouter "
+                          f"(inference/fleet.py) to poll it; no fleet is "
+                          f"running, so the clause could never fire")
         if kind not in known_kinds:
             return reject(f"unknown fault kind {kind!r}"
                           f"{hint(kind, set(known_kinds) | fleet_only_kinds)}"
@@ -155,9 +159,9 @@ def env_fault_spec(name: str, known_kinds, known_keys,
             k = k.strip()
             if eq and k in fleet_only_keys:
                 return reject(f"clause key {k!r} in {clause!r} is "
-                              f"replica-scoped and needs a running fleet "
-                              f"router; no fleet is running, so the scope "
-                              f"could never match")
+                              f"replica-scoped and needs a running "
+                              f"FleetRouter (inference/fleet.py); no fleet "
+                              f"is running, so the scope could never match")
             if not eq or k not in known_keys:
                 return reject(f"bad clause key {k!r}"
                               f"{hint(k, set(known_keys) | fleet_only_keys)}"

@@ -19,7 +19,7 @@ fixture:
 - the flag is registered and a typo warns once.
 
 The fleet's cases (its failover replaying the journal, the router's
-audit) wait for the port's fleet (ROADMAP A8).
+audit) are in ``tests/test_torch_fleet.py``.
 """
 
 import dataclasses

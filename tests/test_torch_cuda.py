@@ -965,3 +965,54 @@ def test_tier_round_trip_on_the_card(dev, kv_quant):
     for t, want in zip(leaves, orig):
         assert torch.equal(t[:, 3], want)
     assert all(j.eq(9).all() for j in junk)
+
+
+def test_fleet_failover_on_the_card(dev, monkeypatch):
+    """A 2-layer f32 fleet of two replicas at head_dim 128, the prefix
+    cache on, replica 1 crashed mid-decode: one failover, every request
+    FINISHED, each replica step through the kernels (the fused decode
+    step, the fused MLP, rms_norm), and the tokens (greedy and seeded)
+    those of the same fleet with every kernel off."""
+    import dataclasses
+
+    import numpy as np
+
+    from paddle_tpu_torch.inference import serving
+    from paddle_tpu_torch.inference.fleet import FleetRouter
+    from paddle_tpu_torch.models import llama
+
+    cfg = dataclasses.replace(
+        llama.LlamaConfig.tiny(vocab=512, hidden=256, layers=2, heads=2,
+                               kv_heads=1, inter=512), dtype=torch.float32)
+    params = llama.init_params(cfg, seed=0, device=dev)
+    rs = np.random.RandomState(0)
+    prompts = [rs.randint(1, 512, size=n).astype(np.int32)
+               for n in (70, 33, 90, 12)]
+
+    def serve():
+        monkeypatch.setenv("PADDLE_TPU_FAULT_INJECT",
+                           "replica_crash@step=6,replica=1")
+        fleet = FleetRouter(cfg, params, n_replicas=2, max_batch=2,
+                            max_seq=256, block_size=64,
+                            enable_prefix_caching=True, device=dev)
+        monkeypatch.delenv("PADDLE_TPU_FAULT_INJECT")
+        reqs = [serving.Request(rid=i, prompt_ids=p, max_new_tokens=16,
+                                temperature=0.8 if i % 2 else 0.0,
+                                top_p=0.9, seed=5 + i)
+                for i, p in enumerate(prompts)]
+        tk.reset_counters()
+        out = fleet.serve(reqs)
+        assert fleet.stats["failovers"] == 1
+        assert fleet.stats["replayed_tokens"] > 0
+        assert all(r.status == "FINISHED" for r in reqs)
+        return out, dict(tk.LAUNCHES)
+
+    monkeypatch.setenv("PADDLE_TPU_TORCH_DISABLE_KERNELS", "all")
+    plain, off = serve()
+    assert not any(off.values())
+    monkeypatch.delenv("PADDLE_TPU_TORCH_DISABLE_KERNELS")
+    got, launches = serve()
+    assert all(launches[k] > 0 for k in ("fused_decode_step",
+                                         "fused_layer_mlp", "rms_norm",
+                                         "gumbel_noise"))
+    assert got == plain

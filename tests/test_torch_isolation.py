@@ -24,7 +24,8 @@ def test_import_leaves_jax_out_of_sys_modules():
             " paddle_tpu_torch.utils.convert, paddle_tpu_torch.ops."
             "decode_attention, paddle_tpu_torch.models.llama, "
             "paddle_tpu_torch.ops.kernels.flash_attention, "
-            "paddle_tpu_torch.utils.threefry\n"
+            "paddle_tpu_torch.utils.threefry, "
+            "paddle_tpu_torch.inference.fleet, paddle_tpu_torch.analysis\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu'))\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
@@ -70,6 +71,10 @@ def test_cuda_without_card_raises():
                                  device="cuda")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ContinuousBatchingEngine(cfg, params, max_seq=64, block_size=16)
+    from paddle_tpu_torch.inference import FleetRouter
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        FleetRouter(cfg, params, n_replicas=2, max_seq=64, block_size=16)
 
 
 def test_engine_rejects_params_on_another_device():
@@ -92,7 +97,9 @@ ALONE = ["paddle_tpu_torch.inference.prefix_cache",
          "paddle_tpu_torch.nn.quant",
          "paddle_tpu_torch.profiler",
          "paddle_tpu_torch.inference.observability",
-         "paddle_tpu_torch.inference.kv_tier"]
+         "paddle_tpu_torch.inference.kv_tier",
+         "paddle_tpu_torch.analysis.engine_audit",
+         "paddle_tpu_torch.inference.fleet"]
 
 
 @pytest.fixture(scope="module")
@@ -123,7 +130,8 @@ def alone_imports():
 def test_serving_helpers_import_alone(module, alone_imports):
     """The prefix cache, the fault plan, the switch parsers, the
     weight-only quantization, the host trace buffer, the observability
-    module and the host KV tier are the port's own copies: importing one pulls in neither JAX
-    nor the JAX package (the reference's modules of the same names that
-    import no JAX are not reached for either)."""
+    module, the host KV tier, the engine auditor and the fleet router are
+    the port's own copies: importing one pulls in neither JAX nor the JAX
+    package (the reference's modules of the same names that import no JAX
+    are not reached for either)."""
     assert alone_imports[module] == [], alone_imports[module]

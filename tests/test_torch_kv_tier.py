@@ -24,8 +24,9 @@ module fixture.  Following ``tests/test_kv_tier.py``:
   tokens and page order) and the constructor's requirements, the flags
   and their typo warnings, every evicted block demoted.
 
-The reference's tensor-parallel, fleet and I10-audit cases wait for the
-port's tensor parallelism, fleet and engine audit (ROADMAP A7, A8, A13).
+The reference's fleet and I10-audit cases are in
+``tests/test_torch_fleet.py``; its tensor-parallel cases wait for the
+port's tensor parallelism (ROADMAP A7).
 """
 
 import dataclasses
