@@ -148,6 +148,25 @@ non-zero as soon as one fails:
     DEAD at ``stall_dead_steps``), a drain, and a chunked chaos serve with
     ``PADDLE_TPU_ENGINE_AUDIT=1`` (no invariant breaks; B9 too; the
     audit's host ms a fleet step).
+17. tensor-parallel serving: B7, B8 and B9 at one rank's shapes of
+    Llama-3-8B at tp=2 (16 q / 4 kv heads, 7168 ffn columns) against their
+    plain versions; the one-card engine (32 layers, random bf16 weights
+    from phase 6's seed, made layer by layer) serves phase 6's 12 requests
+    bucketed and chunked (128-row chunks, a token budget of 8 x 128);
+    then two ranks, each a spawned process on the one card in a gloo group
+    (NCCL refuses two ranks on one device; gloo stages each all-reduce
+    through the host), each making the same weights into a tree on the
+    host that its engine slices onto the card, serve the same requests
+    the same two ways: every step of every
+    serve launches B1, B7 (tensor cores), B8, the Gumbel kernel where it
+    drew and B9 (chunked) in every layer, and at tp=2 exactly 2 x 32
+    all-reduces a forward; both ranks emit the same tokens and logit rows
+    bit for bit, and on identical histories their rows are within
+    ``SERVE_LOGIT_TOL`` of the one-card engine's; each rank's layer
+    weights and pools are half the one-card engine's; the gate's control
+    (both ranks skipping the last layer's MLP all-reduce, 4 tokens a
+    request) reads above that tolerance; the wall a step of each and the
+    decode step's all-reduce alone.
 
 The line before the last lists every kernel with its numbers; the last line
 is ``{"ok": true, "device": {...}}``.  ``--serve-sweep FIRST-LAST`` runs
@@ -176,6 +195,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory (data sheet)
 BF16_FLOPS = 989e12             # H100 SXM dense bf16 tensor-core peak
@@ -3051,6 +3071,532 @@ def phase_fleet(torch, np, smi: str) -> dict:
     return total
 
 
+#: phase 17's degree, and its serving geometry: phase 6's (batch 8,
+#: max_seq 2048, block 64, the default pool of half the worst case)
+TP_DEGREE = 2
+TP_KW = dict(max_batch=8, max_seq=2048, block_size=64, device="cuda")
+#: phase 17's two serves of phase 6's 12 requests: bucketed, and chunked in
+#: 128-row chunks under a token budget that fills the mixed step's 8 x 128
+#: rows.  The step computes every one of those rows (C9d) and its two
+#: all-reduces a layer move them all through the host (gloo on one card),
+#: so phase 6's budget of 136 would run about four times the steps for the
+#: same prompts
+TP_MODES = (("bucketed", {}),
+            ("chunked", dict(enable_chunked_prefill=True, prefill_chunk=128,
+                             token_budget=8 * 128)))
+#: new tokens a request of phase 17's control serve (``_tp_control``):
+#: its rows are compared while its tokens follow the one-card engine's
+TP_CONTROL_TOKENS = 4
+#: phase 17's memory gate: a rank's layer weights and its pools against
+#: half the one-card engine's, relative (a rank keeps both norms of every
+#: layer whole: 0.5 MiB of the 14 GB of layer weights)
+TP_BYTES_MARGIN = 1e-3
+
+
+def _tp_params(torch, cfg, where: str, seed: int = 0) -> dict:
+    """Random bf16 weights from ``seed``, the whole model, made on the card
+    layer by layer and kept on ``where``: each layer's matmul leaf is drawn
+    in f32 (a generator seeded from (seed, leaf, layer)) and cast to bf16
+    on the card, then copied into its place; the norms are ones.  The
+    one-card engine keeps them on the card; a rank keeps them on the host,
+    so the card holds only the slice its engine makes of them."""
+    from paddle_tpu_torch.models import llama
+
+    dev = torch.device(TP_KW["device"])
+    g = torch.Generator(device=dev)
+    L, h, V = cfg.num_hidden_layers, cfg.hidden_size, cfg.vocab_size
+
+    def draw(shape, key):
+        g.manual_seed(seed * 1_000_003 + key)
+        w = torch.randn(shape, generator=g, device=dev, dtype=torch.float32)
+        return w.mul_(0.02).to(cfg.dtype)
+
+    layers = {}
+    for j, (name, shape) in enumerate(
+            llama.serving_matmul_shapes(cfg).items()):
+        leaf = torch.empty(shape, dtype=cfg.dtype, device=where)
+        for li in range(L):
+            leaf[li].copy_(draw(shape[1:], 1000 * (j + 1) + li))
+        layers[name] = leaf
+    ones = torch.ones((L, h), dtype=cfg.dtype, device=where)
+    layers.update(input_norm=ones, post_norm=ones.clone())
+    return {"embed": draw((V, h), 1).to(where),
+            "lm_head": draw((h, V), 2).to(where),
+            "final_norm": torch.ones(h, dtype=cfg.dtype, device=where),
+            "layers": layers}
+
+
+def _engine_bytes(eng) -> dict:
+    """The engine's resident layer-weight bytes and KV pool bytes."""
+    def nbytes(tree):
+        if isinstance(tree, dict):
+            return sum(nbytes(v) for v in tree.values())
+        return tree.numel() * tree.element_size()
+
+    return {"layer_weight_bytes": nbytes(eng.params["layers"]),
+            "pool_bytes": nbytes(eng.cache_k) + nbytes(eng.cache_v)}
+
+
+def _tp_serve(torch, eng, reqs, L: int) -> dict:
+    """Serve ``reqs`` on ``eng`` step by step, every greedy request's logit
+    rows captured (``_spied``), and hold every step's launches to its work:
+    each plain decode step runs the fused decode step (B7, on its
+    tensor-core route) and the fused MLP (B8) in every layer, each mixed
+    step the prefill walk (B9, tensor cores) in every layer, the norms
+    (B1) L + 1 a decode step and 2L + 1 a prefill or mixed step, the
+    sampler's Gumbel kernel once a step that drew; every forward pays 2L
+    all-reduces at tp > 1 and none at tp = 1; no other decode kernel
+    runs.  Returns the rows, the launches, the steps and each step's
+    wall."""
+    from paddle_tpu_torch.inference import serving
+    from paddle_tpu_torch.models import llama
+    from paddle_tpu_torch.ops import kernels
+
+    rows = {r.rid: [] for r in reqs if r.temperature == 0}
+    for r in reqs:
+        eng.add_request(r)
+    forwards = [0]
+    apply = serving.transformer_apply
+
+    def counted(*args, **kw):
+        forwards[0] += 1
+        return apply(*args, **kw)
+
+    def launches():
+        return {k: kernels.LAUNCHES[k] for k in kernels.LAUNCHES}
+
+    keys = ("decode_steps", "mixed_steps", "spec_steps", "prefills")
+    kernels.reset_counters()
+    llama.TP_COUNTERS["all_reduce"] = 0
+    walls = []
+    serving.transformer_apply = counted
+    try:
+        with _spied(torch, [eng], rows) as sampled:
+            while True:
+                l0 = launches()
+                a0, f0, n0 = (llama.TP_COUNTERS["all_reduce"], forwards[0],
+                              sampled[0])
+                s0 = {k: eng.stats[k] for k in keys}
+                t0 = time.perf_counter()
+                busy = eng.step()
+                walls.append(time.perf_counter() - t0)
+                d = {k: eng.stats[k] - s0[k] for k in keys}
+                plain = d["decode_steps"] - d["mixed_steps"] - d["spec_steps"]
+                want = {"fused_decode_step": L * plain,
+                        "fused_decode_step_tc": L * plain,
+                        "fused_layer_mlp": L * plain,
+                        "paged_prefill": L * d["mixed_steps"],
+                        "paged_prefill_tc": L * d["mixed_steps"],
+                        "rms_norm": (L + 1) * plain
+                        + (2 * L + 1) * (d["prefills"] + d["mixed_steps"]),
+                        "gumbel_noise": sampled[0] - n0}
+                got = {k: kernels.LAUNCHES[k] - l0[k] for k in want}
+                step = len(walls)
+                check(got == want, f"tp={eng.tp} step {step}: launches "
+                                   f"{got} == {want}")
+                fw = forwards[0] - f0
+                ar = llama.TP_COUNTERS["all_reduce"] - a0
+                check(fw == plain + d["mixed_steps"] + d["prefills"]
+                      and ar == (2 * L * fw if eng.tp > 1 else 0),
+                      f"tp={eng.tp} step {step}: {ar} all-reduces for {fw} "
+                      f"forward(s) of {L} layers")
+                if not busy and not eng._queue:
+                    break
+    finally:
+        serving.transformer_apply = apply
+    torch.cuda.synchronize()
+    total = launches()
+    others = {k: total[k] for k in DECODE_KERNELS if k != "fused_decode_step"}
+    check(not any(others.values()) and total["fused_decode_step_tc"] > 0
+          and total["gumbel_noise"] > 0,
+          f"tp={eng.tp}: the fused decode step and the sampler ran, no "
+          f"other decode kernel: {others}")
+    return {"rows": {rid: torch.cat(v) for rid, v in rows.items()},
+            "launches": total, "steps": len(walls),
+            "all_reduces": llama.TP_COUNTERS["all_reduce"],
+            "sampled_steps": sampled[0], "step_wall_s": walls,
+            "stats": {k: eng.stats[k] for k in
+                      keys + ("decode_tokens", "decode_time_s",
+                              "preemptions")}}
+
+
+def _tp_run(torch, np, cfg, params, tp: int, mode: str, kw: dict) -> dict:
+    """One phase-17 serve: phase 6's 12 requests (64 new tokens, the last
+    two sampled) on an engine of degree ``tp`` in ``mode``; every request
+    finishes with 64 tokens in the vocabulary.  Adds the tokens, the
+    wall, the wall a step and the engine's bytes to ``_tp_serve``'s
+    result."""
+    from paddle_tpu_torch.inference.serving import (ContinuousBatchingEngine,
+                                                    Request)
+
+    eng = ContinuousBatchingEngine(cfg, params, tensor_parallel=tp,
+                                   **TP_KW, **kw)
+    nbytes = _engine_bytes(eng)
+    reqs = make_requests(Request, np, 12, cfg.vocab_size, sampled=2, seed=0)
+    t0 = time.perf_counter()
+    run = _tp_serve(torch, eng, reqs, cfg.num_hidden_layers)
+    run["wall_s"] = time.perf_counter() - t0
+    for r in reqs:
+        check(r.finished and len(r.output_ids) == r.max_new_tokens
+              and all(0 <= t < cfg.vocab_size for t in r.output_ids),
+              f"tp={tp} {mode} request {r.rid}: {r.max_new_tokens} tokens "
+              f"in the vocabulary")
+    st = run["stats"]
+    run.update(nbytes, mode=mode,
+               tokens={r.rid: list(r.output_ids) for r in reqs},
+               temperature={r.rid: r.temperature for r in reqs},
+               wall_per_step_s=run["wall_s"] / run["steps"],
+               decode_wall_per_step_s=st["decode_time_s"]
+               / st["decode_steps"],
+               allocated_bytes=torch.cuda.memory_allocated())
+    del eng
+    torch.cuda.empty_cache()
+    return run
+
+
+def _tp_control(torch, np, cfg, params, tp: int) -> dict:
+    """The logit gate's control: a rank whose last layer skips its MLP
+    all-reduce (so its residual carries only its own half of that MLP's
+    output, the smallest structural fault a rank can have) serves phase
+    6's requests bucketed for ``TP_CONTROL_TOKENS`` tokens each.  Every
+    rank skips the same collective, so the group stays in step.  Returns
+    the greedy requests' logit rows and the tokens."""
+    from paddle_tpu_torch.inference.serving import (ContinuousBatchingEngine,
+                                                    Request)
+    from paddle_tpu_torch.models import llama
+
+    eng = ContinuousBatchingEngine(cfg, params, tensor_parallel=tp,
+                                   **TP_KW)
+    reqs = make_requests(Request, np, 12, cfg.vocab_size, sampled=2, seed=0,
+                         new=TP_CONTROL_TOKENS)
+    rows = {r.rid: [] for r in reqs if r.temperature == 0}
+    for r in reqs:
+        eng.add_request(r)
+    reduce, calls = llama._tp_all_reduce, [0]
+
+    def skip_last_mlp(y, group):
+        calls[0] += 1
+        if calls[0] % (2 * cfg.num_hidden_layers) == 0:
+            return y
+        return reduce(y, group)
+
+    llama._tp_all_reduce = skip_last_mlp
+    try:
+        with _spied(torch, [eng], rows):
+            while eng.step() or eng._queue:
+                pass
+    finally:
+        llama._tp_all_reduce = reduce
+    torch.cuda.synchronize()
+    out = {"rows": {rid: torch.cat(v).cpu() for rid, v in rows.items()},
+           "tokens": {r.rid: list(r.output_ids) for r in reqs},
+           "skipped": calls[0] // (2 * cfg.num_hidden_layers)}
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tp_rank(rank: int, tmp: str, tp: int) -> None:
+    """One rank of phase 17, a spawned process on the one card: joins the
+    gloo group (a file store in ``tmp``), makes its slice of the weights
+    (``_tp_params``), serves both of ``TP_MODES`` at ``tensor_parallel=tp``
+    (``_tp_run``: every step's launches and all-reduces gated), serves
+    the logit gate's control (``_tp_control``), times the decode step's
+    all-reduce alone, and saves what it saw to ``tmp/rank{rank}.pt``:
+    rank 0 its logit rows, every rank a digest of them."""
+    import datetime
+    import hashlib
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.models import llama
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store",
+                            rank=rank, world_size=tp,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        cfg = llama.LlamaConfig.llama3_8b()
+        t0 = time.perf_counter()
+        params = _tp_params(torch, cfg, "cpu")
+        torch.cuda.synchronize()
+        out = {"rank": rank, "init_params_s": time.perf_counter() - t0,
+               "serves": {}}
+        for mode, kw in TP_MODES:
+            run = _tp_run(torch, np, cfg, params, tp, mode, kw)
+            rows = run.pop("rows")
+            h = hashlib.sha256()
+            for rid in sorted(rows):
+                h.update(rows[rid].view(torch.int16).cpu().numpy().tobytes())
+            run["rows_sha256"] = h.hexdigest()
+            if rank == 0:
+                run["rows"] = {rid: v.cpu() for rid, v in rows.items()}
+            out["serves"][mode] = run
+        control = _tp_control(torch, np, cfg, params, tp)
+        if rank == 0:
+            out["control"] = control
+        del params
+        # the decode step's all-reduce alone: [8, 1, 4096] bf16 through
+        # gloo, staged through the host
+        y = torch.ones((8, 1, cfg.hidden_size), dtype=cfg.dtype,
+                       device=TP_KW["device"])
+        for _ in range(3):
+            dist.all_reduce(y)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(64):
+            dist.all_reduce(y)
+        torch.cuda.synchronize()
+        out["all_reduce_decode_ms"] = (time.perf_counter() - t0) / 64 * 1e3
+        torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _tp_kernel_checks(torch) -> dict:
+    """The path's kernels at one rank's shapes of Llama-3-8B at tp=2,
+    each against its plain version: the fused decode step (B7) at 16 q /
+    4 kv heads on phase 3's two lane mixes (``_b7_case``: both routes,
+    pools exact off the appended rows), the fused MLP (B8) at 7168 ffn
+    columns (phase 3's tolerance), the prefill walk (B9) at 16 / 4 heads
+    on phase 5's 128-row mixed-step lanes (the attention tolerance, rows
+    past q_len exactly 0).  The shape rules take each shape; on the card
+    an unsupported one raises."""
+    from paddle_tpu_torch.ops.kernels import paged_attention as pa
+
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    g = torch.Generator(device=dev)
+    g.manual_seed(1234)
+    B, h, hd, bs, max_seq, eps = 8, 4096, 128, 64, 2048, 1e-5
+    nh, nkv, F = 32 // TP_DEGREE, 8 // TP_DEGREE, 14336 // TP_DEGREE
+    max_blocks = max_seq // bs
+    nb = B * max_blocks
+    scratch = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
+    check(pa.kernel_supported(nh, nkv, hd, bs)
+          and pa.fused_mlp_supported(h, F),
+          f"the kernels take a rank's shapes: {nh}/{nkv} heads, ffn {F}")
+
+    def flush():
+        scratch.zero_()
+
+    def randn(*shape, std=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * std).to(bf16)
+
+    kp0, vp0 = randn(nb + 1, nkv, bs, hd), randn(nb + 1, nkv, bs, hd)
+    kp0[nb] = 0
+    vp0[nb] = 0
+    q, k_new, v_new = randn(B, nh, hd), randn(B, nkv, hd), randn(B, nkv, hd)
+    perm = torch.randperm(nb, generator=g, device=dev).int()
+    out = {"heads": [nh, nkv], "ffn": F}
+    for label, lens_l, wable_l in DECODE_MIXES:
+        res = _b7_case(torch, pa, q, k_new, v_new, kp0, vp0, perm, lens_l,
+                       wable_l, flush)
+        out[f"fused_decode_step_{label}"] = {
+            k: res[k] for k in ("max_abs_err", "worst_err_over_tol", "ms",
+                                "plain_ms", "bound_ms")}
+    x, ay = randn(B, h), randn(B, h, std=0.1)
+    nw = (1.0 + 0.1 * torch.randn(h, generator=g, device=dev)).to(bf16)
+    wg, wu = randn(h, F, std=0.02), randn(h, F, std=0.02)
+    wd = randn(F, h, std=0.02)
+    h1_k, y_k = pa.fused_layer_mlp_cuda(x, ay, nw, wg, wu, wd, eps)
+    h1_p, y_p = pa.fused_layer_mlp_reference(x, ay, nw, wg, wu, wd, eps)
+    torch.cuda.synchronize()
+    err = (y_k.float() - y_p.float()).abs()
+    tol = y_p.float().abs() * 2.0 ** -6 + y_p.float().abs().max() * 2.0 ** -7
+    check(bool(torch.equal(h1_k, h1_p)) and bool((err <= tol).all()),
+          f"fused_layer_mlp at ffn {F}: h1 exact, y within tolerance")
+    bnd, by = bound_ms(3 * h * F * 2 + 4 * B * h * 2 + h * 2,
+                       2 * B * 3 * h * F)
+    out["fused_layer_mlp"] = {
+        "max_abs_err": err.max().item(),
+        "tolerance": "|d| <= 2^-6|ref| + 2^-7 max|ref|; h1 exact",
+        "ms": time_ms(torch, lambda: pa.fused_layer_mlp_cuda(
+            x, ay, nw, wg, wu, wd, eps), flush=flush),
+        "plain_ms": time_ms(torch, lambda: pa.fused_layer_mlp_reference(
+            x, ay, nw, wg, wu, wd, eps), flush=flush),
+        "bound_ms": bnd, "bound_by": by}
+    lens_l = [2048, 1000, 333, 1, 128, 768, 1920, 1500]
+    qlens_l = [1, 1, 1, 1, 128, 128, 128, 37]
+    tables = torch.full((B, max_blocks), nb, dtype=torch.int32, device=dev)
+    pages = [-(-n // bs) if n > 1 else 0 for n in lens_l]
+    for b, p in enumerate(pages):
+        tables[b, :p] = perm[b * max_blocks:b * max_blocks + p]
+    lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
+    qlens = torch.tensor(qlens_l, dtype=torch.int32, device=dev)
+    qr = randn(B, 128, nh, hd)
+    args = (qr, kp0, vp0, tables, lens, qlens)
+    scale = hd ** -0.5
+    got = pa.paged_prefill_cuda(*args, scale, route="tc")
+    want = pa.paged_prefill_reference(*args, scale=scale)
+    torch.cuda.synchronize()
+    live = torch.arange(128, device=dev)[None, :] < qlens[:, None]
+    errs, ok = _attn_err(torch, got[live], want[live])
+    check(ok and bool((got[~live] == 0).all()),
+          f"paged_prefill at {nh}/{nkv} heads: within the attention "
+          f"tolerance, rows past q_len exactly 0")
+    # phase 5's bound: each lane's live pages (the inactive lane its one
+    # spill page) of K and V once, q's live rows, the output, the table
+    # entries and lengths; 4 hd flops a visible (row, column) pair a head
+    live_pages = sum(max(p, 1) for p in pages)
+    bnd, by = bound_ms(live_pages * nkv * bs * hd * 2 * 2
+                       + sum(qlens_l) * nh * hd * 2 + qr.numel() * 2
+                       + live_pages * 4 + 2 * B * 4,
+                       4 * hd * nh * _row_pairs(lens_l, qlens_l))
+    out["paged_prefill"] = {
+        **errs, "rows": 128, "lens": lens_l, "q_lens": qlens_l,
+        "tolerance": "|d| <= 2^-7|ref| + 2^-8 max|ref[slot, row, head]|; "
+                     "rows past q_len exactly 0",
+        "ms": time_ms(torch, lambda: pa.paged_prefill_cuda(
+            *args, scale, route="tc"), flush=flush),
+        "plain_ms": time_ms(torch, lambda: pa.paged_prefill_reference(
+            *args, scale=scale), flush=flush),
+        "bound_ms": bnd, "bound_by": by}
+    del scratch, kp0, vp0
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_tp(torch, np, smi: str) -> dict:
+    """Tensor-parallel serving at tp=2 on one card: two ranks, each a
+    spawned process on cuda:0 in a gloo group (NCCL refuses two ranks on
+    one device; gloo stages each all-reduce of a CUDA tensor through the
+    host).  First the path's kernels at a rank's shapes
+    (``_tp_kernel_checks``); then the one-card engine (the same weights
+    whole) serves phase 6's 12 requests bucketed and chunked
+    (``TP_MODES``), its logit rows captured; then the two ranks, each
+    making the same weights on the card layer by layer into a tree on the
+    host that its engine slices, serve the same requests the same two
+    ways.  Gates: every step of every serve
+    runs its kernels and, at tp=2, 2 x 32 all-reduces a forward
+    (``_tp_serve``); both ranks emit the same tokens and the same logit
+    rows bit for bit; on identical histories rank 0's rows are within
+    ``SERVE_LOGIT_TOL`` of the one-card engine's (``_logit_check``);
+    each rank's layer weights and pools are half the one-card engine's,
+    within ``TP_BYTES_MARGIN``; the gate's control, ranks that skip their
+    last layer's MLP all-reduce (``_tp_control``), reads above
+    ``SERVE_LOGIT_TOL``.  Reports the wall a step of each, and the decode
+    step's all-reduce alone (host-staged gloo, not NCCL).  Returns the
+    launches of every serve, summed."""
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from paddle_tpu_torch.models import llama
+
+    checks = _tp_kernel_checks(torch)
+    emit({"phase": "tp_kernels", "nvidia_smi": smi, **checks})
+    cfg = llama.LlamaConfig.llama3_8b()
+    L = cfg.num_hidden_layers
+    total: dict = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    params = _tp_params(torch, cfg, TP_KW["device"])
+    one = {}
+    for mode, kw in TP_MODES:
+        one[mode] = _tp_run(torch, np, cfg, params, 1, mode, kw)
+        add(one[mode]["launches"])
+    del params
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tp")
+    try:
+        t0 = time.perf_counter()
+        mp.spawn(_tp_rank, args=(tmp, TP_DEGREE), nprocs=TP_DEGREE,
+                 join=True)
+        ranks_wall = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                            weights_only=False)
+                 for r in range(TP_DEGREE)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    summary = {}
+    tol = SERVE_LOGIT_TOL[None]
+    for mode, _ in TP_MODES:
+        ref = one[mode]
+        runs = [r["serves"][mode] for r in ranks]
+        check(all(run["tokens"] == runs[0]["tokens"]
+                  and run["rows_sha256"] == runs[0]["rows_sha256"]
+                  for run in runs),
+              f"tp {mode}: every rank emitted the same tokens and the same "
+              f"logit rows bit for bit")
+        mine = [types.SimpleNamespace(rid=rid, temperature=t,
+                                      output_ids=runs[0]["tokens"][rid])
+                for rid, t in ref["temperature"].items()]
+        theirs = [types.SimpleNamespace(rid=rid, temperature=t,
+                                        output_ids=ref["tokens"][rid])
+                  for rid, t in ref["temperature"].items()]
+        rows = {rid: v.to(TP_KW["device"])
+                for rid, v in runs[0].pop("rows").items()}
+        ref_rows = ref.pop("rows")
+        if mode == "bucketed":      # the control's reference, cut to size
+            n = TP_CONTROL_TOKENS
+            control_ref = ([types.SimpleNamespace(
+                rid=b.rid, temperature=b.temperature,
+                output_ids=b.output_ids[:n]) for b in theirs],
+                {rid: v[:n] for rid, v in ref_rows.items()})
+        logits = _logit_check(torch, mine, rows, theirs, ref_rows)
+        del rows
+        check(logits["max_abs_logit_diff"] <= tol,
+              f"tp {mode}: every logit row scored from the one-card "
+              f"engine's context within {tol} (max "
+              f"{logits['max_abs_logit_diff']} at {logits['worst']})")
+        ratios = {}
+        for key in ("layer_weight_bytes", "pool_bytes"):
+            ratios[key] = [run[key] / ref[key] for run in runs]
+            check(all(abs(x - 0.5) <= 0.5 * TP_BYTES_MARGIN
+                      for x in ratios[key]),
+                  f"tp {mode}: each rank's {key} half the one-card "
+                  f"engine's within {TP_BYTES_MARGIN}: {ratios[key]}")
+        for run in runs:
+            add(run["launches"])
+        keep = ("steps", "all_reduces", "sampled_steps", "stats", "wall_s",
+                "wall_per_step_s", "decode_wall_per_step_s",
+                "layer_weight_bytes", "pool_bytes", "allocated_bytes",
+                "launches")
+        summary[mode] = {
+            "one_card": {k: ref[k] for k in keep},
+            "ranks": [{k: run[k] for k in keep} for run in runs],
+            "byte_ratios": ratios, "logit_tolerance": tol, **logits}
+        emit({"phase": "tp_serve", "model": "llama3_8b", "layers": L,
+              "tp": TP_DEGREE, "mode": mode, "nvidia_smi": smi,
+              "transport": "gloo, CUDA tensors staged through the host, two "
+                           "ranks on one card",
+              **summary[mode]})
+    # the control: the last layer's MLP all-reduce skipped on every rank
+    control = ranks[0]["control"]
+    mine = [types.SimpleNamespace(rid=b.rid, temperature=b.temperature,
+                                  output_ids=control["tokens"][b.rid])
+            for b in control_ref[0]]
+    rows = {rid: v.to(TP_KW["device"])
+            for rid, v in control.pop("rows").items()}
+    caught = _logit_check(torch, mine, rows, *control_ref)
+    del rows, control_ref
+    check(control["skipped"] > 0 and caught["max_abs_logit_diff"] > tol,
+          f"tp control: a rank that skips its last layer's MLP all-reduce "
+          f"is caught by the logit gate ({caught['max_abs_logit_diff']} > "
+          f"{tol})")
+    emit({"phase": "tp_control", "nvidia_smi": smi,
+          "fault": "the last layer's MLP all-reduce skipped on both ranks",
+          "tokens_a_request": TP_CONTROL_TOKENS,
+          "forwards_skipped": control["skipped"], "logit_tolerance": tol,
+          "sound_max_abs_logit_diff": {
+              m: summary[m]["max_abs_logit_diff"] for m in summary},
+          **{k: caught[k] for k in ("max_abs_logit_diff", "worst",
+                                    "per_rid", "greedy_agreeing_share")}})
+    emit({"phase": "tp", "nvidia_smi": smi, "ranks_wall_s": ranks_wall,
+          "init_params_s": [r["init_params_s"] for r in ranks],
+          "all_reduce_decode_ms": [r["all_reduce_decode_ms"] for r in ranks],
+          "all_reduce_note": "[8, 1, 4096] bf16 through gloo on one card, "
+                             "staged through the host: not NCCL's time"})
+    return total
+
+
 #: device-kernel name fragments -> the layer they belong to (the split-K
 #: combine kernel and the tensor-core fused decode kernel,
 #: ``decode_tc_kernel<true, ...>`` for both pool kinds, go with the decode
@@ -3804,12 +4350,12 @@ def main(argv: list[str]) -> int:
     for k, v in timed("chaos", phase_chaos, torch, np, smi).items():
         slice_launches[k] += v
     # the weight-only quantized serves, observability, the host KV tier,
-    # the async host runtime and the fleet
+    # the async host runtime, the fleet and tensor-parallel serving
     for phase, fn in (("quant", phase_quant),
                       ("observability", phase_observability),
                       ("kv_tier", phase_kv_tier),
                       ("async_host", phase_async_host),
-                      ("fleet", phase_fleet)):
+                      ("fleet", phase_fleet), ("tp", phase_tp)):
         for k, v in timed(phase, fn, torch, np, smi).items():
             slice_launches[k] += v
     arm_launches = timed("arms", phase_arms, torch, np)

@@ -19,7 +19,11 @@ I1  page partition: every pool page is in exactly one of {the free list,
     together they are the pool.  The device pools hold exactly ONE spill
     page past the allocator's range, on every decode arm (the reference
     grows it on its fused arm only; the port keeps it on all of them,
-    since every unfused write that drops lands there too).
+    since every unfused write that drops lands there too).  Under tensor
+    parallelism every leaf of a rank's pools (codes and scales) keeps the
+    whole page axis and exactly nkv/tp kv heads: one host allocator then
+    accounts every rank's pool exactly (the reference checks that its
+    pools' sharding splits the kv-heads axis alone).
 I2  block-table rows: row i lists [shared pages..., private pages...] in
     order and the unallocated sentinel after them.
 I3  refcounts: each cached block's refcount is the number of slots that
@@ -51,10 +55,6 @@ I9  fleet ownership (:func:`audit_fleet`): every live fleet rid has
     counts as its primary's, with one extra copy on the hedge target; no
     replica serves a rid the router does not route to it; terminal fleet
     requests are in no routing registry.
-
-Not ported: the reference's I1 clause for tensor-parallel pools (their
-sharding must split only the kv-heads axis); it comes with tensor
-parallelism (ROADMAP A7).
 
 The audit is O(pool + slots x blocks) host work a step, reading host
 state only (no device sync): small next to a device step, but not free,
@@ -171,6 +171,21 @@ def audit_engine(eng) -> None:
     if phys != nb + 1:
         _fail("I1", f"device pool has {phys} physical pages, expected "
                     f"{nb + 1} (num_blocks={nb} + the spill page)")
+    if getattr(eng, "tp", 1) > 1:
+        # a rank's pools shard kv heads alone: a leaf with another page
+        # count would give the ranks different capacities, and the one
+        # host allocator would misaccount all but one of them
+        heads = eng.cfg.num_key_value_heads // eng.tp
+        for nm, pool in (("cache_k", eng.cache_k), ("cache_v", eng.cache_v)):
+            leaves = (pool.items() if isinstance(pool, dict)
+                      else (("", pool),))
+            for leaf_nm, leaf in leaves:
+                if tuple(leaf.shape[1:3]) != (nb + 1, heads):
+                    _fail("I1", f"TP pool {nm}{'.' + leaf_nm if leaf_nm else ''}"
+                                f" is {tuple(leaf.shape)}: a rank keeps all "
+                                f"{nb + 1} pages and {heads} of the "
+                                f"{eng.cfg.num_key_value_heads} kv heads "
+                                f"(tp={eng.tp})")
 
     by_hash = cache._by_hash if cache is not None else {}
 

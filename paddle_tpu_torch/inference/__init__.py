@@ -20,7 +20,7 @@ import torch
 
 def transformer_apply(cfg, params, x, cache_k, cache_v, write_fn, mask, cos,
                       sin, attend_fn=None, fused_fn=None, mlp_fused_fn=None,
-                      quant=None):
+                      quant=None, tp_group=None):
     """Transformer body over per-layer KV caches.
 
     ``cache_k``/``cache_v`` are the stacked pools ``[L, ...]``, or for
@@ -49,6 +49,15 @@ def transformer_apply(cfg, params, x, cache_k, cache_v, write_fn, mask, cos,
     ``quant`` (None, 'int8', 'int4') says how the layer matmul leaves are
     stored (:func:`quantize_layer_params`); each matmul reads its weight
     through :func:`wmat`.
+
+    ``tp_group`` (the reference's ``tp_axis``): a ``torch.distributed``
+    group when this body runs on one rank of the serving engine's
+    ``tensor_parallel`` mode.  ``cfg`` then carries the rank's head counts
+    (nh/tp query heads, nkv/tp kv heads over the same head_dim), the pools
+    and the layer weights are the rank's shards, and the residual stream
+    stays replicated through the two all-reduces a layer of
+    ``models/llama.decoder_layer_tail``.  None (every single-card engine)
+    runs no collective.
 
     Returns (final-normed hidden [b, s, h], cache_k, cache_v)."""
     from ..models.llama import decoder_layer_tail
@@ -96,7 +105,8 @@ def transformer_apply(cfg, params, x, cache_k, cache_v, write_fn, mask, cos,
             _, k_att = write_fn(ck, k)
             _, v_att = write_fn(cv, v)
             attn = attend(q, k_att, v_att)
-        x = decoder_layer_tail(cfg, x, attn, lp, wmat=w, mlp_fn=mlp_fused_fn)
+        x = decoder_layer_tail(cfg, x, attn, lp, wmat=w, mlp_fn=mlp_fused_fn,
+                               tp_group=tp_group)
     return rms.rms_norm(x, params["final_norm"], cfg.rms_norm_eps), cache_k, \
         cache_v
 

@@ -41,7 +41,10 @@ The host copies are torch CPU tensors, page-locked when the page comes
 from a CUDA card, so the engine's H2D restore can be an asynchronous copy
 on the current stream.  ``nbytes`` counts what the reference counts for
 the same shapes and dtypes, so budgets, LRU order, ``evictions`` and
-``drops`` agree with the reference's tier call for call.
+``drops`` agree with the reference's tier call for call.  Under tensor
+parallelism each rank's engine ships its own kv heads of a page
+(``shards`` = the degree) and the entry counts the whole page, as the
+reference's tier counts the page it gathers from every shard.
 This module only keeps books and host buffers; the device halves of the
 transport (the gathered D2H read, the pool write) belong to the engine.
 """
@@ -81,21 +84,24 @@ class TierEntry:
     """One demoted page: host copies of a block's K and V (and the
     per-(page, kv head) scales of a quantized pool), keyed by the block's
     chain hash.  ``owner`` is the last demoter (a replica label), so a
-    shared tier can count cross-replica re-admits."""
+    shared tier can count cross-replica re-admits.  ``shards``: the host
+    copies are one of that many equal kv-head slices of the page (a
+    tensor-parallel rank's), and ``nbytes`` counts the whole page."""
 
     __slots__ = ("hash", "k", "v", "k_scale", "v_scale", "nbytes", "pins",
                  "last_used", "owner")
 
     def __init__(self, hash_: str, k, v, k_scale=None, v_scale=None,
-                 owner=None):
+                 owner=None, shards: int = 1):
         self.hash = hash_
         self.k = _host_copy(k)
         self.v = _host_copy(v)
         self.k_scale = None if k_scale is None else _host_copy(k_scale)
         self.v_scale = None if v_scale is None else _host_copy(v_scale)
-        self.nbytes = sum(t.numel() * t.element_size()
-                          for t in (self.k, self.v, self.k_scale,
-                                    self.v_scale) if t is not None)
+        self.nbytes = int(shards) * sum(t.numel() * t.element_size()
+                                        for t in (self.k, self.v,
+                                                  self.k_scale, self.v_scale)
+                                        if t is not None)
         self.pins = 0
         self.last_used = 0
         self.owner = owner
@@ -171,21 +177,25 @@ class HostKVTier:
     # ---------------- transport ----------------
 
     def ship_out(self, hash_: str, k_page, v_page, *, k_scale=None,
-                 v_scale=None, owner=None) -> TierEntry | None:
+                 v_scale=None, owner=None,
+                 shards: int = 1) -> TierEntry | None:
         """Device to host: demote one page under its chain hash (the pages
         and scales are tensors, on the card or the host, or arrays).
         Returns the resident entry, or None when the page cannot fit even
         after LRU eviction (the caller frees the device page, as before the
         tier).  A hash already held refreshes its recency, takes ``owner``
         as its last demoter and counts as a demotion (the chain hash is a
-        digest of the bytes, so they are the same)."""
+        digest of the bytes, so they are the same).  ``shards``: the page
+        is one tensor-parallel rank's kv-head slice of that many
+        (:class:`TierEntry`)."""
         e = self._by_hash.get(hash_)
         if e is not None:
             e.owner = owner
             self.demotions += 1
             self._touch(e)
             return e
-        e = TierEntry(hash_, k_page, v_page, k_scale, v_scale, owner=owner)
+        e = TierEntry(hash_, k_page, v_page, k_scale, v_scale, owner=owner,
+                      shards=shards)
         if not self._evict_for(e.nbytes):
             self.drops += 1
             return None

@@ -44,8 +44,20 @@ launch and its one host fetch; the opt-in invariant auditor
 admission and after every step, with the KV-write high-water mark
 ``_written`` it checks.  The engine is also a replica of the fleet router
 (``fleet.py``), which reads its ``_reqs``, ``_queue``, ``_pcache``,
-``journal()``, ``adopt()`` and ``cancel()``.  Not ported yet (ROADMAP.md):
-the dense-cache mode and tensor parallelism.
+``journal()``, ``adopt()`` and ``cancel()``.  Tensor parallelism
+(``tensor_parallel=N``): N ranks, one process each on ``torch.distributed``,
+each run this whole engine over the same request stream (the scheduler,
+the allocator, the prefix cache and the sampler replicated) and hold only
+their shard: the layer weights split Megatron-style
+(``models/llama.shard_serving_params``) and KV pools of ``nkv / N`` kv
+heads over the whole page axis, so the host allocator's accounting is
+exact on every rank and the kernels' page walk never crosses a rank; each
+layer pays the reference's two all-reduces (attention output, MLP output),
+after which every rank holds the same residual stream and scores the same
+full-vocabulary logits, so the replicated samplers agree; a decision
+that reads a rank's own clock (a deadline) is agreed by one small
+all-reduce, and the caller adds and cancels requests on every rank between
+the same two steps.  Not ported yet (ROADMAP.md): the dense-cache mode.
 
 How the JAX engine's mechanisms map to PyTorch:
 
@@ -72,6 +84,11 @@ How the JAX engine's mechanisms map to PyTorch:
   ``ops/kernels/sampling.py``), so seeded streams are the JAX
   engine's tokens and a preempted request resumes its stream exactly.
   Greedy streams are the JAX engine's tokens;
+- the reference's ``("tp",)`` mesh and ``shard_map`` become one process
+  a rank: the step bodies run on the rank's head counts
+  (``_TPShardView``) and ``psum`` becomes a sum all-reduce over the
+  process group (gloo or NCCL), counted in
+  ``models/llama.TP_COUNTERS``;
 - JAX's asynchronous dispatch becomes CUDA's: a launch returns at once, so
   the journal's flush (``_host_overlap``), placed between a step's last
   launch and its one host fetch, runs while the card executes the queued
@@ -89,16 +106,18 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import resolve_device
 from ..analysis.engine_audit import (EngineAuditError, audit_enabled,
                                      audit_engine)
+from ..models import llama as _llama
 from ..ops import decode_attention as _da
 from ..ops.kernels import kernel_disabled
 from ..ops.kernels import paged_attention as _pa
 from ..ops.kernels import rope as rope_mod
 from ..ops.kernels import sampling
-from ..utils.envflags import env_bool
+from ..utils.envflags import env_bool, env_tp, tp_problems
 from . import lm_head_logits, quantize_layer_params, transformer_apply
 from .faults import FaultInjected, FaultPlan
 from .kv_tier import HostKVTier
@@ -199,6 +218,54 @@ def journal_entry(req: Request, prefilled: int = 0,
     }
 
 
+class _TPShardView:
+    """One rank's view of the model config under tensor parallelism: the
+    step bodies read head counts off the config, and a rank holds nh/tp
+    query heads and nkv/tp kv heads of the SAME head_dim, so the view pins
+    those counts and the true head_dim (the dataclass property would
+    compute it from hidden_size // local heads) and proxies everything
+    else (dtype, rope_theta, the layer count, ...) to the real config.
+    The GQA ratio nh/nkv does not change with the degree, so the
+    paged-attention kernels take the rank's shapes as they are."""
+
+    def __init__(self, cfg, tp: int):
+        self._cfg = cfg
+        self.num_attention_heads = cfg.num_attention_heads // tp
+        self.num_key_value_heads = cfg.num_key_value_heads // tp
+        self.head_dim = cfg.head_dim
+
+    def __getattr__(self, name):
+        return getattr(self._cfg, name)
+
+
+def _resolve_tp(cfg, tensor_parallel: int, group) -> int:
+    """The engine's tensor-parallel degree, as the reference resolves it:
+    ``PADDLE_TPU_TP`` replaces the constructor's value (an invalid one
+    warns and gives 1, ``env_tp``); a constructor value that
+    ``tp_problems`` refuses (a degree above 1 must divide the kv heads and
+    ``intermediate_size`` and equal the size of an initialized process
+    group: ``group``, or the default one) raises ``ValueError`` naming
+    every problem."""
+    nkv, inter = cfg.num_key_value_heads, cfg.intermediate_size
+    ready = dist.is_available() and dist.is_initialized()
+    ranks = dist.get_world_size(group) if ready else None
+    tp_env = env_tp(nkv, ranks, inter)
+    if tp_env is not None:
+        return tp_env           # the operator's override replaces the value
+    tp = int(tensor_parallel)
+    problems = tp_problems(tp, nkv, inter, ranks)
+    if problems:
+        raise ValueError(f"tensor_parallel={tp}: " + "; ".join(problems))
+    return tp
+
+
+def _tree_to(tree, device):
+    """Every tensor of a nested dict on ``device``."""
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
 class ContinuousBatchingEngine:
     """Slot-pool continuous batching over a Llama-family model with a paged
     (block-table) KV cache.
@@ -254,6 +321,20 @@ class ContinuousBatchingEngine:
     ``PADDLE_TPU_ASYNC_HOST`` (default on): the journal (:meth:`journal`)
     is kept incrementally and flushed while the card runs each step; ``0``
     leaves every flush to :meth:`journal` itself.
+    ``tensor_parallel``: the number of ranks sharing the model, each a
+    process of ``process_group`` (None: the default group) that builds
+    this engine with the same arguments and serves the same requests.  It
+    must divide ``num_key_value_heads`` and ``intermediate_size`` and
+    equal the group's size, or the constructor raises.  ``params`` is the
+    full tree, on any device (the host keeps it off the card): quantized
+    whole under ``quant``, then sliced, only the rank's slice reaching
+    ``device``.  ``PADDLE_TPU_TP`` replaces the value (an invalid one warns
+    and serves on one card).  The ranks' schedulers stay in step only if
+    each takes the same decisions at the same step: ``add_request`` and
+    :meth:`cancel` must be called on every rank between the same two
+    steps; deadlines are agreed by one small all-reduce (a request expires
+    at the first step any rank's clock finds it overdue).  The snapshot
+    records the degree, and a restore takes a snapshot of any degree.
     """
 
     def __init__(self, cfg, params, max_batch: int = 8, max_seq: int = 512,
@@ -266,14 +347,28 @@ class ContinuousBatchingEngine:
                  max_queue: int | None = None, quant: str | None = None,
                  metrics=None, metrics_labels: dict | None = None,
                  enable_host_kv_tier: bool = False, host_tier=None,
-                 device=None):
+                 tensor_parallel: int = 1, process_group=None, device=None):
         self.device = resolve_device(device)
-        for leaf in [params["embed"], *params["layers"].values()]:
-            if leaf.device != self.device:
-                raise ValueError(f"params live on {leaf.device}, engine "
-                                 f"device is {self.device}")
-        if quant is not None:
-            params = quantize_layer_params(params, quant)
+        # tensor parallelism, resolved FIRST: the pools are built sharded.
+        # tp == 1 is the single-card engine exactly (no group, no
+        # collective): every TP behaviour hangs off self.tp > 1
+        self.tp = _resolve_tp(cfg, tensor_parallel, process_group)
+        self._tp_group = None
+        self._tp_rank = 0
+        self._body_cfg = cfg        # the config the step bodies read
+        if self.tp > 1:
+            self._tp_group = (process_group if process_group is not None
+                              else dist.group.WORLD)
+            self._tp_rank = dist.get_rank(self._tp_group)
+            self._body_cfg = _TPShardView(cfg, self.tp)
+            params = self._rank_params(cfg, params, quant)
+        else:
+            for leaf in [params["embed"], *params["layers"].values()]:
+                if leaf.device != self.device:
+                    raise ValueError(f"params live on {leaf.device}, engine "
+                                     f"device is {self.device}")
+            if quant is not None:
+                params = quantize_layer_params(params, quant)
         self.quant = quant
         if max_seq % block_size:
             raise ValueError(f"max_seq {max_seq} is not a multiple of "
@@ -294,7 +389,8 @@ class ContinuousBatchingEngine:
             raise ValueError(f"pool of {self.num_blocks} blocks cannot hold "
                              f"one full request ({self.max_blocks} blocks)")
         L = cfg.num_hidden_layers
-        nkv, hd = cfg.num_key_value_heads, cfg.head_dim
+        # a rank's pools hold its kv heads over the WHOLE page axis
+        nkv, hd = self._body_cfg.num_key_value_heads, cfg.head_dim
         if kv_quant is not None:
             if kv_quant not in ("int8", "int4"):
                 raise ValueError(f"kv_quant must be None, 'int8' or "
@@ -455,6 +551,20 @@ class ContinuousBatchingEngine:
         #: step's, a mixed step's emit rows, a verify step's row 0
         self.last_logits: torch.Tensor | None = None
 
+    def _rank_params(self, cfg, params, quant):
+        """This rank's slice of the full tree ``params`` on the engine's
+        device: quantized whole (``quant``: a row-parallel leaf's scales
+        are an absmax over its whole input dim), then sliced
+        (``shard_serving_params``)."""
+        want = _llama.serving_matmul_shapes(cfg)
+        have = {n: tuple(params["layers"][n].shape) for n in want}
+        if have != want:
+            raise ValueError(f"params must be the full tree {want}: {have}")
+        if quant is not None:
+            params = quantize_layer_params(params, quant)
+        return _tree_to(_llama.shard_serving_params(
+            cfg, params, self._tp_rank, self.tp, quant), self.device)
+
     def _setup_observability(self, metrics, labels):
         """``stats`` over a metrics registry (keys and help strings:
         ``ENGINE_STAT_SCHEMA``), the SLO tracker, the request tracer, the
@@ -554,7 +664,7 @@ class ContinuousBatchingEngine:
         attends through ``paged_decode_attention``.  Dropped writes land on
         the spill page or nowhere; inactive lanes compute garbage that is
         never read."""
-        cfg = self.cfg
+        cfg = self._body_cfg    # TP: the rank's head counts
         B, S, bs = self.max_batch, self.max_seq, self.block_size
         nh, hd = cfg.num_attention_heads, cfg.head_dim
         kvq = self.kv_quant
@@ -628,7 +738,7 @@ class ContinuousBatchingEngine:
                                     sin[:, None], attend_fn=attend_fn,
                                     fused_fn=fused_fn,
                                     mlp_fused_fn=mlp_fused_fn,
-                                    quant=self.quant)
+                                    quant=self.quant, tp_group=self._tp_group)
         return lm_head_logits(cfg, self.params, x[:, -1])
 
     def _sample_tokens(self, logits, pos, temp, topp, seeds, rows):
@@ -712,7 +822,7 @@ class ContinuousBatchingEngine:
         law: the verify walk over fp pools when ``verify``, else (and over
         quantized pools, which only the prefill walk dequantizes, as in the
         reference) the chunked-prefill walk."""
-        cfg = self.cfg
+        cfg = self._body_cfg    # TP: the rank's head counts
         B, S, bs = self.max_batch, self.max_seq, self.block_size
         T = tokens.shape[1]
         nh, hd = cfg.num_attention_heads, cfg.head_dim
@@ -764,7 +874,8 @@ class ContinuousBatchingEngine:
 
         x, _, _ = transformer_apply(cfg, self.params, x, self.cache_k,
                                     self.cache_v, write, None, cos, sin,
-                                    attend_fn=attend_fn, quant=self.quant)
+                                    attend_fn=attend_fn, quant=self.quant,
+                                    tp_group=self._tp_group)
         return x
 
     def _mixed_impl(self, tokens, pos, active, q_lens, temp, topp, seeds,
@@ -835,7 +946,7 @@ class ContinuousBatchingEngine:
         mask shift by ``start``; positions at or beyond ``length`` (the
         absolute total) are padding, masked out of attention.  No logits:
         the last prompt token is fed to the first decode step."""
-        cfg = self.cfg
+        cfg = self._body_cfg    # TP: the rank's head counts
         S = self.max_seq
         x = self.params["embed"][ids].to(cfg.dtype)
         q_pos = start + torch.arange(bucket, device=self.device)
@@ -846,7 +957,8 @@ class ContinuousBatchingEngine:
         kv_pos = torch.arange(S, device=self.device)[None, None, None, None, :]
         mask = (kv_pos <= q_pos) & (kv_pos < length)
         transformer_apply(cfg, self.params, x, self.cache_k, self.cache_v,
-                          write, mask, cos, sin, quant=self.quant)
+                          write, mask, cos, sin, quant=self.quant,
+                          tp_group=self._tp_group)
 
     def _prefill_impl_paged(self, ids, table_row, start, length, bucket):
         """Prefill positions [start, length) into the slot's pages: ``ids``
@@ -860,7 +972,7 @@ class ContinuousBatchingEngine:
         or drop out of the requantize, which requantizes each dirty page
         once: a garbage pad row in the prompt's tail page would inflate
         that page's scale and coarsen its real rows' codes for good."""
-        cfg = self.cfg
+        cfg = self._body_cfg    # TP: the rank's kv heads
         S, bs = self.max_seq, self.block_size
         nkv, hd = cfg.num_key_value_heads, cfg.head_dim
         pos_j = start + torch.arange(bucket, device=self.device)
@@ -887,7 +999,8 @@ class ContinuousBatchingEngine:
 
     def _copy_page(self, dst: int, src: int):
         """Copy-on-write: pool page ``src`` into page ``dst`` across every
-        layer, in place (a quantized pool's codes and scales together)."""
+        layer, in place (a quantized pool's codes and scales together).
+        Under TP each rank copies its own kv heads of the page."""
         for pool in (self.cache_k, self.cache_v):
             for a in (pool.values() if isinstance(pool, dict) else (pool,)):
                 a[:, dst].copy_(a[:, src])
@@ -901,7 +1014,7 @@ class ContinuousBatchingEngine:
         whose codes and scale stay zero, so they read as zeros like the
         reference's fill.  The mixed and verify steps (``view=False``) read
         the pools themselves through the paged walks."""
-        cfg = self.cfg
+        cfg = self._body_cfg    # TP: the rank's kv heads
         S = self.max_seq
         nkv, hd = cfg.num_key_value_heads, cfg.head_dim
         kvq = self.kv_quant
@@ -982,7 +1095,11 @@ class ContinuousBatchingEngine:
         batch, then each page's slice into the tier, whose copy blocks
         until the bytes are on the host, so the pages return to the free
         list only once no later kernel can overwrite them first.  A page
-        the tier cannot fit goes dead (the tier counts it in ``drops``)."""
+        the tier cannot fit goes dead (the tier counts it in ``drops``).
+        Under TP each rank's tier holds its own kv heads of each page and
+        counts the whole page's bytes (``shards``), as the reference's tier
+        counts its gathered page, so every rank's tier makes the
+        reference's budget decisions."""
         idx = torch.as_tensor([page for _, page in pairs], device=self.device)
         (k, ks), (v, vs) = ((a[:, idx], None if sc is None else sc[:, idx])
                             for a, sc in self._pool_leaves())
@@ -991,7 +1108,7 @@ class ContinuousBatchingEngine:
             if self._tier.ship_out(h, k[:, i], v[:, i],
                                    k_scale=None if ks is None else ks[:, i],
                                    v_scale=None if vs is None else vs[:, i],
-                                   owner=owner) is not None:
+                                   owner=owner, shards=self.tp) is not None:
                 self.stats["tier_demotions"] += 1
         self.stats["tier_bytes"] = self._tier.used_bytes
         self.stats["tier_evictions"] = self._tier.evictions
@@ -1003,7 +1120,8 @@ class ContinuousBatchingEngine:
         ``dst`` across every layer, in place, a quantized pool's codes and
         scales together (as ``_copy_page`` copies).  From page-locked
         memory the copies are asynchronous on the current stream, ordered
-        before every later kernel that reads the page."""
+        before every later kernel that reads the page.  Under TP the entry
+        holds this rank's kv heads of the page (``_demote``)."""
         for (a, sc), page, scale in zip(self._pool_leaves(),
                                         (entry.k, entry.v),
                                         (entry.k_scale, entry.v_scale)):
@@ -1672,37 +1790,50 @@ class ContinuousBatchingEngine:
     def _expire_overdue(self):
         """Deadlines (graceful mode): a request past its ``deadline_s`` ends
         EXPIRED with the output it has, queued or running, freeing its
-        pages for requests that can still make theirs."""
+        pages for requests that can still make theirs.  Under tensor
+        parallelism the ranks' clocks differ, so the overdue set is their
+        union, and every rank expires the same requests at the same step."""
+        live = [r for r in self._slot_req if r is not None] + self._queue
+        timed = [r for r in live if r.deadline_s is not None]
+        if not timed:
+            return
         now = time.perf_counter()
-
-        def overdue(req):
-            return (req.deadline_s is not None
-                    and now - getattr(req, "_submit_s", now) > req.deadline_s)
-
+        late = [now - getattr(r, "_submit_s", now) > r.deadline_s
+                for r in timed]
+        if self.tp > 1:
+            # one max all-reduce of the flags; ``timed`` is replicated
+            # state (the same requests in the same order on every rank),
+            # so every rank reaches it at the same step
+            t = torch.tensor(late, dtype=torch.int32, device=self.device)
+            dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self._tp_group)
+            late = t.tolist()
+        late = {r.rid for r, x in zip(timed, late) if x}
+        if not late:
+            return
         for s in range(self.max_batch):
             req = self._slot_req[s]
-            if req is not None and overdue(req):
+            if req is not None and req.rid in late:
                 self._fail_slot(s, "EXPIRED",
                                 f"deadline_s={req.deadline_s} exceeded "
                                 f"({len(req.output_ids)} token(s) delivered)",
                                 donate=True)
-        if any(overdue(r) for r in self._queue):
-            keep = []
-            for req in self._queue:
-                if overdue(req):
-                    self._terminal(req, "EXPIRED",
-                                   f"deadline_s={req.deadline_s} exceeded "
-                                   f"while queued")
-                else:
-                    keep.append(req)
-            self._queue = keep
+        keep = []
+        for req in self._queue:
+            if req.rid in late:
+                self._terminal(req, "EXPIRED",
+                               f"deadline_s={req.deadline_s} exceeded "
+                               f"while queued")
+            else:
+                keep.append(req)
+        self._queue = keep
 
     def cancel(self, rid: int) -> bool:
         """Cancel a request: a queued one leaves the queue, a running one
         frees its slot (mid-prefill too; its full blocks go to the prefix
         cache).  Output already banked stays on the request.  True when the
         request was live; False for an unknown or terminal rid.  Graceful
-        mode only."""
+        mode only.  Under tensor parallelism every rank must cancel the
+        same rid between the same two steps, as it adds requests."""
         if not self._graceful:
             raise RuntimeError("cancel() requires PADDLE_TPU_GRACEFUL=1")
         req = self._reqs.get(rid)
@@ -1725,7 +1856,8 @@ class ContinuousBatchingEngine:
         the model and the serving geometry, formatted as the reference
         formats them (dtype names ``float32`` / ``bfloat16``), so a
         snapshot of either package restores on the other.  ``tp`` is
-        recorded, never enforced (the pool is not captured)."""
+        recorded, never enforced (the pool is not captured: a restore
+        recomputes, whatever the degree)."""
         cfg = self.cfg
         dt = str(cfg.dtype).replace("torch.", "")
         return {
@@ -1742,7 +1874,7 @@ class ContinuousBatchingEngine:
             "paged": True,
             "block_size": self.block_size,
             "max_seq": int(self.max_seq),
-            "tp": 1,
+            "tp": int(self.tp),
         }
 
     def snapshot(self) -> dict:
@@ -1907,7 +2039,7 @@ class ContinuousBatchingEngine:
                     f"({diff}); restoring across topologies would resume "
                     f"silently wrong - only the tensor-parallel degree "
                     f"may differ (snapshot tp={src.get('tp')!r}, engine "
-                    f"tp=1)")
+                    f"tp={self.tp})")
         return [self.adopt(j) for j in snap["running"] + snap["queued"]]
 
     # ---------------- the step ----------------

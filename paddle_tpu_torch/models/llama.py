@@ -7,6 +7,13 @@ weights, exactly the reference's update).  The parameter dict has the
 reference's layout: layer weights stacked over a leading layer dimension,
 matmul weights ``[L, in, out]``.
 
+Tensor-parallel serving: :data:`MEGATRON_SPLIT` and
+:func:`shard_serving_params`, one rank's slice of the serving tree in the
+layout of the reference's ``serving_param_specs``, and the two all-reduce
+boundaries of each layer in the decoder seams (``tp_group``:
+:func:`_tp_all_reduce` over a ``torch.distributed`` group, where the
+reference runs ``psum`` inside ``shard_map``).
+
 How the reference's JAX mechanisms map here:
 
 - the layer ``lax.scan`` is a Python loop over the stacked weights
@@ -18,9 +25,9 @@ How the reference's JAX mechanisms map here:
 - ``jax.value_and_grad`` is ``torch.autograd.grad``; the jitted, donated
   train step updates the parameter and optimizer tensors in place.
 
-Not ported yet: meshes and their specs, pipeline schedules and context
-parallel attention (ROADMAP A11), tensor-parallel serving (A7) and the
-eager Layer surface (A12).
+Not ported yet: the training meshes and their specs, pipeline schedules
+and context parallel attention (ROADMAP A11), and the eager Layer surface
+(A12).
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ import dataclasses
 import os
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
@@ -122,40 +130,134 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator | None = None,
     return params
 
 
-def decoder_attn_residual(x, attn, lp, wmat=None):
-    """Attention output projection + residual (``tp_axis=None``).
+#: the Megatron split of each decoder matmul leaf: 'col' splits the output
+#: dim over the tensor-parallel ranks (ColumnParallelLinear), 'row' the
+#: input dim (RowParallelLinear).  The reference's one table, read by its
+#: training and serving specs alike
+MEGATRON_SPLIT = {"wq": "col", "wk": "col", "wv": "col",
+                  "w_gate": "col", "w_up": "col",
+                  "wo": "row", "w_down": "row"}
+
+#: collectives the tensor-parallel seams ran in this process
+#: (:func:`_tp_all_reduce`); a caller resets it by assigning 0
+TP_COUNTERS = {"all_reduce": 0}
+
+
+def serving_matmul_shapes(cfg: LlamaConfig) -> dict:
+    """The full ``[L, in, out]`` shape of each layer matmul leaf."""
+    L, h, i = cfg.num_hidden_layers, cfg.hidden_size, cfg.intermediate_size
+    q = cfg.num_attention_heads * cfg.head_dim
+    kv = cfg.num_key_value_heads * cfg.head_dim
+    return {"wq": (L, h, q), "wk": (L, h, kv), "wv": (L, h, kv),
+            "wo": (L, q, h), "w_gate": (L, h, i), "w_up": (L, h, i),
+            "w_down": (L, i, h)}
+
+
+def shard_serving_params(cfg: LlamaConfig, params: dict, rank: int, tp: int,
+                         quant: str | None = None) -> dict:
+    """Rank ``rank``'s slice of the serving tree over ``tp`` ranks: the
+    shard the reference's ``serving_param_specs(cfg, quant)`` gives device
+    ``rank`` of a 1-D mesh.  Column-parallel leaves (:data:`MEGATRON_SPLIT`)
+    split their output dim, row-parallel ones their input dim; the norms,
+    ``embed`` and ``lm_head`` are replicated (returned as they are).
+
+    ``quant`` ('int8' / 'int4'): the matmul leaves are weight-only
+    ``{'qweight': [L, out, in], 'scale': [L, out]}`` dicts (int4 codes
+    packed two a byte, ``[L, out, in // 2]``), split through the
+    transposed layout; a row-parallel leaf keeps every scale, so the
+    dequantize stays shard-local.  Quantize the FULL tree first and slice
+    it after: a row-parallel scale is an absmax over the whole input dim,
+    so a quantized slice would carry other scales and other codes.
+
+    The split leaves are contiguous copies on the leaves' device; a dim
+    that ``tp`` does not divide raises ``ValueError``."""
+    if not 0 <= rank < tp:
+        raise ValueError(f"rank {rank} outside [0, {tp})")
+
+    def split(t, dim):
+        n = t.shape[dim]
+        if n % tp:
+            raise ValueError(f"dim {dim} of a {tuple(t.shape)} leaf does "
+                             f"not split {tp} ways")
+        w = n // tp
+        return t.narrow(dim, rank * w, w).contiguous()
+
+    def leaf(name, t):
+        how = MEGATRON_SPLIT.get(name)
+        if how is None:
+            return t                         # the norms: replicated
+        if isinstance(t, dict) != (quant is not None):
+            kind = "a weight-only dict" if isinstance(t, dict) else "a tensor"
+            raise ValueError(f"layer leaf {name!r} is {kind} but "
+                             f"quant={quant!r}")
+        if quant is None:
+            return split(t, 2 if how == "col" else 1)
+        if how == "col":
+            return {"qweight": split(t["qweight"], 1),
+                    "scale": split(t["scale"], 1)}
+        return {"qweight": split(t["qweight"], 2), "scale": t["scale"]}
+
+    out = dict(params)
+    out["layers"] = {k: leaf(k, v) for k, v in params["layers"].items()}
+    return out
+
+
+def _tp_all_reduce(y, group):
+    """The tensor-parallel boundary: ``group=None`` is the single-card
+    path (no collective); else ``y`` is a row-parallel partial sum that a
+    sum all-reduce over the group completes, counted in
+    :data:`TP_COUNTERS`.  A failing collective raises."""
+    if group is None:
+        return y
+    y = y.contiguous()
+    dist.all_reduce(y, op=dist.ReduceOp.SUM, group=group)
+    TP_COUNTERS["all_reduce"] += 1
+    return y
+
+
+def decoder_attn_residual(x, attn, lp, wmat=None, tp_group=None):
+    """Attention output projection + residual: ``wo`` is row-parallel,
+    so under tensor parallelism (``tp_group``) ``attn @ wo`` is a partial
+    sum and the all-reduce here is the layer's first boundary.
     ``wmat(leaf, dtype)`` resolves weight-only-quantized leaves (serving);
     None reads the leaf raw."""
     wo = lp["wo"] if wmat is None else wmat(lp["wo"], x.dtype)
-    return x + attn @ wo
+    return x + _tp_all_reduce(attn @ wo, tp_group)
 
 
-def decoder_mlp_residual(cfg, x, lp, wmat=None):
-    """post-norm + swiglu MLP + residual (``wmat`` as above)."""
+def decoder_mlp_residual(cfg, x, lp, wmat=None, tp_group=None):
+    """post-norm + swiglu MLP + residual (``wmat`` as above): ``w_gate``
+    and ``w_up`` are column-parallel, ``w_down`` row-parallel, and the
+    all-reduce completing the down projection is the layer's second
+    boundary."""
     def w(n):
         return lp[n] if wmat is None else wmat(lp[n], x.dtype)
 
     xn = rms.rms_norm(x, lp["post_norm"], cfg.rms_norm_eps)
     y = swiglu_mod.swiglu(xn @ w("w_gate"), xn @ w("w_up")) @ w("w_down")
-    return x + y
+    return x + _tp_all_reduce(y, tp_group)
 
 
-def decoder_layer_tail(cfg, x, attn, lp, wmat=None, mlp_fn=None):
+def decoder_layer_tail(cfg, x, attn, lp, wmat=None, mlp_fn=None,
+                       tp_group=None):
     """The post-attention half of a decoder layer in one seam.
 
     ``mlp_fn=None`` composes :func:`decoder_attn_residual` and
     :func:`decoder_mlp_residual`.  With ``mlp_fn(h_res, attn_y, lp) ->
     (h1, y)`` the residual add + post RMSNorm + SwiGLU MLP run through the
     caller's fused implementation (the serving decode path passes
-    ``ops/kernels/paged_attention.fused_layer_mlp``) and the layer closes
-    with ``h1 + y``.  ``wmat(leaf, dtype)`` resolves weight-only-quantized
-    leaves (serving); the training path passes none and reads fp leaves."""
+    ``ops/kernels/paged_attention.fused_layer_mlp``), which returns the
+    down projection ``y`` UN-reduced, and the layer closes with ``h1 +
+    y``.  Either way ``tp_group`` puts the layer's two all-reduces after
+    the attention output projection and after the down projection.
+    ``wmat(leaf, dtype)`` resolves weight-only-quantized leaves (serving);
+    the training path passes none and reads fp leaves."""
     if mlp_fn is None:
-        x = decoder_attn_residual(x, attn, lp, wmat=wmat)
-        return decoder_mlp_residual(cfg, x, lp, wmat=wmat)
+        x = decoder_attn_residual(x, attn, lp, wmat=wmat, tp_group=tp_group)
+        return decoder_mlp_residual(cfg, x, lp, wmat=wmat, tp_group=tp_group)
     wo = lp["wo"] if wmat is None else wmat(lp["wo"], x.dtype)
-    h1, y = mlp_fn(x, attn @ wo, lp)
-    return h1 + y
+    h1, y = mlp_fn(x, _tp_all_reduce(attn @ wo, tp_group), lp)
+    return h1 + _tp_all_reduce(y, tp_group)
 
 
 # ---------------------------------------------------------------------------

@@ -44,6 +44,13 @@ budget in MiB (default 256, minimum 1), the ceiling its own LRU evicts
 against; a non-integer or sub-minimum value warns once and keeps the
 default, so a typo can neither zero nor unbound the tier.
 
+``PADDLE_TPU_TP`` is the serving engine's tensor-parallel degree: set, it
+replaces the constructor's ``tensor_parallel`` (:func:`env_tp`); a value
+that is not an integer or that :func:`tp_problems` refuses (below 1, not
+a divisor of the model's kv heads or ffn width, or other than the size of
+the process group) warns once, naming the valid degrees, and runs the
+single-card engine.
+
 ``PADDLE_TPU_FAULT_INJECT`` is the fault plan (``inference/faults.py``).
 """
 
@@ -53,7 +60,8 @@ import difflib
 import os
 import warnings
 
-__all__ = ["env_bool", "env_int", "env_fault_spec", "BOOL_FLAGS"]
+__all__ = ["env_bool", "env_int", "env_tp", "tp_problems",
+           "env_fault_spec", "BOOL_FLAGS"]
 
 #: the '0'/'1' switches the engine reads -> their defaults (each read
 #: site passes its default explicitly; a test holds the two together)
@@ -106,6 +114,66 @@ def env_int(name: str, default: int, minimum: int | None = None) -> int:
                               f"({minimum}); using the default ({default})")
         return default
     return value
+
+
+def tp_problems(tp: int, kv_heads: int, intermediate_size: int | None,
+                ranks: int | None) -> list[str]:
+    """Why ``tp`` is not a valid tensor-parallel degree (empty when it is):
+    the one rule of a valid degree, which the engine's constructor raises
+    on and :func:`env_tp` warns on.  A degree must be >= 1 and divide
+    ``kv_heads`` (the KV pools and the K/V projections shard along them)
+    and ``intermediate_size`` (the MLP's column split; None skips it); one
+    process serves one rank, so a degree above 1 is the size ``ranks`` of
+    an initialized process group (None: no group)."""
+    if tp < 1:
+        return [f"degree {tp} < 1"]
+    problems = []
+    if kv_heads % tp:
+        divs = [d for d in range(1, kv_heads + 1) if kv_heads % d == 0]
+        problems.append(f"degree {tp} does not divide kv_heads={kv_heads}: a "
+                        f"sub-head split would break the shard-local page "
+                        f"walk (valid divisors: {divs})")
+    if intermediate_size is not None and intermediate_size % tp:
+        problems.append(f"degree {tp} does not divide intermediate_size="
+                        f"{intermediate_size} (the MLP column split needs "
+                        f"an even ffn slice a rank)")
+    if tp > 1 and ranks is None:
+        problems.append(f"degree {tp} needs an initialized torch.distributed "
+                        f"process group of {tp} ranks (one process a rank)")
+    elif tp > 1 and tp != ranks:
+        problems.append(f"degree {tp} differs from the process group's size "
+                        f"{ranks}")
+    return problems
+
+
+def env_tp(kv_heads: int, device_count: int | None,
+           intermediate_size: int | None = None,
+           name: str = "PADDLE_TPU_TP") -> int | None:
+    """Tensor-parallel degree override for the serving engine.  Returns
+    None when the variable is unset (the constructor's ``tensor_parallel``
+    stands); otherwise the validated degree.  ``device_count`` is the
+    number of ranks that hold a shard: the process group's size (None
+    without a group).  An invalid value (not an integer, or one
+    :func:`tp_problems` refuses) warns once naming the valid degrees and
+    falls back to 1: an operator's typo degrades to the single-card
+    engine, never crashes the serve or sub-shards a head."""
+    raw = os.environ.get(name, "")
+    if raw == "":
+        return None
+    valid = [d for d in range(1, max(kv_heads, 1) + 1)
+             if not tp_problems(d, kv_heads, intermediate_size, device_count)]
+    try:
+        tp = int(raw)
+        problems = tp_problems(tp, kv_heads, intermediate_size, device_count)
+    except ValueError:
+        problems = ["not an integer"]
+    if not problems:
+        return tp
+    _warn_once(name, raw,
+               f"{name}={raw!r}: {'; '.join(problems)}; falling back to "
+               f"tensor_parallel=1 (valid degrees for kv_heads={kv_heads} "
+               f"on {device_count or 1} rank(s): {valid})")
+    return 1
 
 
 def env_fault_spec(name: str, known_kinds, known_keys,

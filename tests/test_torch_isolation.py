@@ -25,7 +25,8 @@ def test_import_leaves_jax_out_of_sys_modules():
             "decode_attention, paddle_tpu_torch.models.llama, "
             "paddle_tpu_torch.ops.kernels.flash_attention, "
             "paddle_tpu_torch.utils.threefry, "
-            "paddle_tpu_torch.inference.fleet, paddle_tpu_torch.analysis\n"
+            "paddle_tpu_torch.inference.fleet, paddle_tpu_torch.analysis, "
+            "paddle_tpu_torch.inference\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu'))\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
@@ -90,7 +91,8 @@ def test_engine_rejects_params_on_another_device():
 
 
 #: the serving helpers that are the port's own copies of reference modules
-#: which import no JAX themselves
+#: which import no JAX themselves, then the model and the engine (their
+#: reference counterparts import JAX), each imported after the ones before
 ALONE = ["paddle_tpu_torch.inference.prefix_cache",
          "paddle_tpu_torch.inference.faults",
          "paddle_tpu_torch.utils.envflags",
@@ -99,7 +101,9 @@ ALONE = ["paddle_tpu_torch.inference.prefix_cache",
          "paddle_tpu_torch.inference.observability",
          "paddle_tpu_torch.inference.kv_tier",
          "paddle_tpu_torch.analysis.engine_audit",
-         "paddle_tpu_torch.inference.fleet"]
+         "paddle_tpu_torch.inference.fleet",
+         "paddle_tpu_torch.models.llama",
+         "paddle_tpu_torch.inference.serving"]
 
 
 @pytest.fixture(scope="module")
@@ -133,5 +137,7 @@ def test_serving_helpers_import_alone(module, alone_imports):
     module, the host KV tier, the engine auditor and the fleet router are
     the port's own copies: importing one pulls in neither JAX nor the JAX
     package (the reference's modules of the same names that import no JAX
-    are not reached for either)."""
+    are not reached for either); so are the model and the serving engine
+    with their tensor-parallel parts (``shard_serving_params``,
+    ``env_tp``)."""
     assert alone_imports[module] == [], alone_imports[module]
