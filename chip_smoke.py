@@ -134,7 +134,9 @@ non-zero as soon as one fails:
     with ``PADDLE_TPU_ASYNC_HOST`` 1 and 0 in two rounds in turns: the
     same tokens and synchronizing calls, ``journal()`` equal to
     ``snapshot()`` mid-serve, one journal flush a launched step (none
-    off); the host-gap histogram's mean and the wall a step on and off;
+    off), and phase 18's guard around every window (as many as
+    ``host_overlap_steps`` on, one a launched step off); the host-gap
+    histogram's mean and the wall a step on and off;
 16. fleet: two Llama-3-8B replicas (32 layers, random bf16 weights)
     behind one ``FleetRouter``, sharing one weight set (the bytes the
     fleet adds are its two KV pools: printed and gated); phase 10's
@@ -167,6 +169,20 @@ non-zero as soon as one fails:
     (both ranks skipping the last layer's MLP all-reduce, 4 tokens a
     request) reads above that tolerance; the wall a step of each and the
     decode step's all-reduce alone.
+18. host contracts: (a) the static gate, ``python -m
+    paddle_tpu_torch.analysis --host --json`` run in this process on this
+    checkout: exit 0, the raw finding count equal to ``budgets.toml``'s
+    ceiling, no undeclared transition, dead edge or protocol finding, the
+    pass's seconds; (b) its dynamic twin on the card: before the first
+    serve, ``_install_overlap_guard`` wraps
+    ``ContinuousBatchingEngine._host_overlap`` (in this script only, and
+    in each of phase 17's rank processes) so that every window runs under
+    ``torch.cuda.set_sync_debug_mode("error")``: a synchronizing CUDA call
+    in any window of any serve of phases 6-17 raises.  Gates: a self-test
+    (``.item()`` of a CUDA tensor inside the guarded real method) raised;
+    no window raised anywhere else; every serve phase guarded windows,
+    phase 15 as many as ``host_overlap_steps`` in its async-on serves, and
+    each rank of phase 17 its own; prints the windows guarded a phase.
 
 The line before the last lists every kernel with its numbers; the last line
 is ``{"ok": true, "device": {...}}``.  ``--serve-sweep FIRST-LAST`` runs
@@ -2462,10 +2478,13 @@ def phase_async_host(torch, np, smi: str) -> dict:
     Gates: identical tokens in every run; ``journal()`` equals
     ``snapshot()`` at step 20 (``deadline_remaining_s`` aside); on, one
     journal flush a launched step (``host_overlap_steps`` ==
-    ``decode_steps`` at chunk 1), off, none; the same synchronizing calls
-    on and off.  Prints the host-gap histogram's mean and the wall a step,
-    on and off.  Returns the first run's launches."""
+    ``decode_steps`` at chunk 1), off, none; phase 18's guard around every
+    window (``host_overlap_steps`` of them on, one a launched step off);
+    the same synchronizing calls on and off.  Prints the tokens' sha256,
+    the host-gap histogram's mean and the wall a step, on and off.
+    Returns the first run's launches."""
     import collections
+    import hashlib
     import warnings
 
     from paddle_tpu_torch.inference.serving import (ContinuousBatchingEngine,
@@ -2508,6 +2527,7 @@ def phase_async_host(torch, np, smi: str) -> dict:
         kernels.reset_counters()
         torch.cuda.synchronize()
         n, same = 0, None
+        g0 = _GUARD["windows"].get("async_host", 0)
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
             torch.cuda.set_sync_debug_mode("warn")
@@ -2536,6 +2556,13 @@ def phase_async_host(torch, np, smi: str) -> dict:
         check(st["host_overlap_steps"] == want,
               f"{label}: host_overlap_steps {st['host_overlap_steps']} == "
               f"{want}")
+        # the sync guard ran around every window: the flushes on, the
+        # empty windows of every launched step off
+        guarded = _GUARD["windows"].get("async_host", 0) - g0
+        want = st["host_overlap_steps"] if label == "on" else st[
+            "decode_steps"]
+        check(guarded == want > 0, f"{label}: {guarded} windows guarded == "
+                                   f"{want}")
         synced = collections.Counter(
             f"{os.path.basename(w.filename)}:{w.lineno}" for w in caught
             if "synchroniz" in str(w.message))
@@ -2546,6 +2573,7 @@ def phase_async_host(torch, np, smi: str) -> dict:
                "mixed_steps": st["mixed_steps"],
                "spec_steps": st["spec_steps"],
                "host_overlap_steps": st["host_overlap_steps"],
+               "guarded_windows": guarded,
                "journal_incremental_updates":
                    st["journal_incremental_updates"],
                "journal_flush_s_mean": (eng._h_jupdate.sum
@@ -2582,9 +2610,11 @@ def phase_async_host(torch, np, smi: str) -> dict:
     for rs in runs.values():
         for r in rs:
             del r["tokens"]
+    digest = hashlib.sha256(json.dumps(
+        [[int(t) for t in out] for out in base]).encode()).hexdigest()
     emit({"phase": "async_host", "model": "llama3_8b",
           "layers": cfg.num_hidden_layers, "nvidia_smi": smi,
-          "requests": len(base), "runs": runs,
+          "requests": len(base), "tokens_sha256": digest, "runs": runs,
           "sync_sites": dict(sites["on"])})
     del params
     torch.cuda.empty_cache()
@@ -3303,7 +3333,8 @@ def _tp_rank(rank: int, tmp: str, tp: int) -> None:
     (``_tp_run``: every step's launches and all-reduces gated), serves
     the logit gate's control (``_tp_control``), times the decode step's
     all-reduce alone, and saves what it saw to ``tmp/rank{rank}.pt``:
-    rank 0 its logit rows, every rank a digest of them."""
+    rank 0 its logit rows, every rank a digest of them and the windows its
+    sync guard (``_install_overlap_guard``, phase 18) ran around."""
     import datetime
     import hashlib
 
@@ -3315,6 +3346,8 @@ def _tp_rank(rank: int, tmp: str, tp: int) -> None:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.cuda.set_device(0)
+    _install_overlap_guard(torch)
+    _GUARD["phase"] = "tp"
     dist.init_process_group("gloo", init_method=f"file://{tmp}/store",
                             rank=rank, world_size=tp,
                             timeout=datetime.timedelta(seconds=300))
@@ -3351,6 +3384,8 @@ def _tp_rank(rank: int, tmp: str, tp: int) -> None:
             dist.all_reduce(y)
         torch.cuda.synchronize()
         out["all_reduce_decode_ms"] = (time.perf_counter() - t0) / 64 * 1e3
+        out["guard"] = {"windows": _GUARD["windows"].get("tp", 0),
+                        "errors": _GUARD["errors"]}
         torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
@@ -3589,6 +3624,7 @@ def phase_tp(torch, np, smi: str) -> dict:
               m: summary[m]["max_abs_logit_diff"] for m in summary},
           **{k: caught[k] for k in ("max_abs_logit_diff", "worst",
                                     "per_rid", "greedy_agreeing_share")}})
+    _GUARD["ranks"] = [r["guard"] for r in ranks]
     emit({"phase": "tp", "nvidia_smi": smi, "ranks_wall_s": ranks_wall,
           "init_params_s": [r["init_params_s"] for r in ranks],
           "all_reduce_decode_ms": [r["all_reduce_decode_ms"] for r in ranks],
@@ -4287,6 +4323,125 @@ def phase_train_end_to_end(torch, np) -> None:
     torch.cuda.empty_cache()
 
 
+#: phase 18's sync guard: the phase ``timed`` runs (``"tp"`` in a rank
+#: process), the windows of ``ContinuousBatchingEngine._host_overlap`` it
+#: guarded in each phase, every error a window raised as (phase, message),
+#: and phase 17's ranks' own ``{"windows", "errors"}``
+_GUARD = {"phase": None, "windows": {}, "errors": [], "ranks": []}
+#: the phases (``timed``'s names) that serve through the engine: 6, 7 (the
+#: decode arms) and 10-17
+_SERVE_PHASES = ("serve", "prefix_cache", "chaos", "quant", "observability",
+                 "kv_tier", "async_host", "fleet", "tp", "arms")
+
+
+def _install_overlap_guard(torch) -> None:
+    """Wrap ``ContinuousBatchingEngine._host_overlap`` (in this process;
+    the package is not changed) so that each window runs under
+    ``torch.cuda.set_sync_debug_mode("error")``, with the mode it found
+    restored after it (phases 13 and 15 count syncs under ``"warn"``): a
+    synchronizing CUDA call inside the window, the work that runs while the
+    card executes the step's launches, raises.  Counts the windows a phase
+    and records each error before it propagates, so that one a fleet
+    swallows as a replica's death still fails phase 18."""
+    from paddle_tpu_torch.inference.serving import ContinuousBatchingEngine
+
+    inner = ContinuousBatchingEngine._host_overlap
+    if getattr(inner, "sync_guarded", False):
+        return
+
+    def guarded(self):
+        phase = _GUARD["phase"]
+        _GUARD["windows"][phase] = _GUARD["windows"].get(phase, 0) + 1
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return inner(self)
+        except Exception as e:
+            _GUARD["errors"].append((phase, f"{type(e).__name__}: {e}"))
+            raise
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+
+    guarded.sync_guarded = True
+    ContinuousBatchingEngine._host_overlap = guarded
+
+
+def phase_host_contracts(torch, smi: str) -> None:
+    """Phase 18.  (a) The static gate on this checkout: ``python -m
+    paddle_tpu_torch.analysis --host --json`` in this process; exit 0, the
+    raw count equal to ``budgets.toml``'s ceiling, no undeclared
+    transition, dead edge or protocol finding.  (b) The sync guard: a
+    self-test through the installed guard and the real method (a journal
+    flush that reads a CUDA tensor with ``.item()``) must raise and leave
+    the debug mode as it found it; no other window raised, in this process
+    or a rank's; every serve phase's windows and each phase-17 rank's were
+    guarded.  Prints the windows guarded a phase and the pass's seconds."""
+    import io
+
+    from paddle_tpu_torch.analysis import __main__ as analysis_cli
+    from paddle_tpu_torch.analysis.report import load_budgets
+    from paddle_tpu_torch.inference.serving import ContinuousBatchingEngine
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = analysis_cli.main(["--host", "--json"])
+    wall = time.perf_counter() - t0
+    doc = json.loads(buf.getvalue())
+    summary = doc["host_contracts"]
+    (budget,) = [b for b in load_budgets() if b.target == "host"]
+    ceiling = budget.ceilings["host_contract_violations"]
+    check(rc == 0 and doc["ok"] and doc["findings"] == [],
+          f"host-contract gate: exit {rc}, active findings {doc['findings']}"
+          f", budget findings {doc['budget_findings']}")
+    check(summary["violations"] == ceiling,
+          f"host-contract raw count {summary['violations']} == the "
+          f"budget's ceiling {ceiling}")
+    check(all(summary[k] == 0 for k in ("undeclared_transitions",
+                                        "dead_edges", "protocol")),
+          f"no undeclared transition, dead edge or protocol finding: "
+          f"{summary}")
+
+    def sync_in_window():
+        return torch.ones(1, device="cuda").item()
+
+    probe = types.SimpleNamespace(_async_host=True,
+                                  stats={"host_overlap_steps": 0},
+                                  _jflush=sync_in_window)
+    mode = torch.cuda.get_sync_debug_mode()
+    errors = len(_GUARD["errors"])
+    _GUARD["phase"] = "self_test"
+    raised = None
+    try:
+        ContinuousBatchingEngine._host_overlap(probe)
+    except RuntimeError as e:
+        raised = str(e)
+    _GUARD["phase"] = "host_contracts"
+    check(raised is not None and "synchroniz" in raised
+          and len(_GUARD["errors"]) == errors + 1,
+          f"the guard's self-test: .item() inside a window raised "
+          f"({raised})")
+    check(torch.cuda.get_sync_debug_mode() == mode,
+          "the guard restored the sync debug mode it found")
+    windows = dict(_GUARD["windows"])
+    others = [e for e in _GUARD["errors"] if e[0] != "self_test"]
+    ranks = _GUARD["ranks"]
+    check(not others and not any(r["errors"] for r in ranks),
+          f"no synchronizing call inside any window: {others} "
+          f"{[r['errors'] for r in ranks]}")
+    check(all(windows.get(p, 0) > 0 for p in _SERVE_PHASES),
+          f"every serve phase's windows were guarded: {windows}")
+    check(len(ranks) == TP_DEGREE and all(r["windows"] > 0 for r in ranks),
+          f"each rank of phase 17 guarded its windows: {ranks}")
+    emit({"phase": "host_contracts", "nvidia_smi": smi,
+          "gate_exit": rc, "pass_seconds": doc["seconds"],
+          "gate_wall_s": wall, "host_contracts": summary,
+          "ceiling": ceiling, "allowlisted": len(doc["allowlisted"]),
+          "guarded_windows": windows,
+          "rank_guarded_windows": [r["windows"] for r in ranks],
+          "self_test": raised})
+
+
 def main(argv: list[str]) -> int:
     sweeps = {"--serve-sweep": serve_sweep, "--prefix-sweep": prefix_sweep,
               "--tier-probe": tier_probe}
@@ -4321,12 +4476,14 @@ def main(argv: list[str]) -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev, smi = phase_device(torch)
     phase_build(kernels)
+    _install_overlap_guard(torch)
     if sweep is not None:
         sweep(torch, np, smi, seeds)
         return 0
     seconds = {}
 
     def timed(name, fn, *args):
+        _GUARD["phase"] = name
         t0 = time.perf_counter()
         out = fn(*args)
         seconds[name] = time.perf_counter() - t0
@@ -4350,7 +4507,8 @@ def main(argv: list[str]) -> int:
     for k, v in timed("chaos", phase_chaos, torch, np, smi).items():
         slice_launches[k] += v
     # the weight-only quantized serves, observability, the host KV tier,
-    # the async host runtime, the fleet and tensor-parallel serving
+    # the async host runtime, the fleet and tensor-parallel serving, every
+    # window of each serve under the sync guard (phase 18)
     for phase, fn in (("quant", phase_quant),
                       ("observability", phase_observability),
                       ("kv_tier", phase_kv_tier),
@@ -4361,6 +4519,7 @@ def main(argv: list[str]) -> int:
     arm_launches = timed("arms", phase_arms, torch, np)
     train_launches = timed("train", phase_train, torch, np)
     timed("train_end_to_end", phase_train_end_to_end, torch, np)
+    timed("host_contracts", phase_host_contracts, torch, smi)
     emit({"phase": "seconds", **seconds})
     # each kernel's launches on the main paths that run it: the fp and the
     # int8 serve, the prefix-cache and chaos serves, the decode arms (the

@@ -44,6 +44,14 @@ budget in MiB (default 256, minimum 1), the ceiling its own LRU evicts
 against; a non-integer or sub-minimum value warns once and keeps the
 default, so a typo can neither zero nor unbound the tier.
 
+The integer knob ``PADDLE_TPU_HOST_VERIFY_DEPTH`` is the call-graph
+resolution depth of the host-contract pass (``analysis/host_contracts.py``,
+default 8, minimum 1): how many call edges its effect analysis follows
+from each ``_host_overlap()`` window (and each state-machine choke chain)
+when it computes read/write closures.  A non-integer or sub-minimum value
+warns once and keeps the default, so a typo can neither hide a race
+behind an unresolved call nor explode the closure.
+
 ``PADDLE_TPU_TP`` is the serving engine's tensor-parallel degree: set, it
 replaces the constructor's ``tensor_parallel`` (:func:`env_tp`); a value
 that is not an integer or that :func:`tp_problems` refuses (below 1, not
