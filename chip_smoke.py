@@ -925,8 +925,8 @@ def _serve_llama(torch, np, cfg, params, kv_quant, t_init) -> dict:
     from paddle_tpu_torch.ops import kernels
 
     eng = ContinuousBatchingEngine(cfg, params, max_batch=8, max_seq=2048,
-                                   block_size=64, kv_quant=kv_quant,
-                                   device="cuda")
+                                   paged=True, block_size=64,
+                                   kv_quant=kv_quant, device="cuda")
     reqs = make_requests(Request, np, 12, cfg.vocab_size, sampled=2, seed=0)
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_counters()
@@ -1238,8 +1238,8 @@ def _serve_chunked_spec(torch, np, cfg, params, kv_quant, smi, seed=3,
                                                     Request)
     from paddle_tpu_torch.ops import kernels
 
-    base = dict(max_batch=8, max_seq=2048, block_size=64, kv_quant=kv_quant,
-                device="cuda")
+    base = dict(max_batch=8, max_seq=2048, paged=True, block_size=64,
+                kv_quant=kv_quant, device="cuda")
     feats = dict(enable_chunked_prefill=True, prefill_chunk=128,
                  enable_speculation=True, num_draft_tokens=4, spec_ngram=3)
     env = "PADDLE_TPU_TORCH_DISABLE_KERNELS"
@@ -1404,9 +1404,9 @@ def _prefix_serve(torch, np, cfg, params, kv_quant, chunked, cache,
                                                     Request)
     from paddle_tpu_torch.ops import kernels
 
-    kw = dict(max_batch=8, max_seq=2048, block_size=64, kv_quant=kv_quant,
-              enable_prefix_caching=cache, num_blocks=num_blocks,
-              enable_host_kv_tier=tier, device="cuda")
+    kw = dict(max_batch=8, max_seq=2048, paged=True, block_size=64,
+              kv_quant=kv_quant, enable_prefix_caching=cache,
+              num_blocks=num_blocks, enable_host_kv_tier=tier, device="cuda")
     if chunked:
         kw.update(enable_chunked_prefill=True, prefill_chunk=128)
     env = {"PADDLE_TPU_TORCH_DISABLE_KERNELS": disable,
@@ -1740,8 +1740,8 @@ def phase_chaos(torch, np, smi: str) -> dict:
     cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(),
                               num_hidden_layers=4)
     params = llama.init_params(cfg, seed=2, device="cuda")
-    kw = dict(max_batch=8, max_seq=2048, block_size=64, num_blocks=256,
-              enable_prefix_caching=True, device="cuda")
+    kw = dict(max_batch=8, max_seq=2048, paged=True, block_size=64,
+              num_blocks=256, enable_prefix_caching=True, device="cuda")
     env = "PADDLE_TPU_FAULT_INJECT"
     tol = SERVE_LOGIT_TOL[None]
 
@@ -1965,8 +1965,9 @@ def _quant_engine(cfg, params, quant, kv_quant, chunked):
     feats = (dict(enable_chunked_prefill=True, prefill_chunk=128)
              if chunked else {})
     return ContinuousBatchingEngine(cfg, params, max_batch=8, max_seq=2048,
-                                    block_size=64, kv_quant=kv_quant,
-                                    quant=quant, device="cuda", **feats)
+                                    paged=True, block_size=64,
+                                    kv_quant=kv_quant, quant=quant,
+                                    device="cuda", **feats)
 
 
 def phase_quant(torch, np, smi: str) -> dict:
@@ -2158,7 +2159,7 @@ def phase_observability(torch, np, smi: str) -> dict:
     # a warm-up serve, so no first use lands in one run (the process's
     # first switch to the "warn" mode warns once by itself)
     warm = ContinuousBatchingEngine(cfg, params, max_batch=8, max_seq=2048,
-                                    block_size=64, device="cuda")
+                                    paged=True, block_size=64, device="cuda")
     with warnings.catch_warnings(record=True):
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
@@ -2177,8 +2178,8 @@ def phase_observability(torch, np, smi: str) -> dict:
         os.environ.update(env)
         try:
             eng = ContinuousBatchingEngine(cfg, params, max_batch=8,
-                                           max_seq=2048, block_size=64,
-                                           device="cuda")
+                                           max_seq=2048, paged=True,
+                                           block_size=64, device="cuda")
         finally:
             for k in env:
                 os.environ.pop(k)
@@ -2304,7 +2305,7 @@ def _tier_transport(torch, cfg, params) -> dict:
     g = torch.Generator(device="cuda").manual_seed(14)
     for kvq in (None, "int8", "int4"):
         eng = ContinuousBatchingEngine(
-            cfg, params, max_batch=1, max_seq=2048, block_size=64,
+            cfg, params, max_batch=1, max_seq=2048, paged=True, block_size=64,
             num_blocks=32, kv_quant=kvq, enable_prefix_caching=True,
             enable_host_kv_tier=True, device="cuda")
         leaves = [t for pair in eng._pool_leaves() for t in pair
@@ -2495,7 +2496,7 @@ def phase_async_host(torch, np, smi: str) -> dict:
     cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(),
                               num_hidden_layers=4)
     params = llama.init_params(cfg, seed=0, device="cuda")
-    kw = dict(max_batch=8, max_seq=2048, block_size=64,
+    kw = dict(max_batch=8, max_seq=2048, paged=True, block_size=64,
               enable_prefix_caching=True, enable_chunked_prefill=True,
               prefill_chunk=128, enable_speculation=True,
               enable_host_kv_tier=True, device="cuda")
@@ -2623,8 +2624,8 @@ def phase_async_host(torch, np, smi: str) -> dict:
 
 #: phase 16's replicas: phase 10's serving geometry (batch 8, max_seq 2048,
 #: block 64, 256 pages: every slot's whole context), the prefix cache on
-FLEET_KW = dict(max_batch=8, max_seq=2048, block_size=64, num_blocks=256,
-                enable_prefix_caching=True, device="cuda")
+FLEET_KW = dict(max_batch=8, max_seq=2048, paged=True, block_size=64,
+                num_blocks=256, enable_prefix_caching=True, device="cuda")
 #: the fleet step of phase 16's injected crash of replica 1: mid-decode
 #: (both replicas seat eight requests from step 2 on, and the first of
 #: them retires near step 65)
@@ -3104,7 +3105,8 @@ def phase_fleet(torch, np, smi: str) -> dict:
 #: phase 17's degree, and its serving geometry: phase 6's (batch 8,
 #: max_seq 2048, block 64, the default pool of half the worst case)
 TP_DEGREE = 2
-TP_KW = dict(max_batch=8, max_seq=2048, block_size=64, device="cuda")
+TP_KW = dict(max_batch=8, max_seq=2048, paged=True, block_size=64,
+             device="cuda")
 #: phase 17's two serves of phase 6's 12 requests: bucketed, and chunked in
 #: 128-row chunks under a token budget that fills the mixed step's 8 x 128
 #: rows.  The step computes every one of those rows (C9d) and its two
@@ -3705,7 +3707,8 @@ def phase_profile(torch, np, eng, Request, decode, extra_groups=(),
             other[evt.key[:60]] = dev_us / steps / 1e3
     while eng.step() or eng._queue:  # finish the profiled requests
         pass
-    emit({"phase": "profile", "kv_quant": eng.kv_quant, "quant": eng.quant,
+    emit({"phase": "profile", "paged": eng.paged, "kv_quant": eng.kv_quant,
+          "quant": eng.quant,
           "step_kind": ("mixed" if eng._chunked and not settle
                         else "decode"),
           "decode_steps": steps, "batch": eng.max_batch,
@@ -3848,8 +3851,9 @@ def phase_arms(torch, np) -> dict:
             else:
                 os.environ[env] = tokens
             eng = ContinuousBatchingEngine(cfg, params, max_batch=8,
-                                           max_seq=2048, block_size=64,
-                                           kv_quant=kvq, device="cuda")
+                                           max_seq=2048, paged=True,
+                                           block_size=64, kv_quant=kvq,
+                                           device="cuda")
             reqs, gaps, first, launches = _serve_greedy(torch, np, eng,
                                                         Request, cfg)
             os.environ.pop(env, None)
@@ -4327,11 +4331,312 @@ def phase_train_end_to_end(torch, np) -> None:
 #: process), the windows of ``ContinuousBatchingEngine._host_overlap`` it
 #: guarded in each phase, every error a window raised as (phase, message),
 #: and phase 17's ranks' own ``{"windows", "errors"}``
+#: phase 19's paged-only kernels: none may launch on a dense engine's or
+#: the GenerationEngine's path (the fused decode step and MLP half, the
+#: paged walks)
+PAGED_KERNELS = ("fused_decode_step", "fused_quant_decode_step",
+                 "fused_layer_mlp", "paged_prefill", "paged_verify",
+                 "paged_decode", "flash_decode")
+#: phase 19's GenerationEngine batch: 4 prompts of 512 tokens, 32 new
+GEN_BATCH, GEN_PROMPT, GEN_NEW = 4, 512, 32
+#: phase 19's quantized dense serve: the first layers, ``chunk`` 4
+DENSE_QUANT_LAYERS, DENSE_QUANT_CHUNK = 4, 4
+
+
+def _dense_launch_check(eng, launches, label) -> dict:
+    """A dense serve's launches: ``rms_norm`` 2L + 1 times each forward
+    (every prefill, every decode step of every chunk), no paged kernel.
+    With kernels on; returns the forward count."""
+    L = eng.cfg.num_hidden_layers
+    forwards = eng.stats["decode_steps"] + eng.stats["prefills"]
+    check(launches["rms_norm"] == (2 * L + 1) * forwards,
+          f"{label}: rms_norm launches {launches['rms_norm']} == "
+          f"{2 * L + 1} x {forwards} forwards")
+    paged = {k: launches[k] + launches.get(f"{k}_tc", 0)
+             for k in PAGED_KERNELS}
+    check(not any(paged.values()), f"{label}: no paged kernel ran: {paged}")
+    return forwards
+
+
+def _guarded_serve(torch, eng, reqs, steps=None, add=True) -> dict:
+    """``_serve_stepwise`` with the sync guard's windows counted: each of
+    the engine's overlap windows ran through the guard (phase 18 checks
+    none raised)."""
+    before = _GUARD["windows"].get(_GUARD["phase"], 0)
+    steps0 = eng.stats["host_overlap_steps"]
+    rows = _serve_stepwise(torch, eng, reqs, steps=steps, add=add)
+    guarded = _GUARD["windows"].get(_GUARD["phase"], 0) - before
+    windows = eng.stats["host_overlap_steps"] - steps0
+    check(windows > 0 and guarded == windows,
+          f"every overlap window of the serve was guarded ({guarded} of "
+          f"{windows})")
+    return rows
+
+
+def _dense_numbers(eng, reqs, wall) -> dict:
+    st = eng.stats
+    return {"decode_steps": st["decode_steps"], "prefills": st["prefills"],
+            "decode_tokens": st["decode_tokens"],
+            "decode_tokens_per_s": eng.decode_tokens_per_s,
+            "decode_step_wall_ms": (st["decode_time_s"]
+                                    / max(st["decode_steps"], 1)
+                                    * eng.chunk * 1e3),
+            "prefill_time_s": eng.prefill_time_s,
+            "mean_ttft_s": statistics.mean(r.ttft_s for r in reqs),
+            "wall_s": wall}
+
+
+def _dense_rms_checks(torch, h) -> dict:
+    """B1 at the GenerationEngine's rows (its prefill's [4, 512, h] and a
+    decode step's [4, 1, h]) against its plain version, 1 bf16 ulp."""
+    from paddle_tpu_torch.ops.kernels import rms_norm as rms
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(19)
+    w = (1.0 + 0.1 * torch.randn(h, generator=g, device="cuda")).to(
+        torch.bfloat16)
+    out = {}
+    for label, shape in (("gen_prefill", (GEN_BATCH, GEN_PROMPT, h)),
+                         ("gen_decode", (GEN_BATCH, 1, h))):
+        x = torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+        got = rms.rms_norm_cuda(x, w, 1e-5)
+        ref = rms.rms_norm_ref(x, w, 1e-5)
+        err = (got.float() - ref.float()).abs()
+        tol = ref.float().abs() * 2.0 ** -7 + 1e-6
+        check(bool((err <= tol).all()), f"rms_norm {label} within 1 ulp")
+        rows = x.numel() // h
+        bnd, by = bound_ms(rows * h * 2 * 2 + h * 2, rows * h * 4)
+        out[label] = {"shape": list(shape), "max_abs_err": err.max().item(),
+                      "ms": time_ms(torch,
+                                    lambda: rms.rms_norm_cuda(x, w, 1e-5)),
+                      "plain_ms": time_ms(torch,
+                                          lambda: rms.rms_norm_ref(x, w,
+                                                                   1e-5)),
+                      "bound_ms": bnd, "bound_by": by}
+    return out
+
+
+def phase_dense(torch, np, smi: str) -> dict:
+    """Phase 19, the dense slot-cache engine (``paged=False``, the
+    reference's default) and the GenerationEngine at Llama-3-8B width, the
+    weights phase 6's.  (a) The 32-layer dense engine serves phase 6's 12
+    requests bucketed, in turns with the paged bf16 engine on the same
+    weights (dense, paged, dense: the first dense serve warms the card for
+    the paged one, the second gives the warm dense numbers); every greedy
+    logit row the first two scored from the same context agrees within
+    ``SERVE_LOGIT_TOL``, the two dense serves emit the same tokens; B1 2L + 1 times a forward and
+    no paged kernel; every overlap window guarded; a profile of the dense
+    decode step (``phase_profile``).  (b) The first
+    ``DENSE_QUANT_LAYERS`` layers under ``quant='int8'`` at ``chunk`` 4,
+    against the same serve with ``PADDLE_TPU_TORCH_DISABLE_KERNELS=all``,
+    row for row.  (c) ``GenerationEngine.generate`` at 32 layers on 4
+    prompts of 512 tokens, 32 new: greedy, each token's logit row against
+    the dense engine's for the same prompts; at temperature 0.8, tokens in
+    the vocabulary; B1 2L + 1 times a forward.  Returns the phase's
+    launches (the kernels-on runs)."""
+    from paddle_tpu_torch.inference import GenerationEngine
+    from paddle_tpu_torch.inference import serving
+    from paddle_tpu_torch.models import llama
+    from paddle_tpu_torch.ops import kernels
+
+    Engine, Request = serving.ContinuousBatchingEngine, serving.Request
+    cfg = llama.LlamaConfig.llama3_8b()
+    params = llama.init_params(cfg, seed=0, device="cuda")
+    L, V = cfg.num_hidden_layers, cfg.vocab_size
+    tol = SERVE_LOGIT_TOL[None]
+    total = {k: 0 for k in kernels.LAUNCHES}
+
+    def requests():
+        return make_requests(Request, np, 12, V, sampled=2, seed=0)
+
+    def run(eng, reqs):
+        kernels.reset_counters()
+        t0 = time.perf_counter()
+        rows = _guarded_serve(torch, eng, reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for r in reqs:
+            check(r.status == "FINISHED"
+                  and len(r.output_ids) == r.max_new_tokens
+                  and all(0 <= t < V for t in r.output_ids),
+                  f"rid {r.rid}: {r.max_new_tokens} tokens in the "
+                  f"vocabulary")
+        return rows, dict(kernels.LAUNCHES), wall
+
+    # (a) the 32-layer dense serve against the paged bf16 engine, in turns
+    # (dense, paged, dense): rows from the first of each, the numbers of
+    # all three, a profile of the last dense engine's steps
+    runs = {}
+    for label, paged in (("dense", False), ("paged_bf16", True),
+                         ("dense_2", False)):
+        eng = Engine(cfg, params, max_batch=8, max_seq=2048, paged=paged,
+                     block_size=64, device="cuda")
+        if not paged:
+            check(tuple(eng.cache_k.shape)
+                  == (L, 8, cfg.num_key_value_heads, 2048, cfg.head_dim),
+                  f"dense pools {tuple(eng.cache_k.shape)}")
+        reqs = requests()
+        rows, launches, wall = run(eng, reqs)
+        if not paged:
+            forwards = _dense_launch_check(eng, launches, label)
+            check(0 < launches["gumbel_noise"] <= eng.stats["decode_steps"],
+                  f"{label}: gumbel_noise launches "
+                  f"{launches['gumbel_noise']}")
+            check(bool(torch.isfinite(eng.last_logits).all()),
+                  f"{label}: last logits finite")
+            for k, v in launches.items():
+                total[k] += v
+        runs[label] = (reqs, rows, _dense_numbers(eng, reqs, wall),
+                       launches)
+        if label == "dense_2":
+            pool_gb = 2 * eng.cache_k.numel() * eng.cache_k.element_size() \
+                / 1e9
+            phase_profile(torch, np, eng, Request, "none")
+        del eng
+        torch.cuda.empty_cache()
+    (reqs, rows, _, launches), (ref_reqs, ref_rows, _, _) = (
+        runs["dense"], runs["paged_bf16"])
+    check([r.output_ids for r in reqs]
+          == [r.output_ids for r in runs["dense_2"][0]],
+          "the two dense serves emit the same tokens")
+    served = _logit_check(torch, reqs, rows, ref_reqs, ref_rows)
+    check(served["max_abs_logit_diff"] <= tol,
+          f"dense vs paged logit rows within {tol} "
+          f"({served['max_abs_logit_diff']})")
+    emit({"phase": "dense_serve", "nvidia_smi": smi, "layers": L,
+          "requests": len(reqs),
+          "prompt_tokens": int(sum(len(r.prompt_ids) for r in reqs)),
+          "kv_pool_gb": pool_gb, "forwards": forwards,
+          "launches": {k: v for k, v in launches.items() if v},
+          **{label: run_[2] for label, run_ in runs.items()},
+          "logit_tolerance": tol, **served})
+    del runs
+
+    # (b) DENSE_QUANT_LAYERS layers, quant='int8', chunk 4: kernels on vs
+    # every kernel off
+    qcfg, qparams = _first_layers(cfg, params, DENSE_QUANT_LAYERS)
+    quant = {}
+    for label in ("on", "off"):
+        if label == "off":
+            os.environ["PADDLE_TPU_TORCH_DISABLE_KERNELS"] = "all"
+        try:
+            eng = Engine(qcfg, qparams, max_batch=8, max_seq=2048,
+                         chunk=DENSE_QUANT_CHUNK, quant="int8", device="cuda")
+            qreqs = requests()
+            qrows, qlaunches, qwall = run(eng, qreqs)
+        finally:
+            os.environ.pop("PADDLE_TPU_TORCH_DISABLE_KERNELS", None)
+        if label == "on":
+            _dense_launch_check(eng, qlaunches, "int8 dense serve")
+            for k, v in qlaunches.items():
+                total[k] += v
+        else:
+            check(not any(qlaunches.values()),
+                  f"kernels off: nothing launched {qlaunches}")
+        quant[label] = (qreqs, qrows, _dense_numbers(eng, qreqs, qwall),
+                        qlaunches)
+        del eng
+        torch.cuda.empty_cache()
+    qcheck = _logit_check(torch, quant["on"][0], quant["on"][1],
+                          quant["off"][0], quant["off"][1])
+    check(qcheck["max_abs_logit_diff"] <= tol,
+          f"int8 dense kernels on vs off within {tol} "
+          f"({qcheck['max_abs_logit_diff']})")
+    emit({"phase": "dense_quant", "layers": DENSE_QUANT_LAYERS,
+          "chunk": DENSE_QUANT_CHUNK, "quant": "int8",
+          "on": quant["on"][2], "off": quant["off"][2],
+          "launches": {k: v for k, v in quant["on"][3].items() if v},
+          "logit_tolerance": tol, **qcheck})
+
+    # (c) the GenerationEngine, greedy and sampled, and the dense engine on
+    # the same prompts
+    rng = np.random.default_rng(19)
+    prompts = rng.integers(0, V, size=(GEN_BATCH, GEN_PROMPT)).astype(
+        np.int32)
+    ge = GenerationEngine(cfg, params, max_seq=GEN_PROMPT + GEN_NEW,
+                          device="cuda")
+    inference = sys.modules["paddle_tpu_torch.inference"]
+    head = inference.lm_head_logits
+    calls = []
+
+    def cap(cfg_, params_, x):
+        z = head(cfg_, params_, x)
+        calls.append(z.clone())
+        return z
+
+    gen = {}
+    for label, kw in (("greedy", {}), ("sampled", dict(temperature=0.8,
+                                                        seed=3))):
+        calls.clear()
+        kernels.reset_counters()
+        inference.lm_head_logits = cap
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = ge.generate(prompts, max_new_tokens=GEN_NEW, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            inference.lm_head_logits = head
+        glaunches = dict(kernels.LAUNCHES)
+        check(out.shape == (GEN_BATCH, GEN_PROMPT + GEN_NEW)
+              and (out[:, :GEN_PROMPT] == prompts).all()
+              and ((out >= 0) & (out < V)).all(),
+              f"GenerationEngine {label}: the prompts and {GEN_NEW} tokens "
+              f"in the vocabulary")
+        check(len(calls) == GEN_NEW and glaunches["rms_norm"]
+              == (2 * L + 1) * GEN_NEW,
+              f"GenerationEngine {label}: {len(calls)} forwards, rms_norm "
+              f"launches {glaunches['rms_norm']} == {2 * L + 1} x {GEN_NEW}")
+        others = {k: v for k, v in glaunches.items() if v and k != "rms_norm"}
+        check(not others, f"GenerationEngine {label}: only B1 launched, "
+                          f"the draw is the plain threefry chain: {others}")
+        for k, v in glaunches.items():
+            total[k] += v
+        gen[label] = {"wall_s": wall, "tokens_per_s":
+                      GEN_BATCH * GEN_NEW / wall, "rms_norm": glaunches[
+                          "rms_norm"], "draw_launches": glaunches[
+                          "gumbel_noise"], "tokens": out[:, GEN_PROMPT:],
+                      "rows": torch.stack(calls, dim=1)}   # [b, new, V]
+    del ge
+    torch.cuda.empty_cache()
+    dense = Engine(cfg, params, max_batch=8, max_seq=2048, device="cuda")
+    dreqs = [Request(rid=i, prompt_ids=prompts[i], max_new_tokens=GEN_NEW)
+             for i in range(GEN_BATCH)]
+    drows, dlaunches, _ = run(dense, dreqs)
+    _dense_launch_check(dense, dlaunches, "dense serve of the prompts")
+    for k, v in dlaunches.items():
+        total[k] += v
+    del dense
+    torch.cuda.empty_cache()
+    greedy = gen["greedy"]
+    gen_reqs = [types.SimpleNamespace(rid=i, temperature=0.0,
+                                      output_ids=[int(t) for t in
+                                                  greedy["tokens"][i]])
+                for i in range(GEN_BATCH)]
+    gcheck = _logit_check(torch, gen_reqs,
+                          {i: greedy["rows"][i] for i in range(GEN_BATCH)},
+                          dreqs, drows)
+    check(gcheck["max_abs_logit_diff"] <= tol,
+          f"GenerationEngine vs the dense engine within {tol} "
+          f"({gcheck['max_abs_logit_diff']})")
+    emit({"phase": "generation_engine", "layers": L, "batch": GEN_BATCH,
+          "prompt": GEN_PROMPT, "new_tokens": GEN_NEW,
+          **{label: {k: v for k, v in g.items()
+                     if k not in ("tokens", "rows")}
+             for label, g in gen.items()},
+          "rms_norm_checks": _dense_rms_checks(torch, cfg.hidden_size),
+          "logit_tolerance": tol, **gcheck})
+    del params, gen
+    torch.cuda.empty_cache()
+    return total
+
+
 _GUARD = {"phase": None, "windows": {}, "errors": [], "ranks": []}
 #: the phases (``timed``'s names) that serve through the engine: 6, 7 (the
-#: decode arms) and 10-17
+#: decode arms), 10-17 and 19
 _SERVE_PHASES = ("serve", "prefix_cache", "chaos", "quant", "observability",
-                 "kv_tier", "async_host", "fleet", "tp", "arms")
+                 "kv_tier", "async_host", "fleet", "tp", "dense", "arms")
 
 
 def _install_overlap_guard(torch) -> None:
@@ -4507,13 +4812,15 @@ def main(argv: list[str]) -> int:
     for k, v in timed("chaos", phase_chaos, torch, np, smi).items():
         slice_launches[k] += v
     # the weight-only quantized serves, observability, the host KV tier,
-    # the async host runtime, the fleet and tensor-parallel serving, every
-    # window of each serve under the sync guard (phase 18)
+    # the async host runtime, the fleet, tensor-parallel serving and the
+    # dense engines (phase 19), every window of each serve under the sync
+    # guard (phase 18)
     for phase, fn in (("quant", phase_quant),
                       ("observability", phase_observability),
                       ("kv_tier", phase_kv_tier),
                       ("async_host", phase_async_host),
-                      ("fleet", phase_fleet), ("tp", phase_tp)):
+                      ("fleet", phase_fleet), ("tp", phase_tp),
+                      ("dense", phase_dense)):
         for k, v in timed(phase, fn, torch, np, smi).items():
             slice_launches[k] += v
     arm_launches = timed("arms", phase_arms, torch, np)

@@ -11,8 +11,9 @@ decode, mixed and verify step, and the fleet router calls
 :func:`audit_fleet` after every fleet step; a violation raises
 :class:`EngineAuditError` naming the invariant.
 
-The port's engine is paged only, so every invariant applies to it (the
-reference's dense engine gets only I6 and I8):
+The paged engine gets every invariant; the dense slot-cache engine
+(``paged=False``) gets I6's bounds and I8 only, as the reference's does:
+it has no allocator, block table or cache to corrupt.
 
 I1  page partition: every pool page is in exactly one of {the free list,
     a slot's private pages, the prefix cache}, without duplicates, and
@@ -89,7 +90,7 @@ def audit_engine(eng) -> None:
     from ..inference.serving import TERMINAL_STATUSES
 
     B = eng.max_batch
-    # I6's bounds first
+    # I6's bounds first: dense and paged alike
     for s in range(B):
         if eng._slot_req[s] is None:
             continue
@@ -105,7 +106,7 @@ def audit_engine(eng) -> None:
                         f"{w}: speculative rollback may trail the device's "
                         f"writes but pos must never pass them")
 
-    # I8: terminal ownership
+    # I8: terminal ownership, dense and paged alike
     seated = {id(r) for r in eng._slot_req if r is not None}
     queued = {id(r) for r in eng._queue}
     for req in eng._reqs.values():
@@ -127,6 +128,8 @@ def audit_engine(eng) -> None:
         if req.status != "PENDING":
             _fail("I8", f"queued rid {req.rid} has status {req.status} "
                         f"(queued requests must be PENDING)")
+    if not eng.paged:
+        return
 
     nb = eng.num_blocks
     free = list(eng._free)

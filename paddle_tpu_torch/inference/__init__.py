@@ -1,10 +1,12 @@
 """LLM inference (counterpart of ``paddle_tpu/inference/__init__.py``).
 
 This module holds the cache-threading transformer body shared by the
-serving engine, :func:`transformer_apply`, over fp or quantized KV pools,
-and :func:`lm_head_logits`; ``FleetRouter`` (``fleet.py``) is exported
-lazily, as the reference exports it, so importing the package does not
-pull in the serving stack.
+serving engines, :func:`transformer_apply`, over fp or quantized KV pools,
+:func:`lm_head_logits`, and :class:`GenerationEngine`, the reference's
+simplest generation entry point (a dense KV cache, greedy or temperature
+decoding of one batch); ``ContinuousBatchingEngine``, ``Request`` and
+``FleetRouter`` are exported lazily, as the reference exports them, so
+importing the package does not pull in the serving stack.
 The reference's layer ``lax.scan`` is a Python loop over the stacked layer
 weights here.  The layer matmul weights are fp, or weight-only quantized
 by :func:`quantize_layer_params` (``quant`` 'int8' / 'int4'), each then
@@ -15,6 +17,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 
@@ -155,6 +158,15 @@ def quantize_layer_params(params, quant: str):
     return out
 
 
+def check_params_device(params, device) -> None:
+    """An engine's ``params`` must live on its device: ``ValueError``
+    naming both otherwise."""
+    for leaf in [params["embed"], *params["layers"].values()]:
+        if leaf.device != device:
+            raise ValueError(f"params live on {leaf.device}, engine device "
+                             f"is {device}")
+
+
 def lm_head_logits(cfg, params, x_last):
     """Project final hidden state(s) through the (possibly tied) LM head."""
     head = params.get("lm_head")
@@ -163,9 +175,119 @@ def lm_head_logits(cfg, params, x_last):
     return x_last @ head
 
 
+class GenerationEngine:
+    """Greedy or temperature decoding for the Llama family over a dense KV
+    cache (the reference's ``paddle_tpu.inference.GenerationEngine``):
+    one prefill of the whole prompt batch, then one decode step a token,
+    each an eager pass over :func:`transformer_apply` whose RMSNorms run
+    the ``rms_norm`` kernel on the card.
+
+    ``quant``: None, 'int8' or 'int4' -- the layer matmul weights
+    weight-only quantized at construction (:func:`quantize_layer_params`).
+    ``device`` defaults to the CUDA card and must hold ``params``.  The
+    cache is ``[L, b, nkv, max_seq, head_dim]`` in ``cfg.dtype``, written
+    in place.  A ``temperature > 0`` draw is the reference's
+    ``jax.random.categorical`` under keys split from
+    ``jax.random.key(seed)`` (``utils/threefry.py``), so a seeded stream is
+    the reference's tokens."""
+
+    def __init__(self, cfg, params, max_seq: int = 512,
+                 quant: str | None = None, device=None):
+        from .. import resolve_device
+        from ..ops.kernels import rope as rope_mod
+
+        self.device = resolve_device(device)
+        check_params_device(params, self.device)
+        self.cfg = cfg
+        self.max_seq = max_seq
+        if quant is not None:
+            params = quantize_layer_params(params, quant)
+        self.params = params
+        self.quant = quant
+        self._cos, self._sin = rope_mod.rope_cos_sin(
+            max_seq, cfg.head_dim, base=cfg.rope_theta, dtype=cfg.dtype,
+            device=self.device)                      # [1, max_seq, hd]
+
+    def init_cache(self, batch):
+        """Zeroed K and V caches ``[L, batch, nkv, max_seq, head_dim]``."""
+        cfg = self.cfg
+        shape = (cfg.num_hidden_layers, batch, cfg.num_key_value_heads,
+                 self.max_seq, cfg.head_dim)
+        return (torch.zeros(shape, dtype=cfg.dtype, device=self.device),
+                torch.zeros(shape, dtype=cfg.dtype, device=self.device))
+
+    def _forward_tokens(self, ids, cache_k, cache_v, start_pos: int):
+        """Run ``ids`` [b, s] at positions start_pos .. start_pos + s - 1:
+        their K/V go into the caches at those positions (in place), each
+        attends every cached key at or before its own position.  Returns
+        (logits of the last token [b, V], cache_k, cache_v)."""
+        cfg = self.cfg
+        b, s = ids.shape
+        x = self.params["embed"][ids].to(cfg.dtype)
+        cos = self._cos[:, start_pos:start_pos + s]
+        sin = self._sin[:, start_pos:start_pos + s]
+        kv_pos = torch.arange(self.max_seq, device=self.device)
+        q_pos = start_pos + torch.arange(s, device=self.device)
+        mask = kv_pos[None, None, None, None, :] <= q_pos[:, None]
+
+        def write(ck, k):
+            # ck [b, nkv, S, hd] a layer's cache; k [b, s, nkv, hd] roped
+            ck[:, :, start_pos:start_pos + s] = k.transpose(1, 2)
+            return ck, ck
+
+        x, cache_k, cache_v = transformer_apply(
+            cfg, self.params, x, cache_k, cache_v, write, mask, cos, sin,
+            quant=self.quant)
+        return lm_head_logits(cfg, self.params, x[:, -1]), cache_k, cache_v
+
+    def _prefill_impl(self, ids, cache_k, cache_v):
+        return self._forward_tokens(ids, cache_k, cache_v, 0)
+
+    def _decode_impl(self, cache_k, cache_v, token, pos: int):
+        return self._forward_tokens(token, cache_k, cache_v, pos)
+
+    @torch.no_grad()
+    def generate(self, prompt_ids, max_new_tokens: int = 32,
+                 temperature: float = 0.0, seed: int = 0):
+        """prompt_ids ``[b, s0]`` int -> numpy int32 ``[b, s0 +
+        max_new_tokens]``: the prompt, then each step's token, greedy at
+        ``temperature`` 0, else drawn from ``logits / temperature`` with
+        the key split off ``jax.random.key(seed)`` for that step, as the
+        reference draws it.  The last token's logits are never read, so
+        its decode step is not run."""
+        from ..utils import threefry
+
+        prompt_ids = np.asarray(prompt_ids)
+        b, s0 = prompt_ids.shape
+        if s0 + max_new_tokens > self.max_seq:
+            raise ValueError(f"prompt length {s0} + max_new_tokens "
+                             f"{max_new_tokens} exceeds max_seq "
+                             f"{self.max_seq}")
+        cache_k, cache_v = self.init_cache(b)
+        ids = torch.as_tensor(prompt_ids.astype(np.int64), device=self.device)
+        logits, cache_k, cache_v = self._prefill_impl(ids, cache_k, cache_v)
+        key = threefry.prng_key(seed, self.device)
+        out = [ids]
+        for i in range(max_new_tokens):
+            if temperature > 0:
+                key, sub = threefry.split(key)
+                nxt = threefry.categorical(sub, logits / temperature)
+            else:
+                nxt = logits.argmax(dim=-1)
+            out.append(nxt[:, None])
+            if i + 1 < max_new_tokens:
+                logits, cache_k, cache_v = self._decode_impl(
+                    cache_k, cache_v, nxt[:, None], s0 + i)
+        return torch.cat(out, dim=1).to(torch.int32).cpu().numpy()
+
+
 def __getattr__(name):
-    # the fleet router pulls in the whole serving stack (serving.py,
-    # fleet.py): loaded at its first use
+    # the serving engine and the fleet router pull in the whole serving
+    # stack (serving.py, fleet.py): loaded at their first use
+    if name in ("ContinuousBatchingEngine", "Request"):
+        from . import serving
+
+        return getattr(serving, name)
     if name == "FleetRouter":
         from .fleet import FleetRouter
 

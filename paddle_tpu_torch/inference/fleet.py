@@ -59,10 +59,11 @@ quantizes its own copy at construction, as the reference's does.
 What the router does not do: move live KV bytes between replicas
 (failover replays the journal; the shared tier moves finished,
 content-addressed pages), rebalance running work, or distrust its own
-clock (one process).  The reference's ``RecordEvent`` spans around
-rejection, failover and hedging are not ported (``profiler.py`` keeps the
-host trace buffer only); the router's flow links and health markers go
-into that buffer through the per-replica tracers.
+clock (one process).  Rejection, failover and hedging each run inside a
+``RecordEvent`` span (``fleet/rejected``, ``fleet/failover``,
+``fleet/hedge``), as the reference's do; the router's flow links and
+health markers go into the same host buffer through the per-replica
+tracers.
 
 Audited invariant I9 (``PADDLE_TPU_ENGINE_AUDIT=1``,
 ``analysis/engine_audit.audit_fleet``, after every fleet step): every
@@ -79,6 +80,7 @@ import time
 
 import numpy as np
 
+from ..profiler import RecordEvent
 from ..analysis.engine_audit import (EngineAuditError, audit_enabled,
                                      audit_fleet)
 from ..utils.envflags import env_bool
@@ -112,8 +114,10 @@ class FleetRouter:
 
     ``engine_kw`` passes through to every engine (``device`` included:
     the replicas run on the card unless the caller names the CPU, and on
-    a machine with no card they raise as the engine does).  ``params`` is
-    shared by reference.
+    a machine with no card they raise as the engine does; ``paged``
+    included: replicas are dense unless it is True, as the engine's
+    default, and a dense replica has no prefix cache, so routing falls to
+    health, load and index).  ``params`` is shared by reference.
 
     ``stall_steps``: fleet steps without progress (while holding live
     work) before a replica counts as stalled and its requests hedge onto
@@ -309,15 +313,16 @@ class FleetRouter:
         return best, match[best]
 
     def _reject(self, req: Request, msg: str) -> None:
-        req.status = "REJECTED"
-        req.finished = True
-        req.error = msg
-        self.stats["fleet_rejected"] += 1
-        if self.slo is not None:
-            self.slo.finish(req.rid, "REJECTED", time.perf_counter())
-        if self._flight is not None:
-            self._flight.record("terminal", rid=req.rid, status="REJECTED",
-                                error=msg)
+        with RecordEvent("fleet/rejected"):
+            req.status = "REJECTED"
+            req.finished = True
+            req.error = msg
+            self.stats["fleet_rejected"] += 1
+            if self.slo is not None:
+                self.slo.finish(req.rid, "REJECTED", time.perf_counter())
+            if self._flight is not None:
+                self._flight.record("terminal", rid=req.rid,
+                                    status="REJECTED", error=msg)
 
     @staticmethod
     def _copy_req(req: Request) -> Request:
@@ -551,53 +556,54 @@ class FleetRouter:
         replay (its twin carries the stream and inherits ownership); a rid
         hedged ONTO the dead replica loses the hedge.  With no survivor the
         affected requests end FAILED (the fleet is lost)."""
-        dead_eng = self.replicas[r]   # for the flight-recorder dump
-        if self._async_host:
-            # the death boundary consumes the journal: pull it while the
-            # engine is still here
-            self._journal_pull(r)
-        self._health_to(r, "DEAD", reason)
-        self.replicas[r] = None
-        self.stats["failovers"] += 1
-        for rid, h in list(self._hedge.items()):
-            if h == r:                  # the hedge twin died: drop it
-                del self._hedge[rid]
+        with RecordEvent("fleet/failover"):
+            dead_eng = self.replicas[r]   # for the flight-recorder dump
+            if self._async_host:
+                # the death boundary consumes the journal: pull it while the
+                # engine is still here
+                self._journal_pull(r)
+            self._health_to(r, "DEAD", reason)
+            self.replicas[r] = None
+            self.stats["failovers"] += 1
+            for rid, h in list(self._hedge.items()):
+                if h == r:                  # the hedge twin died: drop it
+                    del self._hedge[rid]
+                    self._copies.get(rid, {}).pop(r, None)
+            for rid in [rid for rid, o in list(self._owner.items()) if o == r]:
                 self._copies.get(rid, {}).pop(r, None)
-        for rid in [rid for rid, o in list(self._owner.items()) if o == r]:
-            self._copies.get(rid, {}).pop(r, None)
-            h = self._hedge.pop(rid, None)
-            if h is not None:
-                # first-writer-wins resolves by default: the survivor is
-                # the only writer left
-                self._owner[rid] = h
-                continue
-            entry = self._journal_entry(r, rid)
-            target = self._replay(rid, entry, exclude={r}, source=r)
-            if target is None:
-                f = self._reqs.pop(rid)
-                self._owner.pop(rid, None)
-                self._copies.pop(rid, None)
-                f.status = "FAILED"
-                f.finished = True
-                f.error = (f"replica {r} died ({reason}) with no "
-                           f"surviving replica to replay onto")
-                if self.slo is not None:
-                    self.slo.finish(rid, "FAILED", time.perf_counter())
-                continue
-            self._owner[rid] = target
-        # a death dumps the flight recorder: the router's recent events,
-        # the dead replica's own ring and a fleet metrics snapshot
-        if self._flight is not None:
-            self._flight.dump(
-                f"replica {r} DEAD: {reason}",
-                extra={"replica": r,
-                       "engine_events": (
-                           dead_eng._flight.events()
-                           if dead_eng is not None
-                           and dead_eng._flight is not None else None)})
-        # every live entry is replayed: keeping the dead replica's journal
-        # would hold its requests' token lists for the router's lifetime
-        self._journal[r] = None
+                h = self._hedge.pop(rid, None)
+                if h is not None:
+                    # first-writer-wins resolves by default: the survivor is
+                    # the only writer left
+                    self._owner[rid] = h
+                    continue
+                entry = self._journal_entry(r, rid)
+                target = self._replay(rid, entry, exclude={r}, source=r)
+                if target is None:
+                    f = self._reqs.pop(rid)
+                    self._owner.pop(rid, None)
+                    self._copies.pop(rid, None)
+                    f.status = "FAILED"
+                    f.finished = True
+                    f.error = (f"replica {r} died ({reason}) with no "
+                               f"surviving replica to replay onto")
+                    if self.slo is not None:
+                        self.slo.finish(rid, "FAILED", time.perf_counter())
+                    continue
+                self._owner[rid] = target
+            # a death dumps the flight recorder: the router's recent events,
+            # the dead replica's own ring and a fleet metrics snapshot
+            if self._flight is not None:
+                self._flight.dump(
+                    f"replica {r} DEAD: {reason}",
+                    extra={"replica": r,
+                           "engine_events": (
+                               dead_eng._flight.events()
+                               if dead_eng is not None
+                               and dead_eng._flight is not None else None)})
+            # every live entry is replayed: keeping the dead replica's journal
+            # would hold its requests' token lists for the router's lifetime
+            self._journal[r] = None
 
     def _detect_stalls(self) -> None:
         """Heartbeat-gap stall detection: a replica holding live work that
@@ -628,13 +634,14 @@ class FleetRouter:
             for rid in [rid for rid, o in self._owner.items() if o == r]:
                 if rid in self._hedge:
                     continue               # already hedge-pending
-                entry = self._journal_entry(r, rid)
-                target = self._replay(rid, entry, exclude={r}, source=r,
-                                      link="hedge")
-                if target is None:
-                    continue               # nobody to hedge onto: wait
-                self._hedge[rid] = target
-                self.stats["hedges"] += 1
+                with RecordEvent("fleet/hedge"):
+                    entry = self._journal_entry(r, rid)
+                    target = self._replay(rid, entry, exclude={r},
+                                          source=r, link="hedge")
+                    if target is None:
+                        continue           # nobody to hedge onto: wait
+                    self._hedge[rid] = target
+                    self.stats["hedges"] += 1
 
     def _resolve_hedge(self, rid: int, winner: int) -> None:
         """First-writer-wins: ``winner`` extended the stream first and

@@ -1,72 +1,88 @@
-"""Continuous-batching serving engine, paged subset (counterpart of
+"""Continuous-batching serving engine (counterpart of
 ``paddle_tpu/inference/serving.py``).
 
-Ported: ``Request``, ``_bucket`` and the ``ContinuousBatchingEngine`` path
-``serve`` -> ``add_request`` -> ``step`` -> ``_admit`` ->
-``_prefill_impl_paged`` -> ``_decode_one`` -> ``_sample_tokens``, with
-its block allocator (``_alloc_to``, ``_release``), preemption
-(``_preempt``, ``_ensure_growth``) and retirement; fp or quantized KV
-pools (``kv_quant``); the three decode arms of ``_decode_one``: the
-fused step (one kernel a layer, fp or quantized pools), and the unfused
-arm the ``fused_decode_step`` / ``fused_quant_append`` switches rebuild the
-engine on (an append, then the paged decode attention); chunked prefill
-(``enable_chunked_prefill``: prompts stream in ``prefill_chunk``-row
-chunks through one mixed prefill/decode step a round, ``_mixed_step``)
-and n-gram speculative decoding (``enable_speculation``: prompt-lookup
-drafts checked by one multi-token verify step, ``_spec_step``), each
-token-identical to the bucketed, speculation-off engine; the automatic
-prefix cache (``enable_prefix_caching``, ``prefix_cache.py``: shared
-prompt blocks mapped read-only, a copy-on-write page for a block-aligned
-full hit, the uncached tail prefilled from ``start``, LRU eviction under
-pool pressure, blocks donated on retirement and preemption, each streamed
-chunk's full blocks registered as it lands); and fault tolerance
-(``PADDLE_TPU_GRACEFUL``, on by default): the request status lifecycle,
-the fault plan of ``faults.py``, the NaN/inf logit guard, retry of an
-injected dispatch fault, the overload ladder (evict cache leaves, suspend
-speculation, shrink the mixed step's prefill rows, preempt the youngest,
-fail only the unsatisfiable request), chunk-by-chunk page mapping of a
-streaming prompt, deadlines, ``cancel``, ``max_queue`` backpressure and
-``snapshot`` / ``restore``; weight-only quantized matmul weights
-(``quant``: ``quantize_layer_params`` at construction, each matmul reading
-its weight dequantized, the fused MLP half off as in the reference);
-observability (``observability.py``): ``stats`` as a view over a metrics
-registry, request spans, SLO accounting, the step, host-gap, restore and
-journal histograms and the flight recorder; the host KV tier
-(``enable_host_kv_tier``, ``kv_tier.py``: prefix-cache eviction demotes
-zero-ref pages to a byte-budgeted host store instead of freeing them, and
-admission's prefix match extends through it, restoring pages by a host to
-device copy at admission or at the chunked cursor's pace, with the
-``tier_drop`` fault's seam); and the async host runtime
-(``PADDLE_TPU_ASYNC_HOST``, on by default): the incremental journal
-(``journal()``, equal to ``snapshot()``) flushed between a step's last
-launch and its one host fetch; the opt-in invariant auditor
-(``PADDLE_TPU_ENGINE_AUDIT=1``, ``analysis/engine_audit.py``) after
-admission and after every step, with the KV-write high-water mark
+Two KV-cache modes, as in the reference.  The dense slot cache
+(``paged=False``, the reference's default): one ``max_seq`` lane of K/V a
+slot, a request seated whenever a lane is free and prefilled into it, each
+decode step writing every lane at its own position and attending it under
+the causal mask (``transformer_apply``'s dense attend; its RMSNorms run the
+``rms_norm`` kernel); no allocator, so no preemption; with its fault
+tolerance, deadlines, ``cancel``, ``max_queue``, ``snapshot`` / ``restore``
+and journal as below.  The paged cache (``paged=True``): ``Request``,
+``_bucket`` and the path ``serve`` -> ``add_request`` -> ``step`` ->
+``_admit`` -> ``_prefill_impl_paged`` -> ``_decode_one`` ->
+``_sample_tokens``, with its block allocator (``_alloc_to``,
+``_release``), preemption (``_preempt``, ``_ensure_growth``) and
+retirement; fp or quantized KV pools (``kv_quant``); the three decode arms
+of ``_decode_one``: the fused step (one kernel a layer, fp or quantized
+pools), and the unfused arm the ``fused_decode_step`` /
+``fused_quant_append`` switches rebuild the engine on (an append, then the
+paged decode attention); chunked prefill (``enable_chunked_prefill``:
+prompts stream in ``prefill_chunk``-row chunks through one mixed
+prefill/decode step a round, ``_mixed_step``) and n-gram speculative
+decoding (``enable_speculation``: prompt-lookup drafts checked by one
+multi-token verify step, ``_spec_step``), each token-identical to the
+bucketed, speculation-off engine; the automatic prefix cache
+(``enable_prefix_caching``, ``prefix_cache.py``: shared prompt blocks
+mapped read-only, a copy-on-write page for a block-aligned full hit, the
+uncached tail prefilled from ``start``, LRU eviction under pool pressure,
+blocks donated on retirement and preemption, each streamed chunk's full
+blocks registered as it lands); the host KV tier (``enable_host_kv_tier``,
+``kv_tier.py``: prefix-cache eviction demotes zero-ref pages to a
+byte-budgeted host store instead of freeing them, and admission's prefix
+match extends through it, restoring pages by a host to device copy at
+admission or at the chunked cursor's pace, with the ``tier_drop`` fault's
+seam); and tensor parallelism (``tensor_parallel=N``): N ranks, one
+process each on ``torch.distributed``, each run this whole engine over the
+same request stream (the scheduler, the allocator, the prefix cache and
+the sampler replicated) and hold only their shard: the layer weights split
+Megatron-style (``models/llama.shard_serving_params``) and KV pools of
+``nkv / N`` kv heads over the whole page axis, so the host allocator's
+accounting is exact on every rank and the kernels' page walk never crosses
+a rank; each layer pays the reference's two all-reduces (attention output,
+MLP output), after which every rank holds the same residual stream and
+scores the same full-vocabulary logits, so the replicated samplers agree;
+a decision that reads a rank's own clock (a deadline) is agreed by one
+small all-reduce, and the caller adds and cancels requests on every rank
+between the same two steps.  Each of these options raises ``ValueError``
+on the dense engine, with the reference's message.
+
+Both modes: fault tolerance (``PADDLE_TPU_GRACEFUL``, on by default): the
+request status lifecycle, the fault plan of ``faults.py``, the NaN/inf
+logit guard, retry of an injected dispatch fault, the overload ladder
+(paged: evict cache leaves, suspend speculation, shrink the mixed step's
+prefill rows, preempt the youngest, fail only the unsatisfiable request),
+chunk-by-chunk page mapping of a streaming prompt, deadlines, ``cancel``,
+``max_queue`` backpressure and ``snapshot`` / ``restore``; weight-only
+quantized matmul weights (``quant``: ``quantize_layer_params`` at
+construction, each matmul reading its weight dequantized, the fused MLP
+half off as in the reference); observability (``observability.py``):
+``stats`` as a view over a metrics registry, request spans, SLO
+accounting, the step, host-gap, restore and journal histograms and the
+flight recorder, and the reference's ``RecordEvent`` spans
+(``profiler.py``) around its transitions (``serving/<status>``, the
+ladder's rungs, ``serving/snapshot`` / ``restore``, the prefix cache's and
+the tier's moves); the async host runtime (``PADDLE_TPU_ASYNC_HOST``, on
+by default): the incremental journal (``journal()``, equal to
+``snapshot()``) flushed between a step's last launch and its one host
+fetch; the opt-in invariant auditor (``PADDLE_TPU_ENGINE_AUDIT=1``,
+``analysis/engine_audit.py``; a dense engine gets I6's bounds and I8)
+after admission and after every step, with the KV-write high-water mark
 ``_written`` it checks.  The engine is also a replica of the fleet router
 (``fleet.py``), which reads its ``_reqs``, ``_queue``, ``_pcache``,
-``journal()``, ``adopt()`` and ``cancel()``.  Tensor parallelism
-(``tensor_parallel=N``): N ranks, one process each on ``torch.distributed``,
-each run this whole engine over the same request stream (the scheduler,
-the allocator, the prefix cache and the sampler replicated) and hold only
-their shard: the layer weights split Megatron-style
-(``models/llama.shard_serving_params``) and KV pools of ``nkv / N`` kv
-heads over the whole page axis, so the host allocator's accounting is
-exact on every rank and the kernels' page walk never crosses a rank; each
-layer pays the reference's two all-reduces (attention output, MLP output),
-after which every rank holds the same residual stream and scores the same
-full-vocabulary logits, so the replicated samplers agree; a decision
-that reads a rank's own clock (a deadline) is agreed by one small
-all-reduce, and the caller adds and cancels requests on every rank between
-the same two steps.  Not ported yet (ROADMAP.md): the dense-cache mode.
+``journal()``, ``adopt()`` and ``cancel()``.
 
 How the JAX engine's mechanisms map to PyTorch:
 
 - compiled programs become eager calls: the decode step is a Python loop
   over layers whose per-layer work on the fused arm is two CUDA kernel
   launches (the fused decode step and the fused MLP half) plus the
-  rms_norm kernel and plain matmuls;
-- the donated KV pools become preallocated pool tensors
-  ``[L, num_blocks + 1, nkv, block_size, head_dim]`` updated IN PLACE
+  rms_norm kernel and plain matmuls; on the dense engine, the reference's
+  plain composition (rope, the lane write, the masked attend, the MLP)
+  with the rms_norm kernel;
+- the donated KV pools become preallocated tensors updated IN PLACE: the
+  dense lanes ``[L, max_batch, nkv, max_seq, head_dim]`` in ``cfg.dtype``,
+  or the paged pools ``[L, num_blocks + 1, nkv, block_size, head_dim]``
   (quantized: int8 codes ``[..., head_dim]`` or packed int4
   ``[..., head_dim // 2]`` with f32 scales ``[L, num_blocks + 1, nkv]``, a
   ``{"q", "scale"}`` pair per pool as the reference's pytree).  The last
@@ -100,8 +116,10 @@ How the JAX engine's mechanisms map to PyTorch:
 
 from __future__ import annotations
 
+import contextlib
 import math
 import time
+import warnings
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -109,6 +127,7 @@ import torch
 import torch.distributed as dist
 
 from .. import resolve_device
+from ..profiler import RecordEvent
 from ..analysis.engine_audit import (EngineAuditError, audit_enabled,
                                      audit_engine)
 from ..models import llama as _llama
@@ -118,7 +137,8 @@ from ..ops.kernels import paged_attention as _pa
 from ..ops.kernels import rope as rope_mod
 from ..ops.kernels import sampling
 from ..utils.envflags import env_bool, env_tp, tp_problems
-from . import lm_head_logits, quantize_layer_params, transformer_apply
+from . import (check_params_device, lm_head_logits, quantize_layer_params,
+               transformer_apply)
 from .faults import FaultInjected, FaultPlan
 from .kv_tier import HostKVTier
 from .observability import (ENGINE_STAT_SCHEMA, FlightRecorder,
@@ -238,11 +258,16 @@ class _TPShardView:
         return getattr(self._cfg, name)
 
 
-def _resolve_tp(cfg, tensor_parallel: int, group) -> int:
+_TP_NEEDS_PAGED = ("tensor_parallel > 1 requires paged=True (TP shards the "
+                   "paged KV pool along kv_heads)")
+
+
+def _resolve_tp(cfg, tensor_parallel: int, group, paged: bool) -> int:
     """The engine's tensor-parallel degree, as the reference resolves it:
     ``PADDLE_TPU_TP`` replaces the constructor's value (an invalid one
-    warns and gives 1, ``env_tp``); a constructor value that
-    ``tp_problems`` refuses (a degree above 1 must divide the kv heads and
+    warns and gives 1, ``env_tp``, and so does any degree above 1 on the
+    dense engine); a constructor value that ``tp_problems`` refuses (a
+    degree above 1 needs the paged engine, must divide the kv heads and
     ``intermediate_size`` and equal the size of an initialized process
     group: ``group``, or the default one) raises ``ValueError`` naming
     every problem."""
@@ -251,9 +276,16 @@ def _resolve_tp(cfg, tensor_parallel: int, group) -> int:
     ranks = dist.get_world_size(group) if ready else None
     tp_env = env_tp(nkv, ranks, inter)
     if tp_env is not None:
+        if tp_env > 1 and not paged:
+            # the operator's override degrades, never crashes the serve
+            warnings.warn(f"PADDLE_TPU_TP={tp_env}: {_TP_NEEDS_PAGED}; "
+                          f"falling back to tensor_parallel=1")
+            return 1
         return tp_env           # the operator's override replaces the value
     tp = int(tensor_parallel)
     problems = tp_problems(tp, nkv, inter, ranks)
+    if tp > 1 and not paged:
+        problems.insert(0, _TP_NEEDS_PAGED)
     if problems:
         raise ValueError(f"tensor_parallel={tp}: " + "; ".join(problems))
     return tp
@@ -267,14 +299,22 @@ def _tree_to(tree, device):
 
 
 class ContinuousBatchingEngine:
-    """Slot-pool continuous batching over a Llama-family model with a paged
-    (block-table) KV cache.
+    """Slot-pool continuous batching over a Llama-family model.
 
     ``cfg``/``params`` follow ``paddle_tpu_torch.models.llama`` (the
     reference's layout; ``utils/convert.py`` bridges a JAX parameter tree).
     ``device`` defaults to the CUDA card and must hold ``params``.
-    ``kv_quant``: None | 'int8' | 'int4' -- quantized KV pools (the
-    reference's ``paged=True`` mode, implied here): pages hold int8 codes
+    ``paged`` (default False, as in the reference): False gives the dense
+    slot cache, one ``max_seq`` lane a slot; True the block-table cache
+    (``block_size`` positions a page, ``num_blocks`` pages, by default half
+    the dense cache's capacity, at least one full request), which
+    ``kv_quant``, ``enable_prefix_caching``, ``enable_host_kv_tier``,
+    ``enable_speculation``, ``enable_chunked_prefill`` and
+    ``tensor_parallel > 1`` need (the dense engine raises ``ValueError``
+    for each, with the reference's message).
+    ``block_size`` / ``num_blocks`` are read by the paged engine only.
+    ``kv_quant``: None | 'int8' | 'int4' -- quantized KV pools (paged
+    only): pages hold int8 codes
     (int4 packs two a byte) with per-(page, kv head) f32 scales; every
     attention read dequantizes, every append requantizes its page.
     ``enable_speculation``: prompt-lookup n-gram drafting (``spec_ngram``
@@ -338,21 +378,38 @@ class ContinuousBatchingEngine:
     """
 
     def __init__(self, cfg, params, max_batch: int = 8, max_seq: int = 512,
-                 chunk: int = 1, block_size: int = 64,
-                 num_blocks: int | None = None, kv_quant: str | None = None,
+                 chunk: int = 1, quant: str | None = None, paged: bool = False,
+                 kv_quant: str | None = None, block_size: int = 64,
+                 num_blocks: int | None = None,
                  enable_prefix_caching: bool = False,
                  enable_speculation: bool = False, num_draft_tokens: int = 4,
                  spec_ngram: int = 3, enable_chunked_prefill: bool = False,
                  prefill_chunk: int = 128, token_budget: int | None = None,
-                 max_queue: int | None = None, quant: str | None = None,
-                 metrics=None, metrics_labels: dict | None = None,
+                 max_queue: int | None = None, tensor_parallel: int = 1,
                  enable_host_kv_tier: bool = False, host_tier=None,
-                 tensor_parallel: int = 1, process_group=None, device=None):
+                 metrics=None, metrics_labels: dict | None = None,
+                 process_group=None, device=None):
         self.device = resolve_device(device)
-        # tensor parallelism, resolved FIRST: the pools are built sharded.
-        # tp == 1 is the single-card engine exactly (no group, no
+        self.paged = bool(paged)
+        L = cfg.num_hidden_layers
+        hd = cfg.head_dim
+        # quantized KV pools, validated before any geometry, as the
+        # reference validates them
+        if kv_quant is not None:
+            if kv_quant not in ("int8", "int4"):
+                raise ValueError(f"kv_quant must be None, 'int8' or "
+                                 f"'int4', got {kv_quant!r}")
+            if not paged:
+                raise ValueError("kv_quant requires paged=True (per-page "
+                                 "scales live on block-table pages)")
+            if kv_quant == "int4" and hd % 2:
+                raise ValueError(f"kv_quant='int4' needs an even head_dim "
+                                 f"(got {hd}): two nibbles pack per byte")
+        self.kv_quant = kv_quant
+        # tensor parallelism, resolved before the pools: they are built
+        # sharded.  tp == 1 is the single-card engine exactly (no group, no
         # collective): every TP behaviour hangs off self.tp > 1
-        self.tp = _resolve_tp(cfg, tensor_parallel, process_group)
+        self.tp = _resolve_tp(cfg, tensor_parallel, process_group, paged)
         self._tp_group = None
         self._tp_rank = 0
         self._body_cfg = cfg        # the config the step bodies read
@@ -363,21 +420,167 @@ class ContinuousBatchingEngine:
             self._body_cfg = _TPShardView(cfg, self.tp)
             params = self._rank_params(cfg, params, quant)
         else:
-            for leaf in [params["embed"], *params["layers"].values()]:
-                if leaf.device != self.device:
-                    raise ValueError(f"params live on {leaf.device}, engine "
-                                     f"device is {self.device}")
+            check_params_device(params, self.device)
             if quant is not None:
                 params = quantize_layer_params(params, quant)
         self.quant = quant
-        if max_seq % block_size:
-            raise ValueError(f"max_seq {max_seq} is not a multiple of "
-                             f"block_size {block_size}")
         self.cfg = cfg
         self.params = params
         self.max_batch = max_batch
         self.max_seq = max_seq
         self.chunk = int(chunk)
+        # a rank's pools hold its kv heads over the WHOLE page axis
+        nkv = self._body_cfg.num_key_value_heads
+        # the fused decode step and the fused MLP half ride the paged
+        # engine only, as in the reference
+        self._fused = self._fused_mlp = False
+        if not paged:
+            # the dense slot cache: one max_seq lane a slot, no allocator;
+            # the block geometry is the paged engine's only
+            self.block_size = self.max_blocks = self.num_blocks = None
+            shape = (L, max_batch, nkv, max_seq, hd)
+            self.cache_k = torch.zeros(shape, dtype=cfg.dtype,
+                                       device=self.device)
+            self.cache_v = torch.zeros(shape, dtype=cfg.dtype,
+                                       device=self.device)
+        else:
+            self._init_paged(cfg, max_batch, max_seq, block_size, num_blocks,
+                             quant)
+        cos, sin = rope_mod.rope_cos_sin(max_seq, hd, base=cfg.rope_theta,
+                                         dtype=cfg.dtype, device=self.device)
+        self._cos, self._sin = cos, sin             # [1, max_seq, hd]
+        # slot state (host side)
+        self._slot_req: list[Request | None] = [None] * max_batch
+        self._pos = np.zeros(max_batch, np.int32)      # next write position
+        # KV-write high-water mark a slot: positions [0, _written) hold K/V
+        # the device wrote (or the cache mapped).  Equal to pos but after a
+        # verify step with rejections, whose rolled-back drafts' writes stay
+        # above pos until overwritten; the auditor's I6 checks pos <=
+        # written <= the mapped pages' coverage
+        self._written = np.zeros(max_batch, np.int32)
+        self._last_tok = np.zeros(max_batch, np.int32)
+        self._temp = np.zeros(max_batch, np.float32)
+        self._topp = np.ones(max_batch, np.float32)
+        self._seed = np.zeros(max_batch, np.int32)
+        self._queue: list[Request] = []
+        # prefix cache, speculation and chunked prefill: every behaviour of
+        # each hangs off self._pcache / self._spec / self._chunked, and the
+        # kill switch is read FIRST, so =0 turns the feature off whatever
+        # the arguments say
+        self._pcache = None
+        if enable_prefix_caching and env_bool("PADDLE_TPU_PREFIX_CACHE",
+                                              True):
+            if not paged:
+                raise ValueError("enable_prefix_caching requires paged=True "
+                                 "(the cache shares block-table pages)")
+            self._pcache = PrefixCache(block_size)
+        # the host KV tier behind the prefix cache: every behaviour hangs
+        # off self._tier, and the kill switch is read FIRST, so =0 leaves
+        # the pre-tier engine (eviction frees, admission stops at the
+        # device match)
+        self._tier = None
+        if ((enable_host_kv_tier or host_tier is not None)
+                and env_bool("PADDLE_TPU_HOST_KV_TIER", True)):
+            if not paged or not enable_prefix_caching:
+                raise ValueError(
+                    "enable_host_kv_tier requires paged=True and "
+                    "enable_prefix_caching=True (the tier is keyed by the "
+                    "prefix cache's chain hashes and holds its evicted "
+                    "pages)")
+            if self._pcache is not None:
+                # PADDLE_TPU_PREFIX_CACHE=0 turns the tier off too: with no
+                # content address there is nothing to demote or match
+                self._tier = (host_tier if host_tier is not None
+                              else HostKVTier())
+                # per-slot restore plans [(block, hash, parent), ...],
+                # consumed front first by the chunked cursor at the token
+                # budget's pace and dropped whole on preempt, cancel,
+                # terminal or a tier miss
+                self._tier_plan: list[list] = [[] for _ in range(max_batch)]
+        # fault tolerance: graceful is decided here; off, the steps run no
+        # guard, and faults raise out of step()
+        self._graceful = env_bool("PADDLE_TPU_GRACEFUL", True)
+        self._faults = FaultPlan.from_env()
+        self._step_no = 0              # engine step counter (fault-plan key)
+        self.max_queue = max_queue
+        # rid -> every live accepted request (cancel's lookup)
+        self._reqs: dict[int, Request] = {}
+        # per-slot poison bits of the nan_logits fault: a graceful step on
+        # which one is set turns it into a non-finite logits row on the
+        # device
+        self._poison = np.zeros(max_batch, bool)
+        self._kernel_err_streak = 0
+        # consecutive injected dispatch faults retried before re-raising
+        self._kernel_err_limit = 3
+        # consecutive steps in which admission seated nothing with nothing
+        # resident (ladder rung 5 at admission after this many)
+        self._admit_stalls = 0
+        self._spec = None
+        self._spec_qmax = 0            # the verify step's rows a slot, K+1
+        if enable_speculation and env_bool("PADDLE_TPU_SPECULATE", True):
+            if not paged:
+                raise ValueError(
+                    "enable_speculation requires paged=True (the multi-token "
+                    "verify step runs through the paged-attention kernel)")
+            self._spec = NGramDrafter(num_draft_tokens=num_draft_tokens,
+                                      max_ngram=spec_ngram)
+            self._spec_qmax = int(num_draft_tokens) + 1
+        self._chunked = False
+        if enable_chunked_prefill and env_bool("PADDLE_TPU_CHUNKED_PREFILL",
+                                               True):
+            if not paged:
+                raise ValueError(
+                    "enable_chunked_prefill requires paged=True (prefill "
+                    "chunks stream into block-table pages)")
+            if prefill_chunk < 1:
+                raise ValueError(
+                    f"prefill_chunk must be >= 1, got {prefill_chunk}")
+            self._chunked = True
+            self._prefill_chunk = int(prefill_chunk)
+            self._token_budget = (int(token_budget)
+                                  if token_budget is not None
+                                  else self._prefill_chunk + max_batch)
+            # per-slot prefill progress: the FULL id stream (prompt, or
+            # prompt + generated on a resume) while the slot streams in,
+            # and the cursor, the next position whose K/V is computed
+            self._prefill_ids: list[np.ndarray | None] = [None] * max_batch
+            self._prefilled = np.zeros(max_batch, np.int32)
+            # the last mixed step's (decode slots, prefill slots): the
+            # auditor's I7 checks the two stayed disjoint
+            self._last_pack: tuple[tuple[int, ...], tuple[int, ...]] = \
+                ((), ())
+        # wall seconds of the bucketed prefills (synchronized): the port's
+        # own figure, kept beside ``stats`` (whose keys are the schema's)
+        self.prefill_time_s = 0.0
+        self._setup_observability(metrics, metrics_labels)
+        # the opt-in invariant auditor (PADDLE_TPU_ENGINE_AUDIT=1): the
+        # allocator, block tables, prefix cache and tier checked against
+        # each other after admission and after every step, raising
+        # EngineAuditError on corruption (analysis/engine_audit.py); off,
+        # the step reads this one flag
+        self._audit_every_step = audit_enabled()
+        # the async host runtime: the journal mirrors what snapshot() would
+        # write for each live rid, rebuilt only for the rids marked dirty
+        # (admission, a token banked, a cursor advance, adopt, preempt).
+        # The marks are unconditional; the switch only decides whether the
+        # flush rides each step's launch window, so =0 leaves the serial
+        # loop as it was
+        self._async_host = env_bool("PADDLE_TPU_ASYNC_HOST", True)
+        self._jentries: dict[int, dict] = {}
+        self._jdirty: set[int] = set()
+        #: logits [B, V] of the last step run (inspection only): a decode
+        #: step's, a mixed step's emit rows, a verify step's row 0
+        self.last_logits: torch.Tensor | None = None
+
+    def _init_paged(self, cfg, max_batch, max_seq, block_size, num_blocks,
+                    quant):
+        """The paged engine's pools and host allocator.  The pools are
+        ``[L, num_blocks + 1, nkv, block_size, head_dim]`` (quantized:
+        codes and per-(page, kv head) scales); the last page is the spill
+        page, which the allocator never hands out."""
+        if max_seq % block_size:
+            raise ValueError(f"max_seq {max_seq} is not a multiple of "
+                             f"block_size {block_size}")
         self.block_size = block_size
         self.max_blocks = max_seq // block_size     # per-slot logical cap
         # default pool: half the worst-case footprint, floored at ONE full
@@ -389,16 +592,8 @@ class ContinuousBatchingEngine:
             raise ValueError(f"pool of {self.num_blocks} blocks cannot hold "
                              f"one full request ({self.max_blocks} blocks)")
         L = cfg.num_hidden_layers
-        # a rank's pools hold its kv heads over the WHOLE page axis
         nkv, hd = self._body_cfg.num_key_value_heads, cfg.head_dim
-        if kv_quant is not None:
-            if kv_quant not in ("int8", "int4"):
-                raise ValueError(f"kv_quant must be None, 'int8' or "
-                                 f"'int4', got {kv_quant!r}")
-            if kv_quant == "int4" and hd % 2:
-                raise ValueError(f"kv_quant='int4' needs an even head_dim "
-                                 f"(got {hd}): two nibbles pack per byte")
-        self.kv_quant = kv_quant
+        kv_quant = self.kv_quant
         # the decode arm, decided here as the reference decides it: the
         # fused step unless a switch rebuilds the engine on the unfused arm
         # (an append, then the paged decode attention, which still runs its
@@ -426,9 +621,6 @@ class ContinuousBatchingEngine:
                  "scale": torch.zeros(shape[:3], dtype=torch.float32,
                                       device=self.device)}
                 for _ in range(2))
-        cos, sin = rope_mod.rope_cos_sin(max_seq, hd, base=cfg.rope_theta,
-                                         dtype=cfg.dtype, device=self.device)
-        self._cos, self._sin = cos, sin             # [1, max_seq, hd]
         # host allocator state; sentinel num_blocks = unallocated (it
         # resolves to the spill page, whose reads are always masked)
         self._free: list[int] = list(range(self.num_blocks))
@@ -440,116 +632,6 @@ class ContinuousBatchingEngine:
                               np.int32)
         self._admit_seq = 0
         self._slot_age = np.zeros(max_batch, np.int64)
-        # slot state (host side)
-        self._slot_req: list[Request | None] = [None] * max_batch
-        self._pos = np.zeros(max_batch, np.int32)      # next write position
-        # KV-write high-water mark a slot: positions [0, _written) hold K/V
-        # the device wrote (or the cache mapped).  Equal to pos but after a
-        # verify step with rejections, whose rolled-back drafts' writes stay
-        # above pos until overwritten; the auditor's I6 checks pos <=
-        # written <= the mapped pages' coverage
-        self._written = np.zeros(max_batch, np.int32)
-        self._last_tok = np.zeros(max_batch, np.int32)
-        self._temp = np.zeros(max_batch, np.float32)
-        self._topp = np.ones(max_batch, np.float32)
-        self._seed = np.zeros(max_batch, np.int32)
-        self._queue: list[Request] = []
-        # prefix cache, speculation and chunked prefill: every behaviour of
-        # each hangs off self._pcache / self._spec / self._chunked, and the
-        # kill switch is read FIRST, so =0 turns the feature off whatever
-        # the arguments say
-        self._pcache = None
-        if enable_prefix_caching and env_bool("PADDLE_TPU_PREFIX_CACHE",
-                                              True):
-            self._pcache = PrefixCache(block_size)
-        # fault tolerance: graceful is decided here; off, the steps run no
-        # guard, and faults raise out of step()
-        self._graceful = env_bool("PADDLE_TPU_GRACEFUL", True)
-        self._faults = FaultPlan.from_env()
-        self._step_no = 0              # engine step counter (fault-plan key)
-        self.max_queue = max_queue
-        # rid -> every live accepted request (cancel's lookup)
-        self._reqs: dict[int, Request] = {}
-        # per-slot poison bits of the nan_logits fault: a graceful step on
-        # which one is set turns it into a non-finite logits row on the
-        # device
-        self._poison = np.zeros(max_batch, bool)
-        self._kernel_err_streak = 0
-        # consecutive injected dispatch faults retried before re-raising
-        self._kernel_err_limit = 3
-        # consecutive steps in which admission seated nothing with nothing
-        # resident (ladder rung 5 at admission after this many)
-        self._admit_stalls = 0
-        self._spec = None
-        self._spec_qmax = 0            # the verify step's rows a slot, K+1
-        if enable_speculation and env_bool("PADDLE_TPU_SPECULATE", True):
-            self._spec = NGramDrafter(num_draft_tokens=num_draft_tokens,
-                                      max_ngram=spec_ngram)
-            self._spec_qmax = int(num_draft_tokens) + 1
-        self._chunked = False
-        if enable_chunked_prefill and env_bool("PADDLE_TPU_CHUNKED_PREFILL",
-                                               True):
-            if prefill_chunk < 1:
-                raise ValueError(
-                    f"prefill_chunk must be >= 1, got {prefill_chunk}")
-            self._chunked = True
-            self._prefill_chunk = int(prefill_chunk)
-            self._token_budget = (int(token_budget)
-                                  if token_budget is not None
-                                  else self._prefill_chunk + max_batch)
-            # per-slot prefill progress: the FULL id stream (prompt, or
-            # prompt + generated on a resume) while the slot streams in,
-            # and the cursor, the next position whose K/V is computed
-            self._prefill_ids: list[np.ndarray | None] = [None] * max_batch
-            self._prefilled = np.zeros(max_batch, np.int32)
-            # the last mixed step's (decode slots, prefill slots): the
-            # auditor's I7 checks the two stayed disjoint
-            self._last_pack: tuple[tuple[int, ...], tuple[int, ...]] = \
-                ((), ())
-        # the host KV tier behind the prefix cache: every behaviour hangs
-        # off self._tier, and the kill switch is read FIRST, so =0 leaves
-        # the pre-tier engine (eviction frees, admission stops at the
-        # device match)
-        self._tier = None
-        if ((enable_host_kv_tier or host_tier is not None)
-                and env_bool("PADDLE_TPU_HOST_KV_TIER", True)):
-            if not enable_prefix_caching:
-                raise ValueError(
-                    "enable_host_kv_tier requires enable_prefix_caching="
-                    "True (the tier is keyed by the prefix cache's chain "
-                    "hashes and holds its evicted pages)")
-            if self._pcache is not None:
-                # PADDLE_TPU_PREFIX_CACHE=0 turns the tier off too: with no
-                # content address there is nothing to demote or match
-                self._tier = (host_tier if host_tier is not None
-                              else HostKVTier())
-                # per-slot restore plans [(block, hash, parent), ...],
-                # consumed front first by the chunked cursor at the token
-                # budget's pace and dropped whole on preempt, cancel,
-                # terminal or a tier miss
-                self._tier_plan: list[list] = [[] for _ in range(max_batch)]
-        # wall seconds of the bucketed prefills (synchronized): the port's
-        # own figure, kept beside ``stats`` (whose keys are the schema's)
-        self.prefill_time_s = 0.0
-        self._setup_observability(metrics, metrics_labels)
-        # the opt-in invariant auditor (PADDLE_TPU_ENGINE_AUDIT=1): the
-        # allocator, block tables, prefix cache and tier checked against
-        # each other after admission and after every step, raising
-        # EngineAuditError on corruption (analysis/engine_audit.py); off,
-        # the step reads this one flag
-        self._audit_every_step = audit_enabled()
-        # the async host runtime: the journal mirrors what snapshot() would
-        # write for each live rid, rebuilt only for the rids marked dirty
-        # (admission, a token banked, a cursor advance, adopt, preempt).
-        # The marks are unconditional; the switch only decides whether the
-        # flush rides each step's launch window, so =0 leaves the serial
-        # loop as it was
-        self._async_host = env_bool("PADDLE_TPU_ASYNC_HOST", True)
-        self._jentries: dict[int, dict] = {}
-        self._jdirty: set[int] = set()
-        #: logits [B, V] of the last step run (inspection only): a decode
-        #: step's, a mixed step's emit rows, a verify step's row 0
-        self.last_logits: torch.Tensor | None = None
 
     def _rank_params(self, cfg, params, quant):
         """This rank's slice of the full tree ``params`` on the engine's
@@ -656,14 +738,17 @@ class ContinuousBatchingEngine:
 
     def _decode_one(self, tokens, pos, active, table):
         """One batched decode step: tokens/pos [B] int64, active [B] bool,
-        table [B, max_blocks] int32 (all on the device) -> logits [B, V].
-        On the fused arm, rope + the page append (requantizing for
-        quantized pools) + split-K attention run as ONE kernel launch per
-        layer and the post-attention half as another.  The unfused arm
-        ropes, appends (a row scatter, or the requantized page append) and
-        attends through ``paged_decode_attention``.  Dropped writes land on
-        the spill page or nowhere; inactive lanes compute garbage that is
-        never read."""
+        table [B, max_blocks] int32 or None on the dense engine (all on the
+        device) -> logits [B, V].  Dense: each lane writes its K/V at its
+        own position of its slot lane (inactive lanes and positions past
+        max_seq write their old value back) and attends the lane under the
+        causal mask, ``transformer_apply``'s dense attend.  Paged, on the
+        fused arm, rope + the page append (requantizing for quantized
+        pools) + split-K attention run as ONE kernel launch per layer and
+        the post-attention half as another; the unfused arm ropes, appends
+        (a row scatter, or the requantized page append) and attends through
+        ``paged_decode_attention``.  Dropped writes land on the spill page
+        or nowhere; inactive lanes compute garbage that is never read."""
         cfg = self._body_cfg    # TP: the rank's head counts
         B, S, bs = self.max_batch, self.max_seq, self.block_size
         nh, hd = cfg.num_attention_heads, cfg.head_dim
@@ -673,6 +758,9 @@ class ContinuousBatchingEngine:
         safe_pos = torch.where(writeable, pos, torch.zeros_like(pos))
         cos = self._cos[0][safe_pos]                              # [B, hd]
         sin = self._sin[0][safe_pos]
+        if table is None:
+            return self._decode_dense(x, pos, active, writeable, safe_pos,
+                                      cos, sin)
         lane = torch.arange(B, device=self.device)
         blk = table[lane, safe_pos // bs].long()
         spill = self.num_blocks
@@ -739,6 +827,29 @@ class ContinuousBatchingEngine:
                                     fused_fn=fused_fn,
                                     mlp_fused_fn=mlp_fused_fn,
                                     quant=self.quant, tp_group=self._tp_group)
+        return lm_head_logits(cfg, self.params, x[:, -1])
+
+    def _decode_dense(self, x, pos, active, writeable, safe_pos, cos, sin):
+        """``_decode_one`` on the dense slot cache: the reference's dense
+        decode (no hand kernel on this arm but the RMSNorms')."""
+        cfg = self.cfg
+        lane = torch.arange(self.max_batch, device=self.device)
+        kv_pos = torch.arange(self.max_seq, device=self.device)
+        mask = ((kv_pos[None, None, None, None, :]
+                 <= pos[:, None, None, None, None])
+                & active[:, None, None, None, None])
+
+        def write(ck, k):
+            # ck [B, nkv, S, hd] a layer's lanes; k [B, 1, nkv, hd] roped:
+            # each lane at its own position, dropped lanes keep their value
+            old = ck[lane, :, safe_pos]
+            ck[lane, :, safe_pos] = torch.where(writeable[:, None, None],
+                                                k[:, 0].to(ck.dtype), old)
+            return ck, ck
+
+        x, _, _ = transformer_apply(cfg, self.params, x, self.cache_k,
+                                    self.cache_v, write, mask, cos[:, None],
+                                    sin[:, None], quant=self.quant)
         return lm_head_logits(cfg, self.params, x[:, -1])
 
     def _sample_tokens(self, logits, pos, temp, topp, seeds, rows):
@@ -960,6 +1071,20 @@ class ContinuousBatchingEngine:
                           write, mask, cos, sin, quant=self.quant,
                           tp_group=self._tp_group)
 
+    def _prefill_impl(self, ids, slot, length, bucket):
+        """Prefill one request (batch 1, ``ids`` [1, bucket] padded) into
+        lane ``slot`` of the dense pools: positions [0, bucket) of the lane
+        take the bucket's K/V (padding too: decode overwrites a position
+        before the causal mask lets it be read), and attention reads that
+        lane alone."""
+
+        def write(ck, k):
+            # ck [B, nkv, S, hd] a layer's lanes; k [1, bucket, nkv, hd]
+            ck[slot, :, :bucket] = k[0].transpose(0, 1)
+            return ck, ck[slot:slot + 1]
+
+        self._prefill_body(ids, length, bucket, write)
+
     def _prefill_impl_paged(self, ids, table_row, start, length, bucket):
         """Prefill positions [start, length) into the slot's pages: ``ids``
         [1, bucket] holds the tokens at absolute positions start .. start +
@@ -1071,7 +1196,8 @@ class ContinuousBatchingEngine:
         chain stays re-admittable."""
         if self._pcache is None:
             return 0
-        pairs = self._pcache.evict(n)
+        with RecordEvent("prefix_cache/evict"):
+            pairs = self._pcache.evict(n)
         if pairs:
             if self._tier is not None:
                 self._demote(pairs)
@@ -1100,20 +1226,24 @@ class ContinuousBatchingEngine:
         counts the whole page's bytes (``shards``), as the reference's tier
         counts its gathered page, so every rank's tier makes the
         reference's budget decisions."""
-        idx = torch.as_tensor([page for _, page in pairs], device=self.device)
-        (k, ks), (v, vs) = ((a[:, idx], None if sc is None else sc[:, idx])
-                            for a, sc in self._pool_leaves())
-        owner = self._obs_labels.get("replica")
-        for i, (h, _page) in enumerate(pairs):
-            if self._tier.ship_out(h, k[:, i], v[:, i],
-                                   k_scale=None if ks is None else ks[:, i],
-                                   v_scale=None if vs is None else vs[:, i],
-                                   owner=owner, shards=self.tp) is not None:
-                self.stats["tier_demotions"] += 1
-        self.stats["tier_bytes"] = self._tier.used_bytes
-        self.stats["tier_evictions"] = self._tier.evictions
-        self._record("tier_demote", pages=len(pairs),
-                     tier_bytes=int(self._tier.used_bytes))
+        with RecordEvent("kv_tier/demote"):
+            idx = torch.as_tensor([page for _, page in pairs],
+                                  device=self.device)
+            (k, ks), (v, vs) = ((a[:, idx], None if sc is None
+                                 else sc[:, idx])
+                                for a, sc in self._pool_leaves())
+            owner = self._obs_labels.get("replica")
+            for i, (h, _page) in enumerate(pairs):
+                if self._tier.ship_out(
+                        h, k[:, i], v[:, i],
+                        k_scale=None if ks is None else ks[:, i],
+                        v_scale=None if vs is None else vs[:, i],
+                        owner=owner, shards=self.tp) is not None:
+                    self.stats["tier_demotions"] += 1
+            self.stats["tier_bytes"] = self._tier.used_bytes
+            self.stats["tier_evictions"] = self._tier.evictions
+            self._record("tier_demote", pages=len(pairs),
+                         tier_bytes=int(self._tier.used_bytes))
 
     def _tier_write(self, dst: int, entry):
         """ship_in's device half: the entry's host page into pool page
@@ -1168,7 +1298,8 @@ class ContinuousBatchingEngine:
             return False
         dst = self._free.pop()
         t0 = time.perf_counter()
-        self._tier_write(dst, entry)
+        with RecordEvent("kv_tier/restore"):
+            self._tier_write(dst, entry)
         e = self._pcache.register(parent, ids[b * bs:(b + 1) * bs], dst,
                                   refcount=1)
         if e is None:
@@ -1432,23 +1563,20 @@ class ContinuousBatchingEngine:
                    f"max_queue={self.max_queue})")
             if not self._graceful:
                 raise RuntimeError(f"request {req.rid}: {msg}")
-            self._terminal(req, "REJECTED", msg)
+            with RecordEvent("serving/rejected"):
+                self._terminal(req, "REJECTED", msg)
             return
         self._queue.append(req)
         self._jmark(req.rid)
 
     def _admit(self):
-        """Fill free slots from the queue: a request enters only when its
-        prompt's pages, plus the resident slots' imminent growth (the next
-        decode chunk, or a verify step's K+1 rows), fit in the free pool and
-        the evictable cache.  The longest cached chain of its full blocks is
-        mapped read-only; a block-aligned full hit copies its last block
-        into a private page (copy-on-write: decode writes there).  A
+        """Fill free slots from the queue.  The dense engine seats the head
+        request whenever a lane is free and prefills its prompt into the
+        lane.  The paged engine admits by pages (``_map_prompt``), and a
         bucketed admission prefills the uncached tail now (stalling the
         resident slots' decode for it); a chunked one only enqueues it for
         the mixed steps to stream, mapping its pages chunk by chunk in
         graceful mode."""
-        bs = self.block_size
         for slot in range(self.max_batch):
             if self._slot_req[slot] is not None or not self._queue:
                 continue
@@ -1457,98 +1585,12 @@ class ContinuousBatchingEngine:
             if ids is None:
                 ids = np.asarray(req.prompt_ids, np.int32).ravel()
             s0 = ids.size
-            horizon = max(self.chunk, self._spec_qmax)
-            # per-slot clamp at 0: a mid-prefill slot owns its whole
-            # prompt's pages while pos (its cursor) trails them
-            headroom = sum(
-                max(0, self._blocks_needed(int(self._pos[s]) + horizon - 1)
-                    - len(self._slot_shared[s]) - len(self._slot_blocks[s]))
-                for s in range(self.max_batch)
-                if self._slot_req[s] is not None)
-            need = self._blocks_needed(s0 - 1)
-            gate = self._blocks_needed(s0 - 2 + horizon)
-            # pin the match BEFORE any allocation: a referenced block
-            # cannot be evicted from under it
-            matched = self._pcache.match(ids) if self._pcache else []
-            m = len(matched)
-            # a block-aligned full hit would put the first decode write
-            # (position s0-1) inside the last matched block: copy it
-            cow = m > 0 and m * bs > s0 - 1
-            n_map = m - 1 if cow else m
-            for e in matched:
-                self._pcache.acquire(e)
-            for i, e in enumerate(matched[:n_map]):
-                self._table[slot, i] = e.page
-                self._slot_shared[slot].append(e.hash)
-            # the host tier: extend the match through it, strictly below
-            # the first decode write (s0-1), so a restored block is never
-            # written; a full device hit (COW) has no tail to extend
-            tier_plan: list[tuple[int, str, str | None]] = []
-            if self._tier is not None and not cow:
-                parent = matched[-1].hash if m else None
-                b = m
-                while (b + 1) * bs <= s0 - 1:
-                    h = self._pcache.chain_hash(parent,
-                                                ids[b * bs:(b + 1) * bs])
-                    if h not in self._tier:
-                        break
-                    tier_plan.append((b, h, parent))
-                    parent = h
-                    b += 1
-                if tier_plan:
-                    self.stats["tier_hits"] += 1
-                    for _b, h, _p in tier_plan:
-                        # pinned until restored or dropped: the plan may
-                        # span steps
-                        self._tier.pin(h)
-                    self._record("tier_match", rid=req.rid,
-                                 blocks=len(tier_plan))
-            n_restored = 0
-            if tier_plan and not (self._chunked and self._graceful):
-                # the bucketed engine, and the chunked one with graceful
-                # off (it maps the whole prompt's private pages now, so the
-                # cursor has no block boundary to restore at), restore at
-                # admission; a failure (pool dry, tier_drop) prefills the
-                # rest
-                for b, h, parent in tier_plan:
-                    if not self._restore_tier_block(slot, req, ids, b, h,
-                                                    parent):
-                        break
-                    n_restored += 1
-                for _b, h, _p in tier_plan:
-                    self._tier.unpin(h)
-                tier_plan = []
-            if self._chunked and self._graceful:
-                # chunk-granular mapping: the mixed steps' _ensure_growth
-                # maps each chunk's pages, so rung 3 can shrink a chunk
-                # instead of preempting; only the COW page exists now
-                need = m if cow else n_map
-            avail = len(self._free) + self._evictable()
-            if (avail < gate - (n_map + n_restored) + headroom
-                    or not self._alloc_to(slot, need)):
-                # restored blocks stay cached at zero refs (a retry hits
-                # them); a chunked plan's pins go
-                if cow:
-                    self._pcache.release(matched[-1].hash)
-                for _b, h, _p in tier_plan:
-                    self._tier.unpin(h)
-                self._release(slot)
-                break  # pool dry: keep queue order, retry next step
-            if cow:
-                src = matched[-1]
-                self._copy_page(self._slot_blocks[slot][0], src.page)
-                self._pcache.release(src.hash)   # content copied: unpin
-                self.stats["cow_copies"] += 1
-            if m:
-                self.stats["prefix_hits"] += 1
-                self.stats["prefix_blocks_reused"] += m
-            # prefill starts at the first uncached token (a shared, COW or
-            # restored block's K/V is in the pool), never past s0-1
-            # (decode's first position)
-            start = min((m + n_restored) * bs, s0 - 1)
-            age = getattr(req, "_resume_age", None)
-            self._slot_age[slot] = self._admit_seq if age is None else age
-            self._admit_seq += 1
+            start, tier_plan = 0, []
+            if self.paged:
+                mapped = self._map_prompt(slot, req, ids)
+                if mapped is None:
+                    break  # pool dry: keep queue order, retry next step
+                start, tier_plan = mapped
             self._queue.pop(0)
             for attr in ("_resume_ids", "_resume_age"):
                 if hasattr(req, attr):
@@ -1604,6 +1646,111 @@ class ContinuousBatchingEngine:
                 req.seed if req.seed is not None else req.rid)
             self._jmark(req.rid)   # seating sets the journal's cursor
 
+    def _map_prompt(self, slot: int, req: Request, ids: np.ndarray):
+        """The paged admission of ``req`` (stream ``ids``) onto the free
+        ``slot``: it enters only when its prompt's pages, plus the
+        resident slots' imminent growth (the next decode chunk, or a verify
+        step's K+1 rows), fit in the free pool and the evictable cache.
+        The longest cached chain of its full blocks is mapped read-only; a
+        block-aligned full hit copies its last block into a private page
+        (copy-on-write: decode writes there); the host tier extends the
+        match.  Returns (start, tier plan): the first position whose K/V
+        must be computed and the chunked cursor's restore plan; or None
+        when the pool is dry (the slot is left empty)."""
+        bs = self.block_size
+        s0 = ids.size
+        horizon = max(self.chunk, self._spec_qmax)
+        # per-slot clamp at 0: a mid-prefill slot owns its whole prompt's
+        # pages while pos (its cursor) trails them
+        headroom = sum(
+            max(0, self._blocks_needed(int(self._pos[s]) + horizon - 1)
+                - len(self._slot_shared[s]) - len(self._slot_blocks[s]))
+            for s in range(self.max_batch)
+            if self._slot_req[s] is not None)
+        need = self._blocks_needed(s0 - 1)
+        gate = self._blocks_needed(s0 - 2 + horizon)
+        # pin the match BEFORE any allocation: a referenced block cannot be
+        # evicted from under it
+        matched = self._pcache.match(ids) if self._pcache else []
+        m = len(matched)
+        # a block-aligned full hit would put the first decode write
+        # (position s0-1) inside the last matched block: copy it
+        cow = m > 0 and m * bs > s0 - 1
+        n_map = m - 1 if cow else m
+        for e in matched:
+            self._pcache.acquire(e)
+        for i, e in enumerate(matched[:n_map]):
+            self._table[slot, i] = e.page
+            self._slot_shared[slot].append(e.hash)
+        # the host tier: extend the match through it, strictly below the
+        # first decode write (s0-1), so a restored block is never written;
+        # a full device hit (COW) has no tail to extend
+        tier_plan: list[tuple[int, str, str | None]] = []
+        if self._tier is not None and not cow:
+            parent = matched[-1].hash if m else None
+            b = m
+            while (b + 1) * bs <= s0 - 1:
+                h = self._pcache.chain_hash(parent, ids[b * bs:(b + 1) * bs])
+                if h not in self._tier:
+                    break
+                tier_plan.append((b, h, parent))
+                parent = h
+                b += 1
+            if tier_plan:
+                self.stats["tier_hits"] += 1
+                for _b, h, _p in tier_plan:
+                    # pinned until restored or dropped: the plan may span
+                    # steps
+                    self._tier.pin(h)
+                self._record("tier_match", rid=req.rid,
+                             blocks=len(tier_plan))
+        n_restored = 0
+        if tier_plan and not (self._chunked and self._graceful):
+            # the bucketed engine, and the chunked one with graceful off (it
+            # maps the whole prompt's private pages now, so the cursor has
+            # no block boundary to restore at), restore at admission; a
+            # failure (pool dry, tier_drop) prefills the rest
+            for b, h, parent in tier_plan:
+                if not self._restore_tier_block(slot, req, ids, b, h,
+                                                parent):
+                    break
+                n_restored += 1
+            for _b, h, _p in tier_plan:
+                self._tier.unpin(h)
+            tier_plan = []
+        if self._chunked and self._graceful:
+            # chunk-granular mapping: the mixed steps' _ensure_growth maps
+            # each chunk's pages, so rung 3 can shrink a chunk instead of
+            # preempting; only the COW page exists now
+            need = m if cow else n_map
+        avail = len(self._free) + self._evictable()
+        if (avail < gate - (n_map + n_restored) + headroom
+                or not self._alloc_to(slot, need)):
+            # restored blocks stay cached at zero refs (a retry hits them);
+            # a chunked plan's pins go
+            if cow:
+                self._pcache.release(matched[-1].hash)
+            for _b, h, _p in tier_plan:
+                self._tier.unpin(h)
+            self._release(slot)
+            return None
+        if cow:
+            src = matched[-1]
+            with RecordEvent("prefix_cache/cow_copy"):
+                self._copy_page(self._slot_blocks[slot][0], src.page)
+            self._pcache.release(src.hash)   # content copied: unpin
+            self.stats["cow_copies"] += 1
+        if m:
+            self.stats["prefix_hits"] += 1
+            self.stats["prefix_blocks_reused"] += m
+        age = getattr(req, "_resume_age", None)
+        self._slot_age[slot] = self._admit_seq if age is None else age
+        self._admit_seq += 1
+        # prefill starts at the first uncached token (a shared, COW or
+        # restored block's K/V is in the pool), never past s0-1 (decode's
+        # first position)
+        return min((m + n_restored) * bs, s0 - 1), tier_plan
+
     def _prefill_tail(self, req: Request, slot: int, ids: np.ndarray,
                       start: int, s0: int):
         """The bucketed admission's prefill of positions [start, s0-1): the
@@ -1617,11 +1764,17 @@ class ContinuousBatchingEngine:
         padded = np.zeros((1, bucket), np.int32)
         padded[0, :n] = ids[start:s0 - 1]
         dev = self.device
+        ids_t = torch.as_tensor(padded, device=dev).long()
         t_pf = time.perf_counter()
-        self._prefill_impl_paged(
-            torch.as_tensor(padded, device=dev).long(),
-            torch.as_tensor(self._table[slot], device=dev), start, s0 - 1,
-            bucket)
+        if not self.paged:
+            self._prefill_impl(ids_t, slot, s0 - 1, bucket)
+        else:
+            # a prefix-cache hit's uncached tail has a span of its own
+            with (RecordEvent("prefix_cache/partial_prefill") if start
+                  else contextlib.nullcontext()):
+                self._prefill_impl_paged(
+                    ids_t, torch.as_tensor(self._table[slot], device=dev),
+                    start, s0 - 1, bucket)
         self._sync()
         t_end = time.perf_counter()
         self.prefill_time_s += t_end - t_pf
@@ -1680,13 +1833,15 @@ class ContinuousBatchingEngine:
         drops them, since a faulty step's K/V must never serve a later
         request.  Output already banked stays on the request."""
         req = self._slot_req[slot]
-        self._vacate(slot, donate)
-        self._terminal(req, status, error)
+        with RecordEvent(f"serving/{status.lower()}"):
+            self._vacate(slot, donate)
+            self._terminal(req, status, error)
 
     def _vacate(self, slot: int, donate: bool):
         """Empty a slot whose request has ended: with ``donate`` its full
         blocks go to the prefix cache first (they need the request's
-        tokens), then every page and cache reference is released."""
+        tokens), then every page and cache reference is released (the
+        dense engine's lane holds neither)."""
         if donate:
             self._register_retired_blocks(slot)
         self._slot_req[slot] = None
@@ -1696,7 +1851,8 @@ class ContinuousBatchingEngine:
         if self._chunked:
             self._prefill_ids[slot] = None
             self._prefilled[slot] = 0
-        self._release(slot)
+        if self.paged:
+            self._release(slot)
 
     def _host_fault(self, kind: str, slot: int | None = None,
                     rid: int | None = None):
@@ -1746,6 +1902,8 @@ class ContinuousBatchingEngine:
                          streak=self._kernel_err_streak, step=self._step_no)
             if self._kernel_err_streak > self._kernel_err_limit:
                 raise
+            with RecordEvent("serving/kernel_error_retry"):
+                pass
             return True
         self._kernel_err_streak = 0
         return False
@@ -1781,10 +1939,11 @@ class ContinuousBatchingEngine:
         need = self._growth_need(growth)
         short = need - len(self._free)
         if short > 0 and self._evictable() > 0:
-            if self._reclaim(short) > 0:
-                self.stats["degrade_evict"] += 1
-                self._record("degrade", rung=1, what="evict",
-                             short=int(short))
+            with RecordEvent("serving/degrade_evict"):
+                if self._reclaim(short) > 0:
+                    self.stats["degrade_evict"] += 1
+                    self._record("degrade", rung=1, what="evict",
+                                 short=int(short))
         return need - len(self._free)
 
     def _expire_overdue(self):
@@ -1820,9 +1979,10 @@ class ContinuousBatchingEngine:
         keep = []
         for req in self._queue:
             if req.rid in late:
-                self._terminal(req, "EXPIRED",
-                               f"deadline_s={req.deadline_s} exceeded "
-                               f"while queued")
+                with RecordEvent("serving/expired"):
+                    self._terminal(req, "EXPIRED",
+                                   f"deadline_s={req.deadline_s} exceeded "
+                                   f"while queued")
             else:
                 keep.append(req)
         self._queue = keep
@@ -1844,9 +2004,10 @@ class ContinuousBatchingEngine:
                 self._fail_slot(s, "CANCELLED", "cancelled by caller",
                                 donate=True)
                 return True
-        # by identity: the dataclass __eq__ compares numpy prompts
-        self._queue = [q for q in self._queue if q is not req]
-        self._terminal(req, "CANCELLED", "cancelled by caller")
+        with RecordEvent("serving/cancelled"):
+            # by identity: the dataclass __eq__ compares numpy prompts
+            self._queue = [q for q in self._queue if q is not req]
+            self._terminal(req, "CANCELLED", "cancelled by caller")
         return True
 
     # ---------------- snapshot / restore ----------------
@@ -1871,8 +2032,8 @@ class ContinuousBatchingEngine:
                       f":eps{cfg.rms_norm_eps:g}"),
             "quant": self.quant,
             "kv_quant": self.kv_quant,
-            "paged": True,
-            "block_size": self.block_size,
+            "paged": self.paged,
+            "block_size": self.block_size if self.paged else None,
             "max_seq": int(self.max_seq),
             "tp": int(self.tp),
         }
@@ -1886,20 +2047,25 @@ class ContinuousBatchingEngine:
         teacher-forced recompute, exact for greedy and seeded sampling."""
         now = time.perf_counter()
         self.stats["journal_full_rebuilds"] += 1
-        return {
-            "version": 2,
-            "engine": self._topology(),
-            "running": [journal_entry(self._slot_req[s], self._cursor(s),
-                                      now)
-                        for s in self._running_slots()],
-            "queued": [journal_entry(r, 0, now) for r in self._queue],
-        }
+        with RecordEvent("serving/snapshot"):
+            return {
+                "version": 2,
+                "engine": self._topology(),
+                "running": [journal_entry(self._slot_req[s],
+                                          self._cursor(s), now)
+                            for s in self._running_slots()],
+                "queued": [journal_entry(r, 0, now) for r in self._queue],
+            }
 
     def _running_slots(self) -> list[int]:
-        """The seated slots in seniority order."""
-        return sorted((s for s in range(self.max_batch)
-                       if self._slot_req[s] is not None),
-                      key=lambda s: int(self._slot_age[s]))
+        """The seated slots: in seniority order on the paged engine, in
+        lane order on the dense one (which keeps no ages), as the
+        reference lists them."""
+        seated = [s for s in range(self.max_batch)
+                  if self._slot_req[s] is not None]
+        if self.paged:
+            seated.sort(key=lambda s: int(self._slot_age[s]))
+        return seated
 
     def _cursor(self, slot: int) -> int:
         """A seated slot's chunk cursor, as a journal entry records it."""
@@ -2040,7 +2206,8 @@ class ContinuousBatchingEngine:
                     f"silently wrong - only the tensor-parallel degree "
                     f"may differ (snapshot tp={src.get('tp')!r}, engine "
                     f"tp={self.tp})")
-        return [self.adopt(j) for j in snap["running"] + snap["queued"]]
+        with RecordEvent("serving/restore"):
+            return [self.adopt(j) for j in snap["running"] + snap["queued"]]
 
     # ---------------- the step ----------------
 
@@ -2056,7 +2223,7 @@ class ContinuousBatchingEngine:
         if self._graceful:
             self._expire_overdue()
         self._admit()
-        if (self._graceful and self._queue
+        if (self._graceful and self.paged and self._queue
                 and all(r is None for r in self._slot_req)):
             # nothing resident and nothing admitted: no later step frees a
             # page, so after a few stuck steps (a transient injected fault
@@ -2067,13 +2234,14 @@ class ContinuousBatchingEngine:
                 ids = getattr(req, "_resume_ids", None)
                 s0 = (np.asarray(req.prompt_ids).size if ids is None
                       else ids.size)
-                self._terminal(
-                    req, "FAILED",
-                    f"pool exhausted at admission: rid={req.rid} needs "
-                    f"{self._blocks_needed(s0 - 1)} block(s) for its "
-                    f"{s0}-token stream, {len(self._free)} free + "
-                    f"{self._evictable()} evictable of {self.num_blocks} "
-                    f"total")
+                with RecordEvent("serving/failed"):
+                    self._terminal(
+                        req, "FAILED",
+                        f"pool exhausted at admission: rid={req.rid} needs "
+                        f"{self._blocks_needed(s0 - 1)} block(s) for its "
+                        f"{s0}-token stream, {len(self._free)} free + "
+                        f"{self._evictable()} evictable of "
+                        f"{self.num_blocks} total")
                 self._admit_stalls = 0
         else:
             self._admit_stalls = 0
@@ -2090,17 +2258,19 @@ class ContinuousBatchingEngine:
                     # rung 2: the drafts' appends do not fit even after
                     # rung 1: decode one token a slot this step (the
                     # stream does not change, only tokens a round-trip)
-                    self.stats["degrade_spec_off"] += 1
-                    self._record("degrade", rung=2, what="spec_off",
-                                 step=self._step_no)
+                    with RecordEvent("serving/degrade_spec_off"):
+                        self.stats["degrade_spec_off"] += 1
+                        self._record("degrade", rung=2, what="spec_off",
+                                     step=self._step_no)
                     drafts = None
             if drafts is not None:
                 return self._spec_step(drafts)
             # no slot drafted: the ordinary decode path, at no extra cost
         k = self.chunk
-        if self._graceful:
-            self._degrade_reclaim(k)    # rung 1 before rung 4
-        self._ensure_growth(k)  # may preempt the youngest slot
+        if self.paged:
+            if self._graceful:
+                self._degrade_reclaim(k)    # rung 1 before rung 4
+            self._ensure_growth(k)  # may preempt the youngest slot
         active_np = np.asarray([r is not None for r in self._slot_req])
         if not active_np.any():
             return False
@@ -2118,7 +2288,7 @@ class ContinuousBatchingEngine:
             torch.as_tensor(active_np, device=dev),
             torch.as_tensor(self._temp, device=dev),
             torch.as_tensor(self._topp, device=dev),
-            torch.as_tensor(self._table, device=dev),
+            torch.as_tensor(self._table, device=dev) if self.paged else None,
             torch.as_tensor(self._seed, device=dev),
             torch.as_tensor(sampled_lanes, dtype=torch.long, device=dev)
             if sampled_lanes else None, **self._guard_kw())
@@ -2266,9 +2436,10 @@ class ContinuousBatchingEngine:
         if self._graceful and self._degrade_reclaim(growth) > 0:
             shrinkable = [s for s, n in chunk_rows.items() if n > 1]
             if shrinkable:
-                self.stats["degrade_budget_shrink"] += 1
-                self._record("degrade", rung=3, what="budget_shrink",
-                             slots=len(shrinkable))
+                with RecordEvent("serving/degrade_budget_shrink"):
+                    self.stats["degrade_budget_shrink"] += 1
+                    self._record("degrade", rung=3, what="budget_shrink",
+                                 slots=len(shrinkable))
                 for s in shrinkable:
                     tokens[s, 1:] = 0
                     q_lens[s] = growth[s] = chunk_rows[s] = 1
@@ -2541,7 +2712,8 @@ class ContinuousBatchingEngine:
                 try:
                     self.add_request(r)
                 except ValueError as e:
-                    self._terminal(r, "REJECTED", str(e))
+                    with RecordEvent("serving/rejected"):
+                        self._terminal(r, "REJECTED", str(e))
         else:
             for r in requests:
                 self._validate(r)

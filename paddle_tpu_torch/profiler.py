@@ -1,13 +1,19 @@
-"""Host trace buffer (counterpart of the host-event half of
-``paddle_tpu/profiler/__init__.py``).
+"""Host trace buffer and span markers (counterpart of the host-event half
+of ``paddle_tpu/profiler/__init__.py``).
 
 Ported: the bounded buffer of raw chrome-trace events that the serving
 engine's request tracer (``inference/observability.RequestTracer``)
-writes into, and :meth:`Profiler.export`, which writes the buffered
-events as one chrome trace and drains the buffer.  Not ported: the
-reference's ``RecordEvent`` spans, its native (C++) host tracer, the
-scheduler states and the device trace; on the card, device time is read
-with ``torch.profiler`` or CUDA events instead.
+writes into; :class:`RecordEvent`, the span marker the serving engine and
+the fleet router put around their transitions (rejection, expiry,
+cancellation, failure, the fault ladder's rungs, snapshot and restore,
+prefix-cache eviction and copy-on-write, the host tier's moves, failover,
+hedging), which writes one ``"X"`` event into that buffer and opens
+``torch.profiler.record_function`` for the span, so it shows in a
+``torch.profiler`` trace as the reference's shows in a JAX trace; and
+:meth:`Profiler.export`, which writes the buffered events as one chrome
+trace and drains the buffer.  Not ported: the reference's native (C++)
+host tracer, the scheduler states and the device trace; on the card,
+device time is read with ``torch.profiler`` or CUDA events instead.
 
 The buffer is bounded: a long-lived engine emits spans forever.  At
 capacity a new event is DROPPED and counted rather than evicting an old
@@ -20,10 +26,12 @@ from __future__ import annotations
 import json
 import os
 import threading
+import time
 
-__all__ = ["Profiler", "add_trace_event", "host_events_generation",
-           "host_events_len", "host_events_dropped",
-           "set_host_event_capacity", "clear_host_events"]
+__all__ = ["Profiler", "RecordEvent", "add_trace_event",
+           "host_events_generation", "host_events_len",
+           "host_events_dropped", "set_host_event_capacity",
+           "clear_host_events"]
 
 _events_lock = threading.Lock()
 _events: list[dict] = []
@@ -78,6 +86,46 @@ def clear_host_events() -> None:
         _events.clear()
     _dropped = 0
     _generation += 1
+
+
+class RecordEvent:
+    """A host span (the reference's ``paddle.profiler.RecordEvent``):
+    ``begin`` / ``end``, or a ``with`` block, writes one complete
+    (``"ph": "X"``, ``"cat": "host"``) event into the host buffer at its
+    end, and holds ``torch.profiler.record_function(name)`` open between
+    the two, so the span also shows in a ``torch.profiler`` trace."""
+
+    def __init__(self, name: str, event_type=None):
+        self.name = name
+        self._t0 = None
+        self._fn = None
+
+    def begin(self):
+        from torch.profiler import record_function
+
+        self._t0 = time.perf_counter_ns() / 1000.0
+        self._fn = record_function(self.name)
+        self._fn.__enter__()
+
+    def end(self):
+        if self._t0 is None:
+            return
+        self._fn.__exit__(None, None, None)
+        self._fn = None
+        t1 = time.perf_counter_ns() / 1000.0
+        add_trace_event({"name": self.name, "ph": "X", "ts": self._t0,
+                         "dur": t1 - self._t0, "pid": os.getpid(),
+                         "tid": threading.get_ident() % 100000,
+                         "cat": "host"})
+        self._t0 = None
+
+    def __enter__(self):
+        self.begin()
+        return self
+
+    def __exit__(self, *exc):
+        self.end()
+        return False
 
 
 class Profiler:

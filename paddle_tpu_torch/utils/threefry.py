@@ -17,7 +17,12 @@ seeded sampled stream of the port is token-identical to the reference's:
   ``jnp.asarray(data, dtype='uint32')`` converts it;
 - :func:`random_bits32` / :func:`uniform` / :func:`gumbel`: the
   random-bits -> uniform -> Gumbel chain of ``categorical`` in its default
-  ("low") mode, float32.
+  ("low") mode, float32 or bfloat16;
+- :func:`split` and :func:`categorical`: ``jax.random.split(key)`` and
+  ``jax.random.categorical(key, logits, axis=-1)`` over a ``[..., V]``
+  logits array in float32 or bfloat16, the draw of the reference's
+  ``GenerationEngine`` at ``temperature > 0`` (its key is
+  ``jax.random.key(seed)``, the same bits as :func:`prng_key`).
 
 The bit layout of a ``[V]`` draw is the one of
 ``jax_threefry_partitionable=True`` (the default from JAX 0.5 on): element
@@ -31,14 +36,11 @@ every add and shift, so the same code runs on CPU and CUDA tensors.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 _MASK = 0xFFFFFFFF
 _PARITY = 0x1BD11BDA
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
-#: float32's smallest normal number (``finfo(float32).tiny``)
-_TINY = 1.1754943508222875e-38
 
 
 def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
@@ -93,23 +95,36 @@ def random_bits32(key: torch.Tensor, n: int) -> torch.Tensor:
     return y0 ^ y1
 
 
-def uniform(key: torch.Tensor, n: int, minval: float = 0.0) -> torch.Tensor:
-    """float32 uniforms in [minval, 1) from :func:`random_bits32`: the 23
-    high bits become the mantissa of a float in [1, 2), minus 1, then
-    ``max(minval, u * (1 - minval) + minval)`` in float32 as
-    ``jax.random._uniform`` computes it."""
-    bits = (random_bits32(key, n) >> 9) | 0x3F800000
-    u = bits.to(torch.int32).view(torch.float32) - 1.0
-    # float32 scalars as Python floats (exact), so no host-to-device copy
-    lo = float(np.float32(minval))
-    span = float(np.float32(1.0) - np.float32(minval))
+def uniform(key: torch.Tensor, n: int, minval: float = 0.0,
+            dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``jax.random.uniform(key, (n,), dtype, minval)`` in [minval, 1) from
+    :func:`random_bits32`, float32 or bfloat16: the high bits of a float32
+    draw (23), or the low byte of each draw (its 7 high bits) for
+    bfloat16, as ``jax.random._uniform`` takes 8 random bits for a float
+    with fewer than 8 mantissa bits, become the mantissa of a float in
+    [1, 2), minus 1; then ``max(minval, u * (1 - minval) + minval)`` in
+    ``dtype``, as ``jax.random._uniform`` computes it."""
+    bits = random_bits32(key, n)
+    if dtype == torch.float32:
+        u = ((bits >> 9) | 0x3F800000).to(torch.int32).view(dtype) - 1.0
+    elif dtype == torch.bfloat16:
+        u = (((bits & 0xFF) >> 1) | 0x3F80).to(torch.int16).view(dtype) - 1.0
+    else:
+        raise TypeError(f"uniform: dtype must be float32 or bfloat16, "
+                        f"got {dtype}")
+    # the scalars rounded to dtype as Python floats (exact), so no
+    # host-to-device copy
+    lo = torch.tensor(minval, dtype=dtype)
+    lo, span = float(lo), float(torch.tensor(1.0, dtype=dtype) - lo)
     return (u * span + lo).clamp(min=lo)
 
 
-def gumbel(key: torch.Tensor, n: int) -> torch.Tensor:
-    """``jax.random.gumbel(key, (n,), float32)`` (mode "low"):
-    ``-log(-log(uniform(minval=tiny)))``, ``[..., n]``."""
-    return -torch.log(-torch.log(uniform(key, n, _TINY)))
+def gumbel(key: torch.Tensor, n: int,
+           dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``jax.random.gumbel(key, (n,), dtype)`` (mode "low"), float32 or
+    bfloat16: ``-log(-log(uniform(minval=tiny)))``, ``[..., n]``."""
+    tiny = torch.finfo(dtype).tiny
+    return -torch.log(-torch.log(uniform(key, n, tiny, dtype)))
 
 
 def sample_keys(seeds, positions, device=None) -> torch.Tensor:
@@ -119,3 +134,20 @@ def sample_keys(seeds, positions, device=None) -> torch.Tensor:
     s = _u32(seeds, device)
     base = prng_key(torch.zeros_like(s))
     return fold_in(fold_in(base, s), _u32(positions, device))
+
+
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``jax.random.split(key, num)`` for one key ``[2]`` -> ``[num, 2]``:
+    key i is the cipher on the count (0, i), the partitionable layout."""
+    lo = torch.arange(num, dtype=torch.int64, device=key.device)
+    y0, y1 = threefry2x32(key[0], key[1], torch.zeros_like(lo), lo)
+    return torch.stack([y0, y1], dim=-1)
+
+
+def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.categorical(key, logits, axis=-1)`` for one key
+    ``[2]``: ``argmax(gumbel(key, logits.shape, logits.dtype) + logits)``
+    in ``logits.dtype`` (float32 or bfloat16), element ``i`` of the
+    row-major draw from the count ``i`` as in :func:`random_bits32`."""
+    noise = gumbel(key, logits.numel(), logits.dtype)
+    return (noise.reshape(logits.shape) + logits).argmax(dim=-1)

@@ -117,7 +117,8 @@ def jax_run(models):
 
 def _engine(monkeypatch, models, async_on):
     monkeypatch.setenv("PADDLE_TPU_ASYNC_HOST", "1" if async_on else "0")
-    eng = ContinuousBatchingEngine(models[2], models[3], device="cpu",
+    eng = ContinuousBatchingEngine(models[2], models[3], paged=True,
+                                   device="cpu",
                                    **FULL)
     monkeypatch.delenv("PADDLE_TPU_ASYNC_HOST")
     assert eng._async_host is async_on

@@ -219,7 +219,8 @@ def _serve_port(models, kv_quant=None, graceful=False, **feats):
     with pytest.MonkeyPatch.context() as mp:
         if not graceful:
             mp.setenv("PADDLE_TPU_GRACEFUL", "0")
-        eng = tserving.ContinuousBatchingEngine(tcfg, tparams, device="cpu",
+        eng = tserving.ContinuousBatchingEngine(tcfg, tparams, paged=True,
+                                                device="cpu",
                                                 kv_quant=kv_quant, **ENGINE,
                                                 **feats)
     streaming_victims = []
@@ -350,27 +351,31 @@ def test_kill_switches_and_validation(models, jax_runs, monkeypatch):
     monkeypatch.setenv("PADDLE_TPU_SPECULATE", "0")
     monkeypatch.setenv("PADDLE_TPU_CHUNKED_PREFILL", "0")
     eng = tserving.ContinuousBatchingEngine(
-        tcfg, tparams, device="cpu", **ENGINE, **SPEC,
+        tcfg, tparams, paged=True, device="cpu", **ENGINE, **SPEC,
         **{**CHUNKED, "prefill_chunk": 0})
     assert eng._spec is None and not eng._chunked
     assert eng.serve(_requests(tserving.Request)) == jax_runs["bucketed"][0]
     assert eng.stats["mixed_steps"] == eng.stats["spec_steps"] == 0
     monkeypatch.setenv("PADDLE_TPU_CHUNKED_PREFILL", "off")
     with pytest.warns(UserWarning, match="PADDLE_TPU_CHUNKED_PREFILL"):
-        eng = tserving.ContinuousBatchingEngine(tcfg, tparams, device="cpu",
+        eng = tserving.ContinuousBatchingEngine(tcfg, tparams, paged=True,
+                                                device="cpu",
                                                 **ENGINE, **CHUNKED)
     assert eng._chunked and eng._token_budget == 5
     monkeypatch.delenv("PADDLE_TPU_CHUNKED_PREFILL")
     monkeypatch.delenv("PADDLE_TPU_SPECULATE")
     with pytest.raises(ValueError, match="prefill_chunk must be >= 1"):
-        tserving.ContinuousBatchingEngine(tcfg, tparams, device="cpu",
+        tserving.ContinuousBatchingEngine(tcfg, tparams, paged=True,
+                                          device="cpu",
                                           **ENGINE, enable_chunked_prefill=True,
                                           prefill_chunk=0)
-    eng = tserving.ContinuousBatchingEngine(tcfg, tparams, device="cpu",
+    eng = tserving.ContinuousBatchingEngine(tcfg, tparams, paged=True,
+                                            device="cpu",
                                             **ENGINE,
                                             enable_chunked_prefill=True)
     assert eng._token_budget == 128 + ENGINE["max_batch"]
-    eng = tserving.ContinuousBatchingEngine(tcfg, tparams, device="cpu",
+    eng = tserving.ContinuousBatchingEngine(tcfg, tparams, paged=True,
+                                            device="cpu",
                                             **ENGINE, **SPEC)
     assert eng._spec_qmax == 5 and eng.spec_acceptance_rate == 0.0
 
@@ -384,7 +389,8 @@ def test_spec_eos_trims_as_bucketed(models, jax_runs):
     _, _, tcfg, tparams = models
     streams = jax_runs["bucketed"][0]
     for eos in streams[0][2:14:3]:
-        eng = tserving.ContinuousBatchingEngine(tcfg, tparams, device="cpu",
+        eng = tserving.ContinuousBatchingEngine(tcfg, tparams, paged=True,
+                                                device="cpu",
                                                 **ENGINE, **SPEC)
         reqs = _requests(tserving.Request)
         for r in reqs:

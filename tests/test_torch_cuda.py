@@ -888,7 +888,7 @@ def test_chunked_spec_engine_launches_on_the_card(dev, kv_quant,
 
     def serve(**kw):
         eng = serving.ContinuousBatchingEngine(
-            cfg, params, max_batch=2, max_seq=256, block_size=64,
+            cfg, params, paged=True, max_batch=2, max_seq=256, block_size=64,
             kv_quant=kv_quant, device=dev, **kw)
         tk.reset_counters()
         out = eng.serve([serving.Request(rid=i, prompt_ids=p,
@@ -938,7 +938,8 @@ def test_tier_round_trip_on_the_card(dev, kv_quant):
                                kv_heads=1, inter=512), dtype=torch.bfloat16)
     params = llama.init_params(cfg, seed=0, device=dev)
     eng = serving.ContinuousBatchingEngine(
-        cfg, params, max_batch=1, max_seq=256, block_size=64, num_blocks=8,
+        cfg, params, paged=True,
+        max_batch=1, max_seq=256, block_size=64, num_blocks=8,
         kv_quant=kv_quant, enable_prefix_caching=True,
         enable_host_kv_tier=True, device=dev)
     g = torch.Generator(device=dev).manual_seed(0)
@@ -992,7 +993,7 @@ def test_fleet_failover_on_the_card(dev, monkeypatch):
     def serve():
         monkeypatch.setenv("PADDLE_TPU_FAULT_INJECT",
                            "replica_crash@step=6,replica=1")
-        fleet = FleetRouter(cfg, params, n_replicas=2, max_batch=2,
+        fleet = FleetRouter(cfg, params, paged=True, n_replicas=2, max_batch=2,
                             max_seq=256, block_size=64,
                             enable_prefix_caching=True, device=dev)
         monkeypatch.delenv("PADDLE_TPU_FAULT_INJECT")
@@ -1016,3 +1017,58 @@ def test_fleet_failover_on_the_card(dev, monkeypatch):
                                          "fused_layer_mlp", "rms_norm",
                                          "gumbel_noise"))
     assert got == plain
+
+
+def test_dense_engine_on_the_card(dev, monkeypatch):
+    """A 2-layer dense engine (``paged=False``) on the card: B1 launches
+    2L + 1 times each forward (every prefill and decode step), no paged
+    kernel runs, and its tokens are its kernels-off run's; the
+    GenerationEngine launches B1 2L + 1 times each forward too.  (The
+    greedy streams are compared: a sampled one's Gumbel noise is the
+    plain chain's only to float32 rounding of ``log``.)"""
+    import dataclasses
+
+    import numpy as np
+
+    from paddle_tpu_torch.inference import GenerationEngine, serving
+    from paddle_tpu_torch.models import llama
+
+    cfg = dataclasses.replace(
+        llama.LlamaConfig.tiny(vocab=512, hidden=256, layers=2, heads=2,
+                               kv_heads=1, inter=512), dtype=torch.float32)
+    params = llama.init_params(cfg, seed=0, device=dev)
+    rs = np.random.RandomState(0)
+    prompts = [rs.randint(1, 512, size=n).astype(np.int32)
+               for n in (9, 40, 17)]
+
+    def serve():
+        eng = serving.ContinuousBatchingEngine(cfg, params, max_batch=2,
+                                               max_seq=128, chunk=2,
+                                               device=dev)
+        tk.reset_counters()
+        out = eng.serve([serving.Request(rid=i, prompt_ids=p,
+                                         max_new_tokens=12,
+                                         temperature=0.8 * (i % 2), seed=i)
+                         for i, p in enumerate(prompts)])
+        return out, eng, dict(tk.LAUNCHES)
+
+    got, eng, launches = serve()
+    assert not eng.paged
+    L = cfg.num_hidden_layers
+    forwards = eng.stats["decode_steps"] + eng.stats["prefills"]
+    assert launches["rms_norm"] == (2 * L + 1) * forwards
+    assert launches["gumbel_noise"] > 0
+    for name in ("fused_decode_step", "fused_layer_mlp", "paged_prefill",
+                 "paged_decode", "flash_decode"):
+        assert launches[name] == 0
+    monkeypatch.setenv("PADDLE_TPU_TORCH_DISABLE_KERNELS", "all")
+    plain, _, off = serve()
+    assert not any(off.values())
+    monkeypatch.delenv("PADDLE_TPU_TORCH_DISABLE_KERNELS")
+    assert [got[0], got[2]] == [plain[0], plain[2]]
+    ge = GenerationEngine(cfg, params, max_seq=64, device=dev)
+    tk.reset_counters()
+    out = ge.generate(np.stack([prompts[0], prompts[2][:9]]),
+                      max_new_tokens=5, temperature=0.8, seed=1)
+    assert out.shape == (2, 14) and ((out >= 0) & (out < 512)).all()
+    assert tk.LAUNCHES["rms_norm"] == (2 * L + 1) * 5

@@ -75,7 +75,8 @@ def _engine(models, side, **kw):
     cfg, params = models[side]
     if side == "jax":
         return JEngine(cfg, params, paged=True, **{**ENGINE, **kw})
-    return tserving.ContinuousBatchingEngine(cfg, params, device="cpu",
+    return tserving.ContinuousBatchingEngine(cfg, params, paged=True,
+                                             device="cpu",
                                              **{**ENGINE, **kw})
 
 

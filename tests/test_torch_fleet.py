@@ -266,9 +266,8 @@ def _drive(Fleet, R, cfg, params, name, **extra_env):
     script, ekw, fkw, env = SCENARIOS[name]
     states = []
     with _env(**env, **extra_env):
-        fleet = Fleet(cfg, params, n_replicas=2, **fkw, **ekw,
-                      **({"paged": True} if Fleet is JFleet
-                         else {"device": "cpu"}))
+        fleet = Fleet(cfg, params, n_replicas=2, paged=True, **fkw, **ekw,
+                      **({} if Fleet is JFleet else {"device": "cpu"}))
         reqs = script(fleet, R, lambda: states.append(_state(fleet)))
     return fleet, reqs, states
 
@@ -331,7 +330,8 @@ def test_fleet_parity_with_single_engine(models, port_runs):
     """A fault-free fleet emits the single engine's streams, every
     request has a fleet TTFT, and the live registries prune."""
     fleet, reqs, _ = port_runs["parity"]
-    eng = ContinuousBatchingEngine(*models[2:], device="cpu", **PLAIN)
+    eng = ContinuousBatchingEngine(*models[2:], paged=True,
+                                   device="cpu", **PLAIN)
     assert eng.serve(_mixed_batch(Request, 0)) == {
         r.rid: r.output_ids for r in reqs}
     assert all(r.ttft_s is not None for r in reqs)
@@ -401,7 +401,8 @@ def test_shared_tier_cross_readmit(port_runs):
 
 def _fleet(models, spec=None, n_replicas=2, **kw):
     with _env(PADDLE_TPU_FAULT_INJECT=spec, PADDLE_TPU_ENGINE_AUDIT="1"):
-        return FleetRouter(*models[2:], n_replicas=n_replicas, device="cpu",
+        return FleetRouter(*models[2:], paged=True,
+                           n_replicas=n_replicas, device="cpu",
                            **kw)
 
 
@@ -588,7 +589,8 @@ def test_replica_clause_requires_fleet(models, monkeypatch):
                        "replica_crash@step=2,replica=0;alloc_fail@step=3")
     envflags._warned.clear()
     with pytest.warns(UserWarning, match="FleetRouter"):
-        eng = ContinuousBatchingEngine(*models[2:], device="cpu", **PLAIN)
+        eng = ContinuousBatchingEngine(*models[2:], paged=True,
+                                       device="cpu", **PLAIN)
     assert not eng._faults
     req = _req(np.random.RandomState(13), 0, new=3)
     assert len(eng.serve([req])[0]) == 3 and req.status == "FINISHED"
@@ -656,7 +658,7 @@ def _busy_engine(models):
     """An audited engine with every feature and the tier on, stepped until
     one slot is mid-prefill with blocks cached and the other decoding."""
     with _env(PADDLE_TPU_ENGINE_AUDIT="1"):
-        eng = ContinuousBatchingEngine(*models[2:], device="cpu",
+        eng = ContinuousBatchingEngine(*models[2:], paged=True, device="cpu",
                                        **dict(FULL, enable_host_kv_tier=True))
     rs = np.random.RandomState(21)
     eng.add_request(Request(rid=0, prompt_ids=np.tile(SHARED, 2),
@@ -761,7 +763,7 @@ def test_audited_chaos_serve_equals_unaudited(models):
     for audit in ("1", "0"):
         with _env(PADDLE_TPU_FAULT_INJECT=plan,
                   PADDLE_TPU_ENGINE_AUDIT=audit):
-            fleet = FleetRouter(*models[2:], device="cpu",
+            fleet = FleetRouter(*models[2:], paged=True, device="cpu",
                                 **dict(FULL, enable_host_kv_tier=True))
         assert all(e._audit_every_step == (audit == "1")
                    for e in fleet.replicas)

@@ -400,7 +400,8 @@ def _serve_port(tcfg, tparams, monkeypatch, token, **kw):
         monkeypatch.setenv(TORCH_ENV, token)
     else:
         monkeypatch.delenv(TORCH_ENV, raising=False)
-    eng = tserving.ContinuousBatchingEngine(tcfg, tparams, device="cpu", **kw)
+    eng = tserving.ContinuousBatchingEngine(tcfg, tparams, paged=True,
+                                            device="cpu", **kw)
     tk.reset_counters()
     return eng.serve(_requests(tserving.Request)), eng, dict(tk.PLAIN_CALLS)
 
@@ -488,14 +489,16 @@ def test_fp_engine_unfused_arm_matches_jax(models, tokens, route,
 def test_kv_quant_validation(models):
     _, _, tcfg, tparams = models
     with pytest.raises(ValueError, match="kv_quant"):
-        tserving.ContinuousBatchingEngine(tcfg, tparams, kv_quant="int2",
+        tserving.ContinuousBatchingEngine(tcfg, tparams, paged=True,
+                                          kv_quant="int2",
                                           block_size=8, device="cpu")
     odd = tllama.LlamaConfig.tiny(vocab=64, hidden=36, layers=1, heads=4,
                                   kv_heads=4, inter=32)      # head_dim 9
     assert odd.head_dim % 2 == 1
     params = tllama.init_params(odd, seed=0, device="cpu")
     with pytest.raises(ValueError, match="even head_dim"):
-        tserving.ContinuousBatchingEngine(odd, params, kv_quant="int4",
+        tserving.ContinuousBatchingEngine(odd, params, paged=True,
+                                          kv_quant="int4",
                                           block_size=8, max_seq=64,
                                           device="cpu")
     q = torch.zeros(1, 4, 16)

@@ -149,7 +149,8 @@ def _engines(models):
         return JEngine(jcfg, jparams, paged=True, **kw)
 
     def tmake(**kw):
-        return ContinuousBatchingEngine(tcfg, tparams, device="cpu", **kw)
+        return ContinuousBatchingEngine(tcfg, tparams, paged=True,
+                                        device="cpu", **kw)
 
     return jmake, tmake
 

@@ -70,7 +70,8 @@ def _engine(params, **kw):
     kw.setdefault("max_batch", 2)
     kw.setdefault("max_seq", 64)
     kw.setdefault("block_size", 8)
-    return ContinuousBatchingEngine(_CFG, params, device="cpu", **kw)
+    return ContinuousBatchingEngine(_CFG, params, paged=True,
+                                    device="cpu", **kw)
 
 
 def _requests(n=3, new=5, seed=0, cls=Request):

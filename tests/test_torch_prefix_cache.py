@@ -146,7 +146,7 @@ def _serve_port(models, stream, chunked=False, kv_quant=None, cache=True,
     _, _, tcfg, tparams = models
     build, eng_kw = STREAMS[stream]
     eng = tserving.ContinuousBatchingEngine(
-        tcfg, tparams, device="cpu", kv_quant=kv_quant,
+        tcfg, tparams, paged=True, device="cpu", kv_quant=kv_quant,
         enable_prefix_caching=cache, **ENGINE, **{**eng_kw, **kw},
         **(CHUNKED if chunked else {}))
     checked = [0]
@@ -242,7 +242,8 @@ def test_full_hit_skips_prefill(models):
     _, _, tcfg, tparams = models
     prompt = np.arange(5, 21, dtype=np.int32)     # two full 8-token blocks
     eng = tserving.ContinuousBatchingEngine(
-        tcfg, tparams, device="cpu", max_batch=1, max_seq=64, chunk=1,
+        tcfg, tparams, paged=True,
+        device="cpu", max_batch=1, max_seq=64, chunk=1,
         block_size=8, num_blocks=10, enable_prefix_caching=True)
     first = eng.serve([tserving.Request(rid=0, prompt_ids=prompt,
                                         max_new_tokens=4)])
@@ -325,7 +326,8 @@ def test_kill_switch(models, jax_runs, monkeypatch):
     _, _, tcfg, tparams = models
     monkeypatch.setenv("PADDLE_TPU_PREFIX_CACHE", "0")
     eng = tserving.ContinuousBatchingEngine(
-        tcfg, tparams, device="cpu", enable_prefix_caching=True, **ENGINE,
+        tcfg, tparams, paged=True,
+        device="cpu", enable_prefix_caching=True, **ENGINE,
         **STREAMS["shared"][1])
     assert eng._pcache is None
     got = eng.serve(_shared_stream(tserving.Request))
@@ -334,6 +336,7 @@ def test_kill_switch(models, jax_runs, monkeypatch):
     monkeypatch.setenv("PADDLE_TPU_PREFIX_CACHE", "off")
     with pytest.warns(UserWarning, match="PADDLE_TPU_PREFIX_CACHE"):
         eng = tserving.ContinuousBatchingEngine(
-            tcfg, tparams, device="cpu", enable_prefix_caching=True,
+            tcfg, tparams, paged=True,
+            device="cpu", enable_prefix_caching=True,
             **ENGINE)
     assert eng._pcache is not None

@@ -241,7 +241,8 @@ def _port_engine(models, quant, **feats):
     _, _, tcfg, tparams = models
     mp = _env()
     try:
-        return tserving.ContinuousBatchingEngine(tcfg, tparams, device="cpu",
+        return tserving.ContinuousBatchingEngine(tcfg, tparams, paged=True,
+                                                 device="cpu",
                                                  quant=quant, **ENGINE,
                                                  **feats)
     finally:
@@ -345,14 +346,16 @@ def test_cb_engine_int8_serves():
     tcfg = tllama.LlamaConfig.tiny(vocab=64, hidden=32, layers=2, heads=4,
                                    kv_heads=2, inter=64)
     params = tllama.init_params(tcfg, seed=0, device="cpu")
-    eng = tserving.ContinuousBatchingEngine(tcfg, params, max_batch=2,
+    eng = tserving.ContinuousBatchingEngine(tcfg, params, paged=True,
+                                            max_batch=2,
                                             max_seq=64, chunk=2,
                                             quant="int8", device="cpu")
     reqs = [TRequest(rid=i, prompt_ids=np.arange(1, 6, dtype=np.int32),
                      max_new_tokens=4) for i in range(3)]
     got = eng.serve(reqs)
     assert all(len(v) == 4 for v in got.values())
-    fp = tserving.ContinuousBatchingEngine(tcfg, params, max_batch=2,
+    fp = tserving.ContinuousBatchingEngine(tcfg, params, paged=True,
+                                           max_batch=2,
                                            max_seq=64, chunk=2, device="cpu")
     ref = fp.serve([TRequest(rid=9, prompt_ids=np.arange(1, 6,
                                                          dtype=np.int32),

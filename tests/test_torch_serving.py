@@ -10,7 +10,8 @@ requests (prompts from a seeded numpy RNG):
 - the sampler's threefry keys are bit-equal to ``jax.random``'s and its
   Gumbel noise equal to within float32 rounding of ``log``; seeded sampled
   (temperature + top-p) streams are identical to the JAX engine's, also
-  across a preemption;
+  across a preemption; the ``GenerationEngine``'s ``split`` /
+  ``categorical`` draws equal ``jax.random``'s in float32 and bfloat16;
 - the decoder seams match the JAX ones within 1e-5.
 """
 
@@ -62,7 +63,8 @@ def test_greedy_tokens_identical_to_jax_with_preemption(models):
     assert jeng._fused and jeng._fused_mlp
     want = jeng.serve([Request(rid=i, prompt_ids=p, max_new_tokens=8)
                        for i, p in enumerate(prompts)])
-    teng = tserving.ContinuousBatchingEngine(tcfg, tparams, device="cpu",
+    teng = tserving.ContinuousBatchingEngine(tcfg, tparams, paged=True,
+                                             device="cpu",
                                              **ENGINE)
     tk.reset_counters()
     got = teng.serve([tserving.Request(rid=i, prompt_ids=p, max_new_tokens=8)
@@ -120,6 +122,43 @@ def test_gumbel_noise_rows_match_jax():
         np.testing.assert_allclose(got[row], want, rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("seed", [0, 3, -7, 2**31 - 1])
+def test_split_and_categorical_match_jax(seed):
+    """The ``GenerationEngine`` sampler's chain, ``key(seed)`` -> ``split``
+    -> ``categorical(sub, logits / temperature)``, over three splits and
+    [4, 4099] logits in float32 and bfloat16: every key bit-equal, every
+    drawn token equal; for bfloat16 the uniform bits and the Gumbel noise
+    bit-equal too (its ``log`` is taken in float32 and rounded to 8
+    mantissa bits, which hides the platforms' last-bit differences)."""
+    jkey, key = jax.random.key(seed), threefry.prng_key(np.int32(seed))
+    rs = np.random.RandomState(seed & 0xFFFF)
+    n = 4 * 4099
+    for _ in range(3):
+        jkey, jsub = jax.random.split(jkey)
+        key, sub = threefry.split(key)
+        for j, t in ((jkey, key), (jsub, sub)):
+            np.testing.assert_array_equal(
+                t.numpy(), np.asarray(jax.random.key_data(j)).astype(np.int64))
+        logits = (rs.standard_normal((4, 4099)) * 3).astype(np.float32)
+        for jdt, tdt in ((jnp.float32, torch.float32),
+                         (jnp.bfloat16, torch.bfloat16)):
+            want = jax.random.categorical(
+                jsub, jnp.asarray(logits).astype(jdt) / 0.8, axis=-1)
+            got = threefry.categorical(
+                sub, torch.as_tensor(logits).to(tdt) / 0.8)
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        tiny = float(jnp.finfo(jnp.bfloat16).tiny)
+        want_u = np.asarray(jax.random.uniform(jsub, (n,), jnp.bfloat16,
+                                               minval=tiny))
+        got_u = threefry.uniform(sub, n, tiny, torch.bfloat16)
+        np.testing.assert_array_equal(got_u.view(torch.int16).numpy(),
+                                      want_u.view(np.int16))
+        want_g = np.asarray(jax.random.gumbel(jsub, (n,), jnp.bfloat16))
+        got_g = threefry.gumbel(sub, n, torch.bfloat16)
+        np.testing.assert_array_equal(got_g.view(torch.int16).numpy(),
+                                      want_g.view(np.int16))
+
+
 def test_sampled_tokens_identical_to_jax_with_preemption(models):
     jcfg, jparams, tcfg, tparams = models
     prompts = _prompts(1, (31, 31, 12))
@@ -136,7 +175,7 @@ def test_sampled_tokens_identical_to_jax_with_preemption(models):
 
     def run(num_blocks):
         eng = tserving.ContinuousBatchingEngine(
-            tcfg, tparams, device="cpu", **{**ENGINE,
+            tcfg, tparams, paged=True, device="cpu", **{**ENGINE,
                                             "num_blocks": num_blocks})
         return eng.serve(reqs(tserving.Request)), eng.stats["preemptions"]
 

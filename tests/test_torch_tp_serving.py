@@ -222,7 +222,7 @@ def _rank_scenarios(rank, tree):
     params = params_from_numpy(tree, device="cpu")
 
     def make(**kw):
-        return ContinuousBatchingEngine(cfg, params, device="cpu",
+        return ContinuousBatchingEngine(cfg, params, paged=True, device="cpu",
                                         tensor_parallel=TP, **kw)
 
     out = {"rank": rank}
@@ -279,7 +279,7 @@ def _rank_scenarios(rank, tree):
     out["uninterrupted"] = req.output_ids
     # validation against the group
     try:
-        ContinuousBatchingEngine(cfg, params, device="cpu",
+        ContinuousBatchingEngine(cfg, params, paged=True, device="cpu",
                                  tensor_parallel=4, **BASE)
         out["tp4_error"] = None
     except ValueError as e:
@@ -287,12 +287,13 @@ def _rank_scenarios(rank, tree):
     os.environ["PADDLE_TPU_TP"] = "2"
     try:
         out["env_tp2"] = ContinuousBatchingEngine(
-            cfg, params, device="cpu", **BASE).tp
+            cfg, params, paged=True, device="cpu", **BASE).tp
         os.environ["PADDLE_TPU_TP"] = "4"
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
             out["env_tp4"] = ContinuousBatchingEngine(
-                cfg, params, device="cpu", tensor_parallel=2, **BASE).tp
+                cfg, params, paged=True,
+                device="cpu", tensor_parallel=2, **BASE).tp
         out["env_tp4_warnings"] = [str(w.message) for w in caught]
     finally:
         del os.environ["PADDLE_TPU_TP"]
@@ -381,9 +382,11 @@ def runs(tmp_path_factory):
         jax_runs = _jax_runs(jcfg, jparams)
         params = params_from_numpy(tree, device="cpu")
         tp1 = {kvq: ContinuousBatchingEngine(
-            _cfg(), params, device="cpu", kv_quant=kvq, **ALL_ON).serve(
+            _cfg(), params, paged=True,
+            device="cpu", kv_quant=kvq, **ALL_ON).serve(
                 _mixed_requests(Request)) for kvq in (None,) + KV_QUANTS}
-        eng = ContinuousBatchingEngine(_cfg(), params, device="cpu", **BASE)
+        eng = ContinuousBatchingEngine(_cfg(), params, paged=True,
+                                       device="cpu", **BASE)
         reqs = _deadline_requests(Request)
         for r in reqs:
             eng.add_request(r)
@@ -400,7 +403,8 @@ def runs(tmp_path_factory):
     ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
              for r in range(TP)]
     snap = json.loads(ranks[0]["snapshot"])
-    eng = ContinuousBatchingEngine(_cfg(), params, device="cpu", **BASE)
+    eng = ContinuousBatchingEngine(_cfg(), params, paged=True,
+                                   device="cpu", **BASE)
     restored = eng.restore(snap)
     _drain(eng)
     return {"ranks": ranks, "jax": jax_runs, "tp1": tp1, "tree": tree,
@@ -601,7 +605,7 @@ def test_ranks_import_no_jax(runs):
 
 def _engine(**kw):
     params = tllama.init_params(_cfg(), device="cpu")
-    return ContinuousBatchingEngine(_cfg(), params, device="cpu",
+    return ContinuousBatchingEngine(_cfg(), params, paged=True, device="cpu",
                                     **{**BASE, **kw})
 
 
