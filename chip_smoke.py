@@ -183,6 +183,32 @@ non-zero as soon as one fails:
     no window raised anywhere else; every serve phase guarded windows,
     phase 15 as many as ``host_overlap_steps`` in its async-on serves, and
     each rank of phase 17 its own; prints the windows guarded a phase.
+19. dense serving: the dense slot-cache engine (``paged=False``) and the
+    ``GenerationEngine`` at Llama-3-8B width (``phase_dense``).
+20. MoE (DeepSeekMoE-16B widths: h 2048, 16 heads of 128, 64 routed
+    experts of 1408, 2 shared, top-6, vocabulary 102400, random bf16
+    weights): (a) one layer's routed FFN on 2 x 2048 tokens through the
+    dense, sort and ragged engines: dense and sort give every (token, k)
+    pair the same expert slot and outputs within the MLP's tolerance,
+    ragged equals sort at a capacity that drops nothing, each engine
+    timed; (b) ``MOE_LAYERS`` layers take 5 AdamW steps of 2 x 2048 tokens
+    on the sort engine under full recompute: the loss falls, the launch
+    counts prove B1 and the three flash kernels (tensor cores) in every
+    layer; step time, tokens/s, MFU over the active parameters, peak
+    memory, a profile of one step by group (expert matmuls, dispatch,
+    other matmuls, flash, AdamW); (c) ``MOE_E2E_LAYERS`` layers' loss,
+    gradient norm and every gradient leaf with the kernels and with every
+    kernel off, the plain run replaying the kernel run's routing.
+21. DiT (DiT-XL/2 at full depth: 28 blocks, h 1152, 16 heads of 72,
+    32x32x4 latents, patch 2): (a) 5 AdamW steps of the rectified-flow
+    loss on 32 seeded latents: the step-1 loss 2 (a fresh model outputs
+    0), falling; every block's flash forward, dK/dV and dQ on the
+    CUDA-core route (head_dim 72), no tensor-core launch; step time,
+    images/s, tokens/s, MFU, peak memory, a profile of one step; (b)
+    ``DIT_E2E_BLOCKS`` blocks with every leaf random, kernels against
+    every kernel off as 20 (c); (c) the three flash kernels at DiT's shape
+    (b 32, s 256, non-causal) against their plain versions, timed beside
+    SDPA and the bound: the kernels line's ``flash_attention_*_cc``.
 
 The line before the last lists every kernel with its numbers; the last line
 is ``{"ok": true, "device": {...}}``.  ``--serve-sweep FIRST-LAST`` runs
@@ -3957,23 +3983,30 @@ def _flash_case(torch, tfa, g, dev, b, sq, skv, hq, hkv, d, causal,
     return q, k, v, do, kw
 
 
-def _flash_check(torch, tfa, q, k, v, do, kw, label) -> dict:
+def _flash_check(torch, tfa, q, k, v, do, kw, label,
+                 routes=ROUTES) -> dict:
     """The three kernels against their plain versions on one case, each on
-    both routes; returns the errors by route and the tensors the timing
-    reuses."""
+    ``routes`` (default both); returns the errors by route and the tensors
+    the timing reuses.  Each kernel runs before the plain version it is
+    held to, so no output of a kernel can sit in a recycled block that
+    still holds the plain values."""
+    fwd = {route: tfa.flash_fwd_cuda(q, k, v, route=route, **kw)
+           for route in routes}
     out_p, lse_p = tfa.flash_fwd_ref(q, k, v, **kw)
     delta = (out_p.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+    bwd = {route: (tfa.flash_dkv_cuda(q, k, v, do, lse_p, delta, route=route,
+                                      **kw),
+                   tfa.flash_dq_cuda(q, k, v, do, lse_p, delta, route=route,
+                                     **kw))
+           for route in routes}
+    torch.cuda.synchronize()
     dk_p, dv_p = tfa.flash_dkv_ref(q, k, v, do, lse_p, delta, **kw)
     dq_p = tfa.flash_dq_ref(q, k, v, do, lse_p, delta, **kw)
     live = lse_p > -1e29
     dead = (~live).transpose(1, 2)
     res = {"dead_rows": int(dead.sum())}
-    for route in ROUTES:
-        out, lse = tfa.flash_fwd_cuda(q, k, v, route=route, **kw)
-        dk, dv = tfa.flash_dkv_cuda(q, k, v, do, lse_p, delta, route=route,
-                                    **kw)
-        dq = tfa.flash_dq_cuda(q, k, v, do, lse_p, delta, route=route, **kw)
-        torch.cuda.synchronize()
+    for route in routes:
+        (out, lse), ((dk, dv), dq) = fwd[route], bwd[route]
         r = res[route] = {
             "fwd": _flash_err(out, out_p),
             "lse_max_abs_err": (lse - lse_p)[live].abs().max().item(),
@@ -4147,15 +4180,18 @@ _TRAIN_GROUPS = (("flash_fwd_tc_kernel", "flash_fwd_tc"),
                  ("nvjet", "matmul"))
 
 
-def _device_groups(torch, prof, groups_of) -> tuple[dict, float, dict]:
+def _device_groups(torch, prof, groups_of,
+                   ranges=()) -> tuple[dict, float, dict]:
     """Device microseconds by group from a profile, their total, and the
-    largest 'other' kernels."""
+    largest 'other' kernels.  ``ranges``: the names of ``record_function``
+    ranges, whose span the device timeline also carries (left out)."""
     groups: dict[str, float] = {}
     other: dict[str, float] = {}
     total = 0.0
     cuda_kind = torch.autograd.DeviceType.CUDA
     for evt in prof.key_averages():
-        if getattr(evt, "device_type", cuda_kind) != cuda_kind:
+        if (getattr(evt, "device_type", cuda_kind) != cuda_kind
+                or evt.key in ranges):
             continue
         dev_us = getattr(evt, "self_device_time_total",
                          getattr(evt, "self_cuda_time_total", 0.0))
@@ -4261,23 +4297,15 @@ def phase_train(torch, np) -> dict:
     return launches
 
 
-def phase_train_end_to_end(torch, np) -> None:
-    """2 full-width layers: loss, gradient norm and every gradient leaf with
-    the kernels and with every kernel disabled (flash -> the composed
-    oracle, rms_norm -> its plain version), from the same parameters and
-    batch."""
+def _kernels_vs_plain(torch, label, run, leaves_of) -> dict:
+    """``run(which)`` -> (loss, grads) with the kernels ('kernels') and
+    with ``PADDLE_TPU_TORCH_DISABLE_KERNELS=all`` ('plain'), from the same
+    parameters and batch: the loss, gradient norm and every gradient leaf
+    held to phase 9's tolerances; the kernel run launched each of
+    ``leaves_of``, the plain run nothing."""
     from paddle_tpu_torch.models import llama
     from paddle_tpu_torch.ops import kernels
 
-    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(),
-                              num_hidden_layers=2)
-    b, s = 2, 2048
-    g = torch.Generator(device="cuda")
-    g.manual_seed(6)
-    ids = torch.randint(0, cfg.vocab_size, (b, s), generator=g,
-                        device="cuda")
-    labels = torch.randint(0, cfg.vocab_size, (b, s), generator=g,
-                           device="cuda")
     env = "PADDLE_TPU_TORCH_DISABLE_KERNELS"
     # tolerances: bf16 activations rounded in other places (the flash
     # kernels round attention once from f32; the composed path rounds the
@@ -4288,43 +4316,618 @@ def phase_train_end_to_end(torch, np) -> None:
     loss_tol, gnorm_rel_tol, leaf_rel_tol = 2.0 ** -8 * 12, 2.0 ** -5, \
         2.0 ** -5
     runs = {}
-    for label, disable in (("kernels", None), ("plain", "all")):
+    for which, disable in (("kernels", None), ("plain", "all")):
         if disable is None:
             os.environ.pop(env, None)
         else:
             os.environ[env] = disable
-        params = llama.init_params(cfg, seed=7, device="cuda")
         kernels.reset_counters()
-        loss, grads = llama.loss_and_grads(cfg, params, ids, labels)
-        gnorm = llama.global_norm(grads).item()
+        try:
+            loss, grads = run(which)
+        finally:
+            os.environ.pop(env, None)
         launches = dict(kernels.LAUNCHES)
-        os.environ.pop(env, None)
         if disable is None:
-            check(all(launches[k] > 0 for k in FLASH_KERNELS + (
-                "flash_attention_fwd_tc", "flash_attention_dkv_tc",
-                "flash_attention_dq_tc", "rms_norm")),
-                  f"kernel run launched the train kernels: {launches}")
+            check(all(launches[k] > 0 for k in leaves_of),
+                  f"{label}: the kernel run launched {leaves_of}: "
+                  f"{launches}")
         else:
             check(all(v == 0 for v in launches.values()),
-                  f"plain run launched no kernel: {launches}")
-        runs[label] = (loss.item(), gnorm, grads, launches)
-        del params
+                  f"{label}: the plain run launched no kernel: {launches}")
+        runs[which] = (loss.item(), llama.global_norm(grads).item(), grads,
+                       launches)
     (lk, gk, dk, lnk), (lp, gp, dp, _) = runs["kernels"], runs["plain"]
     leaf_err = [((a.float() - b_.float()).abs().max()
                  / b_.float().abs().max()).item() for a, b_ in zip(dk, dp)]
-    check(abs(lk - lp) <= loss_tol, f"loss {lk} vs {lp} within {loss_tol}")
+    check(abs(lk - lp) <= loss_tol,
+          f"{label}: loss {lk} vs {lp} within {loss_tol}")
     check(abs(gk - gp) <= gnorm_rel_tol * gp,
-          f"gnorm {gk} vs {gp} within {gnorm_rel_tol} relative")
+          f"{label}: gnorm {gk} vs {gp} within {gnorm_rel_tol} relative")
     check(max(leaf_err) <= leaf_rel_tol,
-          f"gradient leaves within {leaf_rel_tol} of their max: {leaf_err}")
+          f"{label}: gradient leaves within {leaf_rel_tol} of their max: "
+          f"{leaf_err}")
+    return {"loss": {"kernels": lk, "plain": lp}, "loss_tolerance": loss_tol,
+            "gnorm": {"kernels": gk, "plain": gp},
+            "gnorm_rel_tolerance": gnorm_rel_tol,
+            "leaf_max_err_over_leaf_max": leaf_err,
+            "leaf_tolerance": leaf_rel_tol, "kernel_launches": lnk}
+
+
+def phase_train_end_to_end(torch, np) -> None:
+    """2 full-width layers: loss, gradient norm and every gradient leaf with
+    the kernels and with every kernel disabled (flash -> the composed
+    oracle, rms_norm -> its plain version), from the same parameters and
+    batch."""
+    from paddle_tpu_torch.models import llama
+
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(),
+                              num_hidden_layers=2)
+    b, s = 2, 2048
+    g = torch.Generator(device="cuda")
+    g.manual_seed(6)
+    ids = torch.randint(0, cfg.vocab_size, (b, s), generator=g,
+                        device="cuda")
+    labels = torch.randint(0, cfg.vocab_size, (b, s), generator=g,
+                           device="cuda")
+
+    def run(which):
+        params = llama.init_params(cfg, seed=7, device="cuda")
+        return llama.loss_and_grads(cfg, params, ids, labels)
+
+    res = _kernels_vs_plain(torch, "train", run, FLASH_KERNELS + (
+        "flash_attention_fwd_tc", "flash_attention_dkv_tc",
+        "flash_attention_dq_tc", "rms_norm"))
     emit({"phase": "train_end_to_end", "layers": cfg.num_hidden_layers,
-          "loss": {"kernels": lk, "plain": lp}, "loss_tolerance": loss_tol,
-          "gnorm": {"kernels": gk, "plain": gp},
-          "gnorm_rel_tolerance": gnorm_rel_tol,
-          "leaf_max_err_over_leaf_max": leaf_err,
-          "leaf_tolerance": leaf_rel_tol, "kernel_launches": lnk})
-    del runs, dk, dp
+          **res})
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phases 20-21: the MoE decoder (A10's moe_llama) and the DiT (A10's dit)
+# ---------------------------------------------------------------------------
+
+#: phase 20's depth: DeepSeekMoE-16B's 28 layers would be ~16.4B
+#: parameters, ~260 GB under AdamW's 16 bytes a parameter; 4 layers are
+#: 2.77B (587.8M a layer, 419.4M of embedding and head)
+MOE_LAYERS = 4
+#: depth of the kernels-vs-plain runs of phases 20 (c) and 21 (b)
+MOE_E2E_LAYERS, DIT_E2E_BLOCKS = 2, 4
+#: dispatch engines against each other (bf16 out): the MLP's tolerance,
+#: one bf16 ulp of the value twice over plus one of the output's largest
+DISPATCH_REL, DISPATCH_FLOOR = 2.0 ** -6, 2.0 ** -7
+#: the DiT's step-1 loss: a fresh model outputs exactly 0 (adaLN-Zero), so
+#: it is mean((eps - x0)^2) over 32 x 4 x 32 x 32 draws of N(0, 2): 2
+#: within 6 standard deviations (sqrt(8 / 131072) = 0.0078)
+DIT_LOSS0, DIT_LOSS0_TOL = 2.0, 0.05
+
+#: ops whose kernels form a train step's MoE dispatch group (the stable
+#: sort, the scatter into the expert buffer, the gathers, ``index_add``,
+#: and their backward)
+_DISPATCH_OPS = frozenset({
+    "aten::sort", "aten::index_copy", "aten::index_copy_", "aten::index",
+    "aten::index_add", "aten::index_add_", "aten::index_select",
+    "aten::index_put_", "aten::_index_put_impl_", "aten::bincount",
+    "aten::cumsum"})
+#: kernels launched through ctypes, grouped by name
+_HAND_KERNELS = _TRAIN_GROUPS[:7]
+
+
+def _step_groups(torch, prof) -> tuple[dict, float]:
+    """Device ms of a profiled train step by group, each kernel by the op
+    that launched it: the hand kernels by name, AdamW (every kernel under
+    the step's ``adamw`` range), the expert matmuls (``aten::bmm``), the
+    other matmuls (``aten::mm`` / ``addmm``), the MoE dispatch ops
+    (:data:`_DISPATCH_OPS`, the embedding's excluded), the rest 'other',
+    and 'unlinked' for device time no op claims.  Returns (groups, total
+    device ms)."""
+    cuda = torch.autograd.DeviceType.CUDA
+    _, total, _ = _device_groups(torch, prof, (), ranges=("adamw",))
+    groups: dict[str, float] = {}
+    linked = 0.0
+    for e in prof.events():
+        if e.device_type == cuda or not e.kernels:
+            continue
+        chain, p = set(), e
+        while p is not None:
+            chain.add(p.name)
+            p = p.cpu_parent
+        for kern in e.kernels:
+            name = kern.name.lower()
+            group = next((gr for frag, gr in _HAND_KERNELS if frag in name),
+                         None)
+            if group is None:
+                if "adamw" in chain:
+                    group = "adamw"
+                elif chain & {"aten::embedding",
+                              "aten::embedding_dense_backward"}:
+                    group = "other"
+                elif e.name in _DISPATCH_OPS:
+                    group = "dispatch"
+                else:
+                    group = {"aten::bmm": "expert matmuls",
+                             "aten::mm": "matmuls",
+                             "aten::addmm": "matmuls"}.get(e.name, "other")
+            groups[group] = groups.get(group, 0.0) + kern.duration
+            linked += kern.duration
+    if total > linked:
+        groups["unlinked"] = total - linked
+    return {k: v / 1e3 for k, v in sorted(groups.items())}, total / 1e3
+
+
+def _profiled_step(torch, step_fn) -> dict:
+    """One train step under torch.profiler, AdamW inside an ``adamw``
+    range: device ms by op group and by kernel, the busy share."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from paddle_tpu_torch.models import llama
+
+    update = llama.adamw_update
+
+    def traced(*a, **kw):
+        with record_function("adamw"):
+            return update(*a, **kw)
+
+    llama.adamw_update = traced
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step_fn()
+            wall = time.perf_counter() - t0
+    finally:
+        llama.adamw_update = update
+    by_op, total = _step_groups(torch, prof)
+    by_kernel, _, other = _device_groups(torch, prof, _TRAIN_GROUPS,
+                                         ranges=("adamw",))
+    return {"wall_ms": wall * 1e3,
+            "device_ms_by_op": by_op if total else "not measured",
+            "device_ms_by_kernel": ({k: v / 1e3 for k, v in sorted(
+                by_kernel.items())} if total else "not measured"),
+            "device_ms_total": total or None,
+            "device_busy_share": total / 1e3 / wall if total else None,
+            "other_top_ms": {k: v / 1e3 for k, v in sorted(
+                other.items(), key=lambda kv: -kv[1])[:8]}}
+
+
+def _close_err(got, want, rel, floor) -> dict:
+    ref = want.float().abs()
+    err = (got.float() - want.float()).abs()
+    tol = ref * rel + ref.max() * floor
+    return {"max_abs_err": err.max().item(),
+            "worst_err_over_tol": (err / tol).max().item()}
+
+
+def phase_moe_dispatch(torch, np, dev="cuda") -> dict:
+    """Phase 20 (a): one layer's ``moe_ffn`` at DeepSeekMoE-16B widths
+    (h 2048, 64 experts of 1408, top-6) on 2 x 2048 tokens, random bf16
+    weights (the router f32): the dense and sort engines give every
+    (token, k) pair the same expert slot (so the same keep mask) and
+    outputs within the MLP's tolerance; the dropless ragged engine equals
+    sort at a capacity that drops nothing; aux and z; each engine's time
+    (CUDA events; ragged includes its one host read of the group sizes).
+    Dense and sort are compared at the config's capacity factor and at
+    0.5, where queues certainly overflow."""
+    from paddle_tpu_torch.models import moe_llama as tmoe
+
+    base = tmoe.MoEConfig.deepseek_moe_16b()
+    h, E, mi, K = (base.hidden_size, base.num_experts,
+                   base.moe_intermediate_size, base.top_k)
+    b, s = 2, 2048
+    tokens = b * s
+    g = torch.Generator(device=dev)
+    g.manual_seed(20)
+
+    def rand(*shape, dtype=torch.bfloat16, std=0.02):
+        return (torch.randn(shape, generator=g, device=dev) * std).to(dtype)
+
+    lp = {"router": rand(h, E, dtype=torch.float32), "e_gate": rand(E, h, mi),
+          "e_up": rand(E, h, mi), "e_down": rand(E, mi, h)}
+    x = rand(b, s, h, std=1.0)
+    cfg = {m: dataclasses.replace(base, dispatch=m)
+           for m in ("dense", "sort", "ragged")}
+    with torch.no_grad():
+        _, _, topk_i, aux, z = tmoe.route(base, x.reshape(tokens, h),
+                                          lp["router"])
+        order, sorted_e, counts = tmoe._sorted_pairs(topk_i, E)
+        cases = {}
+        # the config's capacity factor, and half the mean queue (drops
+        # certain)
+        for cf in (base.capacity_factor, 0.5):
+            c = {m: dataclasses.replace(cfg[m], capacity_factor=cf)
+                 for m in ("dense", "sort")}
+            cap = tmoe.capacity(c["sort"], tokens)
+            pos = tmoe._queue_positions(topk_i, E)
+            slot_dense = torch.where(pos < cap, topk_i * cap + pos, -1)
+            pos_s = (torch.arange(tokens * K, device=dev)
+                     - (torch.cumsum(counts, 0) - counts)[sorted_e])
+            slot_s = torch.where(pos_s < cap, sorted_e * cap + pos_s, -1)
+            slot_sort = torch.empty_like(slot_s).index_copy_(
+                0, order, slot_s).reshape(tokens, K)
+            check(torch.equal(slot_dense, slot_sort),
+                  f"dense and sort at capacity {cap}: the same expert slot "
+                  f"and keep mask for every (token, k) pair")
+            outs = {m: tmoe.moe_ffn(c[m], x, lp) for m in ("dense", "sort")}
+            check(all(torch.equal(o[1], aux) and torch.equal(o[2], z)
+                      for o in outs.values()),
+                  "aux and z shared by the engines")
+            cases[f"capacity_factor_{cf}"] = {
+                "capacity": cap, "pairs_dropped": int((slot_dense < 0).sum()),
+                **_close_err(outs["sort"][0], outs["dense"][0],
+                             DISPATCH_REL, DISPATCH_FLOOR)}
+        check(cases["capacity_factor_0.5"]["pairs_dropped"] > 0,
+              f"capacity factor 0.5 drops pairs: {cases}")
+        sort_vs_dense = cases
+        # a capacity factor whose cap holds the fullest expert's queue
+        most = int(counts.max())
+        nodrop = {m: dataclasses.replace(
+            cfg[m], capacity_factor=most * E / (K * tokens))
+            for m in ("sort", "ragged")}
+        cap_nd = tmoe.capacity(nodrop["sort"], tokens)
+        check(cap_nd >= most, f"no-drop cap {cap_nd} >= {most}")
+        ragged_vs_sort = _close_err(
+            tmoe.moe_ffn(nodrop["ragged"], x, lp)[0],
+            tmoe.moe_ffn(nodrop["sort"], x, lp)[0],
+            DISPATCH_REL, DISPATCH_FLOOR)
+        for label, err in (*cases.items(),
+                           ("ragged vs sort (no drops)", ragged_vs_sort)):
+            check(err["worst_err_over_tol"] <= 1.0,
+                  f"moe dispatch {label} within tolerance ({err})")
+        ms = {m: time_ms(torch, lambda m=m: tmoe.moe_ffn(cfg[m], x, lp))
+              for m in ("dense", "sort", "ragged")}
+    res = {"phase": "moe_dispatch", "tokens": tokens, "experts": E,
+           "top_k": K, "pairs": tokens * K, "largest_queue": most,
+           "no_drop_capacity": cap_nd, "aux": aux.item(), "z": z.item(),
+           "sort_vs_dense": sort_vs_dense,
+           "ragged_vs_sort_no_drops": ragged_vs_sort,
+           "tolerance": "|d| <= 2^-6|ref| + 2^-7 max|ref|",
+           "ms": ms}
+    emit(res)
+    del lp, x, outs
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_moe_train(torch, np, dev="cuda") -> dict:
+    """Phase 20 (b): DeepSeekMoE-16B widths cut to ``MOE_LAYERS`` layers
+    (the sort engine, full recompute) take 5 AdamW steps on one batch of
+    2 x 2048 seeded tokens; the loss falls; the launch counts prove every
+    layer went through B1 and the three flash kernels on the tensor-core
+    route; step ms, tokens/s, MFU over the active parameters, peak GB, and
+    one profiled step by group."""
+    from paddle_tpu_torch.models import moe_llama as tmoe
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.ops.kernels import flash_attention as tfa
+
+    cfg = dataclasses.replace(tmoe.MoEConfig.deepseek_moe_16b(),
+                              num_hidden_layers=MOE_LAYERS)
+    L, b, s, steps = cfg.num_hidden_layers, 2, 2048, 5
+    check(tmoe.resolved_dispatch(cfg) == "sort", "64 experts dispatch by sort")
+    torch.cuda.reset_peak_memory_stats()
+    params = tmoe.init_params(cfg, seed=21, device=dev)
+    train_step, opt_init = tmoe.build_train_step(cfg)
+    opt = opt_init(params)
+    g = torch.Generator(device=dev)
+    g.manual_seed(22)
+    ids = torch.randint(0, cfg.vocab_size, (b, s), generator=g, device=dev)
+    labels = torch.randint(0, cfg.vocab_size, (b, s), generator=g,
+                           device=dev)
+    torch.cuda.synchronize()
+    kernels.reset_counters()
+    fallbacks0 = tfa.FALLBACK_CALLS
+    losses, gnorms, times = [], [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        loss, params, opt = train_step(params, opt, ids, labels)
+        losses.append(loss.item())          # synchronizes
+        gnorms.append(opt["gnorm"].item())
+        times.append(time.perf_counter() - t0)
+    launches = dict(kernels.LAUNCHES)
+    fallbacks = tfa.FALLBACK_CALLS - fallbacks0
+    check(all(math.isfinite(v) for v in losses + gnorms),
+          f"moe losses {losses} and gnorms {gnorms} finite")
+    check(abs(losses[0] - math.log(cfg.vocab_size)) < 1.5,
+          f"moe step-1 loss {losses[0]} near ln(V) = "
+          f"{math.log(cfg.vocab_size)}")
+    check(losses[-1] < losses[0], f"the moe loss falls: {losses}")
+    want = {"flash_attention_fwd": 2 * L * steps,
+            "flash_attention_fwd_tc": 2 * L * steps,
+            "flash_attention_dkv": L * steps,
+            "flash_attention_dkv_tc": L * steps,
+            "flash_attention_dq": L * steps,
+            "flash_attention_dq_tc": L * steps,
+            "rms_norm": (4 * L + 1) * steps}
+    for name, n in want.items():
+        check(launches[name] == n, f"moe {name} launches {launches[name]} "
+                                   f"== {n} (full recompute, {steps} steps)")
+    check(fallbacks == 0, f"no composed-attention fallback ({fallbacks})")
+    step_s = statistics.median(times[1:])
+    tok_s = b * s / step_s
+    res = {"phase": "moe_train",
+           "model": f"deepseek_moe_16b widths, {L} layers",
+           "params": tmoe.count_params(params),
+           "active_params_per_token": tmoe.active_params_per_token(cfg),
+           "dispatch": "sort", "batch": b, "seq": s, "remat": "full",
+           "steps": steps, "losses": losses, "gnorms": gnorms,
+           "step_s": times, "step_ms_median_2_5": step_s * 1e3,
+           "tokens_per_s": tok_s,
+           "mfu_active_excluding_recompute":
+               tmoe.flops_per_token(cfg, s) * tok_s / BF16_FLOPS,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": launches, "flash_fallback_calls": fallbacks,
+           "launches_per_step": {k: v // steps for k, v in want.items()}}
+    emit(res)
+
+    def one_step():
+        nonlocal params, opt
+        loss, params, opt = train_step(params, opt, ids, labels)
+        loss.item()
+
+    emit({"phase": "moe_train_profile", **_profiled_step(torch, one_step)})
+    del params, opt
+    torch.cuda.empty_cache()
+    return launches
+
+
+class _RoutingReplay:
+    """Holds a kernels-vs-plain comparison of a MoE model to one routing:
+    ``moe_llama.top_k`` patched to record each call's experts ('record')
+    and to hand them back in call order ('replay'), counting the pairs the
+    replaying run would have routed otherwise.  In bf16 the kernels and the
+    plain versions round the router's input differently, which moves the
+    k-th pick of a token whose k-th and (k+1)-th probabilities nearly tie:
+    one such pair moves whole rows of the expert gradients."""
+
+    def __init__(self, tmoe):
+        self.tmoe, self.top_k = tmoe, tmoe.top_k
+        self.mode, self.idx, self.at, self.moved, self.pairs = (
+            "record", [], 0, 0, 0)
+        tmoe.top_k = self
+
+    def __call__(self, probs, k):
+        vals, idx = self.top_k(probs, k)
+        if self.mode == "record":
+            self.idx.append(idx)
+            return vals, idx
+        rec = self.idx[self.at]
+        self.at += 1
+        same = (rec.sort(-1).values == idx.sort(-1).values).all(-1)
+        self.moved += int((~same).sum())
+        self.pairs += idx.shape[0]
+        return probs.gather(-1, rec), rec
+
+    def restore(self):
+        self.tmoe.top_k = self.top_k
+
+
+def phase_moe_end_to_end(torch, np, dev="cuda") -> None:
+    """Phase 20 (c): ``MOE_E2E_LAYERS`` full-width DeepSeekMoE-16B layers,
+    loss, gradient norm and every gradient leaf with the kernels and with
+    every kernel off, from the same parameters and batch, the plain run
+    replaying the kernel run's routing (:class:`_RoutingReplay`)."""
+    from paddle_tpu_torch.models import moe_llama as tmoe
+
+    cfg = dataclasses.replace(tmoe.MoEConfig.deepseek_moe_16b(),
+                              num_hidden_layers=MOE_E2E_LAYERS)
+    b, s = 2, 2048
+    g = torch.Generator(device=dev)
+    g.manual_seed(23)
+    ids = torch.randint(0, cfg.vocab_size, (b, s), generator=g, device=dev)
+    labels = torch.randint(0, cfg.vocab_size, (b, s), generator=g,
+                           device=dev)
+    replay = _RoutingReplay(tmoe)
+
+    def run(which):
+        replay.mode = "record" if which == "kernels" else "replay"
+        params = tmoe.init_params(cfg, seed=24, device=dev)
+        return tmoe.loss_and_grads(cfg, params, ids, labels)
+
+    try:
+        res = _kernels_vs_plain(torch, "moe", run, FLASH_KERNELS + (
+            "flash_attention_fwd_tc", "flash_attention_dkv_tc",
+            "flash_attention_dq_tc", "rms_norm"))
+    finally:
+        replay.restore()
+    check(replay.at == len(replay.idx) == 2 * cfg.num_hidden_layers,
+          f"the plain run replayed every routing call ({replay.at} of "
+          f"{len(replay.idx)})")
+    emit({"phase": "moe_end_to_end", "layers": cfg.num_hidden_layers,
+          "tokens_rerouted_without_replay": replay.moved,
+          "tokens_routed": replay.pairs, **res})
+    torch.cuda.empty_cache()
+
+
+def phase_dit_train(torch, np, dev="cuda") -> dict:
+    """Phase 21 (a): DiT-XL/2 at full depth (28 blocks, h 1152, 16 heads of
+    72, 32x32x4 latents, patch 2: 256 tokens) takes 5 AdamW steps on one
+    batch of 32 seeded latents and labels under one key; the step-1 loss
+    is ``DIT_LOSS0`` within ``DIT_LOSS0_TOL``, the loss falls; the launch
+    counts prove every block went through the three flash kernels on the
+    CUDA-core route (head_dim 72: no ``_tc`` launch); step ms, images/s,
+    tokens/s, MFU, peak GB, one profiled step by group."""
+    from paddle_tpu_torch.models import dit as tdit
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.ops.kernels import flash_attention as tfa
+    from paddle_tpu_torch.utils import threefry
+
+    cfg = tdit.DiTConfig.dit_xl_2()
+    D, b, steps = cfg.depth, 32, 5
+    check(tfa.flash_route(cfg.dtype, cfg.head_dim) == "cc",
+          f"head_dim {cfg.head_dim} takes the CUDA-core flash route")
+    torch.cuda.reset_peak_memory_stats()
+    params = tdit.init_params(cfg, seed=25, device=dev)
+    n_params = tdit.count_params(params)
+    train_step, opt_init = tdit.build_train_step(cfg)
+    opt = opt_init(params)
+    g = torch.Generator(device=dev)
+    g.manual_seed(26)
+    c, hw = cfg.in_channels, cfg.image_size
+    x0 = torch.randn(b, c, hw, hw, generator=g, device=dev)
+    y = torch.randint(0, cfg.num_classes, (b,), generator=g, device=dev)
+    key = threefry.prng_key(27, device=dev)
+    torch.cuda.synchronize()
+    kernels.reset_counters()
+    fallbacks0 = tfa.FALLBACK_CALLS
+    losses, times = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        loss, params, opt = train_step(params, opt, x0, y, key)
+        losses.append(loss.item())
+        times.append(time.perf_counter() - t0)
+    launches = dict(kernels.LAUNCHES)
+    fallbacks = tfa.FALLBACK_CALLS - fallbacks0
+    check(all(math.isfinite(v) for v in losses),
+          f"dit losses {losses} finite")
+    check(abs(losses[0] - DIT_LOSS0) <= DIT_LOSS0_TOL,
+          f"dit step-1 loss {losses[0]} within {DIT_LOSS0_TOL} of "
+          f"{DIT_LOSS0} (the zero-init output against eps - x0)")
+    check(losses[-1] < losses[0], f"the dit loss falls: {losses}")
+    want = {"flash_attention_fwd": 2 * D * steps,
+            "flash_attention_dkv": D * steps,
+            "flash_attention_dq": D * steps,
+            "flash_attention_fwd_tc": 0, "flash_attention_dkv_tc": 0,
+            "flash_attention_dq_tc": 0, "rms_norm": 0}
+    for name, n in want.items():
+        check(launches[name] == n, f"dit {name} launches {launches[name]} "
+                                   f"== {n} (full recompute, {steps} steps)")
+    check(fallbacks == 0, f"no composed-attention fallback ({fallbacks})")
+    step_s = statistics.median(times[1:])
+    tok_s = b * cfg.num_patches / step_s
+    res = {"phase": "dit_train", "model": "dit_xl_2 (full depth)",
+           "params": n_params, "batch": b, "tokens_per_image":
+           cfg.num_patches, "remat": "full", "steps": steps,
+           "losses": losses, "step_s": times,
+           "step_ms_median_2_5": step_s * 1e3, "images_per_s": b / step_s,
+           "tokens_per_s": tok_s,
+           "mfu_excluding_recompute":
+               tdit.flops_per_token(cfg, n_params) * tok_s / BF16_FLOPS,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": launches, "flash_fallback_calls": fallbacks,
+           "launches_per_step": {k: v // steps for k, v in want.items()}}
+    emit(res)
+
+    def one_step():
+        nonlocal params, opt
+        loss, params, opt = train_step(params, opt, x0, y, key)
+        loss.item()
+
+    emit({"phase": "dit_train_profile", **_profiled_step(torch, one_step)})
+    del params, opt
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_dit_end_to_end(torch, np, dev="cuda") -> None:
+    """Phase 21 (b): ``DIT_E2E_BLOCKS`` DiT-XL/2 blocks with EVERY leaf
+    random (at init the adaLN-Zero leaves are 0 and the blocks get no
+    gradient), loss, gradient norm and every gradient leaf with the
+    kernels and with every kernel off."""
+    from paddle_tpu_torch.models import dit as tdit
+    from paddle_tpu_torch.models import llama
+    from paddle_tpu_torch.utils import threefry
+
+    cfg = dataclasses.replace(tdit.DiTConfig.dit_xl_2(),
+                              depth=DIT_E2E_BLOCKS)
+    b = 32
+    g = torch.Generator(device=dev)
+    g.manual_seed(28)
+    c, hw = cfg.in_channels, cfg.image_size
+    x0 = torch.randn(b, c, hw, hw, generator=g, device=dev)
+    y = torch.randint(0, cfg.num_classes, (b,), generator=g, device=dev)
+    key = threefry.prng_key(29, device=dev)
+
+    def run(which):
+        params = tdit.init_params(cfg, seed=30, device=dev)
+        gw = torch.Generator(device=dev)
+        gw.manual_seed(31)
+        with torch.no_grad():
+            for leaf in llama.tree_leaves(params):
+                leaf.copy_(torch.randn(leaf.shape, generator=gw,
+                                       device=dev) * 0.02)
+        return tdit.loss_and_grads(cfg, params, x0, y, key)
+
+    res = _kernels_vs_plain(torch, "dit", run, FLASH_KERNELS)
+    check(all(res["kernel_launches"][f"{k}_tc"] == 0 for k in FLASH_KERNELS),
+          "dit: every flash launch on the CUDA-core route")
+    emit({"phase": "dit_end_to_end", "blocks": cfg.depth, **res})
+    torch.cuda.empty_cache()
+
+
+def phase_dit_flash(torch) -> dict:
+    """Phase 21 (c): the three flash kernels at DiT-XL/2's shape (b 32,
+    s 256, 16 heads of 72, non-causal, bf16), on the CUDA-core route the
+    rule gives head_dim 72, against their plain versions and timed beside
+    them, SDPA non-causal and the bound.  Returns name -> numbers for the
+    kernels line (``flash_attention_*_cc``)."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as tfa
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(4322)
+    b, s, hq, hkv, d = 32, 256, 16, 16, 72
+    check(tfa.flash_route(torch.bfloat16, d) == "cc",
+          "head_dim 72 takes the CUDA-core route")
+    scratch = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
+
+    def flush():
+        scratch.zero_()
+
+    q, k, v, do, kw = _flash_case(torch, tfa, g, dev, b, s, s, hq, hkv, d,
+                                  False)
+    res, (lse, delta) = _flash_check(torch, tfa, q, k, v, do, kw,
+                                     "dit shape", routes=("cc",))
+    pairs = b * hq * s * s
+    el = 2
+    qb, kvb, rowb = b * s * hq * d * el, b * s * hkv * d * el, b * hq * s * 4
+    bounds = {"fwd": bound_ms(qb + 2 * kvb + qb + rowb, 4 * d * pairs),
+              "dkv": bound_ms(2 * qb + 2 * kvb + 2 * rowb + 2 * kvb,
+                              8 * d * pairs),
+              "dq": bound_ms(2 * qb + 2 * kvb + 2 * rowb + qb, 6 * d * pairs)}
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def lib_forward():
+        with torch.no_grad():
+            return sdpa(qt, kt, vt)
+
+    lib_fwd = time_ms(torch, lib_forward, flush=flush)
+    out_t = sdpa(qt, kt, vt)
+    do_t = do.transpose(1, 2).contiguous()
+    lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
+        out_t, (qt, kt, vt), do_t, retain_graph=True), flush=flush)
+    del out_t
+    timed = {
+        "fwd": (lambda: tfa.flash_fwd_cuda(q, k, v, **kw),
+                lambda: tfa.flash_fwd_ref(q, k, v, **kw), lib_fwd),
+        "dkv": (lambda: tfa.flash_dkv_cuda(q, k, v, do, lse, delta, **kw),
+                lambda: tfa.flash_dkv_ref(q, k, v, do, lse, delta, **kw),
+                lib_bwd),
+        "dq": (lambda: tfa.flash_dq_cuda(q, k, v, do, lse, delta, **kw),
+               lambda: tfa.flash_dq_ref(q, k, v, do, lse, delta, **kw),
+               lib_bwd)}
+    out = {}
+    for part, (kern, plain, lib) in timed.items():
+        name = f"flash_attention_{part}_cc"
+        bnd, by = bounds[part]
+        out[name] = {
+            "shape": {"b": b, "sq": s, "skv": s, "hq": hq, "hkv": hkv,
+                      "d": d, "dtype": "bfloat16", "causal": False},
+            **_route_errs(res["cc"], part),
+            "tolerance": "|d| <= 2^-7|ref| + 2^-10 max|ref| (f32 order, "
+                         "one bf16 rounding)",
+            "route": "cc (flash_route at head_dim 72)",
+            "ms": time_ms(torch, kern, flush=flush),
+            "plain_ms": time_ms(torch, plain, flush=flush),
+            "library_ms": lib,
+            "library_call": ("scaled_dot_product_attention forward"
+                             if part == "fwd" else
+                             "scaled_dot_product_attention backward: "
+                             "dq+dk+dv together"),
+            "bound_ms": bnd, "bound_by": by, "pairs": pairs}
+        emit({"phase": "kernel", "name": name, **out[name]})
+    del q, k, v, do, lse, delta, qt, kt, vt, do_t, scratch
+    torch.cuda.empty_cache()
+    return out
 
 
 #: phase 18's sync guard: the phase ``timed`` runs (``"tp"`` in a rank
@@ -4826,6 +5429,13 @@ def main(argv: list[str]) -> int:
     arm_launches = timed("arms", phase_arms, torch, np)
     train_launches = timed("train", phase_train, torch, np)
     timed("train_end_to_end", phase_train_end_to_end, torch, np)
+    # phases 20-21: the MoE decoder and the DiT, trained
+    timed("moe_dispatch", phase_moe_dispatch, torch, np)
+    moe_launches = timed("moe_train", phase_moe_train, torch, np)
+    timed("moe_end_to_end", phase_moe_end_to_end, torch, np)
+    dit_launches = timed("dit_train", phase_dit_train, torch, np)
+    timed("dit_end_to_end", phase_dit_end_to_end, torch, np)
+    measured.update(timed("dit_flash", phase_dit_flash, torch))
     timed("host_contracts", phase_host_contracts, torch, smi)
     emit({"phase": "seconds", **seconds})
     # each kernel's launches on the main paths that run it: the fp and the
@@ -4847,6 +5457,13 @@ def main(argv: list[str]) -> int:
     launches.update({k: cs_launches[f"{k}_tc"] + slice_launches[f"{k}_tc"]
                      for k in ("paged_prefill", "paged_verify")})
     launches["rms_norm"] += train_launches["rms_norm"]
+    # the MoE train step's tensor-core flash and rms_norm launches; the
+    # DiT's flash launches, every one on the CUDA-core route, are the
+    # entries of the CUDA-core kernels
+    for k in FLASH_KERNELS:
+        launches[k] += moe_launches[f"{k}_tc"]
+        launches[f"{k}_cc"] = dit_launches[k] - dit_launches[f"{k}_tc"]
+    launches["rms_norm"] += moe_launches["rms_norm"]
     pa = "paddle_tpu/ops/pallas/paged_attention.py"
     fa = "paddle_tpu/ops/pallas/flash_attention.py"
     sources = {"rms_norm": ("rms_norm.cu", "paddle_tpu/ops/pallas/"
@@ -4856,6 +5473,9 @@ def main(argv: list[str]) -> int:
                "flash_attention_fwd": ("flash_fwd_tc.cu", f"{fa}:173"),
                "flash_attention_dkv": ("flash_bwd_tc.cu", f"{fa}:295"),
                "flash_attention_dq": ("flash_bwd_tc.cu", f"{fa}:344"),
+               "flash_attention_fwd_cc": ("flash_fwd.cu", f"{fa}:173"),
+               "flash_attention_dkv_cc": ("flash_bwd.cu", f"{fa}:295"),
+               "flash_attention_dq_cc": ("flash_bwd.cu", f"{fa}:344"),
                # no TPU kernel: the reference's jax.random.categorical
                # draw, which XLA compiles into its decode program
                "gumbel_noise": ("gumbel.cu", "paddle_tpu/inference/"

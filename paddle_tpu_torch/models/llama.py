@@ -409,14 +409,20 @@ def _tree_map(fn, tree):
     return fn(tree)
 
 
-def loss_and_grads(cfg: LlamaConfig, params, input_ids, labels):
-    """(loss, gradients): the gradients in :func:`tree_leaves` order, in
-    each parameter's dtype (the reference's ``jax.value_and_grad``)."""
+def value_and_grad(fn, params):
+    """(``fn(params)``, its gradients in :func:`tree_leaves` order, each in
+    its parameter's dtype): the reference's ``jax.value_and_grad``."""
     leaves = tree_leaves(params)
     for p in leaves:
         p.requires_grad_(True)
-    loss = loss_fn(cfg, params, input_ids, labels)
+    loss = fn(params)
     return loss.detach(), torch.autograd.grad(loss, leaves)
+
+
+def loss_and_grads(cfg: LlamaConfig, params, input_ids, labels):
+    """(loss, gradients) of :func:`loss_fn` (:func:`value_and_grad`)."""
+    return value_and_grad(lambda p: loss_fn(cfg, p, input_ids, labels),
+                          params)
 
 
 def global_norm(grads) -> torch.Tensor:
@@ -429,53 +435,79 @@ def global_norm(grads) -> torch.Tensor:
     return torch.sqrt(total)
 
 
+def adamw_init(params, gnorm: bool = True) -> dict:
+    """The reference's optimizer state for ``params``: ``step`` (int32 0),
+    f32 zero moments ``m`` / ``v``, f32 ``master`` copies, and (``gnorm``)
+    the pre-clip gradient norm, an f32 0."""
+    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                  device=p.device)
+    dev = tree_leaves(params)[0].device
+    state = {"step": torch.zeros((), dtype=torch.int32, device=dev),
+             "m": _tree_map(zeros, params), "v": _tree_map(zeros, params),
+             "master": _tree_map(lambda p: p.float().clone(), params)}
+    if gnorm:
+        state["gnorm"] = torch.zeros((), dtype=torch.float32, device=dev)
+    return state
+
+
+@torch.no_grad()
+def adamw_update(leaves, grads, opt_state, lr, weight_decay, beta1, beta2,
+                 grad_clip) -> tuple[torch.Tensor, torch.Tensor]:
+    """The reference's AdamW update, IN PLACE on the parameter leaves and
+    ``opt_state``'s ``m`` / ``v`` / ``master`` (all in :func:`tree_leaves`
+    order): the f32 global-norm clip ``scale = min(1, clip / max(gnorm,
+    1e-6))``, bias corrections from an f32 step, decoupled decay, the f32
+    master cast back to each parameter's dtype.  Returns (step, gnorm);
+    the caller stores them."""
+    gnorm = global_norm(grads)
+    scale_f = torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-6), max=1.0)
+    step = opt_state["step"] + 1
+    b1c = 1 - beta1 ** step.float()
+    b2c = 1 - beta2 ** step.float()
+    for p, g, m, v, w in zip(leaves, grads, tree_leaves(opt_state["m"]),
+                             tree_leaves(opt_state["v"]),
+                             tree_leaves(opt_state["master"])):
+        g = g.float() * scale_f
+        m.mul_(beta1).add_((1 - beta1) * g)
+        v.mul_(beta2).add_((1 - beta2) * g * g)
+        update = (m / b1c) / (torch.sqrt(v / b2c) + 1e-8)
+        w.mul_(1 - lr * weight_decay).sub_(lr * update)
+        p.copy_(w)
+    return step, gnorm
+
+
+def adamw_train_step(loss_and_grads_fn, lr, weight_decay, beta1, beta2,
+                     grad_clip, keep_gnorm=True):
+    """(train_step, opt_init) around ``loss_and_grads_fn(params, *batch)
+    -> (loss, grads)``: ``train_step(params, opt_state, *batch) -> (loss,
+    params, opt_state)`` runs it, then :func:`adamw_update`, updating the
+    parameter and optimizer tensors IN PLACE (the reference donates them)
+    and returning the same dicts; the state keeps ``gnorm`` when
+    ``keep_gnorm`` (the reference's LM train steps do, its DiT's not)."""
+
+    def train_step(params, opt_state, *batch):
+        loss, grads = loss_and_grads_fn(params, *batch)
+        step, gnorm = adamw_update(tree_leaves(params), grads, opt_state, lr,
+                                   weight_decay, beta1, beta2, grad_clip)
+        opt_state["step"] = step
+        if keep_gnorm:
+            opt_state["gnorm"] = gnorm
+        return loss, params, opt_state
+
+    return train_step, lambda params: adamw_init(params, keep_gnorm)
+
+
 def build_train_step(cfg: LlamaConfig, lr=3e-4, weight_decay=0.1, beta1=0.9,
                      beta2=0.95, grad_clip=1.0):
     """(train_step, opt_init) for one device, the reference's
-    ``build_train_step`` on a 1-device mesh.
-
-    ``train_step(params, opt_state, input_ids, labels) -> (loss,
-    new_params, new_opt)``: loss and gradients, the f32 global-norm clip
-    ``scale = min(1, clip / max(gnorm, 1e-6))``, bias corrections from an
-    f32 step, AdamW with decoupled decay on every leaf, f32 master weights
-    cast back to each parameter's dtype.  The parameter and optimizer
-    tensors are updated IN PLACE (the reference donates them) and the same
-    dicts are returned; gnorm is reckoned leaf by leaf, so no f32 copy of
-    all the gradients exists at once."""
-
-    def opt_init(params):
-        zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                      device=p.device)
-        dev = params["embed"].device
-        return {"step": torch.zeros((), dtype=torch.int32, device=dev),
-                "m": _tree_map(zeros, params), "v": _tree_map(zeros, params),
-                "master": _tree_map(lambda p: p.float().clone(), params),
-                "gnorm": torch.zeros((), dtype=torch.float32, device=dev)}
-
-    def train_step(params, opt_state, input_ids, labels):
-        leaves = tree_leaves(params)
-        loss, grads = loss_and_grads(cfg, params, input_ids, labels)
-        with torch.no_grad():
-            gnorm = global_norm(grads)
-            scale_f = torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-6),
-                                  max=1.0)
-            step = opt_state["step"] + 1
-            b1c = 1 - beta1 ** step.float()
-            b2c = 1 - beta2 ** step.float()
-            for p, g, m, v, w in zip(leaves, grads,
-                                     tree_leaves(opt_state["m"]),
-                                     tree_leaves(opt_state["v"]),
-                                     tree_leaves(opt_state["master"])):
-                g = g.float() * scale_f
-                m.mul_(beta1).add_((1 - beta1) * g)
-                v.mul_(beta2).add_((1 - beta2) * g * g)
-                update = (m / b1c) / (torch.sqrt(v / b2c) + 1e-8)
-                w.mul_(1 - lr * weight_decay).sub_(lr * update)
-                p.copy_(w)
-        opt_state.update(step=step, gnorm=gnorm)
-        return loss, params, opt_state
-
-    return train_step, opt_init
+    ``build_train_step`` on a 1-device mesh: ``train_step(params,
+    opt_state, input_ids, labels) -> (loss, new_params, new_opt)``,
+    :func:`loss_and_grads` then AdamW (:func:`adamw_train_step`); gnorm is
+    reckoned leaf by leaf, so no f32 copy of all the gradients exists at
+    once."""
+    return adamw_train_step(
+        lambda params, ids, labels: loss_and_grads(cfg, params, ids, labels),
+        lr, weight_decay, beta1, beta2, grad_clip)
 
 
 def flops_per_token(cfg: LlamaConfig) -> float:

@@ -98,17 +98,25 @@ def params_to_numpy(tree, quant=None):
 _OPT_KEYS = ("step", "m", "v", "master", "gnorm")
 
 
+def _opt_keys(state) -> tuple:
+    """The state's keys in order: the reference's LM train steps keep
+    ``gnorm``, its DiT train step does not."""
+    keys = _OPT_KEYS if "gnorm" in state else _OPT_KEYS[:-1]
+    if set(state) != set(keys):
+        raise ValueError(f"optimizer state keys {sorted(state)}, expected "
+                         f"{sorted(_OPT_KEYS)} (gnorm optional)")
+    return keys
+
+
 def opt_state_from_numpy(state, device=None):
     """The reference train step's optimizer state ``{step, m, v, master,
-    gnorm}`` (each leaf read with ``np.asarray``) -> the port's, on
-    ``device`` (None: the CUDA card): ``step`` int32 and ``gnorm`` f32
-    scalars, ``m``/``v``/``master`` f32 trees shaped like the params."""
-    if set(state) != set(_OPT_KEYS):
-        raise ValueError(f"optimizer state keys {sorted(state)}, expected "
-                         f"{sorted(_OPT_KEYS)}")
-    return params_from_numpy({k: state[k] for k in _OPT_KEYS}, device)
+    gnorm}`` (``gnorm`` absent for the DiT's; each leaf read with
+    ``np.asarray``) -> the port's, on ``device`` (None: the CUDA card):
+    ``step`` int32 and ``gnorm`` f32 scalars, ``m``/``v``/``master`` f32
+    trees shaped like the params."""
+    return params_from_numpy({k: state[k] for k in _opt_keys(state)}, device)
 
 
 def opt_state_to_numpy(state):
     """Inverse of :func:`opt_state_from_numpy`."""
-    return params_to_numpy({k: state[k] for k in _OPT_KEYS})
+    return params_to_numpy({k: state[k] for k in _opt_keys(state)})

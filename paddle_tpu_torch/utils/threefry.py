@@ -18,6 +18,11 @@ seeded sampled stream of the port is token-identical to the reference's:
 - :func:`random_bits32` / :func:`uniform` / :func:`gumbel`: the
   random-bits -> uniform -> Gumbel chain of ``categorical`` in its default
   ("low") mode, float32 or bfloat16;
+- :func:`normal` and :func:`bernoulli`: ``jax.random.normal`` (float32,
+  ``sqrt(2) * erf_inv`` of a uniform draw in ``(-1, 1)``, XLA's
+  polynomial :func:`erf_inv32`) and
+  ``jax.random.bernoulli`` (mode "low": a float32 uniform draw ``< p``),
+  the draws of the DiT loss (``models/dit.py``);
 - :func:`split` and :func:`categorical`: ``jax.random.split(key)`` and
   ``jax.random.categorical(key, logits, axis=-1)`` over a ``[..., V]``
   logits array in float32 or bfloat16, the draw of the reference's
@@ -35,6 +40,8 @@ every add and shift, so the same code runs on CPU and CUDA tensors.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -96,14 +103,15 @@ def random_bits32(key: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def uniform(key: torch.Tensor, n: int, minval: float = 0.0,
-            dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """``jax.random.uniform(key, (n,), dtype, minval)`` in [minval, 1) from
-    :func:`random_bits32`, float32 or bfloat16: the high bits of a float32
-    draw (23), or the low byte of each draw (its 7 high bits) for
-    bfloat16, as ``jax.random._uniform`` takes 8 random bits for a float
-    with fewer than 8 mantissa bits, become the mantissa of a float in
-    [1, 2), minus 1; then ``max(minval, u * (1 - minval) + minval)`` in
-    ``dtype``, as ``jax.random._uniform`` computes it."""
+            dtype: torch.dtype = torch.float32,
+            maxval: float = 1.0) -> torch.Tensor:
+    """``jax.random.uniform(key, (n,), dtype, minval, maxval)`` in
+    [minval, maxval) from :func:`random_bits32`, float32 or bfloat16: the
+    high bits of a float32 draw (23), or the low byte of each draw (its 7
+    high bits) for bfloat16, as ``jax.random._uniform`` takes 8 random
+    bits for a float with fewer than 8 mantissa bits, become the mantissa
+    of a float in [1, 2), minus 1; then ``max(minval, u * (maxval - minval) + minval)``
+    in ``dtype``, as ``jax.random._uniform`` computes it."""
     bits = random_bits32(key, n)
     if dtype == torch.float32:
         u = ((bits >> 9) | 0x3F800000).to(torch.int32).view(dtype) - 1.0
@@ -115,7 +123,7 @@ def uniform(key: torch.Tensor, n: int, minval: float = 0.0,
     # the scalars rounded to dtype as Python floats (exact), so no
     # host-to-device copy
     lo = torch.tensor(minval, dtype=dtype)
-    lo, span = float(lo), float(torch.tensor(1.0, dtype=dtype) - lo)
+    lo, span = float(lo), float(torch.tensor(maxval, dtype=dtype) - lo)
     return (u * span + lo).clamp(min=lo)
 
 
@@ -125,6 +133,59 @@ def gumbel(key: torch.Tensor, n: int,
     bfloat16: ``-log(-log(uniform(minval=tiny)))``, ``[..., n]``."""
     tiny = torch.finfo(dtype).tiny
     return -torch.log(-torch.log(uniform(key, n, tiny, dtype)))
+
+
+#: XLA's ``ErfInv32`` coefficients (Giles' single-precision polynomial),
+#: for w < 5 and for w >= 5
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+               -4.39150654e-06, 0.00021858087, -0.00125372503,
+               -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+               -0.00367342844, 0.00573950773, -0.0076224613,
+               0.00943887047, 1.00167406, 2.83297682)
+
+
+def erf_inv32(x: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 ``erf_inv`` (``jax.lax.erf_inv``): ``w = -log1p(-x^2)``,
+    a degree-8 polynomial in ``w - 2.5`` (w < 5) or ``sqrt(w) - 3``, each
+    step an FMA as XLA's CPU compiler contracts it, times x; +-1 map to
+    +-float32 max.  ``torch.erfinv`` is the correctly rounded function and
+    lies up to ~63 ulps from this one in the tails; this one lies within 2
+    ulps of XLA's (their ``log1p`` differ)."""
+    from ..ops.kernels.rope import fma_f32
+
+    w = -torch.log1p(-x * x)
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+    p = None
+    for a, b in zip(_ERFINV_LT5, _ERFINV_GE5):
+        c = torch.where(lt, a, b).to(x.dtype)
+        p = c if p is None else fma_f32(p, w, c)
+    big = torch.finfo(torch.float32).max
+    return torch.where(x.abs() == 1, x * big, p * x)
+
+
+def normal(key: torch.Tensor, shape) -> torch.Tensor:
+    """``jax.random.normal(key, shape, float32)`` for one key ``[2]``:
+    ``sqrt(2) * erf_inv(u)`` with ``u`` the float32 uniform draw in
+    ``[nextafter(-1, 0), 1)`` over the flattened shape, as
+    ``jax.random._normal_real`` computes it.  The uniform bits equal
+    ``jax.random``'s; through :func:`erf_inv32` the normals lie within 4
+    float32 ulps of its (3 at most on the tests' draws)."""
+    shape = tuple(shape)
+    lo = torch.nextafter(torch.tensor(-1.0), torch.tensor(0.0)).item()
+    u = uniform(key, math.prod(shape), minval=lo, maxval=1.0)
+    sqrt2 = float(torch.tensor(math.sqrt(2.0), dtype=torch.float32))
+    return (sqrt2 * erf_inv32(u)).reshape(shape)
+
+
+def bernoulli(key: torch.Tensor, p: float, shape) -> torch.Tensor:
+    """``jax.random.bernoulli(key, p, shape)`` (mode "low") for one key
+    ``[2]`` and a Python float ``p``: the float32 uniform draw over the
+    flattened shape ``< float32(p)``, bool."""
+    shape = tuple(shape)
+    p32 = float(torch.tensor(p, dtype=torch.float32))
+    return (uniform(key, math.prod(shape)) < p32).reshape(shape)
 
 
 def sample_keys(seeds, positions, device=None) -> torch.Tensor:

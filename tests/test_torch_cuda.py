@@ -1072,3 +1072,123 @@ def test_dense_engine_on_the_card(dev, monkeypatch):
                       max_new_tokens=5, temperature=0.8, seed=1)
     assert out.shape == (2, 14) and ((out >= 0) & (out < 512)).all()
     assert tk.LAUNCHES["rms_norm"] == (2 * L + 1) * 5
+
+
+def _grads_kernels_vs_plain(monkeypatch, run):
+    """``run(which)`` -> (loss, grads) with the kernels and with every
+    kernel off: (loss pair, gradient pairs, the kernel run's launches);
+    the plain run launches nothing."""
+    out = {}
+    for which in ("kernels", "plain"):
+        if which == "plain":
+            monkeypatch.setenv("PADDLE_TPU_TORCH_DISABLE_KERNELS", "all")
+        tk.reset_counters()
+        loss, grads = run(which)
+        out[which] = (loss.item(), grads, dict(tk.LAUNCHES))
+    monkeypatch.delenv("PADDLE_TPU_TORCH_DISABLE_KERNELS")
+    assert not any(out["plain"][2].values())
+    return out
+
+
+def _assert_grads_close(out):
+    """chip_smoke's phase 9 tolerances: the loss within 2^-8 x 12, every
+    leaf's largest error within 2^-5 of the leaf's largest value."""
+    (lk, gk, _), (lp, gp, _) = out["kernels"], out["plain"]
+    assert abs(lk - lp) <= 2.0 ** -8 * 12
+    for a, b in zip(gk, gp):
+        assert ((a.float() - b.float()).abs().max()
+                <= 2.0 ** -5 * b.float().abs().max())
+
+
+def test_moe_train_kernels_match_plain(dev, monkeypatch):
+    """A 2-layer bf16 MoE (16 experts, top-4: the sort engine; head_dim 128:
+    the tensor-core flash route) on the card: its loss and every gradient
+    leaf with the kernels and with every kernel off, the plain run
+    replaying the kernel run's routing (in bf16 the two round the router's
+    input differently, which moves a near-tied pick), and one train step's
+    launches."""
+    import dataclasses
+
+    from paddle_tpu_torch.models import moe_llama as tmoe
+
+    cfg = dataclasses.replace(
+        tmoe.MoEConfig.tiny(vocab=1024, hidden=256, layers=2, heads=2,
+                            kv_heads=2, experts=16, top_k=4, inter=256,
+                            moe_inter=128), dtype=torch.bfloat16)
+    assert tmoe.resolved_dispatch(cfg) == "sort"
+    g = torch.Generator(device=dev).manual_seed(0)
+    ids = torch.randint(0, 1024, (2, 256), generator=g, device=dev)
+    labels = torch.randint(0, 1024, (2, 256), generator=g, device=dev)
+    top_k, picks = tmoe.top_k, []
+
+    def recorded(probs, k):
+        vals, idx = top_k(probs, k)
+        picks.append(idx)
+        return vals, idx
+
+    def replayed(probs, k):
+        idx = picks.pop(0)
+        return probs.gather(-1, idx), idx
+
+    def run(which):
+        monkeypatch.setattr(tmoe, "top_k",
+                            recorded if which == "kernels" else replayed)
+        params = tmoe.init_params(cfg, seed=1, device=dev)
+        return tmoe.loss_and_grads(cfg, params, ids, labels)
+
+    out = _grads_kernels_vs_plain(monkeypatch, run)
+    assert not picks                 # every routing call replayed
+    L = cfg.num_hidden_layers
+    launches = out["kernels"][2]
+    assert (launches["flash_attention_fwd_tc"],
+            launches["flash_attention_dkv_tc"],
+            launches["flash_attention_dq_tc"],
+            launches["rms_norm"]) == (2 * L, L, L, 4 * L + 1)
+    _assert_grads_close(out)
+    monkeypatch.setattr(tmoe, "top_k", top_k)
+    step, opt_init = tmoe.build_train_step(cfg)
+    params = tmoe.init_params(cfg, seed=1, device=dev)
+    opt = opt_init(params)
+    tk.reset_counters()
+    loss, params, opt = step(params, opt, ids, labels)
+    assert torch.isfinite(loss) and torch.isfinite(opt["gnorm"])
+    assert tk.LAUNCHES["flash_attention_fwd_tc"] == 2 * L
+
+
+def test_dit_train_kernels_match_plain(dev, monkeypatch):
+    """A 2-block bf16 DiT at head_dim 72 (the CUDA-core flash route), EVERY
+    leaf random (at init the adaLN-Zero leaves are 0): its loss and every
+    gradient leaf with the kernels and with every kernel off; no
+    tensor-core launch."""
+    import dataclasses
+
+    from paddle_tpu_torch.models import dit as tdit
+    from paddle_tpu_torch.models import llama
+    from paddle_tpu_torch.utils import threefry
+
+    cfg = dataclasses.replace(
+        tdit.DiTConfig.tiny(image=16, hidden=144, depth=2, heads=2),
+        dtype=torch.bfloat16)
+    assert cfg.head_dim == 72
+    g = torch.Generator(device=dev).manual_seed(0)
+    x0 = torch.randn(8, 4, 16, 16, generator=g, device=dev)
+    y = torch.randint(0, 10, (8,), generator=g, device=dev)
+    key = threefry.prng_key(0, device=dev)
+
+    def run(which):
+        params = tdit.init_params(cfg, seed=1, device=dev)
+        gw = torch.Generator(device=dev).manual_seed(2)
+        with torch.no_grad():
+            for leaf in llama.tree_leaves(params):
+                leaf.copy_(torch.randn(leaf.shape, generator=gw,
+                                       device=dev) * 0.05)
+        return tdit.loss_and_grads(cfg, params, x0, y, key)
+
+    out = _grads_kernels_vs_plain(monkeypatch, run)
+    launches = out["kernels"][2]
+    D = cfg.depth
+    assert (launches["flash_attention_fwd"], launches["flash_attention_dkv"],
+            launches["flash_attention_dq"]) == (2 * D, D, D)
+    assert not any(launches[f"flash_attention_{p}_tc"]
+                   for p in ("fwd", "dkv", "dq"))
+    _assert_grads_close(out)

@@ -26,6 +26,7 @@ def test_import_leaves_jax_out_of_sys_modules():
             "paddle_tpu_torch.ops.kernels.flash_attention, "
             "paddle_tpu_torch.utils.threefry, "
             "paddle_tpu_torch.inference.fleet, paddle_tpu_torch.analysis, "
+            "paddle_tpu_torch.models.moe_llama, paddle_tpu_torch.models.dit, "
             "paddle_tpu_torch.inference\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu'))\n"
@@ -141,3 +142,22 @@ def test_serving_helpers_import_alone(module, alone_imports):
     with their tensor-parallel parts (``shard_serving_params``,
     ``env_tp``)."""
     assert alone_imports[module] == [], alone_imports[module]
+
+
+@pytest.mark.parametrize("family", ["moe_llama", "dit"])
+def test_new_model_families_resolve_to_the_card(family):
+    """``init_params`` of the MoE decoder and the DiT take the card unless
+    the caller asks for the CPU."""
+    import importlib
+
+    mod = importlib.import_module(f"paddle_tpu_torch.models.{family}")
+    cfg = (mod.MoEConfig if family == "moe_llama" else mod.DiTConfig).tiny()
+    params = mod.init_params(cfg, device="cpu")
+    assert all(t.device.type == "cpu"
+               for t in mod.llama.tree_leaves(params))
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the no-card path cannot run")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.init_params(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.init_params(cfg, device="cuda")
