@@ -209,6 +209,22 @@ non-zero as soon as one fails:
     every kernel off as 20 (c); (c) the three flash kernels at DiT's shape
     (b 32, s 256, non-causal) against their plain versions, timed beside
     SDPA and the bound: the kernels line's ``flash_attention_*_cc``.
+22. hybrid-parallel training (``phase_dist_train``; Llama-3-8B widths,
+    ``DIST_LAYERS`` = 2 layers, 1.487B parameters, phase 8's 2 x 2048
+    seeded tokens, full recompute): the three flash kernels at a rank's
+    16 / 4 heads and B1 at a rank's 2048 rows against their plain
+    versions; the one-card ``build_train_step(cfg)`` as the reference
+    (its step-1 gradients, two steps' loss and gnorm); then gloo ranks
+    on the one card, each holding its shard of ``param_specs``: two
+    ranks at mp=2, sharding=2, dp=2, sep=2 ring and sep=2 Ulysses in
+    turn, then four at sharding=2 x mp=2.  Gates a rank and a mesh: the
+    loss and gnorm of both steps and the step-1 gradient shards of
+    ``DIST_GRAD_LEAVES`` within phase 9's tolerances of the one-card
+    step's; every leaf two ranks hold equal bit for bit after step 2;
+    launches exact (B1 4L + 1, flash 2L / L / L on the tensor cores, none
+    under the ring) and the collectives as ``_dist_expected`` predicts;
+    the ranks' peak memory together below the card's.  Reports each
+    rank's step ms, the collectives' wall share and GB, peak GB.
 
 The line before the last lists every kernel with its numbers; the last line
 is ``{"ok": true, "device": {...}}``.  ``--serve-sweep FIRST-LAST`` runs
@@ -4930,6 +4946,421 @@ def phase_dit_flash(torch) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 22: hybrid-parallel training (A11's first slice) as gloo ranks
+# ---------------------------------------------------------------------------
+
+#: phase 22's depth: 2 layers of Llama-3-8B widths are 1.487B parameters,
+#: ~23.8 GB a whole replica under AdamW's 16 bytes a parameter, which dp=2
+#: and sep=2 hold on each of two ranks sharing one card (phase 8's 4
+#: layers, ~31 GB a replica, would not fit twice)
+DIST_LAYERS = 2
+#: the spawns: (ranks, ((label, mesh axes, sep attention), ...)); a spawn
+#: runs its meshes in turn, each mesh's tensors freed before the next
+DIST_RUNS = ((2, (("mp2", {"mp": 2}, "ring"),
+                  ("sharding2", {"sharding": 2}, "ring"),
+                  ("dp2", {"dp": 2}, "ring"),
+                  ("sep2_ring", {"sep": 2}, "ring"),
+                  ("sep2_ulysses", {"sep": 2}, "ulysses"))),
+             (4, (("sharding2_mp2", {"sharding": 2, "mp": 2}, "ring"),)))
+#: the leaves whose step-1 gradient shards every rank holds to the
+#: one-card step's: the vocab-parallel embedding and head, a
+#: column-parallel and a row-parallel matrix, one with its ZeRO split on
+#: each dim
+DIST_GRAD_LEAVES = ("embed", "lm_head", "layers/wq", "layers/w_gate",
+                    "layers/w_down")
+#: phase 9's tolerances (bf16 through 2 layers forward and back): the
+#: loss within 2^-8 of ~12, gnorm and each gradient leaf's largest error
+#: within 2^-5 of the reference's (the leaf's largest value)
+DIST_LOSS_TOL, DIST_REL_TOL = 2.0 ** -8 * 12, 2.0 ** -5
+#: the device of the ranks' tensors (a CPU rehearsal sets "cpu")
+DIST_KW = {"device": "cuda"}
+DIST_SEED = 11
+
+
+def _dist_cfg():
+    from paddle_tpu_torch.models import llama
+
+    return dataclasses.replace(llama.LlamaConfig.llama3_8b(),
+                               num_hidden_layers=DIST_LAYERS)
+
+
+def _dist_batch(torch, cfg, dev):
+    """Phase 8's batch: 2 x 2048 seeded token ids and labels."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    return tuple(torch.randint(0, cfg.vocab_size, (2, 2048), generator=g,
+                               device=dev) for _ in range(2))
+
+
+def _dist_expected(label: str, L: int) -> dict:
+    """The collectives one step of a rank runs, predicted from the design
+    (full recompute; the recompute stops at the last tensor the backward
+    saved, before a layer's MLP ``psum``).  Under mp: each layer's two
+    row-parallel ``psum`` and the first again in the recompute (3L), its
+    two ``copy_to`` cotangent sums (2L), the embedding's ``psum``, the
+    head's ``copy_to`` and its sum-exp and label-logit sums, one max.  A
+    batch axis: the loss's sum, and one sum a leaf the axis does not
+    split (dp, sep: all 12; sharding: the 3 norms).  The clipping norm:
+    one sum for the leaves split over the same live axes.  ZeRO: each
+    layer's 7 matrices gathered in the forward and the recompute and
+    reduce-scattered once, ``embed`` and ``lm_head`` once each.  The ring
+    at sep=2: one K/V exchange a layer in the forward, the recompute and
+    the backward, each staged through the host; Ulysses: four all-to-alls
+    a layer, three times."""
+    mp_sums = 5 * L + 4
+    zero = {"all_gather": 14 * L + 2, "reduce_scatter": 7 * L + 2}
+    table = {
+        "mp2": {"all_reduce": mp_sums + 1, "all_reduce_max": 1},
+        "sharding2": {"all_reduce": 1 + 3 + 1, **zero},
+        "dp2": {"all_reduce": 1 + 12},
+        "sep2_ring": {"all_reduce": 1 + 12, "ppermute": 3 * L,
+                      "host_staged": 3 * L},
+        "sep2_ulysses": {"all_reduce": 1 + 12, "all_to_all": 12 * L},
+        "sharding2_mp2": {"all_reduce": mp_sums + 1 + 3 + 1,
+                          "all_reduce_max": 1, **zero},
+    }
+    want = dict.fromkeys(("all_reduce", "all_reduce_max", "all_gather",
+                          "reduce_scatter", "all_to_all", "ppermute",
+                          "host_staged"), 0)
+    want.update(table[label])
+    if DIST_KW["device"] != "cuda":
+        want["host_staged"] = 0
+    return want
+
+
+def _dist_checksums(torch, cfg, mesh, specs, trees) -> dict:
+    """Every leaf of ``trees`` (the parameters and the f32 masters) whose
+    shard two ranks hold is the same bits on both: each rank's integer
+    checksums of its shards (the bits summed, and weighted by position),
+    one all-gather of them, then the ranks at equal coordinates on a
+    leaf's split axes compared."""
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.distributed import mesh as dmesh
+    from paddle_tpu_torch.models import llama
+
+    named = llama.named_specs(cfg, specs)
+    chunk = 1 << 24
+    pos = torch.arange(chunk, device=DIST_KW["device"]) % 65521 + 1
+    sums = []
+    for tree in trees:
+        for leaf in llama.tree_leaves(tree):
+            bits = leaf.detach().contiguous().view(
+                torch.int16 if leaf.element_size() == 2 else torch.int32)
+            bits = bits.reshape(-1)
+            plain = weighted = 0
+            for i in range(0, bits.numel(), chunk):
+                part = bits[i:i + chunk].long()
+                plain = plain + part.sum()
+                weighted = weighted + (part * pos[:part.numel()]).sum()
+            sums += [plain, weighted]
+    mine = torch.stack(sums).cpu()
+    every = torch.empty(mesh.size * mine.numel(), dtype=mine.dtype)
+    dist.all_gather_into_tensor(every, mine)
+    every = every.view(mesh.size, -1)
+    coords = [mesh.coords_of(r) for r in range(mesh.size)]
+    compared, unequal = 0, []
+    for t in range(len(trees)):
+        for i, (name, spec) in enumerate(named):
+            j = 2 * (t * len(named) + i)
+            axes = dmesh.spec_axes(spec)
+            held = {}
+            for r in range(mesh.size):
+                key = tuple(coords[r][a] for a in axes)
+                if key in held:
+                    compared += 1
+                    if not torch.equal(every[r, j:j + 2],
+                                       every[held[key], j:j + 2]):
+                        unequal.append((t, name, r, held[key]))
+                else:
+                    held[key] = r
+    return {"compared": compared, "unequal": unequal}
+
+
+def _dist_mesh_run(torch, cfg, ref, label, kw, impl) -> dict:
+    """One mesh on this rank: the rank's shards of the seeded weights and
+    batch, its step-1 gradient shards of ``DIST_GRAD_LEAVES`` against the
+    one-card step's (``ref``), then two train steps (the first with each
+    collective timed between two synchronizations, the second untimed for
+    the step's wall), each step's loss, gnorm, launches and collectives,
+    the replicated leaves' checksums after step 2, the peak memory."""
+    from paddle_tpu_torch.distributed import mesh as dmesh
+    from paddle_tpu_torch.models import llama
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.ops.kernels import flash_attention as tfa
+    from paddle_tpu_torch.utils import convert
+
+    dev = torch.device(DIST_KW["device"])
+    torch.cuda.reset_peak_memory_stats()
+    mesh = llama.make_mesh(**kw)
+    step, opt_init, specs, dspec = llama.build_train_step(
+        cfg, mesh, sep_attn_impl=impl)
+    full = llama.init_params(cfg, seed=DIST_SEED, device=dev)
+    params = convert.shard_params(cfg, full, specs, mesh)
+    del full
+    torch.cuda.empty_cache()
+    ids, labels = (dmesh.shard_leaf(t, dspec, mesh)
+                   for t in _dist_batch(torch, cfg, dev))
+    _, grads = llama.loss_and_grads(cfg, params, ids, labels, mesh, impl)
+    grad_err = {}
+    for (name, spec), g in zip(llama.named_specs(cfg, specs), grads):
+        if name in DIST_GRAD_LEAVES:
+            want = dmesh.shard_leaf(ref["grads"][name], spec, mesh).to(dev)
+            grad_err[name] = ((g.float() - want.float()).abs().max()
+                              / ref["grad_max"][name]).item()
+    del grads, want
+    opt = opt_init(params)
+    torch.cuda.synchronize()
+    steps, fallbacks = [], tfa.FALLBACK_CALLS
+    for i in range(2):
+        dmesh.TIMING["on"] = i == 0
+        dmesh.reset_counters()
+        kernels.reset_counters()
+        t0 = time.perf_counter()
+        loss, params, opt = step(params, opt, ids, labels)
+        loss = loss.item()              # synchronizes
+        wall = time.perf_counter() - t0
+        dmesh.TIMING["on"] = False
+        steps.append({"loss": loss, "gnorm": opt["gnorm"].item(),
+                      "wall_ms": wall * 1e3,
+                      "collectives": dict(dmesh.COUNTERS),
+                      "launches": dict(kernels.LAUNCHES)})
+    same = _dist_checksums(torch, cfg, mesh, specs, (params, opt["master"]))
+    out = {"coords": mesh.coords, "grad_err": grad_err, "steps": steps,
+           "replicated": same,
+           "flash_fallbacks": tfa.FALLBACK_CALLS - fallbacks,
+           "step_ms": steps[1]["wall_ms"],
+           "collective_s_step1": steps[0]["collectives"]["seconds"],
+           "collective_share_step1": steps[0]["collectives"]["seconds"]
+           / (steps[0]["wall_ms"] / 1e3),
+           "collective_gb_a_step": steps[1]["collectives"]["bytes"] / 1e9,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del params, opt, ids, labels
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dist_rank(rank: int, tmp: str, world: int, meshes) -> None:
+    """One rank of phase 22, a spawned process on the one card: joins the
+    gloo group (a file store in ``tmp``), runs each of ``meshes`` in turn
+    (``_dist_mesh_run``) and saves what it saw to
+    ``tmp/rank{world}_{rank}.pt``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if DIST_KW["device"] == "cuda":
+        torch.cuda.set_device(0)
+    os.environ["PADDLE_TPU_REMAT"] = "full"
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store{world}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=600))
+    try:
+        cfg = _dist_cfg()
+        ref = torch.load(os.path.join(tmp, "ref.pt"), mmap=True,
+                         weights_only=True)
+        out = {"rank": rank, "meshes": {}}
+        for label, kw, impl in meshes:
+            t0 = time.perf_counter()
+            out["meshes"][label] = _dist_mesh_run(torch, cfg, ref, label, kw,
+                                                  impl)
+            out["meshes"][label]["seconds"] = time.perf_counter() - t0
+        torch.save(out, os.path.join(tmp, f"rank{world}_{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _dist_kernel_checks(torch) -> dict:
+    """The path's kernels at a rank's shapes: the three flash kernels at
+    mp=2's and Ulysses' local heads (b 2, s 2048, 16 / 4 heads of 128,
+    causal) on the tensor-core route, and B1 at 2048 rows of 4096 (one
+    rank's rows under dp, sharding or sep), each against its plain
+    version (phase 4's and phase 3's tolerances)."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as tfa
+    from paddle_tpu_torch.ops.kernels import rms_norm as rms
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(22)
+    q, k, v, do, kw = _flash_case(torch, tfa, g, "cuda", 2, 2048, 2048, 16,
+                                  4, 128, True)
+    check(tfa.flash_route(q.dtype, 128) == "tc",
+          "a rank's flash shape takes the tensor-core route")
+    res, _ = _flash_check(torch, tfa, q, k, v, do, kw, "rank 16/4 heads",
+                          routes=("tc",))
+    x = torch.randn(1, 2048, 4096, generator=g, device="cuda").to(
+        torch.bfloat16)
+    w = (1.0 + 0.1 * torch.randn(4096, generator=g, device="cuda")).to(
+        torch.bfloat16)
+    got, want = rms.rms_norm_cuda(x, w, 1e-5), rms.rms_norm_ref(x, w, 1e-5)
+    err = (got.float() - want.float()).abs()
+    check(bool((err <= want.float().abs() * 2.0 ** -7 + 1e-6).all()),
+          "rms_norm at a rank's 2048 rows within 1 ulp")
+    return {"flash_16_4_heads": res["tc"],
+            "rms_norm_2048_rows_max_abs_err": err.max().item()}
+
+
+def phase_dist_train(torch, np, smi: str) -> dict:
+    """Hybrid-parallel training at Llama-3-8B widths (``DIST_LAYERS``
+    layers) as gloo ranks sharing the one card (NCCL refuses two ranks on
+    one device; gloo stages CUDA tensors through the host).  First the
+    path's kernels at a rank's shapes (``_dist_kernel_checks``); then the
+    one-card ``build_train_step(cfg)`` on the same seeded weights and
+    batch, whose step-1 gradients of ``DIST_GRAD_LEAVES`` and two steps'
+    loss and gnorm are the reference (saved to a temp dir; its tensors
+    freed before the spawns); then the spawns of ``DIST_RUNS``.  Gates, a
+    rank and a mesh: steps 1-2 loss within ``DIST_LOSS_TOL`` and gnorm
+    within ``DIST_REL_TOL`` of the reference's; each gradient shard's
+    largest error within ``DIST_REL_TOL`` of its leaf's largest value;
+    every leaf two ranks hold equal bit for bit after step 2; a step's
+    launches exact (B1 4L + 1, flash 2L / L / L every one on the tensor
+    cores, none under the ring) and its collectives as
+    ``_dist_expected`` predicts; the ranks' peak memory together below
+    the card's.  Reports each rank's step ms, the collectives' wall share
+    of step 1 and its GB, and the peak GB.  Returns the ranks' launches,
+    summed."""
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from paddle_tpu_torch.models import llama
+
+    checks = _dist_kernel_checks(torch)
+    emit({"phase": "dist_kernels", "nvidia_smi": smi, **checks})
+    cfg = _dist_cfg()
+    L, dev = cfg.num_hidden_layers, DIST_KW["device"]
+    os.environ["PADDLE_TPU_REMAT"] = "full"
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dist")
+    total: dict = {}
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        params = llama.init_params(cfg, seed=DIST_SEED, device=dev)
+        one = {"params": llama.count_params(params), "losses": [],
+               "gnorms": [], "wall_ms": []}
+        ids, labels = _dist_batch(torch, cfg, dev)
+        _, grads = llama.loss_and_grads(cfg, params, ids, labels)
+        names = [n for n, _ in llama.named_specs(cfg, llama.param_specs(cfg))]
+        keep = {n: g for n, g in zip(names, grads) if n in DIST_GRAD_LEAVES}
+        torch.save({"grads": {n: g.cpu() for n, g in keep.items()},
+                    "grad_max": {n: g.float().abs().max().item()
+                                 for n, g in keep.items()}},
+                   os.path.join(tmp, "ref.pt"))
+        del grads, keep
+        step, opt_init = llama.build_train_step(cfg)
+        opt = opt_init(params)
+        for _ in range(2):
+            t0 = time.perf_counter()
+            loss, params, opt = step(params, opt, ids, labels)
+            one["losses"].append(loss.item())
+            one["wall_ms"].append((time.perf_counter() - t0) * 1e3)
+            one["gnorms"].append(opt["gnorm"].item())
+        one["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        del params, opt, loss, ids, labels
+        torch.cuda.empty_cache()
+        check(all(math.isfinite(x) for x in one["losses"] + one["gnorms"]),
+              f"dist reference: finite losses {one['losses']} and gnorms "
+              f"{one['gnorms']}")
+        emit({"phase": "dist_reference", "nvidia_smi": smi,
+              "model": f"llama3_8b widths, {L} layers", **one})
+        capacity = (torch.cuda.mem_get_info()[1] if dev == "cuda"
+                    else float("inf"))
+        for world, meshes in DIST_RUNS:
+            t0 = time.perf_counter()
+            mp.spawn(_dist_rank, args=(tmp, world, meshes), nprocs=world,
+                     join=True)
+            spawn_s = time.perf_counter() - t0
+            ranks = [torch.load(os.path.join(tmp, f"rank{world}_{r}.pt"),
+                                weights_only=False) for r in range(world)]
+            for label, kw, impl in meshes:
+                runs = [r["meshes"][label] for r in ranks]
+                _dist_gates(cfg, label, kw, impl, one, runs, capacity)
+                for run in runs:
+                    for s in run["steps"]:
+                        for k, v in s["launches"].items():
+                            total[k] = total.get(k, 0) + v
+                emit({"phase": "dist_train", "mesh": label, "axes": kw,
+                      "sep_attention": impl if kw.get("sep") else None,
+                      "ranks": world, "nvidia_smi": smi,
+                      "model": f"llama3_8b widths, {L} layers, 2 x 2048 "
+                               f"tokens, full recompute",
+                      "transport": "gloo on one card: CUDA tensors staged "
+                                   "through the host, not NCCL",
+                      "one_card": {k: one[k] for k in ("losses", "gnorms")},
+                      "per_rank": [{
+                          "coords": {a: c for a, c in run["coords"].items()
+                                     if kw.get(a, 1) > 1},
+                          "losses": [s["loss"] for s in run["steps"]],
+                          "gnorms": [s["gnorm"] for s in run["steps"]],
+                          "grad_err_over_leaf_max": run["grad_err"],
+                          "step_ms": run["step_ms"],
+                          "step1_ms": run["steps"][0]["wall_ms"],
+                          "collective_s_step1": run["collective_s_step1"],
+                          "collective_share_step1":
+                              run["collective_share_step1"],
+                          "collective_gb_a_step":
+                              run["collective_gb_a_step"],
+                          "collectives_a_step": {
+                              k: v for k, v in
+                              run["steps"][1]["collectives"].items()
+                              if k not in ("bytes", "seconds") and v},
+                          "peak_gb": run["peak_gb"],
+                          "replicated_compared":
+                              run["replicated"]["compared"],
+                          "seconds": run["seconds"]} for run in runs],
+                      "spawn_s": spawn_s})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.environ.pop("PADDLE_TPU_REMAT", None)
+    return total
+
+
+def _dist_gates(cfg, label, kw, impl, one, runs, capacity) -> None:
+    """Phase 22's gates on one mesh's ranks (see ``phase_dist_train``)."""
+    L = cfg.num_hidden_layers
+    ring = impl == "ring" and kw.get("sep", 1) > 1
+    flash = {"flash_attention_fwd": 0 if ring else 2 * L,
+             "flash_attention_fwd_tc": 0 if ring else 2 * L,
+             "flash_attention_dkv": 0 if ring else L,
+             "flash_attention_dkv_tc": 0 if ring else L,
+             "flash_attention_dq": 0 if ring else L,
+             "flash_attention_dq_tc": 0 if ring else L}
+    want_l = {"rms_norm": 4 * L + 1, **flash}
+    want_c = _dist_expected(label, L)
+    for r, run in enumerate(runs):
+        who = f"dist {label} rank {r}"
+        for i, s in enumerate(run["steps"]):
+            check(abs(s["loss"] - one["losses"][i]) <= DIST_LOSS_TOL,
+                  f"{who} step {i + 1}: loss {s['loss']} vs the one-card "
+                  f"{one['losses'][i]} within {DIST_LOSS_TOL}")
+            check(abs(s["gnorm"] - one["gnorms"][i])
+                  <= DIST_REL_TOL * one["gnorms"][i],
+                  f"{who} step {i + 1}: gnorm {s['gnorm']} vs "
+                  f"{one['gnorms'][i]} within {DIST_REL_TOL} relative")
+            got_l = {k: s["launches"][k] for k in want_l}
+            check(got_l == want_l, f"{who} step {i + 1}: launches {got_l} "
+                                   f"== {want_l}")
+            got_c = {k: s["collectives"][k] for k in want_c}
+            check(got_c == want_c, f"{who} step {i + 1}: collectives "
+                                   f"{got_c} == {want_c}")
+        check(set(run["grad_err"]) == set(DIST_GRAD_LEAVES)
+              and max(run["grad_err"].values()) <= DIST_REL_TOL,
+              f"{who}: step-1 gradient shards within {DIST_REL_TOL} of "
+              f"their leaf's max: {run['grad_err']}")
+        check(run["flash_fallbacks"] == 0,
+              f"{who}: no composed-attention fallback")
+        check(not run["replicated"]["unequal"]
+              and run["replicated"]["compared"] > 0,
+              f"{who}: every leaf two ranks hold is equal bit for bit "
+              f"({run['replicated']})")
+    peak = sum(run["peak_gb"] for run in runs) * 1e9
+    check(peak < capacity, f"dist {label}: the ranks' peaks together "
+                           f"{peak / 1e9} GB below the card's "
+                           f"{capacity / 1e9} GB")
+
+
 #: phase 18's sync guard: the phase ``timed`` runs (``"tp"`` in a rank
 #: process), the windows of ``ContinuousBatchingEngine._host_overlap`` it
 #: guarded in each phase, every error a window raised as (phase, message),
@@ -5436,6 +5867,8 @@ def main(argv: list[str]) -> int:
     dit_launches = timed("dit_train", phase_dit_train, torch, np)
     timed("dit_end_to_end", phase_dit_end_to_end, torch, np)
     measured.update(timed("dit_flash", phase_dit_flash, torch))
+    # phase 22: hybrid-parallel training as gloo ranks
+    dist_launches = timed("dist_train", phase_dist_train, torch, np, smi)
     timed("host_contracts", phase_host_contracts, torch, smi)
     emit({"phase": "seconds", **seconds})
     # each kernel's launches on the main paths that run it: the fp and the
@@ -5464,6 +5897,10 @@ def main(argv: list[str]) -> int:
         launches[k] += moe_launches[f"{k}_tc"]
         launches[f"{k}_cc"] = dit_launches[k] - dit_launches[f"{k}_tc"]
     launches["rms_norm"] += moe_launches["rms_norm"]
+    # the mesh train steps' ranks: B1 and the tensor-core flash kernels
+    launches["rms_norm"] += dist_launches["rms_norm"]
+    for k in FLASH_KERNELS:
+        launches[k] += dist_launches[f"{k}_tc"]
     pa = "paddle_tpu/ops/pallas/paged_attention.py"
     fa = "paddle_tpu/ops/pallas/flash_attention.py"
     sources = {"rms_norm": ("rms_norm.cu", "paddle_tpu/ops/pallas/"

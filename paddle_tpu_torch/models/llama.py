@@ -25,15 +25,42 @@ How the reference's JAX mechanisms map here:
 - ``jax.value_and_grad`` is ``torch.autograd.grad``; the jitted, donated
   train step updates the parameter and optimizer tensors in place.
 
-Not ported yet: the training meshes and their specs, pipeline schedules
-and context parallel attention (ROADMAP A11), and the eager Layer surface
-(A12).
+Hybrid-parallel training (the reference's ``build_train_step(cfg,
+make_mesh(dp, mp, sharding, sep))`` without pipelining): :func:`make_mesh`
+lays the ``torch.distributed`` ranks out over the reference's axes
+(``distributed/mesh.py``), :func:`param_specs` is the reference's table of
+partition specs as tuples, and each rank holds the shard of every leaf
+that table gives the device at its position.  ``build_train_step(cfg,
+mesh)`` runs the step on those shards with the collectives written out:
+
+- ``mp``: Megatron splits (:data:`MEGATRON_SPLIT`): column-parallel
+  ``wq`` / ``wk`` / ``wv`` / ``w_gate`` / ``w_up`` behind ``copy_to``,
+  row-parallel ``wo`` / ``w_down`` then ``psum``; K/V replicated when
+  ``mp`` does not divide the kv heads (each rank computes the kv heads of
+  its own q heads, so their gradient is summed over ``mp``); the
+  vocab-parallel embedding (a masked local lookup, then ``psum``) and head
+  and cross-entropy (max, sum-exp and target-logit all-reduces: no rank
+  holds ``[b, s, V]``);
+- ``sharding`` (ZeRO): each leaf all-gathered over its sharded dim where
+  it is used, inside the recomputed block, so its gradient is a
+  reduce-scatter and full recompute gathers again;
+- ``dp`` and ``sharding`` split the batch, ``sep`` the sequence (rope
+  tables sliced to the rank's positions; ring or Ulysses attention,
+  ``ops/ring_attention.py``); the loss is the global token mean;
+- gradients are summed over every axis whose ranks saw other data for a
+  leaf they both hold, and over ``mp`` for the replicated K/V; the
+  clipping norm sums each leaf's squares over the axes it is split on.
+
+Not ported yet: the pipeline axis (``forward_pp``, the 1F1B / VPP / ZB
+schedules) and the MoE and DiT meshes (ROADMAP A11), and the eager Layer
+surface (A12).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import types
 
 import torch
 import torch.distributed as dist
@@ -41,6 +68,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from ..distributed import mesh as dmesh
 from ..ops.kernels import flash_attention as fa
 from ..ops.kernels import rms_norm as rms
 from ..ops.kernels import rope as rope_mod
@@ -215,31 +243,41 @@ def _tp_all_reduce(y, group):
     return y
 
 
-def decoder_attn_residual(x, attn, lp, wmat=None, tp_group=None):
+def _row_reduce(y, tp_group, mesh):
+    """A row-parallel product's boundary: the training mesh's
+    differentiable ``psum`` over ``mp``, else the serving all-reduce."""
+    if mesh is not None:
+        return dmesh.psum(y, mesh, "mp")
+    return _tp_all_reduce(y, tp_group)
+
+
+def decoder_attn_residual(x, attn, lp, wmat=None, tp_group=None, mesh=None):
     """Attention output projection + residual: ``wo`` is row-parallel,
-    so under tensor parallelism (``tp_group``) ``attn @ wo`` is a partial
-    sum and the all-reduce here is the layer's first boundary.
-    ``wmat(leaf, dtype)`` resolves weight-only-quantized leaves (serving);
-    None reads the leaf raw."""
+    so under tensor parallelism (``tp_group``, or a training ``mesh``'s
+    ``mp``) ``attn @ wo`` is a partial sum and the all-reduce here is the
+    layer's first boundary.  ``wmat(leaf, dtype)`` resolves
+    weight-only-quantized leaves (serving); None reads the leaf raw."""
     wo = lp["wo"] if wmat is None else wmat(lp["wo"], x.dtype)
-    return x + _tp_all_reduce(attn @ wo, tp_group)
+    return x + _row_reduce(attn @ wo, tp_group, mesh)
 
 
-def decoder_mlp_residual(cfg, x, lp, wmat=None, tp_group=None):
+def decoder_mlp_residual(cfg, x, lp, wmat=None, tp_group=None, mesh=None):
     """post-norm + swiglu MLP + residual (``wmat`` as above): ``w_gate``
-    and ``w_up`` are column-parallel, ``w_down`` row-parallel, and the
-    all-reduce completing the down projection is the layer's second
-    boundary."""
+    and ``w_up`` are column-parallel (on a training ``mesh`` behind
+    ``copy_to``), ``w_down`` row-parallel, and the all-reduce completing
+    the down projection is the layer's second boundary."""
     def w(n):
         return lp[n] if wmat is None else wmat(lp[n], x.dtype)
 
     xn = rms.rms_norm(x, lp["post_norm"], cfg.rms_norm_eps)
+    if mesh is not None:
+        xn = dmesh.copy_to(xn, mesh, "mp")
     y = swiglu_mod.swiglu(xn @ w("w_gate"), xn @ w("w_up")) @ w("w_down")
-    return x + _tp_all_reduce(y, tp_group)
+    return x + _row_reduce(y, tp_group, mesh)
 
 
 def decoder_layer_tail(cfg, x, attn, lp, wmat=None, mlp_fn=None,
-                       tp_group=None):
+                       tp_group=None, mesh=None):
     """The post-attention half of a decoder layer in one seam.
 
     ``mlp_fn=None`` composes :func:`decoder_attn_residual` and
@@ -251,46 +289,95 @@ def decoder_layer_tail(cfg, x, attn, lp, wmat=None, mlp_fn=None,
     y``.  Either way ``tp_group`` puts the layer's two all-reduces after
     the attention output projection and after the down projection.
     ``wmat(leaf, dtype)`` resolves weight-only-quantized leaves (serving);
-    the training path passes none and reads fp leaves."""
+    the training path passes none and reads fp leaves, and on a ``mesh``
+    puts the differentiable collectives of its ``mp`` axis where the
+    serving all-reduces go."""
     if mlp_fn is None:
-        x = decoder_attn_residual(x, attn, lp, wmat=wmat, tp_group=tp_group)
-        return decoder_mlp_residual(cfg, x, lp, wmat=wmat, tp_group=tp_group)
+        x = decoder_attn_residual(x, attn, lp, wmat=wmat, tp_group=tp_group,
+                                  mesh=mesh)
+        return decoder_mlp_residual(cfg, x, lp, wmat=wmat, tp_group=tp_group,
+                                    mesh=mesh)
     wo = lp["wo"] if wmat is None else wmat(lp["wo"], x.dtype)
     h1, y = mlp_fn(x, _tp_all_reduce(attn @ wo, tp_group), lp)
     return h1 + _tp_all_reduce(y, tp_group)
 
 
 # ---------------------------------------------------------------------------
-# training path (single device)
+# training path (one device, or one rank of a mesh: ``plan``)
 # ---------------------------------------------------------------------------
 
-def _layer_forward(cfg: LlamaConfig, x, lp, cos, sin):
-    """One transformer block; x [b, s, h]."""
+def _layer_forward(cfg: LlamaConfig, x, lp, cos, sin, plan=None):
+    """One transformer block; x [b, s, h].  On a mesh (``plan``, see
+    :func:`_mesh_plan`) ``lp`` holds this rank's shards: the ZeRO dims are
+    gathered here, inside the recomputed block, and the q / k / v heads
+    are the rank's own."""
     b, s, _ = x.shape
-    nh, nkv, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
-                   cfg.head_dim)
+    hd = cfg.head_dim
+    mesh = None if plan is None else plan.mesh
+    if mesh is not None:
+        lp = {n: _zero_gather(plan, t, plan.specs["layers"][n][1:])
+              for n, t in lp.items()}
     xn = rms.rms_norm(x, lp["input_norm"], cfg.rms_norm_eps)
-    q = (xn @ lp["wq"]).reshape(b, s, nh, hd)
-    k = (xn @ lp["wk"]).reshape(b, s, nkv, hd)
-    v = (xn @ lp["wv"]).reshape(b, s, nkv, hd)
+    wk, wv = lp["wk"], lp["wv"]
+    if mesh is not None:
+        xn = dmesh.copy_to(xn, mesh, "mp")
+        if plan.kv is not None:         # K/V replicated over mp
+            lo, n = plan.kv
+            wk, wv = (w[:, lo * hd:(lo + n) * hd] for w in (wk, wv))
+    q = (xn @ lp["wq"]).reshape(b, s, -1, hd)
+    k = (xn @ wk).reshape(b, s, -1, hd)
+    v = (xn @ wv).reshape(b, s, -1, hd)
     q, k = rope_mod.apply_rotary_pos_emb(q, k, cos, sin)
-    attn = fa.flash_attention_bshd(q, k, v, causal=True)
-    return decoder_layer_tail(cfg, x, attn.reshape(b, s, nh * hd), lp)
+    if plan is not None and plan.attn_fn is not None:
+        attn = plan.attn_fn(q, k, v)
+    else:
+        attn = fa.flash_attention_bshd(q, k, v, causal=True)
+    return decoder_layer_tail(cfg, x, attn.reshape(b, s, -1), lp, mesh=mesh)
 
 
-def _embed_rope(cfg: LlamaConfig, params, input_ids):
-    """Token embedding + rope tables for the sequence length."""
-    x = F.embedding(input_ids.long(), params["embed"]).to(cfg.dtype)
-    cos, sin = rope_mod.rope_cos_sin(x.shape[1], cfg.head_dim,
+def _embed_rope(cfg: LlamaConfig, params, input_ids, plan=None):
+    """Token embedding + rope tables for the sequence length.  On a mesh:
+    the vocab-parallel lookup (rows outside the rank's vocab slice read 0,
+    then ``psum`` over ``mp``) and the tables of the rank's positions of
+    the ``sep``-split sequence."""
+    if plan is None:
+        x = F.embedding(input_ids.long(), params["embed"]).to(cfg.dtype)
+        cos, sin = rope_mod.rope_cos_sin(x.shape[1], cfg.head_dim,
+                                         base=cfg.rope_theta,
+                                         dtype=cfg.dtype, device=x.device)
+        return x, cos, sin
+    mesh = plan.mesh
+    table = _zero_gather(plan, params["embed"], plan.specs["embed"])
+    ids = input_ids.long()
+    if mesh.shape["mp"] > 1:
+        vl = table.shape[0]
+        ids = ids - mesh.axis_index("mp") * vl
+        inside = (ids >= 0) & (ids < vl)
+        x = F.embedding(ids.clamp(0, vl - 1), table) \
+            * inside[..., None].to(table.dtype)
+        x = dmesh.psum(x, mesh, "mp")
+    else:
+        x = F.embedding(ids, table)
+    s = x.shape[1]
+    cos, sin = rope_mod.rope_cos_sin(s * mesh.shape["sep"], cfg.head_dim,
                                      base=cfg.rope_theta, dtype=cfg.dtype,
                                      device=x.device)
-    return x, cos, sin
+    at = mesh.axis_index("sep") * s
+    return x.to(cfg.dtype), cos[:, at:at + s], sin[:, at:at + s]
 
 
-def _norm_and_head(cfg: LlamaConfig, params, x):
-    """Final rms_norm + the (possibly tied) lm head weight."""
+def _norm_and_head(cfg: LlamaConfig, params, x, plan=None):
+    """Final rms_norm + the (possibly tied) lm head weight; on a mesh the
+    normed states behind ``copy_to`` and the rank's vocab columns of the
+    head, ``[h, V / mp]``, gathered over ``sharding``."""
     xn = rms.rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     head = params.get("lm_head")
+    if plan is not None:
+        xn = dmesh.copy_to(xn, plan.mesh, "mp")
+        if head is None:
+            return xn, _zero_gather(plan, params["embed"],
+                                    plan.specs["embed"]).T.to(cfg.dtype)
+        return xn, _zero_gather(plan, head, plan.specs["lm_head"])
     if head is None:
         head = params["embed"].T.to(cfg.dtype)
     return xn, head
@@ -326,14 +413,17 @@ def _remat_wrap(body):
     return lambda *a: checkpoint(body, *a, use_reentrant=False)
 
 
-def forward(cfg: LlamaConfig, params, input_ids, return_hidden=False):
+def forward(cfg: LlamaConfig, params, input_ids, return_hidden=False,
+            plan=None):
     """Logits [b, s, V] for [b, s] token ids (``return_hidden``: the last
     hidden states instead, for the chunked loss).  The layer loop runs
-    each block under the recompute policy."""
-    x, cos, sin = _embed_rope(cfg, params, input_ids)
+    each block under the recompute policy.  On a mesh (``plan``): this
+    rank's shard of the hidden states, or of the logits, ``[b, s, V /
+    mp]``."""
+    x, cos, sin = _embed_rope(cfg, params, input_ids, plan)
 
     def body(h, lp):
-        return _layer_forward(cfg, h, lp, cos, sin)
+        return _layer_forward(cfg, h, lp, cos, sin, plan)
 
     layer = _remat_wrap(body)
     names = list(params["layers"])
@@ -342,6 +432,9 @@ def forward(cfg: LlamaConfig, params, input_ids, return_hidden=False):
         x = layer(x, dict(zip(names, leaves)))
     if return_hidden:
         return x
+    if plan is not None:
+        xn, head = _norm_and_head(cfg, params, x, plan)
+        return xn @ head
     return _final_head(cfg, params, x)
 
 
@@ -369,14 +462,48 @@ def _chunk_logp_sum(xc, lbl, head):
     return logp.gather(-1, lbl.long()[..., None]).sum()
 
 
-def head_xent(cfg: LlamaConfig, params, x, labels):
+def _vocab_parallel_nll(plan, xc, lbl, head):
+    """Sum over the positions of ``-log softmax(xc @ head)[label]`` with
+    the vocabulary split over ``mp``: this rank's logits ``[.., V / mp]``
+    f32, their max (an all-reduce outside autograd: the shift cancels in
+    the gradient), the sum of exponentials and the label's logit (zero on
+    the ranks whose slice misses it) each summed over ``mp``."""
+    mesh = plan.mesh
+    z = (xc @ head).float()
+    vl = z.shape[-1]
+    m = dmesh.pmax(z.amax(-1, keepdim=True), mesh, "mp")
+    se = dmesh.psum(torch.exp(z - m).sum(-1, keepdim=True), mesh, "mp")
+    local = lbl.long() - mesh.axis_index("mp") * vl
+    inside = (local >= 0) & (local < vl)
+    zt = z.gather(-1, local.clamp(0, vl - 1)[..., None])[..., 0]
+    zt = dmesh.psum(torch.where(inside, zt, 0.0), mesh, "mp")
+    return (m[..., 0] + torch.log(se[..., 0]) - zt).sum()
+
+
+def head_xent(cfg: LlamaConfig, params, x, labels, plan=None):
     """final_norm + lm head + cross entropy.  With PADDLE_TPU_XENT_CHUNK
     the head matmul + log_softmax run per sequence
     chunk, each under its own checkpoint, so the full [b, s, V] f32 logits
     never exist at once; the numbers are the unchunked ones (log_softmax
-    is per position)."""
+    is per position).  On a mesh (``plan``): x is this rank's shard, the
+    head vocab-parallel (:func:`_vocab_parallel_nll`, chunked the same
+    way over the rank's positions), and the loss the mean over every
+    token of the global batch, summed over ``dp``, ``sharding`` and
+    ``sep``."""
     chunk = _xent_chunk_env()
     b, s, _ = x.shape
+    if plan is not None:
+        xn, head = _norm_and_head(cfg, params, x, plan)
+        if chunk <= 0 or s <= chunk or s % chunk:
+            tot = _vocab_parallel_nll(plan, xn, labels, head)
+        else:
+            tot = sum(checkpoint(_vocab_parallel_nll, plan,
+                                 xn[:, i:i + chunk], labels[:, i:i + chunk],
+                                 head, use_reentrant=False)
+                      for i in range(0, s, chunk))
+        data = ("dp", "sharding", "sep")
+        return dmesh.psum(tot / (b * s * plan.mesh.axis_size(data)),
+                          plan.mesh, data)
     if chunk <= 0 or s <= chunk or s % chunk:
         return _xent(_final_head(cfg, params, x), labels)
     xn, head = _norm_and_head(cfg, params, x)
@@ -388,10 +515,12 @@ def head_xent(cfg: LlamaConfig, params, x, labels):
     return -tot / (b * s)
 
 
-def loss_fn(cfg: LlamaConfig, params, input_ids, labels):
-    if _xent_chunk_env() > 0:
-        x = forward(cfg, params, input_ids, return_hidden=True)
-        return head_xent(cfg, params, x, labels)
+def loss_fn(cfg: LlamaConfig, params, input_ids, labels, plan=None):
+    """The mean next-token cross entropy (on a mesh: of the global batch,
+    from this rank's shards of the parameters and the batch)."""
+    if plan is not None or _xent_chunk_env() > 0:
+        x = forward(cfg, params, input_ids, return_hidden=True, plan=plan)
+        return head_xent(cfg, params, x, labels, plan)
     return _xent(forward(cfg, params, input_ids), labels)
 
 
@@ -419,10 +548,25 @@ def value_and_grad(fn, params):
     return loss.detach(), torch.autograd.grad(loss, leaves)
 
 
-def loss_and_grads(cfg: LlamaConfig, params, input_ids, labels):
-    """(loss, gradients) of :func:`loss_fn` (:func:`value_and_grad`)."""
-    return value_and_grad(lambda p: loss_fn(cfg, p, input_ids, labels),
-                          params)
+def loss_and_grads(cfg: LlamaConfig, params, input_ids, labels, mesh=None,
+                   sep_attn_impl="ring"):
+    """(loss, gradients) of :func:`loss_fn` (:func:`value_and_grad`).
+
+    On a ``mesh`` of more than one position: ``params`` and the batch are
+    this rank's shards (:func:`param_specs`, :data:`DATA_SPEC`), the loss
+    is the global one (the same on every rank), and the gradients are this
+    rank's shards of the global gradients, summed over the axes
+    :func:`_sync_axes` names (the first half of the reference's mesh
+    train step)."""
+    if mesh is None or mesh.size == 1:
+        return value_and_grad(lambda p: loss_fn(cfg, p, input_ids, labels),
+                              params)
+    plan = _mesh_plan(cfg, mesh, sep_attn_impl)
+    loss, grads = value_and_grad(
+        lambda p: loss_fn(cfg, p, input_ids, labels, plan), params)
+    return loss, tuple(
+        dmesh.all_reduce_(g.contiguous(), mesh, _sync_axes(plan, name, spec))
+        for (name, spec), g in zip(named_specs(cfg, plan.specs), grads))
 
 
 def global_norm(grads) -> torch.Tensor:
@@ -452,14 +596,17 @@ def adamw_init(params, gnorm: bool = True) -> dict:
 
 @torch.no_grad()
 def adamw_update(leaves, grads, opt_state, lr, weight_decay, beta1, beta2,
-                 grad_clip) -> tuple[torch.Tensor, torch.Tensor]:
+                 grad_clip, norm=global_norm) -> tuple[torch.Tensor,
+                                                       torch.Tensor]:
     """The reference's AdamW update, IN PLACE on the parameter leaves and
     ``opt_state``'s ``m`` / ``v`` / ``master`` (all in :func:`tree_leaves`
     order): the f32 global-norm clip ``scale = min(1, clip / max(gnorm,
     1e-6))``, bias corrections from an f32 step, decoupled decay, the f32
     master cast back to each parameter's dtype.  Returns (step, gnorm);
-    the caller stores them."""
-    gnorm = global_norm(grads)
+    the caller stores them.  Elementwise, so on a mesh it runs as it is on
+    each rank's shards; ``norm(grads)`` gives the clipping norm (a mesh's:
+    :func:`_mesh_global_norm`)."""
+    gnorm = norm(grads)
     scale_f = torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-6), max=1.0)
     step = opt_state["step"] + 1
     b1c = 1 - beta1 ** step.float()
@@ -477,18 +624,20 @@ def adamw_update(leaves, grads, opt_state, lr, weight_decay, beta1, beta2,
 
 
 def adamw_train_step(loss_and_grads_fn, lr, weight_decay, beta1, beta2,
-                     grad_clip, keep_gnorm=True):
+                     grad_clip, keep_gnorm=True, norm=global_norm):
     """(train_step, opt_init) around ``loss_and_grads_fn(params, *batch)
     -> (loss, grads)``: ``train_step(params, opt_state, *batch) -> (loss,
     params, opt_state)`` runs it, then :func:`adamw_update`, updating the
     parameter and optimizer tensors IN PLACE (the reference donates them)
     and returning the same dicts; the state keeps ``gnorm`` when
-    ``keep_gnorm`` (the reference's LM train steps do, its DiT's not)."""
+    ``keep_gnorm`` (the reference's LM train steps do, its DiT's not);
+    ``norm`` as :func:`adamw_update`'s."""
 
     def train_step(params, opt_state, *batch):
         loss, grads = loss_and_grads_fn(params, *batch)
         step, gnorm = adamw_update(tree_leaves(params), grads, opt_state, lr,
-                                   weight_decay, beta1, beta2, grad_clip)
+                                   weight_decay, beta1, beta2, grad_clip,
+                                   norm=norm)
         opt_state["step"] = step
         if keep_gnorm:
             opt_state["gnorm"] = gnorm
@@ -497,17 +646,216 @@ def adamw_train_step(loss_and_grads_fn, lr, weight_decay, beta1, beta2,
     return train_step, lambda params: adamw_init(params, keep_gnorm)
 
 
-def build_train_step(cfg: LlamaConfig, lr=3e-4, weight_decay=0.1, beta1=0.9,
-                     beta2=0.95, grad_clip=1.0):
-    """(train_step, opt_init) for one device, the reference's
-    ``build_train_step`` on a 1-device mesh: ``train_step(params,
-    opt_state, input_ids, labels) -> (loss, new_params, new_opt)``,
-    :func:`loss_and_grads` then AdamW (:func:`adamw_train_step`); gnorm is
-    reckoned leaf by leaf, so no f32 copy of all the gradients exists at
-    once."""
-    return adamw_train_step(
-        lambda params, ids, labels: loss_and_grads(cfg, params, ids, labels),
-        lr, weight_decay, beta1, beta2, grad_clip)
+def build_train_step(cfg: LlamaConfig, mesh=None, lr=3e-4, weight_decay=0.1,
+                     beta1=0.9, beta2=0.95, grad_clip=1.0,
+                     num_microbatches=None, sep_attn_impl="ring",
+                     pipeline_schedule=None, num_chunks=None):
+    """The reference's ``build_train_step``.
+
+    ``mesh=None``: (train_step, opt_init) for one device, the reference's
+    step on a 1-device mesh: ``train_step(params, opt_state, input_ids,
+    labels) -> (loss, new_params, new_opt)``, :func:`loss_and_grads` then
+    AdamW (:func:`adamw_train_step`); gnorm is reckoned leaf by leaf, so
+    no f32 copy of all the gradients exists at once.
+
+    With a ``mesh`` (:func:`make_mesh`): (train_step, opt_init,
+    param_specs, data_spec), the same step on this rank's shards of the
+    parameters, the optimizer state (``opt_init`` of the parameter
+    shards: ``m`` / ``v`` / ``master`` follow the parameters' specs,
+    ``step`` and ``gnorm`` are whole) and the batch (``data_spec``, the
+    reference's ``P(("dp", "sharding"), "sep")``), with the mesh's
+    collectives (:func:`loss_and_grads`) and the sharded clipping norm; on
+    a one-position mesh, the one-device step.  ``sep_attn_impl`` picks
+    ring or Ulysses attention when ``sep`` > 1; ``num_microbatches`` is
+    the pipeline's, not ported (a mesh with ``pp`` > 1 raises
+    ``NotImplementedError``), and ``pipeline_schedule`` / ``num_chunks``
+    raise the reference's ``ValueError`` on a mesh without ``pp``."""
+    if mesh is None:
+        return adamw_train_step(
+            lambda params, ids, labels: loss_and_grads(cfg, params, ids,
+                                                       labels),
+            lr, weight_decay, beta1, beta2, grad_clip)
+    schedule = "1f1b" if pipeline_schedule is None else pipeline_schedule
+    known = ("1f1b", "eager_1f1b", "vpp", "interleave", "zb", "zero_bubble",
+             "gpipe", "fthenb")
+    if schedule not in known:
+        raise ValueError(f"unknown pipeline_schedule {schedule!r} "
+                         f"(expected one of {known})")
+    pp = mesh.shape["pp"]
+    if pp > 1:
+        raise NotImplementedError(_PP_NOT_PORTED)
+    if pipeline_schedule is not None:
+        raise ValueError(f"pipeline_schedule={pipeline_schedule!r} needs a "
+                         f"mesh with pp > 1 (got pp={pp})")
+    if num_chunks is not None and num_chunks > 1 and schedule not in (
+            "vpp", "interleave"):
+        raise ValueError(f"num_chunks={num_chunks} requires pipeline_schedule"
+                         f"='vpp'/'interleave', got {schedule!r}")
+    specs = param_specs(cfg, mp=mesh.shape["mp"])
+    if mesh.size == 1:
+        step, opt_init = build_train_step(cfg, lr=lr,
+                                          weight_decay=weight_decay,
+                                          beta1=beta1, beta2=beta2,
+                                          grad_clip=grad_clip)
+        return step, opt_init, specs, DATA_SPEC
+    plan = _mesh_plan(cfg, mesh, sep_attn_impl)
+    step, opt_init = adamw_train_step(
+        lambda params, ids, labels: loss_and_grads(
+            cfg, params, ids, labels, mesh, sep_attn_impl),
+        lr, weight_decay, beta1, beta2, grad_clip,
+        norm=lambda grads: _mesh_global_norm(cfg, plan, grads))
+    return step, opt_init, specs, DATA_SPEC
+
+
+# ---------------------------------------------------------------------------
+# the training mesh: specs, the per-rank plan, gradient sync, the norm
+# ---------------------------------------------------------------------------
+
+_PP_NOT_PORTED = ("the pipeline axis (pp > 1: forward_pp and the 1F1B / VPP "
+                  "/ ZB schedules) is not ported yet: ROADMAP A11's pipeline "
+                  "slice")
+
+#: the batch's spec: rows over dp x sharding, the sequence over sep
+DATA_SPEC = (("dp", "sharding"), "sep")
+#: the axes that split the batch
+_DATA_AXES = ("dp", "sharding", "sep")
+
+
+def param_specs(cfg: LlamaConfig, pp: bool = False, mp: int = 1) -> dict:
+    """The reference's partition specs of the parameter tree, as tuples
+    (one entry a dim: None, or the mesh axis splitting it): the Megatron
+    splits over ``mp`` (:data:`MEGATRON_SPLIT`; ``wk`` / ``wv`` replicated
+    when ``mp`` does not divide the kv heads), ZeRO over ``sharding`` on
+    the other dim of each matrix, the vocab-parallel ``embed`` and
+    ``lm_head``, replicated norms.  As the reference's, it lists
+    ``lm_head`` for a tied tree too (the port skips keys the tree lacks).
+    ``pp=True`` (the layer dim over 'pp') raises ``NotImplementedError``."""
+    if pp:
+        raise NotImplementedError(_PP_NOT_PORTED)
+    kv_col = None if cfg.num_key_value_heads % mp else "mp"
+
+    def mat(name):
+        tensor = kv_col if name in ("wk", "wv") else "mp"
+        if MEGATRON_SPLIT[name] == "col":
+            return (None, "sharding", tensor)
+        return (None, tensor, "sharding")
+
+    return {"embed": ("mp", "sharding"), "final_norm": (None,),
+            "layers": {"input_norm": (None, None),
+                       "post_norm": (None, None),
+                       **{name: mat(name) for name in MEGATRON_SPLIT}},
+            "lm_head": ("sharding", "mp")}
+
+
+def make_mesh(dp=1, mp=1, sharding=1, sep=1, pp=1) -> dmesh.Mesh:
+    """The hybrid mesh over the initialised default process group (one
+    rank a position, :class:`~paddle_tpu_torch.distributed.mesh.Mesh`); a
+    world size other than ``dp * mp * sharding * sep * pp`` raises
+    ``ValueError``, and ``pp > 1`` ``NotImplementedError``.  Without a
+    process group a one-position mesh is the single-device one."""
+    if pp > 1:
+        raise NotImplementedError(_PP_NOT_PORTED)
+    return dmesh.Mesh(dp=dp, pp=pp, sharding=sharding, sep=sep, mp=mp)
+
+
+def sep_attention(mesh, axis: str = "sep", impl: str = "ring"):
+    """Context-parallel attention over ``mesh``'s sequence axis: an
+    ``attn_fn(q, k, v)`` (BSHD, this rank's sequence shard) running
+    Ulysses (``impl='ulysses'``) or ring attention (any other)."""
+    from ..ops import ring_attention as ra
+
+    def attn_fn(q, k, v):
+        if impl == "ulysses":
+            return ra.ulysses_attention(q, k, v, mesh, axis, causal=True)
+        return ra.ring_attention(q, k, v, mesh, axis, causal=True)
+
+    return attn_fn
+
+
+def _kv_heads(cfg: LlamaConfig, mp: int, rank: int):
+    """(first, count) of the kv heads the q heads of ``mp`` rank ``rank``
+    read when ``wk`` / ``wv`` are replicated over ``mp`` (``mp`` does not
+    divide the kv heads); None when they split.  The rank's q heads must
+    read their kv heads in flash attention's GQA order."""
+    nh, nkv = cfg.num_attention_heads, cfg.num_key_value_heads
+    if nh % mp:
+        raise ValueError(f"mp={mp} does not divide {nh} attention heads")
+    if nkv % mp == 0:
+        return None
+    group, local = nh // nkv, nh // mp
+    first = rank * local // group
+    count = ((rank + 1) * local - 1) // group - first + 1
+    if local % count or any((rank * local + i) // group - first
+                            != i // (local // count) for i in range(local)):
+        raise ValueError(f"mp={mp}: a rank's {local} q heads do not read "
+                         f"their kv heads in GQA order ({nh} / {nkv} heads)")
+    return first, count
+
+
+def _mesh_plan(cfg: LlamaConfig, mesh, sep_attn_impl="ring"):
+    """What one rank's step reads besides its shards: the mesh, the specs,
+    the kv heads of its q heads (:func:`_kv_heads`), the sequence-parallel
+    attention (None without ``sep``)."""
+    return types.SimpleNamespace(
+        mesh=mesh, specs=param_specs(cfg, mp=mesh.shape["mp"]),
+        kv=_kv_heads(cfg, mesh.shape["mp"], mesh.coords["mp"]),
+        attn_fn=(sep_attention(mesh, "sep", sep_attn_impl)
+                 if mesh.shape["sep"] > 1 else None))
+
+
+def _zero_gather(plan, t, spec):
+    """Leaf ``t`` whole over ``sharding`` (ZeRO): the dim ``spec`` splits
+    over it all-gathered, so its gradient is reduce-scattered back."""
+    if "sharding" in spec:
+        return dmesh.all_gather(t, plan.mesh, "sharding",
+                                spec.index("sharding"))
+    return t
+
+
+def named_specs(cfg: LlamaConfig, specs) -> list:
+    """(name, spec) of every leaf of the parameter tree, in
+    :func:`tree_leaves` order (``lm_head`` only when untied)."""
+    out = []
+    for k in sorted(specs):
+        if k == "lm_head" and cfg.tie_word_embeddings:
+            continue
+        if isinstance(specs[k], dict):
+            out += [(f"{k}/{n}", specs[k][n]) for n in sorted(specs[k])]
+        else:
+            out.append((k, specs[k]))
+    return out
+
+
+def _sync_axes(plan, name: str, spec) -> tuple:
+    """The axes a leaf's gradient is summed over after the backward: each
+    batch axis (dp, sharding, sep) it is not split on (its ranks saw other
+    data; a leaf split over ``sharding`` got that sum from its ZeRO
+    reduce-scatter), and ``mp`` for the replicated K/V, whose every rank
+    computed the gradient of its own kv heads only.  A replicated leaf
+    that feeds a ``copy_to`` (the norms) has its whole gradient on every
+    ``mp`` rank already."""
+    split = dmesh.spec_axes(spec)
+    axes = [a for a in _DATA_AXES if a not in split]
+    if plan.kv is not None and name in ("layers/wk", "layers/wv"):
+        axes.append("mp")
+    return tuple(a for a in dmesh.AXES if a in axes)
+
+
+def _mesh_global_norm(cfg: LlamaConfig, plan, grads) -> torch.Tensor:
+    """The global f32 norm of the sharded gradients: each leaf's sum of
+    squares, those of the leaves split over the same axes summed over
+    those axes (never over the axes a leaf is replicated on), then all of
+    it in one fixed order, so every rank gets the same bits."""
+    mesh, parts = plan.mesh, {}
+    for (_, spec), g in zip(named_specs(cfg, plan.specs), grads):
+        gf = g.float()
+        axes = tuple(a for a in dmesh.AXES if a in dmesh.spec_axes(spec)
+                     and mesh.shape[a] > 1)
+        parts[axes] = parts.get(axes, 0) + (gf * gf).sum()
+    total = 0
+    for axes, v in parts.items():
+        total = total + dmesh.all_reduce_(v, mesh, axes)
+    return torch.sqrt(total)
 
 
 def flops_per_token(cfg: LlamaConfig) -> float:

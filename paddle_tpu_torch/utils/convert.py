@@ -15,6 +15,12 @@ int8 ``[..., K // 2]`` in the port (two nibbles a byte, the KV pools'
 layout).  An ``int4`` array (``ml_dtypes``) is widened to int8 and packed
 on the way in; :func:`params_to_numpy` with ``quant='int4'`` unpacks the
 ``qweight`` leaves to int8 codes ``[..., K]``.  Both directions are exact.
+
+On a training mesh (``models/llama.py``'s ``make_mesh``),
+:func:`shard_params` / :func:`shard_opt_state` cut one rank's shard of a
+whole tree by the reference's partition specs, the shard the reference
+gives the device at that mesh position; :func:`gather_params` puts the
+shards back together (for checks).
 """
 
 from __future__ import annotations
@@ -120,3 +126,51 @@ def opt_state_from_numpy(state, device=None):
 def opt_state_to_numpy(state):
     """Inverse of :func:`opt_state_from_numpy`."""
     return params_to_numpy({k: state[k] for k in _opt_keys(state)})
+
+
+def _check_tree(cfg, params):
+    if ("lm_head" in params) == cfg.tie_word_embeddings:
+        has = "has" if "lm_head" in params else "lacks"
+        raise ValueError(f"tie_word_embeddings={cfg.tie_word_embeddings} "
+                         f"but the tree {has} lm_head")
+
+
+def _walk(fn, tree, specs):
+    if isinstance(tree, dict):
+        return {k: _walk(fn, v, specs[k]) for k, v in tree.items()}
+    return fn(tree, specs)
+
+
+def shard_params(cfg, params, specs, mesh, device=None):
+    """This rank's shard of a whole parameter tree of the port: each leaf
+    cut by its spec (``llama.param_specs``, which may list ``lm_head``
+    for a tied tree) for ``mesh``'s position, the shard the reference
+    gives device ``mesh.rank``, copied to ``device`` (None: where the
+    leaf lies)."""
+    from ..distributed.mesh import shard_leaf
+
+    _check_tree(cfg, params)
+    def cut(t, spec):
+        t = shard_leaf(t, spec, mesh)
+        return t if device is None else t.to(device)
+
+    return _walk(cut, params, specs)
+
+
+def shard_opt_state(cfg, state, specs, mesh, device=None):
+    """This rank's shard of a whole optimizer state ``{step, m, v, master,
+    gnorm}``: ``m``, ``v`` and ``master`` as :func:`shard_params`,
+    ``step`` and ``gnorm`` replicated."""
+    return {k: (shard_params(cfg, state[k], specs, mesh, device)
+                if k in ("m", "v", "master")
+                else state[k] if device is None else state[k].to(device))
+            for k in _opt_keys(state)}
+
+
+def gather_params(cfg, params, specs, mesh):
+    """The whole tree from every rank's :func:`shard_params` shard (a
+    collective: every rank of the mesh calls it)."""
+    from ..distributed.mesh import unshard_leaf
+
+    _check_tree(cfg, params)
+    return _walk(lambda t, spec: unshard_leaf(t, spec, mesh), params, specs)
