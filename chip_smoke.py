@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --serve-sweep 3-14
+    python3 chip_smoke.py --only pipeline
 
 Drives ``paddle_tpu_torch`` only (it imports no JAX and nothing of
 ``paddle_tpu``) through its phases, each printing JSON lines, and exits
@@ -225,6 +226,18 @@ non-zero as soon as one fails:
     under the ring) and the collectives as ``_dist_expected`` predicts;
     the ranks' peak memory together below the card's.  Reports each
     rank's step ms, the collectives' wall share and GB, peak GB.
+23. the pipeline axis (``phase_pipeline``; Llama-3-8B widths,
+    ``PP_LAYERS`` = 4 layers, 4 x 1024 seeded tokens in ``PP_MICRO`` = 4
+    microbatches, full recompute): the three flash kernels at a
+    microbatch's 32 / 8 and 16 / 4 heads and B1 at its 1024 rows against
+    their plain versions; the one-card step as the reference; then gloo
+    ranks on the one card, each holding its stage of ``param_specs(pp=
+    True)``: two at pp=2 under gpipe, 1f1b, vpp (2 chunks) and zb in turn,
+    four at pp=2 x mp=2 under 1f1b.  Gates a rank and a mesh as phase
+    22's (loss, gnorm, gradient shards, bit-equal shared leaves, memory),
+    launches exact by the clock (``_pp_launches``), collectives and bytes
+    as ``_pp_expected`` predicts, and each stage's executed sub-ticks
+    against the oracles (``_pp_order``).
 
 The line before the last lists every kernel with its numbers; the last line
 is ``{"ok": true, "device": {...}}``.  ``--serve-sweep FIRST-LAST`` runs
@@ -236,7 +249,8 @@ int8 chunked serve with the cache on and off at each request seed (the
 script's own run uses seed 5); ``--tier-probe FIRST-LAST`` serves phase
 14's bucketed bf16 stream at each request seed four times in turns (tier
 off, on, on, off) and reports each serve's
-wall, prefill, decode and demotion seconds and TTFT.  A line ``{"phase": "seconds", ...}``
+wall, prefill, decode and demotion seconds and TTFT; ``--only
+{dist_train,pipeline}`` runs phases 1, 2 and that phase alone.  A line ``{"phase": "seconds", ...}``
 before the kernels line gives each phase's time.  Without a CUDA card, or
 without the
 package beside it, the script exits non-zero and prints no result.
@@ -5361,6 +5375,532 @@ def _dist_gates(cfg, label, kw, impl, one, runs, capacity) -> None:
                            f"{capacity / 1e9} GB")
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the pipeline axis (A11 b) as gloo ranks
+# ---------------------------------------------------------------------------
+
+#: phase 23's depth: VPP at pp=2 x 2 chunks needs L % 4 == 0; a pp=2
+#: rank then holds embed + lm_head and 2 of the 4 layers, 1.487B
+#: parameters, phase 22's dp=2 rank
+PP_LAYERS = 4
+#: phase 8's 4096 tokens a step as 4 rows of 1024, in 4 microbatches (ZB
+#: needs M >= 2(P - 1) + 1 = 3, VPP M % P == 0)
+PP_BATCH, PP_MICRO = (4, 1024), 4
+#: the spawns: (ranks, ((label, mesh axes, pipeline_schedule,
+#: num_chunks), ...)), each mesh from the same seeded weights
+PP_RUNS = ((2, (("gpipe", {"pp": 2}, "gpipe", None),
+                ("1f1b", {"pp": 2}, "1f1b", None),
+                ("vpp", {"pp": 2}, "vpp", 2),
+                ("zb", {"pp": 2}, "zb", None))),
+           (4, (("pp2_mp2_1f1b", {"pp": 2, "mp": 2}, "1f1b", None),)))
+PP_SEED = 13
+#: a stage's loss within 2^-8 of the one-card loss at that step, relative:
+#: step 2's loss is ~0.11, so phase 22's absolute 2^-8 x 12 would hold it
+#: to 43% of its value (read on one H100: up to 3.3e-3 relative, gpipe)
+PP_LOSS_REL = 2.0 ** -8
+
+
+def _pp_cfg():
+    from paddle_tpu_torch.models import llama
+
+    return dataclasses.replace(llama.LlamaConfig.llama3_8b(),
+                               num_hidden_layers=PP_LAYERS)
+
+
+def _pp_batch(torch, cfg, dev):
+    g = torch.Generator(device=dev)
+    g.manual_seed(7)
+    return tuple(torch.randint(0, cfg.vocab_size, PP_BATCH, generator=g,
+                               device=dev) for _ in range(2))
+
+
+def _pp_chunks(schedule: str, num_chunks) -> int:
+    return (num_chunks or 2) if schedule in ("vpp", "interleave") else 1
+
+
+def _pp_clock(P: int, M: int, C: int, zb: bool, s: int) -> list:
+    """Stage ``s``'s sub-ticks on the reference's global clock, from its
+    formulas (not the engine's code): ``order_f`` takes P microbatches at
+    a time round-robin over the C chunks; tick k runs the F of
+    ``order_f[k - s]``, the B of ``order_f[k - D + s]`` with its chunk
+    mirrored (D = 2(P - 1) + (C - 1)P), and under ZB the W of microbatch
+    k - s - M for the first min(M, D - s).  Returns (k, phase, m, c)."""
+    order = ([(g + r % P, r // P) for g in range(0, M, P)
+              for r in range(P * C)] if C > 1 else
+             [(m, 0) for m in range(M)])
+    D = 2 * (P - 1) + (C - 1) * P
+    out = []
+    for k in range(M * C + D):
+        if 0 <= k - s < M * C:
+            out.append((k, "F") + order[k - s])
+        if 0 <= k - D + s < M * C:
+            m, c = order[k - D + s]
+            out.append((k, "B", m, C - 1 - c))
+        if zb and 0 <= k - s - M < min(M, D - s):
+            out.append((k, "W", k - s - M, 0))
+    return out
+
+
+def _pp_evals(schedule: str, P: int, M: int, C: int, s: int) -> dict:
+    """What one step of stage ``s`` evaluates: stage forwards without
+    autograd (``f``: each F sub-tick but the last stage's last chunk,
+    fused into its B), stage forwards with autograd and their backward
+    (``b``: each B, and under ZB each W, but stage 0's deferred B, which
+    defers all), head evaluations (``head``) and embeddings (``emb``).
+    GPipe: M forwards with autograd and their backward, one head and one
+    embedding on the whole batch."""
+    if schedule in ("gpipe", "fthenb"):
+        return {"f": 0, "b": M, "head": 1, "emb": 1}
+    zb = schedule in ("zb", "zero_bubble")
+    z = min(M, 2 * (P - 1) - s)
+    ticks = _pp_clock(P, M, C, zb, s)
+    last = lambda c: s == P - 1 and c == C - 1
+    return {"f": sum(ph == "F" and not last(c) for _, ph, _, c in ticks),
+            "b": sum(ph == "W" or (ph == "B" and not (zb and s == 0
+                                                       and m < z))
+                     for _, ph, m, c in ticks),
+            "head": sum(ph in ("B", "W") and last(c)
+                        for _, ph, _, c in ticks),
+            "emb": M if s == 0 else 0}
+
+
+def _pp_launches(schedule: str, P: int, M: int, C: int, L: int,
+                 s: int) -> dict:
+    """The kernel launches of one step of stage ``s`` (full recompute:
+    a block's backward recomputes it, B1 twice and the flash forward once):
+    a forward of a chunk's Lv layers runs B1 2Lv and the flash forward Lv
+    times, a backward evaluation 4Lv, 2Lv, and dK/dV and dQ Lv each; a head
+    evaluation runs the final norm once (:func:`_pp_evals`)."""
+    e = _pp_evals(schedule, P, M, C, s)
+    Lv = L // P // (1 if schedule in ("gpipe", "fthenb") else C)
+    flash = {"flash_attention_fwd": Lv * e["f"] + 2 * Lv * e["b"],
+             "flash_attention_dkv": Lv * e["b"],
+             "flash_attention_dq": Lv * e["b"]}
+    return {"rms_norm": 2 * Lv * e["f"] + 4 * Lv * e["b"] + e["head"],
+            **flash, **{f"{k}_tc": v for k, v in flash.items()}}
+
+
+def _pp_expected(cfg, schedule: str, kw: dict, C: int, s: int) -> dict:
+    """The collectives of one step of stage ``s`` and the bytes it sends,
+    predicted from the design.
+
+    1F1B clock (:func:`_pp_clock`): a stage sends the activation of each
+    F sub-tick but the last stage's last chunk and the cotangent of each B
+    but stage 0's chunk 0, and receives its neighbours' (open chain at C =
+    1, ring else), each tensor one ``send_recv``, a tick with any one
+    host-staged call; the loss summed over pp, and ``embed``,
+    ``final_norm``, ``lm_head``'s gradients (the stage-owned leaves);
+    VPP moves each of the 9 layer leaves' one off-rank chunk out and one
+    in, the weights before the step and the gradients after (one staged
+    call a leaf each way).  GPipe: M + P - 2 open-chain shifts and as many
+    transposes (each staged; a stage sends where it has a neighbour), the
+    last stage's outputs summed over pp and the embedding's cotangent
+    (``copy_to``).  The clipping norm: one sum a set of live split axes.
+    mp adds phase 22's sums: two ``psum`` a layer in each forward, and in
+    a backward evaluation the first again (the recompute) and two
+    ``copy_to`` cotangent sums; the embedding's ``psum``; the head's
+    ``copy_to`` cotangent, sum-exp and label-logit sums and one max."""
+    from paddle_tpu_torch.models import llama
+
+    P, M, mp = kw.get("pp", 1), PP_MICRO, kw.get("mp", 1)
+    L, h, V = cfg.num_hidden_layers, cfg.hidden_size, cfg.vocab_size
+    gpipe = schedule in ("gpipe", "fthenb")
+    Lv = L // P // (1 if gpipe else C)
+    rows, seq = PP_BATCH
+    tok = rows // M * seq                   # a microbatch's positions
+    act = tok * h * 2
+    want = dict.fromkeys(("all_reduce", "all_reduce_max", "all_gather",
+                          "reduce_scatter", "all_to_all", "ppermute",
+                          "send_recv", "host_staged"), 0)
+    split = {("pp",), ("pp", "mp") if mp > 1 else ("pp",)}
+    if mp > 1:
+        split.add(("mp",))
+    want["all_reduce"] += len(split)
+    nbytes = 4 * len(split)
+    if gpipe:
+        T = M + P - 1
+        want["ppermute"] = want["host_staged"] = 2 * (T - 1)
+        nbytes += act * (T - 1) * ((s < P - 1) + (s > 0))
+        want["all_reduce"] += 2
+        nbytes += 2 * M * act
+        tok_head = tok_emb = M * tok
+    else:
+        zb = schedule in ("zb", "zero_bubble")
+        prv, nxt = ((s - 1) % P, (s + 1) % P) if C > 1 else (s - 1, s + 1)
+        mine = _pp_clock(P, M, C, zb, s)
+        sends = [k for k, ph, m, c in mine
+                 if (ph == "F" and not (s == P - 1 and c == C - 1))
+                 or (ph == "B" and not (s == 0 and c == 0))]
+        recvs = []
+        if 0 <= prv < P:
+            recvs += [k for k, ph, m, c in _pp_clock(P, M, C, zb, prv)
+                      if ph == "F" and not (prv == P - 1 and c == C - 1)]
+        if 0 <= nxt < P:
+            recvs += [k for k, ph, m, c in _pp_clock(P, M, C, zb, nxt)
+                      if ph == "B" and not (nxt == 0 and c == 0)]
+        want["send_recv"] = len(sends) + len(recvs)
+        want["host_staged"] = len(set(sends) | set(recvs))
+        nbytes += act * len(sends)
+        want["all_reduce"] += 1 + 3
+        nbytes += 4 + (2 * V * h // mp + h) * 2
+        if C > 1:
+            shapes = llama.serving_matmul_shapes(cfg)
+            per_layer = sum(math.prod(v[1:]) for v in shapes.values()) + 2 * h
+            want["send_recv"] += 2 * 2 * 9
+            want["host_staged"] += 2 * 9
+            nbytes += 2 * Lv * per_layer * 2
+        tok_head, tok_emb = tok, tok
+    if mp > 1:
+        e = _pp_evals(schedule, P, M, C, s)
+        lay = 2 * Lv * e["f"] + 5 * Lv * e["b"]
+        want["all_reduce"] += lay + e["emb"] + 3 * e["head"]
+        want["all_reduce_max"] += e["head"]
+        nbytes += lay * act + e["emb"] * tok_emb * h * 2 \
+            + e["head"] * (tok_head * h * 2 + 3 * tok_head * 4)
+    if DIST_KW["device"] != "cuda":
+        want["host_staged"] = 0
+    want["bytes"] = nbytes
+    return want
+
+
+def _pp_order(schedule: str, P: int, M: int, C: int, s: int,
+              trace) -> dict:
+    """Stage ``s``'s executed sub-ticks against the port's copy of the
+    reference's oracles (``distributed/fleet/pipeline.py``'s docstring
+    says which): 1F1B / VPP equal ``schedule_interleave(P, M, C)``'s line;
+    ZB's F and B ticks equal ``schedule_interleave(P, M, 1)``'s and its W
+    ticks are microbatches 0 .. Z(s) - 1, each after its B; GPipe runs
+    ``schedule_fthenb``'s forwards, then its backwards reversed."""
+    from paddle_tpu_torch.distributed.fleet import pipeline as pl
+
+    line = lambda ticks: pl.format_schedule([ticks]).split(": ", 1)[1]
+    got = line(trace)
+    if schedule in ("gpipe", "fthenb"):
+        ref = pl.schedule_fthenb(P, M)[s]
+        want = line([t for t in ref if t.phase == "F"]
+                    + [t for t in reversed(ref) if t.phase == "B"])
+        return {"executed": got, "oracle": line(ref), "ok": got == want}
+    oracle = pl.schedule_interleave(P, M, C)[s]
+    if schedule not in ("zb", "zero_bubble"):
+        return {"executed": got, "oracle": line(oracle),
+                "ok": got == line(oracle)}
+    fb = [t for t in trace if t.phase != "W"]
+    w = [t.mb for t in trace if t.phase == "W"]
+    z = min(M, 2 * (P - 1) - s)
+    after_b = all(trace.index(pl.Tick(s, m, "W")) >
+                  trace.index(pl.Tick(s, m, "B")) for m in w)
+    return {"executed": got, "oracle": line(oracle),
+            "ok": line(fb) == line(oracle) and w == list(range(z))
+            and after_b}
+
+
+def _pp_mesh_run(torch, cfg, ref, label, kw, schedule, num_chunks) -> dict:
+    """One pipeline mesh on this rank (phase 22's ``_dist_mesh_run`` for
+    the pp axis): the rank's shards of the seeded weights and batch, its
+    step-1 gradient shards of ``DIST_GRAD_LEAVES`` against the one-card
+    step's, then two train steps (the first with each collective timed,
+    the second untimed), each step's loss, gnorm, launches, collectives
+    and executed sub-ticks, the replicated leaves' checksums after step
+    2, the peak memory."""
+    from paddle_tpu_torch.distributed import mesh as dmesh
+    from paddle_tpu_torch.distributed.fleet import pipeline as pl
+    from paddle_tpu_torch.models import llama
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.ops.kernels import flash_attention as tfa
+    from paddle_tpu_torch.utils import convert
+
+    dev = torch.device(DIST_KW["device"])
+    torch.cuda.reset_peak_memory_stats()
+    mesh = llama.make_mesh(**kw)
+    C = _pp_chunks(schedule, num_chunks)
+    step, opt_init, specs, dspec = llama.build_train_step(
+        cfg, mesh, num_microbatches=PP_MICRO, pipeline_schedule=schedule,
+        num_chunks=num_chunks)
+    full = llama.init_params(cfg, seed=PP_SEED, device=dev)
+    params = convert.shard_params(cfg, full, specs, mesh)
+    del full
+    torch.cuda.empty_cache()
+    ids, labels = (dmesh.shard_leaf(t, dspec, mesh)
+                   for t in _pp_batch(torch, cfg, dev))
+    if schedule == "gpipe":
+        _, grads = llama.loss_and_grads(cfg, params, ids, labels, mesh,
+                                        num_microbatches=PP_MICRO)
+    else:
+        _, grads = llama.loss_and_grads_1f1b(
+            cfg, params, ids, labels, mesh, PP_MICRO, num_chunks=C,
+            zero_bubble=schedule == "zb")
+    grad_err = {}
+    for (name, spec), g in zip(llama.named_specs(cfg, specs), grads):
+        if name in DIST_GRAD_LEAVES:
+            want = dmesh.shard_leaf(ref["grads"][name], spec, mesh).to(dev)
+            grad_err[name] = ((g.float() - want.float()).abs().max()
+                              / ref["grad_max"][name]).item()
+    del grads, want
+    opt = opt_init(params)
+    torch.cuda.synchronize()
+    steps, fallbacks = [], tfa.FALLBACK_CALLS
+    for i in range(2):
+        dmesh.TIMING["on"] = i == 0
+        dmesh.reset_counters()
+        kernels.reset_counters()
+        t0 = time.perf_counter()
+        loss, params, opt = step(params, opt, ids, labels)
+        loss = loss.item()              # synchronizes
+        wall = time.perf_counter() - t0
+        dmesh.TIMING["on"] = False
+        steps.append({"loss": loss, "gnorm": opt["gnorm"].item(),
+                      "wall_ms": wall * 1e3,
+                      "collectives": dict(dmesh.COUNTERS),
+                      "launches": dict(kernels.LAUNCHES),
+                      "trace": list(pl.TRACE)})
+    same = _dist_checksums(torch, cfg, mesh, specs, (params, opt["master"]))
+    out = {"coords": mesh.coords, "stage": mesh.coords["pp"],
+           "grad_err": grad_err, "steps": steps, "replicated": same,
+           "chunks": C, "flash_fallbacks": tfa.FALLBACK_CALLS - fallbacks,
+           "step_ms": steps[1]["wall_ms"],
+           "collective_s_step1": steps[0]["collectives"]["seconds"],
+           "collective_share_step1": steps[0]["collectives"]["seconds"]
+           / (steps[0]["wall_ms"] / 1e3),
+           "collective_gb_a_step": steps[1]["collectives"]["bytes"] / 1e9,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del params, opt, ids, labels
+    torch.cuda.empty_cache()
+    return out
+
+
+def _pp_rank(rank: int, tmp: str, world: int, meshes) -> None:
+    """One rank of phase 23 (a spawned process on the one card, as
+    ``_dist_rank``): runs each of ``meshes`` in turn and saves what it
+    saw to ``tmp/pp{world}_{rank}.pt``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if DIST_KW["device"] == "cuda":
+        torch.cuda.set_device(0)
+    os.environ["PADDLE_TPU_REMAT"] = "full"
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/pp{world}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=600))
+    try:
+        cfg = _pp_cfg()
+        ref = torch.load(os.path.join(tmp, "ref.pt"), mmap=True,
+                         weights_only=True)
+        out = {"rank": rank, "meshes": {}}
+        for label, kw, schedule, chunks in meshes:
+            t0 = time.perf_counter()
+            out["meshes"][label] = _pp_mesh_run(torch, cfg, ref, label, kw,
+                                                schedule, chunks)
+            out["meshes"][label]["seconds"] = time.perf_counter() - t0
+        torch.save(out, os.path.join(tmp, f"pp{world}_{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _pp_kernel_checks(torch) -> dict:
+    """The path's kernels at a stage's shapes: the three flash kernels at
+    a microbatch (b 1, s 1024, causal) with 32 / 8 heads and mp=2's 16 /
+    4, head_dim 128, on the tensor-core route, and B1 at a microbatch's
+    1024 rows of 4096, each against its plain version (phase 4's and
+    phase 3's tolerances)."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as tfa
+    from paddle_tpu_torch.ops.kernels import rms_norm as rms
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(23)
+    out = {}
+    for hq, hkv in ((32, 8), (16, 4)):
+        q, k, v, do, kw = _flash_case(torch, tfa, g, "cuda", 1, 1024, 1024,
+                                      hq, hkv, 128, True)
+        check(tfa.flash_route(q.dtype, 128) == "tc",
+              "a stage's flash shape takes the tensor-core route")
+        res, _ = _flash_check(torch, tfa, q, k, v, do, kw,
+                              f"stage {hq}/{hkv} heads", routes=("tc",))
+        out[f"flash_{hq}_{hkv}_heads"] = res["tc"]
+    x = torch.randn(1, 1024, 4096, generator=g, device="cuda").to(
+        torch.bfloat16)
+    w = (1.0 + 0.1 * torch.randn(4096, generator=g, device="cuda")).to(
+        torch.bfloat16)
+    got, want = rms.rms_norm_cuda(x, w, 1e-5), rms.rms_norm_ref(x, w, 1e-5)
+    err = (got.float() - want.float()).abs()
+    check(bool((err <= want.float().abs() * 2.0 ** -7 + 1e-6).all()),
+          "rms_norm at a microbatch's 1024 rows within 1 ulp")
+    out["rms_norm_1024_rows_max_abs_err"] = err.max().item()
+    return out
+
+
+def phase_pipeline(torch, np, smi: str) -> dict:
+    """The pipeline axis at Llama-3-8B widths (``PP_LAYERS`` layers,
+    ``PP_BATCH`` tokens in ``PP_MICRO`` microbatches, full recompute) as
+    gloo ranks sharing the one card (phase 22's transport).  First the
+    path's kernels at a stage's shapes (``_pp_kernel_checks``); then the
+    one-card ``build_train_step(cfg)`` on the same seeded weights and
+    batch, whose step-1 gradients of ``DIST_GRAD_LEAVES`` and two steps'
+    loss and gnorm are the reference (its tensors freed before the
+    spawns); then the spawns of ``PP_RUNS``: two ranks at pp=2 under
+    gpipe, 1f1b, vpp (2 chunks) and zb in turn, four at pp=2 x mp=2
+    under 1f1b.  Gates, a rank and a mesh: steps 1-2 loss within
+    ``PP_LOSS_REL`` and gnorm within ``DIST_REL_TOL`` of the reference's,
+    relative; each gradient shard's largest error within
+    ``DIST_REL_TOL`` of its leaf's largest value; every leaf two ranks
+    hold equal bit for bit after step 2; a step's launches exact
+    (``_pp_launches``, every flash launch on the tensor cores) and its
+    collectives and bytes as ``_pp_expected`` predicts; the executed
+    sub-ticks as ``_pp_order`` reads them against the oracles; the ranks'
+    peak memory together below the card's.  Reports each rank's step ms,
+    the collectives' wall share of step 1 and GB a step, the peak GB and
+    the executed and oracle orders.  Returns the ranks' launches,
+    summed."""
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from paddle_tpu_torch.models import llama
+
+    checks = _pp_kernel_checks(torch)
+    emit({"phase": "pipeline_kernels", "nvidia_smi": smi, **checks})
+    cfg = _pp_cfg()
+    L, dev = cfg.num_hidden_layers, DIST_KW["device"]
+    os.environ["PADDLE_TPU_REMAT"] = "full"
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pp")
+    total: dict = {}
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        params = llama.init_params(cfg, seed=PP_SEED, device=dev)
+        one = {"params": llama.count_params(params), "losses": [],
+               "gnorms": [], "wall_ms": []}
+        ids, labels = _pp_batch(torch, cfg, dev)
+        _, grads = llama.loss_and_grads(cfg, params, ids, labels)
+        names = [n for n, _ in llama.named_specs(cfg, llama.param_specs(cfg))]
+        keep = {n: g for n, g in zip(names, grads) if n in DIST_GRAD_LEAVES}
+        torch.save({"grads": {n: g.cpu() for n, g in keep.items()},
+                    "grad_max": {n: g.float().abs().max().item()
+                                 for n, g in keep.items()}},
+                   os.path.join(tmp, "ref.pt"))
+        del grads, keep
+        step, opt_init = llama.build_train_step(cfg)
+        opt = opt_init(params)
+        for _ in range(2):
+            t0 = time.perf_counter()
+            loss, params, opt = step(params, opt, ids, labels)
+            one["losses"].append(loss.item())
+            one["wall_ms"].append((time.perf_counter() - t0) * 1e3)
+            one["gnorms"].append(opt["gnorm"].item())
+        one["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        del params, opt, loss, ids, labels
+        torch.cuda.empty_cache()
+        check(all(math.isfinite(x) for x in one["losses"] + one["gnorms"]),
+              f"pipeline reference: finite losses {one['losses']} and "
+              f"gnorms {one['gnorms']}")
+        emit({"phase": "pipeline_reference", "nvidia_smi": smi,
+              "model": f"llama3_8b widths, {L} layers", **one})
+        capacity = (torch.cuda.mem_get_info()[1] if dev == "cuda"
+                    else float("inf"))
+        for world, meshes in PP_RUNS:
+            t0 = time.perf_counter()
+            mp.spawn(_pp_rank, args=(tmp, world, meshes), nprocs=world,
+                     join=True)
+            spawn_s = time.perf_counter() - t0
+            ranks = [torch.load(os.path.join(tmp, f"pp{world}_{r}.pt"),
+                                weights_only=False) for r in range(world)]
+            for label, kw, schedule, chunks in meshes:
+                runs = [r["meshes"][label] for r in ranks]
+                orders = _pp_gates(cfg, label, kw, schedule, one, runs,
+                                   capacity)
+                for run in runs:
+                    for s in run["steps"]:
+                        for k, v in s["launches"].items():
+                            total[k] = total.get(k, 0) + v
+                emit({"phase": "pipeline", "mesh": label, "axes": kw,
+                      "schedule": schedule, "chunks": runs[0]["chunks"],
+                      "microbatches": PP_MICRO, "ranks": world,
+                      "nvidia_smi": smi,
+                      "model": f"llama3_8b widths, {L} layers, "
+                               f"{PP_BATCH[0]} x {PP_BATCH[1]} tokens, "
+                               f"full recompute",
+                      "transport": "gloo on one card: CUDA tensors staged "
+                                   "through the host, not NCCL",
+                      "one_card": {k: one[k] for k in ("losses", "gnorms")},
+                      "per_rank": [{
+                          "coords": {a: c for a, c in run["coords"].items()
+                                     if kw.get(a, 1) > 1},
+                          "losses": [s["loss"] for s in run["steps"]],
+                          "gnorms": [s["gnorm"] for s in run["steps"]],
+                          "grad_err_over_leaf_max": run["grad_err"],
+                          "step_ms": run["step_ms"],
+                          "step1_ms": run["steps"][0]["wall_ms"],
+                          "collective_s_step1": run["collective_s_step1"],
+                          "collective_share_step1":
+                              run["collective_share_step1"],
+                          "collective_gb_a_step":
+                              run["collective_gb_a_step"],
+                          "collectives_a_step": {
+                              k: v for k, v in
+                              run["steps"][1]["collectives"].items()
+                              if k not in ("bytes", "seconds") and v},
+                          "launches_a_step": {
+                              k: v for k, v in
+                              run["steps"][1]["launches"].items() if v},
+                          "peak_gb": run["peak_gb"],
+                          "replicated_compared":
+                              run["replicated"]["compared"],
+                          "seconds": run["seconds"]} for run in runs],
+                      "orders": orders, "spawn_s": spawn_s})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.environ.pop("PADDLE_TPU_REMAT", None)
+    return total
+
+
+def _pp_gates(cfg, label, kw, schedule, one, runs, capacity) -> dict:
+    """Phase 23's gates on one mesh's ranks (see ``phase_pipeline``);
+    returns each stage's executed and oracle orders."""
+    L, P = cfg.num_hidden_layers, kw.get("pp", 1)
+    orders = {}
+    for r, run in enumerate(runs):
+        who, s, C = f"pipeline {label} rank {r}", run["stage"], run["chunks"]
+        want_l = _pp_launches(schedule, P, PP_MICRO, C, L, s)
+        want_c = _pp_expected(cfg, schedule, kw, C, s)
+        for i, st in enumerate(run["steps"]):
+            check(abs(st["loss"] - one["losses"][i])
+                  <= PP_LOSS_REL * one["losses"][i],
+                  f"{who} step {i + 1}: loss {st['loss']} vs the one-card "
+                  f"{one['losses'][i]} within {PP_LOSS_REL} relative")
+            check(abs(st["gnorm"] - one["gnorms"][i])
+                  <= DIST_REL_TOL * one["gnorms"][i],
+                  f"{who} step {i + 1}: gnorm {st['gnorm']} vs "
+                  f"{one['gnorms'][i]} within {DIST_REL_TOL} relative")
+            got_l = {k: st["launches"][k] for k in want_l}
+            check(got_l == want_l, f"{who} step {i + 1}: launches {got_l} "
+                                   f"== {want_l}")
+            got_c = {k: st["collectives"][k] for k in want_c}
+            check(got_c == want_c, f"{who} step {i + 1}: collectives "
+                                   f"{got_c} == {want_c}")
+            order = _pp_order(schedule, P, PP_MICRO, C, s, st["trace"])
+            check(order["ok"], f"{who} step {i + 1}: executed order "
+                               f"{order['executed']} against the oracle "
+                               f"{order['oracle']}")
+        orders[f"stage{s}"] = {k: order[k] for k in ("executed", "oracle")}
+        check(set(run["grad_err"]) == set(DIST_GRAD_LEAVES)
+              and max(run["grad_err"].values()) <= DIST_REL_TOL,
+              f"{who}: step-1 gradient shards within {DIST_REL_TOL} of "
+              f"their leaf's max: {run['grad_err']}")
+        check(run["flash_fallbacks"] == 0,
+              f"{who}: no composed-attention fallback")
+        check(not run["replicated"]["unequal"]
+              and run["replicated"]["compared"] > 0,
+              f"{who}: every leaf two ranks hold is equal bit for bit "
+              f"({run['replicated']})")
+    peak = sum(run["peak_gb"] for run in runs) * 1e9
+    check(peak < capacity, f"pipeline {label}: the ranks' peaks together "
+                           f"{peak / 1e9} GB below the card's "
+                           f"{capacity / 1e9} GB")
+    return orders
+
+
 #: phase 18's sync guard: the phase ``timed`` runs (``"tp"`` in a rank
 #: process), the windows of ``ContinuousBatchingEngine._host_overlap`` it
 #: guarded in each phase, every error a window raised as (phase, message),
@@ -5781,19 +6321,28 @@ def phase_host_contracts(torch, smi: str) -> None:
           "self_test": raised})
 
 
+#: ``--only NAME``: phases 1 and 2, then this phase alone (no kernels line
+#: and no result line: the contract's run is the script without arguments)
+ONLY = {"dist_train": phase_dist_train, "pipeline": phase_pipeline}
+
+
 def main(argv: list[str]) -> int:
     sweeps = {"--serve-sweep": serve_sweep, "--prefix-sweep": prefix_sweep,
               "--tier-probe": tier_probe}
-    sweep = seeds = None
+    sweep = seeds = only = None
     if argv:
-        if len(argv) != 2 or argv[0] not in sweeps:
+        if len(argv) != 2 or not (argv[0] in sweeps or argv[0] == "--only"
+                                  and argv[1] in ONLY):
             print("usage: chip_smoke.py [--serve-sweep FIRST-LAST | "
-                  "--prefix-sweep FIRST-LAST | --tier-probe FIRST-LAST]",
-                  file=sys.stderr)
+                  "--prefix-sweep FIRST-LAST | --tier-probe FIRST-LAST | "
+                  f"--only {{{','.join(ONLY)}}}]", file=sys.stderr)
             return 2
-        sweep = sweeps[argv[0]]
-        first, last = (int(x) for x in argv[1].split("-"))
-        seeds = list(range(first, last + 1))
+        if argv[0] == "--only":
+            only = argv[1]
+        else:
+            sweep = sweeps[argv[0]]
+            first, last = (int(x) for x in argv[1].split("-"))
+            seeds = list(range(first, last + 1))
     try:
         import numpy as np
         import torch
@@ -5818,6 +6367,11 @@ def main(argv: list[str]) -> int:
     _install_overlap_guard(torch)
     if sweep is not None:
         sweep(torch, np, smi, seeds)
+        return 0
+    if only is not None:
+        t0 = time.perf_counter()
+        ONLY[only](torch, np, smi)
+        emit({"phase": "seconds", only: time.perf_counter() - t0})
         return 0
     seconds = {}
 
@@ -5869,6 +6423,8 @@ def main(argv: list[str]) -> int:
     measured.update(timed("dit_flash", phase_dit_flash, torch))
     # phase 22: hybrid-parallel training as gloo ranks
     dist_launches = timed("dist_train", phase_dist_train, torch, np, smi)
+    # phase 23: the pipeline axis as gloo ranks
+    pp_launches = timed("pipeline", phase_pipeline, torch, np, smi)
     timed("host_contracts", phase_host_contracts, torch, smi)
     emit({"phase": "seconds", **seconds})
     # each kernel's launches on the main paths that run it: the fp and the
@@ -5901,6 +6457,10 @@ def main(argv: list[str]) -> int:
     launches["rms_norm"] += dist_launches["rms_norm"]
     for k in FLASH_KERNELS:
         launches[k] += dist_launches[f"{k}_tc"]
+    # the pipeline stages' ranks: likewise
+    launches["rms_norm"] += pp_launches["rms_norm"]
+    for k in FLASH_KERNELS:
+        launches[k] += pp_launches[f"{k}_tc"]
     pa = "paddle_tpu/ops/pallas/paged_attention.py"
     fa = "paddle_tpu/ops/pallas/flash_attention.py"
     sources = {"rms_norm": ("rms_norm.cu", "paddle_tpu/ops/pallas/"

@@ -17,6 +17,8 @@ collective                forward                         backward
 :func:`all_gather`        all-gather along ``dim``        reduce-scatter
 :func:`reduce_scatter`    reduce-scatter along ``dim``    all-gather
 :func:`ppermute`          shift by ``shift`` positions    shift back
+                          (``wrap=False``: open chain,    (the reversed chain)
+                          the ends receive zeros)
 :func:`all_to_all`        ``lax.all_to_all(tiled=True)``  the inverse all-to-all
 ========================  ==============================  =====================
 
@@ -35,11 +37,16 @@ contiguous slice; :func:`unshard_leaf` gathers it back (for checks).
 Transport: the process group's backend.  On one card that is gloo, for
 CPU and CUDA tensors alike (one card cannot hold two NCCL ranks).
 gloo's point-to-point ops take CPU tensors only, so under gloo
-:func:`ppermute` of a CUDA tensor copies it to the host, exchanges it
-there and copies the result back: explicit staging, counted in
-``COUNTERS["host_staged"]``.  Every other op passes CUDA tensors to
-gloo, which stages them itself.  A collective the backend refuses
-raises; none falls back.
+:func:`exchange` (and :func:`ppermute`, which runs through it) copies a
+CUDA tensor to the host, exchanges it there and copies the result back:
+explicit staging, counted in ``COUNTERS["host_staged"]``.  Every other
+op passes CUDA tensors to gloo, which stages them itself.  A collective
+the backend refuses raises; none falls back.
+
+:func:`exchange` is the pipeline's point-to-point transport outside
+autograd: the tensors a rank sends to and receives from other positions
+of one line in a tick (the 1F1B activations and cotangents, the VPP
+layer reorder).
 
 :data:`COUNTERS` counts each collective a transport call made (forward
 and backward, recompute included) and the bytes it carried; with
@@ -60,11 +67,13 @@ import torch.distributed as dist
 #: the axis names in the reference's ``make_mesh`` order
 AXES = ("dp", "pp", "sharding", "sep", "mp")
 
-#: transport calls by kind, the bytes they carried (a rank's input), and
-#: host-staged exchanges; a caller resets them with :func:`reset_counters`
+#: transport calls by kind (``send_recv``: each tensor :func:`exchange`
+#: sent or received), the bytes they carried (a rank's input; what
+#: ``exchange`` sent), and host-staged exchange calls; a caller resets
+#: them with :func:`reset_counters`
 COUNTERS = {"all_reduce": 0, "all_reduce_max": 0, "all_gather": 0,
             "reduce_scatter": 0, "all_to_all": 0, "ppermute": 0,
-            "host_staged": 0, "bytes": 0, "seconds": 0.0}
+            "send_recv": 0, "host_staged": 0, "bytes": 0, "seconds": 0.0}
 #: time each collective (``COUNTERS["seconds"]``), synchronizing the card
 #: before and after it
 TIMING = {"on": False}
@@ -209,12 +218,13 @@ def unshard_leaf(t: torch.Tensor, spec, mesh: Mesh) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 class _Timed:
-    def __init__(self, kind, t):
-        self.kind, self.t = kind, t
+    def __init__(self, kind, t, sent=True):
+        self.kind, self.t, self.sent = kind, t, sent
 
     def __enter__(self):
         COUNTERS[self.kind] += 1
-        COUNTERS["bytes"] += self.t.numel() * self.t.element_size()
+        if self.sent:
+            COUNTERS["bytes"] += self.t.numel() * self.t.element_size()
         if TIMING["on"]:
             _sync(self.t)
             self.t0 = time.perf_counter()
@@ -266,28 +276,69 @@ def _scatter(x, mesh, axes, dim):
     return out.movedim(0, dim)
 
 
-def _shift(x, mesh, axes, shift):
+def _shift(x, mesh, axes, shift, wrap=True):
     """Position ``i`` of the line receives what position ``i - shift``
-    sent.  gloo's point-to-point ops take CPU tensors only: under gloo a
-    CUDA tensor goes through the host (counted)."""
+    sent; ``wrap=False`` is the open chain: positions with no source
+    receive zeros and those with no destination send nothing.  One
+    :func:`exchange`, counted as one ``ppermute``."""
     g, n = mesh.group(axes), mesh.axis_size(axes)
     if g is None or shift % n == 0:
         return x
     idx = mesh.axis_index(axes)
+    dst, src_pos = idx + shift, idx - shift
+    sends = [(dst % n, x, 0)] if wrap or 0 <= dst < n else []
+    recvs = [(src_pos % n, x, 0)] if wrap or 0 <= src_pos < n else []
+    got = exchange(mesh, axes, sends, recvs, kind="ppermute")
+    return got[0] if got else torch.zeros_like(x)
+
+
+def exchange(mesh, axes, sends=(), recvs=(), kind=None) -> list:
+    """Point-to-point over ``mesh``'s line of ``axes``, outside autograd:
+    ``sends`` is ``(position, tensor, tag)`` triples, ``recvs`` is
+    ``(position, like, tag)`` triples (``like`` a tensor whose shape,
+    dtype and device the received one takes); returns the received
+    tensors in ``recvs``' order.  The peers must post the matching
+    ``(tag)`` ops in the same call of theirs.  Each tensor sent or
+    received counts one ``send_recv`` (or the call counts one ``kind``),
+    the sent bytes count, and gloo's point-to-point ops take CPU tensors
+    only: under gloo a call with a CUDA tensor is staged through the host
+    (one ``host_staged``).  A call with nothing to move returns at once."""
+    if not sends and not recvs:
+        return []
+    g = mesh.group(axes)
+    if g is None:
+        raise ValueError(f"exchange over {axes}: the line holds one rank")
     ranks = dist.get_process_group_ranks(g)
-    src = x.contiguous()
-    staged = src.is_cuda and dist.get_backend(g) == "gloo"
+    tensors = [t for _, t, _ in list(sends) + list(recvs)]
+    staged = (any(t.is_cuda for t in tensors)
+              and dist.get_backend(g) == "gloo")
     if staged:
-        src = src.cpu()
         COUNTERS["host_staged"] += 1
-    out = torch.empty_like(src)
-    with _Timed("ppermute", src):
-        works = dist.batch_isend_irecv([
-            dist.P2POp(dist.isend, src, ranks[(idx + shift) % n], group=g),
-            dist.P2POp(dist.irecv, out, ranks[(idx - shift) % n], group=g)])
-        for w in works:
-            w.wait()
-    return out.to(x.device) if staged else out
+    host = (lambda t: t.cpu()) if staged else (lambda t: t)
+    out_bufs = [torch.empty(like.shape, dtype=like.dtype,
+                            device="cpu" if staged else like.device)
+                for _, like, _ in recvs]
+    ops = [dist.P2POp(dist.isend, host(t.contiguous()), ranks[pos],
+                      group=g, tag=tag) for pos, t, tag in sends]
+    ops += [dist.P2POp(dist.irecv, buf, ranks[pos], group=g, tag=tag)
+            for (pos, _, tag), buf in zip(recvs, out_bufs)]
+    if kind is None:
+        COUNTERS["send_recv"] += len(ops)
+    else:
+        COUNTERS[kind] += 1
+    COUNTERS["bytes"] += sum(t.numel() * t.element_size()
+                             for _, t, _ in sends)
+    t0 = None
+    if TIMING["on"]:
+        _sync(tensors[0])
+        t0 = time.perf_counter()
+    for w in dist.batch_isend_irecv(ops):
+        w.wait()
+    if t0 is not None:
+        _sync(tensors[0])
+        COUNTERS["seconds"] += time.perf_counter() - t0
+    return [buf.to(like.device) if staged else buf
+            for (_, like, _), buf in zip(recvs, out_bufs)]
 
 
 def _a2a(x, mesh, axes, split_axis, concat_axis):
@@ -365,14 +416,14 @@ class _ReduceScatter(torch.autograd.Function):
 
 class _Ppermute(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh, axes, shift):
-        ctx.meta = (mesh, axes, shift)
-        return _shift(x, mesh, axes, shift)
+    def forward(ctx, x, mesh, axes, shift, wrap):
+        ctx.meta = (mesh, axes, shift, wrap)
+        return _shift(x, mesh, axes, shift, wrap)
 
     @staticmethod
     def backward(ctx, g):
-        mesh, axes, shift = ctx.meta
-        return _shift(g, mesh, axes, -shift), None, None, None
+        mesh, axes, shift, wrap = ctx.meta
+        return _shift(g, mesh, axes, -shift, wrap), None, None, None, None
 
 
 class _AllToAll(torch.autograd.Function):
@@ -412,12 +463,14 @@ def reduce_scatter(x, mesh: Mesh, axes, dim: int):
     return _ReduceScatter.apply(x, mesh, axes, dim)
 
 
-def ppermute(x, mesh: Mesh, axes, shift: int = 1):
+def ppermute(x, mesh: Mesh, axes, shift: int = 1, wrap: bool = True):
     """Position ``i`` gets position ``i - shift``'s ``x`` (mod the axis
-    size): ``lax.ppermute`` with ``perm = [(i, i + shift)]``."""
+    size): ``lax.ppermute`` with ``perm = [(i, i + shift)]``.
+    ``wrap=False``: the open chain ``perm = [(i, i + shift)]`` over the
+    positions inside the line; the others receive zeros."""
     if mesh.group(axes) is None:
         return x
-    return _Ppermute.apply(x, mesh, axes, shift)
+    return _Ppermute.apply(x, mesh, axes, shift, wrap)
 
 
 def all_to_all(x, mesh: Mesh, axes, split_axis: int, concat_axis: int):

@@ -51,9 +51,23 @@ mesh)`` runs the step on those shards with the collectives written out:
   leaf they both hold, and over ``mp`` for the replicated K/V; the
   clipping norm sums each leaf's squares over the axes it is split on.
 
-Not ported yet: the pipeline axis (``forward_pp``, the 1F1B / VPP / ZB
-schedules) and the MoE and DiT meshes (ROADMAP A11), and the eager Layer
-surface (A12).
+The pipeline axis (``pp`` > 1; ``distributed/fleet/pipeline.py``): each
+``pp`` rank holds its stage's L / P layers (``param_specs(pp=True)``).
+``pipeline_schedule`` 'gpipe' / 'fthenb' runs :func:`loss_fn_pp` through
+autograd (:func:`forward_pp`: every stage embeds, stage 0 feeds the
+pipeline, the last stage's outputs come back whole to every stage, which
+then runs the head); the default and '1f1b' / 'eager_1f1b', 'vpp' /
+'interleave' and 'zb' / 'zero_bubble' run :func:`loss_and_grads_1f1b`,
+the executed clock with stage 0 owning the embedding and the last stage
+the head, so ``embed``, ``lm_head`` and ``final_norm`` have their
+gradients summed over ``pp`` too.  Both compose with dp, sharding (the
+ZeRO gathers inside the recomputed stage), mp and sep: a rank's
+microbatch ``m`` is rows ``m`` of its own batch shard split M ways (the
+reference splits the global batch first, so its microbatch holds other
+rows; both sum the same tokens).
+
+Not ported yet: the MoE and DiT meshes (ROADMAP A11), and the eager Layer
+surface with ``PipelineLayer`` / ``PipelineParallel`` (A12).
 """
 
 from __future__ import annotations
@@ -335,17 +349,10 @@ def _layer_forward(cfg: LlamaConfig, x, lp, cos, sin, plan=None):
     return decoder_layer_tail(cfg, x, attn.reshape(b, s, -1), lp, mesh=mesh)
 
 
-def _embed_rope(cfg: LlamaConfig, params, input_ids, plan=None):
-    """Token embedding + rope tables for the sequence length.  On a mesh:
-    the vocab-parallel lookup (rows outside the rank's vocab slice read 0,
-    then ``psum`` over ``mp``) and the tables of the rank's positions of
-    the ``sep``-split sequence."""
-    if plan is None:
-        x = F.embedding(input_ids.long(), params["embed"]).to(cfg.dtype)
-        cos, sin = rope_mod.rope_cos_sin(x.shape[1], cfg.head_dim,
-                                         base=cfg.rope_theta,
-                                         dtype=cfg.dtype, device=x.device)
-        return x, cos, sin
+def _embed(cfg: LlamaConfig, params, input_ids, plan):
+    """The token embedding on a mesh: the vocab-parallel lookup (rows
+    outside the rank's vocab slice read 0, then ``psum`` over ``mp``) of
+    the table gathered over ``sharding``."""
     mesh = plan.mesh
     table = _zero_gather(plan, params["embed"], plan.specs["embed"])
     ids = input_ids.long()
@@ -358,12 +365,31 @@ def _embed_rope(cfg: LlamaConfig, params, input_ids, plan=None):
         x = dmesh.psum(x, mesh, "mp")
     else:
         x = F.embedding(ids, table)
-    s = x.shape[1]
+    return x.to(cfg.dtype)
+
+
+def _rope(cfg: LlamaConfig, s: int, plan, device):
+    """The rope tables of this rank's ``s`` positions of the
+    ``sep``-split sequence."""
+    mesh = plan.mesh
     cos, sin = rope_mod.rope_cos_sin(s * mesh.shape["sep"], cfg.head_dim,
                                      base=cfg.rope_theta, dtype=cfg.dtype,
-                                     device=x.device)
+                                     device=device)
     at = mesh.axis_index("sep") * s
-    return x.to(cfg.dtype), cos[:, at:at + s], sin[:, at:at + s]
+    return cos[:, at:at + s], sin[:, at:at + s]
+
+
+def _embed_rope(cfg: LlamaConfig, params, input_ids, plan=None):
+    """Token embedding + rope tables for the sequence length.  On a mesh:
+    :func:`_embed` and the tables of the rank's positions (:func:`_rope`)."""
+    if plan is None:
+        x = F.embedding(input_ids.long(), params["embed"]).to(cfg.dtype)
+        cos, sin = rope_mod.rope_cos_sin(x.shape[1], cfg.head_dim,
+                                         base=cfg.rope_theta,
+                                         dtype=cfg.dtype, device=x.device)
+        return x, cos, sin
+    x = _embed(cfg, params, input_ids, plan)
+    return (x,) + _rope(cfg, x.shape[1], plan, x.device)
 
 
 def _norm_and_head(cfg: LlamaConfig, params, x, plan=None):
@@ -413,6 +439,20 @@ def _remat_wrap(body):
     return lambda *a: checkpoint(body, *a, use_reentrant=False)
 
 
+def _run_layers(cfg: LlamaConfig, layers, x, cos, sin, plan=None):
+    """The layer loop over the stacked ``layers`` (their leading dim),
+    each block under the recompute policy where autograd records (a
+    pipeline's forward-only ticks run the blocks bare)."""
+    def body(h, lp):
+        return _layer_forward(cfg, h, lp, cos, sin, plan)
+
+    layer = _remat_wrap(body) if torch.is_grad_enabled() else body
+    names = list(layers)
+    for leaves in zip(*(layers[n].unbind(0) for n in names)):
+        x = layer(x, dict(zip(names, leaves)))
+    return x
+
+
 def forward(cfg: LlamaConfig, params, input_ids, return_hidden=False,
             plan=None):
     """Logits [b, s, V] for [b, s] token ids (``return_hidden``: the last
@@ -421,15 +461,7 @@ def forward(cfg: LlamaConfig, params, input_ids, return_hidden=False,
     rank's shard of the hidden states, or of the logits, ``[b, s, V /
     mp]``."""
     x, cos, sin = _embed_rope(cfg, params, input_ids, plan)
-
-    def body(h, lp):
-        return _layer_forward(cfg, h, lp, cos, sin, plan)
-
-    layer = _remat_wrap(body)
-    names = list(params["layers"])
-    per_layer = zip(*(params["layers"][n].unbind(0) for n in names))
-    for leaves in per_layer:
-        x = layer(x, dict(zip(names, leaves)))
+    x = _run_layers(cfg, params["layers"], x, cos, sin, plan)
     if return_hidden:
         return x
     if plan is not None:
@@ -549,7 +581,7 @@ def value_and_grad(fn, params):
 
 
 def loss_and_grads(cfg: LlamaConfig, params, input_ids, labels, mesh=None,
-                   sep_attn_impl="ring"):
+                   sep_attn_impl="ring", num_microbatches=None):
     """(loss, gradients) of :func:`loss_fn` (:func:`value_and_grad`).
 
     On a ``mesh`` of more than one position: ``params`` and the batch are
@@ -557,16 +589,172 @@ def loss_and_grads(cfg: LlamaConfig, params, input_ids, labels, mesh=None,
     is the global one (the same on every rank), and the gradients are this
     rank's shards of the global gradients, summed over the axes
     :func:`_sync_axes` names (the first half of the reference's mesh
-    train step)."""
+    train step).  With ``pp`` > 1 the loss is :func:`loss_fn_pp`'s over
+    ``num_microbatches`` (default: pp) microbatches, GPipe's step."""
     if mesh is None or mesh.size == 1:
         return value_and_grad(lambda p: loss_fn(cfg, p, input_ids, labels),
                               params)
     plan = _mesh_plan(cfg, mesh, sep_attn_impl)
-    loss, grads = value_and_grad(
-        lambda p: loss_fn(cfg, p, input_ids, labels, plan), params)
-    return loss, tuple(
-        dmesh.all_reduce_(g.contiguous(), mesh, _sync_axes(plan, name, spec))
+    if mesh.shape["pp"] > 1:
+        M = num_microbatches or mesh.shape["pp"]
+        fn = lambda p: loss_fn_pp(cfg, p, input_ids, labels, mesh, M,
+                                  sep_attn_impl, plan=plan)
+    else:
+        fn = lambda p: loss_fn(cfg, p, input_ids, labels, plan)
+    loss, grads = value_and_grad(fn, params)
+    return loss, _sync_grads(cfg, plan, grads)
+
+
+def _sync_grads(cfg: LlamaConfig, plan, grads) -> tuple:
+    """Each gradient shard summed over its :func:`_sync_axes`, leaf by
+    leaf in :func:`tree_leaves` order (the same order on every rank)."""
+    return tuple(
+        dmesh.all_reduce_(g.contiguous(), plan.mesh,
+                          _sync_axes(plan, name, spec))
         for (name, spec), g in zip(named_specs(cfg, plan.specs), grads))
+
+
+def _check_microbatches(mesh, b: int, M: int):
+    """The reference's refusals of a pipeline's batch of ``b`` rows a
+    rank: it asserts on the global batch and on a microbatch's rows over
+    the batch axes."""
+    K = mesh.axis_size(("dp", "sharding"))
+    if (b * K) % M:
+        raise AssertionError(f"batch {b * K} not divisible by "
+                             f"num_microbatches {M}")
+    batch_axes = tuple(a for a in ("dp", "sharding") if mesh.shape[a] > 1)
+    if batch_axes and ((b * K) // M) % K:
+        raise AssertionError(f"microbatch {(b * K) // M} not divisible by "
+                             f"batch axes {batch_axes} product {K}")
+
+
+def forward_pp(cfg: LlamaConfig, params, input_ids, mesh, num_microbatches,
+               sep_attn_impl="ring", plan=None):
+    """The pipeline-parallel forward (the reference's GPipe region): every
+    stage embeds this rank's batch shard (``copy_to`` over ``pp``: the
+    cotangent stage 0 sends back reaches every stage's embedding, the
+    transpose of the reference's pp-replicated input), splits it into
+    ``num_microbatches``, and :func:`gpipe_stacked` runs the stages.
+    Returns the last stage's hidden states, whole on every stage."""
+    from ..distributed.fleet.pipeline import gpipe_stacked
+
+    plan = plan or _mesh_plan(cfg, mesh, sep_attn_impl)
+    M = num_microbatches
+    b, s = input_ids.shape
+    _check_microbatches(mesh, b, M)
+    x, cos, sin = _embed_rope(cfg, params, input_ids, plan)
+    x = dmesh.copy_to(x, mesh, "pp")
+    h = x.shape[-1]
+    outs = gpipe_stacked(
+        lambda xin: _run_layers(cfg, params["layers"], xin, cos, sin, plan),
+        x.reshape(M, b // M, s, h), mesh, "pp")
+    return outs.reshape(b, s, h)
+
+
+def loss_fn_pp(cfg: LlamaConfig, params, input_ids, labels, mesh,
+               num_microbatches, sep_attn_impl="ring", plan=None):
+    """The global mean loss through :func:`forward_pp` (the chunked head
+    under ``PADDLE_TPU_XENT_CHUNK``, as :func:`head_xent`)."""
+    plan = plan or _mesh_plan(cfg, mesh, sep_attn_impl)
+    x = forward_pp(cfg, params, input_ids, mesh, num_microbatches,
+                   sep_attn_impl, plan=plan)
+    return head_xent(cfg, params, x, labels, plan)
+
+
+def _vpp_reorder(tree, mesh, C: int, inverse=False) -> dict:
+    """The stacked leaves of ``tree`` (this rank's ``C * Lv`` rows a
+    leaf) from the natural layer order over ``pp`` (rank ``r`` holds
+    virtual stages ``r * C + j``) to the stage-major one (rank ``r``
+    holds virtual stages ``c * P + r``, chunk ``c`` at rows ``c * Lv``),
+    or back (``inverse``): each chunk that changes rank goes through
+    :func:`~paddle_tpu_torch.distributed.mesh.exchange` (one call a leaf,
+    the destination chunk its tag), the reference's in-step reshard."""
+    P, r = mesh.shape["pp"], mesh.axis_index("pp")
+
+    def home(v):        # rank, local chunk of virtual stage v in the source
+        return (v % P, v // P) if inverse else (v // C, v % C)
+
+    def dest(v):
+        return (v // C, v % C) if inverse else (v % P, v // P)
+
+    out = {}
+    for name in sorted(tree):
+        w = tree[name]
+        pieces = w.reshape((C, w.shape[0] // C) + tuple(w.shape[1:]))
+        new = torch.empty_like(pieces)
+        sends, recvs, slots = [], [], []
+        for v in range(P * C):
+            (src, j), (dst, c) = home(v), dest(v)
+            if src == r and dst == r:
+                new[c] = pieces[j]
+            elif src == r:
+                sends.append((dst, pieces[j], c))
+            elif dst == r:
+                recvs.append((src, pieces[0], c))
+                slots.append(c)
+        for c, t in zip(slots, dmesh.exchange(mesh, "pp", sends, recvs)):
+            new[c] = t
+        out[name] = new.reshape(w.shape)
+    return out
+
+
+def loss_and_grads_1f1b(cfg: LlamaConfig, params, input_ids, labels, mesh,
+                        num_microbatches, num_chunks=1, zero_bubble=False,
+                        sep_attn_impl="ring"):
+    """The pipeline step on the executed 1F1B clock
+    (:func:`~paddle_tpu_torch.distributed.fleet.pipeline.one_f_one_b_stacked`):
+    stage 0 owns the embedding, the last stage ``final_norm``, the head
+    and the loss, one microbatch at a time.  ``num_chunks`` C > 1 is VPP:
+    the state keeps the natural layer order, so the step moves the layer
+    weights to the stage-major order over ``pp`` and their gradients back
+    (:func:`_vpp_reorder`).  ``zero_bubble``: ZB-H1.  Returns (loss,
+    gradients) as :func:`loss_and_grads`: this rank's shards, summed over
+    :func:`_sync_axes` (the stage-owned leaves over ``pp`` too; a tied
+    ``embed`` holds the embedding's and the head's gradients)."""
+    from ..distributed.fleet.pipeline import one_f_one_b_stacked
+
+    b, s = input_ids.shape
+    M, C = num_microbatches, num_chunks
+    _check_microbatches(mesh, b, M)
+    P, L = mesh.shape["pp"], cfg.num_hidden_layers
+    if L % (P * C):
+        raise AssertionError((L, P, C))
+    plan = _mesh_plan(cfg, mesh, sep_attn_impl, pp_owned=True)
+    tied = "lm_head" not in params
+    cos, sin = _rope(cfg, s, plan, input_ids.device)
+    stacked = params["layers"]
+    if C > 1:
+        with torch.no_grad():
+            stacked = _vpp_reorder(stacked, mesh, C)
+    head = "embed" if tied else "lm_head"
+    act = torch.empty((b // M, s, cfg.hidden_size), dtype=cfg.dtype,
+                      device=input_ids.device)
+    loss, dep, dsp, dhp = one_f_one_b_stacked(
+        lambda ep, ids: _embed(cfg, ep, ids, plan),
+        lambda sp, x, c: _run_layers(cfg, sp, x, cos, sin, plan),
+        lambda hp, y, lbl: head_xent(cfg, hp, y, lbl, plan),
+        {"embed": params["embed"]}, stacked,
+        {"final_norm": params["final_norm"], head: params[head]},
+        list(input_ids.reshape(M, b // M, s)),
+        list(labels.reshape(M, b // M, s)), mesh, act,
+        num_chunks=C, zero_bubble=zero_bubble,
+        seq_axis="sep" if mesh.shape["sep"] > 1 else None)
+
+    def whole(acc, p):      # this stage's f32 sum, or zeros, in p's dtype
+        return (torch.zeros_like(p) if acc is None
+                else acc.to(p.dtype))
+
+    layers = {n: g.to(params["layers"][n].dtype) for n, g in dsp.items()}
+    if C > 1:
+        layers = _vpp_reorder(layers, mesh, C, inverse=True)
+    embed = whole(dep["embed"], params["embed"])
+    if tied and dhp["embed"] is not None:
+        embed = embed + dhp["embed"].to(embed.dtype)
+    grads = {"embed": embed, "layers": layers,
+             "final_norm": whole(dhp["final_norm"], params["final_norm"])}
+    if not tied:
+        grads["lm_head"] = whole(dhp["lm_head"], params["lm_head"])
+    return loss, _sync_grads(cfg, plan, tree_leaves(grads))
 
 
 def global_norm(grads) -> torch.Tensor:
@@ -666,32 +854,45 @@ def build_train_step(cfg: LlamaConfig, mesh=None, lr=3e-4, weight_decay=0.1,
     reference's ``P(("dp", "sharding"), "sep")``), with the mesh's
     collectives (:func:`loss_and_grads`) and the sharded clipping norm; on
     a one-position mesh, the one-device step.  ``sep_attn_impl`` picks
-    ring or Ulysses attention when ``sep`` > 1; ``num_microbatches`` is
-    the pipeline's, not ported (a mesh with ``pp`` > 1 raises
-    ``NotImplementedError``), and ``pipeline_schedule`` / ``num_chunks``
-    raise the reference's ``ValueError`` on a mesh without ``pp``."""
+    ring or Ulysses attention when ``sep`` > 1.
+
+    With ``pp`` > 1 the layers are staged over it (``param_specs(pp=
+    True)``) and run ``num_microbatches`` (default: pp) microbatches on
+    ``pipeline_schedule``: None, '1f1b' and 'eager_1f1b' the executed 1F1B
+    clock (:func:`loss_and_grads_1f1b`), 'vpp' / 'interleave' the same
+    with ``num_chunks`` (default 2) chunks a stage, 'zb' / 'zero_bubble'
+    ZB-H1, 'gpipe' / 'fthenb' GPipe through autograd
+    (:func:`loss_fn_pp`).  A schedule the mesh cannot run raises the
+    reference's error."""
     if mesh is None:
         return adamw_train_step(
             lambda params, ids, labels: loss_and_grads(cfg, params, ids,
                                                        labels),
             lr, weight_decay, beta1, beta2, grad_clip)
+    pp = mesh.shape["pp"]
+    if pp > 1:
+        if cfg.num_hidden_layers % pp:
+            raise AssertionError(f"{cfg.num_hidden_layers} layers not "
+                                 f"divisible by pp={pp}")
+        num_microbatches = num_microbatches or pp
     schedule = "1f1b" if pipeline_schedule is None else pipeline_schedule
     known = ("1f1b", "eager_1f1b", "vpp", "interleave", "zb", "zero_bubble",
              "gpipe", "fthenb")
     if schedule not in known:
         raise ValueError(f"unknown pipeline_schedule {schedule!r} "
                          f"(expected one of {known})")
-    pp = mesh.shape["pp"]
-    if pp > 1:
-        raise NotImplementedError(_PP_NOT_PORTED)
-    if pipeline_schedule is not None:
+    use_1f1b = pp > 1 and schedule in (
+        "1f1b", "eager_1f1b", "vpp", "interleave", "zb", "zero_bubble")
+    if pipeline_schedule is not None and pp <= 1:
         raise ValueError(f"pipeline_schedule={pipeline_schedule!r} needs a "
                          f"mesh with pp > 1 (got pp={pp})")
     if num_chunks is not None and num_chunks > 1 and schedule not in (
             "vpp", "interleave"):
         raise ValueError(f"num_chunks={num_chunks} requires pipeline_schedule"
                          f"='vpp'/'interleave', got {schedule!r}")
-    specs = param_specs(cfg, mp=mesh.shape["mp"])
+    chunks = (num_chunks or 2) if schedule in ("vpp", "interleave") else 1
+    zb = schedule in ("zb", "zero_bubble")
+    specs = param_specs(cfg, pp=pp > 1, mp=mesh.shape["mp"])
     if mesh.size == 1:
         step, opt_init = build_train_step(cfg, lr=lr,
                                           weight_decay=weight_decay,
@@ -699,10 +900,15 @@ def build_train_step(cfg: LlamaConfig, mesh=None, lr=3e-4, weight_decay=0.1,
                                           grad_clip=grad_clip)
         return step, opt_init, specs, DATA_SPEC
     plan = _mesh_plan(cfg, mesh, sep_attn_impl)
+    if use_1f1b:
+        fn = lambda params, ids, labels: loss_and_grads_1f1b(
+            cfg, params, ids, labels, mesh, num_microbatches,
+            num_chunks=chunks, zero_bubble=zb, sep_attn_impl=sep_attn_impl)
+    else:
+        fn = lambda params, ids, labels: loss_and_grads(
+            cfg, params, ids, labels, mesh, sep_attn_impl, num_microbatches)
     step, opt_init = adamw_train_step(
-        lambda params, ids, labels: loss_and_grads(
-            cfg, params, ids, labels, mesh, sep_attn_impl),
-        lr, weight_decay, beta1, beta2, grad_clip,
+        fn, lr, weight_decay, beta1, beta2, grad_clip,
         norm=lambda grads: _mesh_global_norm(cfg, plan, grads))
     return step, opt_init, specs, DATA_SPEC
 
@@ -711,14 +917,12 @@ def build_train_step(cfg: LlamaConfig, mesh=None, lr=3e-4, weight_decay=0.1,
 # the training mesh: specs, the per-rank plan, gradient sync, the norm
 # ---------------------------------------------------------------------------
 
-_PP_NOT_PORTED = ("the pipeline axis (pp > 1: forward_pp and the 1F1B / VPP "
-                  "/ ZB schedules) is not ported yet: ROADMAP A11's pipeline "
-                  "slice")
-
 #: the batch's spec: rows over dp x sharding, the sequence over sep
 DATA_SPEC = (("dp", "sharding"), "sep")
 #: the axes that split the batch
 _DATA_AXES = ("dp", "sharding", "sep")
+#: the leaves the 1F1B clock's first (embed) and last (head) stage own
+_PP_OWNED = ("embed", "lm_head", "final_norm")
 
 
 def param_specs(cfg: LlamaConfig, pp: bool = False, mp: int = 1) -> dict:
@@ -729,32 +933,31 @@ def param_specs(cfg: LlamaConfig, pp: bool = False, mp: int = 1) -> dict:
     the other dim of each matrix, the vocab-parallel ``embed`` and
     ``lm_head``, replicated norms.  As the reference's, it lists
     ``lm_head`` for a tied tree too (the port skips keys the tree lacks).
-    ``pp=True`` (the layer dim over 'pp') raises ``NotImplementedError``."""
-    if pp:
-        raise NotImplementedError(_PP_NOT_PORTED)
+    ``pp=True``: the stacked layer dim over 'pp', each stage's contiguous
+    slice of the layers."""
+    layer_dim = "pp" if pp else None
     kv_col = None if cfg.num_key_value_heads % mp else "mp"
 
     def mat(name):
         tensor = kv_col if name in ("wk", "wv") else "mp"
         if MEGATRON_SPLIT[name] == "col":
-            return (None, "sharding", tensor)
-        return (None, tensor, "sharding")
+            return (layer_dim, "sharding", tensor)
+        return (layer_dim, tensor, "sharding")
 
     return {"embed": ("mp", "sharding"), "final_norm": (None,),
-            "layers": {"input_norm": (None, None),
-                       "post_norm": (None, None),
+            "layers": {"input_norm": (layer_dim, None),
+                       "post_norm": (layer_dim, None),
                        **{name: mat(name) for name in MEGATRON_SPLIT}},
             "lm_head": ("sharding", "mp")}
 
 
 def make_mesh(dp=1, mp=1, sharding=1, sep=1, pp=1) -> dmesh.Mesh:
     """The hybrid mesh over the initialised default process group (one
-    rank a position, :class:`~paddle_tpu_torch.distributed.mesh.Mesh`); a
-    world size other than ``dp * mp * sharding * sep * pp`` raises
-    ``ValueError``, and ``pp > 1`` ``NotImplementedError``.  Without a
-    process group a one-position mesh is the single-device one."""
-    if pp > 1:
-        raise NotImplementedError(_PP_NOT_PORTED)
+    rank a position, :class:`~paddle_tpu_torch.distributed.mesh.Mesh`,
+    laid out as the reference's ``devices.reshape(dp, pp, sharding, sep,
+    mp)``); a world size other than ``dp * mp * sharding * sep * pp``
+    raises ``ValueError``.  Without a process group a one-position mesh is
+    the single-device one."""
     return dmesh.Mesh(dp=dp, pp=pp, sharding=sharding, sep=sep, mp=mp)
 
 
@@ -792,12 +995,18 @@ def _kv_heads(cfg: LlamaConfig, mp: int, rank: int):
     return first, count
 
 
-def _mesh_plan(cfg: LlamaConfig, mesh, sep_attn_impl="ring"):
-    """What one rank's step reads besides its shards: the mesh, the specs,
-    the kv heads of its q heads (:func:`_kv_heads`), the sequence-parallel
-    attention (None without ``sep``)."""
+def _mesh_plan(cfg: LlamaConfig, mesh, sep_attn_impl="ring",
+               pp_owned=False):
+    """What one rank's step reads besides its shards: the mesh, the specs
+    (the layers over ``pp`` when it is > 1), the kv heads of its q heads
+    (:func:`_kv_heads`), the sequence-parallel attention (None without
+    ``sep``), and whether the stage-owned leaves (:data:`_PP_OWNED`) have
+    their gradients on one stage only (the 1F1B clock: summed over
+    ``pp``)."""
     return types.SimpleNamespace(
-        mesh=mesh, specs=param_specs(cfg, mp=mesh.shape["mp"]),
+        mesh=mesh, pp_owned=pp_owned,
+        specs=param_specs(cfg, pp=mesh.shape["pp"] > 1,
+                          mp=mesh.shape["mp"]),
         kv=_kv_heads(cfg, mesh.shape["mp"], mesh.coords["mp"]),
         attn_fn=(sep_attention(mesh, "sep", sep_attn_impl)
                  if mesh.shape["sep"] > 1 else None))
@@ -830,14 +1039,19 @@ def _sync_axes(plan, name: str, spec) -> tuple:
     """The axes a leaf's gradient is summed over after the backward: each
     batch axis (dp, sharding, sep) it is not split on (its ranks saw other
     data; a leaf split over ``sharding`` got that sum from its ZeRO
-    reduce-scatter), and ``mp`` for the replicated K/V, whose every rank
-    computed the gradient of its own kv heads only.  A replicated leaf
-    that feeds a ``copy_to`` (the norms) has its whole gradient on every
-    ``mp`` rank already."""
+    reduce-scatter), ``mp`` for the replicated K/V, whose every rank
+    computed the gradient of its own kv heads only, and ``pp`` for the
+    stage-owned leaves of the 1F1B clock (``plan.pp_owned``).  A
+    replicated leaf that feeds a ``copy_to`` (the norms) has its whole
+    gradient on every ``mp`` rank already; under GPipe every stage runs
+    the head and, through ``forward_pp``'s ``copy_to``, the embedding's
+    backward, so their gradients are whole on every ``pp`` rank too."""
     split = dmesh.spec_axes(spec)
     axes = [a for a in _DATA_AXES if a not in split]
     if plan.kv is not None and name in ("layers/wk", "layers/wv"):
         axes.append("mp")
+    if plan.pp_owned and name in _PP_OWNED:
+        axes.append("pp")
     return tuple(a for a in dmesh.AXES if a in axes)
 
 

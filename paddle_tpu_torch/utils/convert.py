@@ -19,8 +19,9 @@ on the way in; :func:`params_to_numpy` with ``quant='int4'`` unpacks the
 On a training mesh (``models/llama.py``'s ``make_mesh``),
 :func:`shard_params` / :func:`shard_opt_state` cut one rank's shard of a
 whole tree by the reference's partition specs, the shard the reference
-gives the device at that mesh position; :func:`gather_params` puts the
-shards back together (for checks).
+gives the device at that mesh position (with ``param_specs(pp=True)``
+a rank holds its stage's L / P layers of every stacked leaf);
+:func:`gather_params` puts the shards back together (for checks).
 """
 
 from __future__ import annotations

@@ -1192,3 +1192,84 @@ def test_dit_train_kernels_match_plain(dev, monkeypatch):
     assert not any(launches[f"flash_attention_{p}_tc"]
                    for p in ("fwd", "dkv", "dq"))
     _assert_grads_close(out)
+
+
+def _pp_card_case():
+    """A 2-layer bf16 Llama at head_dim 128 (the tensor-core flash route)
+    and a 4 x 128 batch, seeded on the card."""
+    import dataclasses
+
+    from paddle_tpu_torch.models import llama
+
+    cfg = dataclasses.replace(
+        llama.LlamaConfig.tiny(vocab=512, hidden=256, layers=2, heads=2,
+                               kv_heads=1, inter=512, seq=256),
+        dtype=torch.bfloat16)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    ids, labels = (torch.randint(0, cfg.vocab_size, (4, 128), generator=g,
+                                 device="cuda") for _ in range(2))
+    return cfg, ids, labels
+
+
+def _pp_card_rank(rank, tmp):
+    """One of two gloo ranks sharing the card: a pp=2 1F1B step of
+    :func:`_pp_card_case` from ``init_params(seed=3)``."""
+    import datetime
+    import os
+
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.models import llama
+    from paddle_tpu_torch.utils import convert
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store",
+                            rank=rank, world_size=2,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        cfg, ids, labels = _pp_card_case()
+        mesh = llama.make_mesh(pp=2)
+        step, opt_init, specs, _ = llama.build_train_step(
+            cfg, mesh, num_microbatches=2, pipeline_schedule="1f1b")
+        params = convert.shard_params(
+            cfg, llama.init_params(cfg, seed=3, device="cuda"), specs, mesh)
+        opt = opt_init(params)
+        tk.reset_counters()
+        loss, params, opt = step(params, opt, ids, labels)
+        torch.save({"loss": loss.item(), "gnorm": opt["gnorm"].item(),
+                    "stage": mesh.coords["pp"],
+                    "launches": dict(tk.LAUNCHES)},
+                   os.path.join(tmp, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_pipeline_1f1b_step_on_the_card(dev, tmp_path):
+    """A pp=2 1F1B step as two gloo ranks on the card against the
+    one-card step on the same weights: loss and gnorm within phase 22's
+    bf16 tolerances, every flash launch on the tensor cores, a stage's
+    launches as the clock says (M = 2, one layer a stage: stage 0 two
+    forwards without autograd and two backward evaluations, stage 1 the
+    two backward evaluations and two heads)."""
+    import torch.multiprocessing as mp
+
+    from paddle_tpu_torch.models import llama
+
+    cfg, ids, labels = _pp_card_case()
+    step, opt_init = llama.build_train_step(cfg)
+    params = llama.init_params(cfg, seed=3, device=dev)
+    opt = opt_init(params)
+    loss, _, opt = step(params, opt, ids, labels)
+    want = (loss.item(), opt["gnorm"].item())
+    mp.spawn(_pp_card_rank, args=(str(tmp_path),), nprocs=2, join=True)
+    for r in range(2):
+        got = torch.load(tmp_path / f"rank{r}.pt", weights_only=False)
+        assert abs(got["loss"] - want[0]) <= 2.0 ** -8 * abs(want[0])
+        assert abs(got["gnorm"] - want[1]) <= 2.0 ** -5 * want[1]
+        n_f, n_b = (2, 2) if got["stage"] == 0 else (0, 2)
+        heads = 0 if got["stage"] == 0 else 2
+        launches = got["launches"]
+        assert launches["rms_norm"] == 2 * n_f + 4 * n_b + heads
+        for kind, n in (("fwd", n_f + 2 * n_b), ("dkv", n_b), ("dq", n_b)):
+            assert launches[f"flash_attention_{kind}"] == n
+            assert launches[f"flash_attention_{kind}_tc"] == n

@@ -37,9 +37,11 @@ must fail the parameter comparison); ``ring_attention`` and
 ``ulysses_attention`` outputs and q / k / v gradients against the
 reference's under ``jax.shard_map`` (atol = rtol = 1e-5); each collective
 forward and backward against its numpy definition (exact but for sums,
-1e-6); the specs against the reference's table; a one-position mesh is
-the one-device step bit for bit; ``pp > 1``, a world of another size and
-the pipeline arguments raise.
+1e-6); the specs (with and without ``pp``) against the reference's
+table; a one-position mesh is the one-device step bit for bit; a world of
+another size and the pipeline arguments on a mesh without ``pp`` raise;
+a pp=2 x dp=2 mesh builds (``test_torch_pipeline.py`` runs the pipeline
+axis).
 
 The reference's ``param_specs`` lists ``lm_head`` for a tied tree too, so
 its ``build_train_step`` refuses a tied tree on every mesh (the tree and
@@ -240,15 +242,16 @@ def _collectives(rank):
 
 
 def _errors():
+    """A world of another size raises; a mesh with pp (now ported) builds:
+    its coordinates and the step's specs, or the error either raised."""
     out = {}
     for name, fn in (
             ("world", lambda: tllama.make_mesh(dp=2)),
             ("pp_mesh", lambda: tllama.build_train_step(
-                _cfg(), dmesh.Mesh(pp=2, dp=2))),
-            ("pp_make_mesh", lambda: tllama.make_mesh(pp=2, dp=2))):
+                _cfg(), dmesh.Mesh(pp=2, dp=2))[2]),
+            ("pp_make_mesh", lambda: tllama.make_mesh(pp=2, dp=2).coords)):
         try:
-            fn()
-            out[name] = None
+            out[name] = ("ok", fn())
         except Exception as e:
             out[name] = (type(e).__name__, str(e))
     return out
@@ -618,8 +621,11 @@ def test_param_specs_match_reference(mp_):
     assert set(got) == set(want) and set(got["layers"]) == set(
         want["layers"])
     assert tllama.DATA_SPEC == (("dp", "sharding"), "sep")
-    with pytest.raises(NotImplementedError, match="A11"):
-        tllama.param_specs(_cfg(), pp=True)
+    want = jllama.param_specs(jcfg, pp=True, mp=mp_)
+    got = tllama.param_specs(_cfg(), pp=True, mp=mp_)
+    for path, spec in _leaves(got):
+        assert tuple(_get(want, path)) == spec, path
+    assert got["layers"]["wq"][0] == "pp"
 
 
 def test_one_position_mesh_is_the_one_device_step():
@@ -642,15 +648,21 @@ def test_one_position_mesh_is_the_one_device_step():
 
 
 def test_errors(runs):
-    """A world of another size and ``pp > 1`` raise, in the ranks and
-    without a process group."""
-    errs = runs["ranks"][0]["errors"]
-    assert errs["world"][0] == "ValueError" and "world of 4" in errs["world"][1]
-    assert errs["pp_mesh"][0] == "NotImplementedError"
-    assert errs["pp_make_mesh"][0] == "NotImplementedError"
+    """A world of another size raises, in the ranks and without a process
+    group; a pp=2 x dp=2 mesh lays the ranks out as the reference's
+    ``devices.reshape(dp, pp, ...)`` and its train step's specs put the
+    layers over pp (``tests/test_torch_pipeline.py`` runs it)."""
+    for r, rank in enumerate(runs["ranks"]):
+        errs = rank["errors"]
+        assert errs["world"][0] == "ValueError" and "world of 4" in errs[
+            "world"][1]
+        kind, coords = errs["pp_make_mesh"]
+        assert kind == "ok" and (coords["dp"], coords["pp"]) == divmod(r, 2)
+        kind, specs = errs["pp_mesh"]
+        assert kind == "ok" and specs == tllama.param_specs(_cfg(), pp=True)
     with pytest.raises(ValueError, match="process group"):
         tllama.make_mesh(dp=2)
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(ValueError, match="process group"):
         tllama.make_mesh(pp=2)
 
 
